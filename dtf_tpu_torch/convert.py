@@ -1,0 +1,135 @@
+"""Carry weights between the JAX package's flax param tree and the port.
+
+The flax tree is nested dicts of arrays (``token_embed/embedding``,
+``layer_{i}/attention/{query,key,value,attn_out}/{kernel,bias}``,
+``layer_{i}/{ln1,ln2}/{scale,bias}``, ``layer_{i}/{mlp_in,mlp_out}/...``,
+``ln_f/...``, ``lm_head/kernel``). The port names its modules the same, so
+a flax path ``a/b/leaf`` is the ``state_dict`` key ``a.b.<param>``:
+``kernel`` → ``weight`` transposed (flax kernels are [in, out], torch
+weights [out, in]); ``embedding`` and ``scale`` → ``weight``; ``bias`` →
+``bias``. Both directions copy values exactly.
+
+``.npz`` files hold the flax tree with flat ``/``-joined keys, so either
+package can read them. :func:`init_params` makes a seeded GPT-2-style
+tree in numpy, for handing the same weights to both packages.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten(val, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), val
+
+
+def _unflatten(items) -> dict:
+    tree: dict = {}
+    for path, val in items:
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = val
+    return tree
+
+
+def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
+    """The flax param tree (optionally wrapped as ``{"params": ...}``) as
+    the port's ``state_dict`` of f32 CPU tensors."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = OrderedDict()
+    for path, val in _flatten(tree):
+        arr = np.asarray(val)
+        *mods, leaf = path
+        if leaf == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"{'/'.join(path)}: expected a 2-D kernel, "
+                                 f"got shape {arr.shape}")
+            name, arr = "weight", arr.T
+        elif leaf in ("embedding", "scale"):
+            name = "weight"
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise KeyError(f"unknown flax param leaf {'/'.join(path)}")
+        out[".".join(mods + [name])] = torch.from_numpy(
+            np.ascontiguousarray(arr))
+    return out
+
+
+def params_to_flax(state_dict) -> dict:
+    """The inverse of :func:`params_from_flax`: nested dicts of numpy."""
+    items = []
+    for key, val in state_dict.items():
+        arr = val.detach().cpu().numpy()
+        *mods, name = key.split(".")
+        if name == "bias":
+            leaf = "bias"
+        elif name != "weight":
+            raise KeyError(f"unknown state_dict entry {key}")
+        elif arr.ndim == 1:
+            leaf = "scale"                      # a LayerNorm
+        elif mods[-1] == "token_embed":
+            leaf = "embedding"
+        else:
+            leaf, arr = "kernel", arr.T
+        items.append((tuple(mods) + (leaf,), np.ascontiguousarray(arr)))
+    return _unflatten(items)
+
+
+def save_npz(path: str, tree: dict) -> None:
+    """Write a flax-style tree as one ``.npz`` with ``/``-joined keys."""
+    flat = {"/".join(p): np.asarray(v) for p, v in _flatten(tree)}
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+
+
+def load_npz(path: str) -> dict:
+    """Read :func:`save_npz`'s file back into a nested tree."""
+    with np.load(path) as z:
+        return _unflatten((tuple(k.split("/")), z[k]) for k in z.files)
+
+
+def init_params(cfg, seed: int) -> dict:
+    """A seeded GPT-2-style flax tree in numpy f32: N(0, 0.02) embedding,
+    projections and head; the two residual projections (attn_out,
+    mlp_out) at 0.02/sqrt(2·layers); zero biases; LayerNorm scale 1."""
+    rng = np.random.default_rng(seed)
+    d, dh = cfg.d_model, cfg.d_model // cfg.heads
+    std, res_std = 0.02, 0.02 / math.sqrt(2 * cfg.layers)
+
+    def normal(shape, s):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(s)
+
+    def dense(d_in, d_out, s):
+        return {"kernel": normal((d_in, d_out), s),
+                "bias": np.zeros((d_out,), np.float32)}
+
+    def norm():
+        return {"scale": np.ones((d,), np.float32),
+                "bias": np.zeros((d,), np.float32)}
+
+    tree = {"token_embed": {"embedding": normal((cfg.vocab_size, d), std)}}
+    for i in range(cfg.layers):
+        tree[f"layer_{i}"] = {
+            "ln1": norm(),
+            "attention": {
+                "query": dense(d, cfg.heads * dh, std),
+                "key": dense(d, cfg.kv_heads_resolved * dh, std),
+                "value": dense(d, cfg.kv_heads_resolved * dh, std),
+                "attn_out": dense(cfg.heads * dh, d, res_std)},
+            "ln2": norm(),
+            "mlp_in": dense(d, cfg.d_ff, std),
+            "mlp_out": dense(cfg.d_ff, d, res_std)}
+    tree["ln_f"] = norm()
+    tree["lm_head"] = {"kernel": normal((d, cfg.vocab_size), std)}
+    return tree

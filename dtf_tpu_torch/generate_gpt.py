@@ -1,0 +1,180 @@
+"""GPT inference with the KV cache (the port of ``scripts/generate_gpt.py``).
+
+    python -m dtf_tpu_torch.generate_gpt --size=small --init_seed=0 \\
+        --prompt=12,7,99 --n_new=16 --temperature=0.8 --top_p=0.9
+
+Builds the decode-mode model (``decode_len`` = prompt + new tokens), loads
+its parameters from ``--params_npz`` (a flax-style tree, see
+:mod:`dtf_tpu_torch.convert`) or makes seeded GPT-2-style ones with
+``--init_seed``, and runs :func:`dtf_tpu_torch.models.gpt.generate` —
+greedy or temperature/top-k/nucleus sampling. Prints one token-id row per
+batch element. Runs on ``cuda`` unless ``--device=cpu`` (or
+``--backend=cpu``). The flag names are the JAX launcher's; restoring an
+Orbax checkpoint, beam search and sharded decode are not ported yet, and
+``--num_beams>1`` or a mesh axis > 1 says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+
+
+def _bool(s: str) -> bool:
+    if s.lower() in ("1", "true", "yes"):
+        return True
+    if s.lower() in ("0", "false", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m dtf_tpu_torch.generate_gpt",
+        description="GPT decode with the KV cache on the H100 port.")
+    # cluster flags: accepted for the reference's command shape; serving is
+    # a single-process job
+    p.add_argument("--ps_hosts", default="")
+    p.add_argument("--worker_hosts", default="")
+    p.add_argument("--job_name", default="worker")
+    p.add_argument("--task_index", type=int, default=0)
+    p.add_argument("--issync", type=_bool, nargs="?", const=True,
+                   default=True)
+    p.add_argument("--backend", default="gpu", choices=("gpu", "cpu"),
+                   help="gpu (default) | cpu; cpu is --device=cpu")
+    p.add_argument("--devices_per_host", type=int, default=0)
+    for axis, default in (("data", -1), ("seq", 1), ("model", 1),
+                          ("pipe", 1), ("expert", 1)):
+        p.add_argument(f"--mesh_{axis}", type=int, default=default,
+                       help="sharded decode is not ported yet: > 1 raises")
+    p.add_argument("--logdir", default="",
+                   help="training logdir; its ckpt/model_config.json "
+                        "manifest, when present, sets the architecture")
+    p.add_argument("--size", default="small",
+                   help="small | medium | draft | tiny (manifest wins)")
+    p.add_argument("--kv_heads", type=int, default=0,
+                   help="grouped-query attention heads (0 = plain MHA)")
+    p.add_argument("--attn_window", type=int, default=0,
+                   help="sliding-window size (0 = full causal)")
+    p.add_argument("--attn_global_every", type=int, default=0,
+                   help="global-attention layer cadence")
+    p.add_argument("--prompt", default="",
+                   help="comma-separated token ids; empty = 1,2,3,4")
+    p.add_argument("--batch", type=int, default=1,
+                   help="decode batch size (the prompt is broadcast)")
+    p.add_argument("--n_new", type=int, default=32)
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="0 = greedy, else sampling")
+    p.add_argument("--num_beams", type=int, default=0,
+                   help="beam search is not ported yet: > 1 raises")
+    p.add_argument("--length_penalty", type=float, default=0.0)
+    p.add_argument("--top_k", type=int, default=0)
+    p.add_argument("--top_p", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0,
+                   help="sampling generator seed")
+    p.add_argument("--eos_id", type=int, default=-1,
+                   help="stop token (-1 = none); later tokens are --pad_id")
+    p.add_argument("--pad_id", type=int, default=0)
+    p.add_argument("--kv_cache_dtype", default="",
+                   help="'' = cache at compute dtype; 'int8' = quantized")
+    p.add_argument("--prefill_chunk", type=int, default=0,
+                   help="prefill in chunks of this many tokens (0 = one "
+                        "shot, through the flash kernel on cuda)")
+    # the port's own
+    p.add_argument("--device", default=None,
+                   help="cuda (default) | cpu")
+    p.add_argument("--params_npz", default="",
+                   help="flax-style parameter tree saved by "
+                        "dtf_tpu_torch.convert.save_npz")
+    p.add_argument("--init_seed", type=int, default=None,
+                   help="seeded GPT-2-style random parameters")
+    return p
+
+
+def _present(argv) -> frozenset:
+    """The dests of the flags given on the command line: parse again with
+    every default suppressed, so only given flags appear."""
+    probe = build_parser()
+    for act in probe._actions:
+        act.default = argparse.SUPPRESS
+    return frozenset(vars(probe.parse_args(argv)))
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from dtf_tpu_torch.checkpoint import load_model_config
+    from dtf_tpu_torch.cli.flags import resolve_decode_config
+    from dtf_tpu_torch.convert import init_params, load_npz, params_from_flax
+    from dtf_tpu_torch.core.device import resolve_device
+    from dtf_tpu_torch.models import gpt
+
+    if args.num_beams > 1 and (args.temperature > 0.0 or args.top_k
+                               or args.top_p < 1.0):
+        parser.error("--num_beams is a deterministic search; it excludes "
+                     "--temperature/--top_k/--top_p")
+    if args.temperature == 0.0 and (args.top_k or args.top_p < 1.0):
+        parser.error("--top_k/--top_p have no effect at --temperature=0 "
+                     "(greedy); set a positive temperature to sample")
+    if args.num_beams > 1:
+        raise NotImplementedError(
+            "--num_beams>1: beam search is not yet ported")
+    if any(getattr(args, f"mesh_{a}") > 1
+           for a in ("data", "seq", "model", "pipe", "expert")):
+        raise NotImplementedError(
+            "sharded decode (a mesh axis > 1) is not yet ported")
+    device = resolve_device(args.device or
+                            ("cpu" if args.backend == "cpu" else "cuda"))
+
+    manifest = (load_model_config(os.path.join(args.logdir, "ckpt"))
+                if args.logdir else None)
+    try:
+        decode_cfg = resolve_decode_config(args, manifest, _present(argv))
+        base = gpt.GPTConfig.by_name(decode_cfg["size"])
+    except ValueError as e:
+        parser.error(str(e))
+    except KeyError as e:
+        parser.error(f"--size: {e.args[0]}")
+    prompt_ids = ([int(t) for t in args.prompt.split(",") if t.strip()]
+                  or [1, 2, 3, 4])
+    if max(prompt_ids) >= base.vocab_size or min(prompt_ids) < 0:
+        parser.error(f"prompt ids must be in [0, {base.vocab_size})")
+    cfg = dataclasses.replace(
+        base, kv_heads=decode_cfg["kv_heads"] or None,
+        attn_window=decode_cfg["attn_window"],
+        attn_global_every=decode_cfg["attn_global_every"],
+        kv_cache_dtype=decode_cfg["kv_cache_dtype"],
+        decode_len=len(prompt_ids) + args.n_new)
+
+    if args.params_npz:
+        tree = load_npz(args.params_npz)
+    elif args.init_seed is not None:
+        tree = init_params(cfg, args.init_seed)
+    else:
+        parser.error("no parameters: pass --params_npz or --init_seed "
+                     "(restoring an Orbax checkpoint is not yet ported)")
+    model = gpt.GPT(cfg, device=device)
+    model.load_state_dict(params_from_flax(tree))
+    model.eval()
+
+    prompt = torch.tensor(prompt_ids, dtype=torch.long).expand(
+        args.batch, len(prompt_ids))
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    out = gpt.generate(model, prompt, args.n_new, generator=generator,
+                       temperature=args.temperature, top_k=args.top_k,
+                       top_p=args.top_p,
+                       eos_id=args.eos_id if args.eos_id >= 0 else None,
+                       pad_id=args.pad_id, prefill_chunk=args.prefill_chunk)
+    for row in out.cpu().tolist():
+        print(",".join(str(int(t)) for t in row))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

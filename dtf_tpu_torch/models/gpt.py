@@ -1,0 +1,597 @@
+"""GPT-style causal decoder LM (counterpart of ``dtf_tpu.models.gpt``).
+
+Pre-LN blocks, interleaved RoPE, optional grouped-query attention
+(``kv_heads``), sliding-window and global layers, an untied f32 LM head,
+bf16 compute over f32 params — the JAX model's math, in PyTorch idiom:
+``nn.Module``s, an explicit device, the KV cache as explicit state that
+the model writes IN PLACE (one dict per layer, from
+:meth:`GPT.init_cache`), a Python loop where JAX used ``lax.scan``, and
+``torch.Generator`` sampling.
+
+Ported: the full-sequence forward (with the one-shot prefill cache
+write), the single-token decode step, chunked prefill, the int8 cache,
+``filter_logits`` and ``generate``. Not yet: the serving engine's
+``slot_decode`` and verify steps, beam search, MoE layers, tensor and
+sequence parallelism, and everything of training (remat included).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dtf_tpu_torch.core.comms import TpDense
+from dtf_tpu_torch.core.device import resolve_device
+from dtf_tpu_torch.ops.attention import dense_attention
+from dtf_tpu_torch.ops.flash_attention import flash_attention
+
+_NEG_INF = float("-inf")
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    #: GPT-2's 50257 BPE vocab padded to a multiple of 128.
+    vocab_size: int = 50304
+    d_model: int = 768
+    layers: int = 12
+    heads: int = 12
+    d_ff: int = 3072
+    dropout: float = 0.0
+    dtype: torch.dtype = torch.bfloat16
+    rope_theta: float = 10000.0
+    #: grouped-query attention: shared K/V heads (None = heads). Must
+    #: divide ``heads``.
+    kv_heads: Optional[int] = None
+    #: auto (flash on CUDA, dense elsewhere) | dense | flash.
+    attn_impl: str = "auto"
+    #: sliding window: query t sees keys in (t-window, t]. 0 = full causal.
+    attn_window: int = 0
+    #: with attn_window > 0: every k-th layer (1-indexed) is global.
+    attn_global_every: int = 0
+    #: heads per CTA of the flash kernel (must divide heads).
+    flash_block_h: int = 1
+    #: every k-th block a Switch-MoE FFN — not ported: must be 0.
+    moe_every: int = 0
+    #: > 0: decode mode against a KV cache of this length.
+    decode_len: int = 0
+    #: "" = cache at ``dtype``; "int8" = symmetric per-slot quantization.
+    kv_cache_dtype: str = ""
+    #: multi-token calls CONTINUE an advanced cache (chunked prefill).
+    chunked_prefill: bool = False
+    #: per-row cache indices (the serving engine) — not ported.
+    slot_decode: bool = False
+    #: "" / "bf16" only; the quantized tiers are not ported.
+    matmul_precision: str = ""
+
+    def __post_init__(self):
+        if self.kv_heads is not None and (
+                self.kv_heads < 1 or self.heads % self.kv_heads):
+            raise ValueError(
+                f"kv_heads={self.kv_heads} must be >=1 and divide "
+                f"heads={self.heads}")
+        if self.attn_window < 0:
+            raise ValueError(f"attn_window={self.attn_window} must be >= 0")
+        if self.attn_global_every < 0:
+            raise ValueError(
+                f"attn_global_every={self.attn_global_every} must be >= 0")
+        if self.kv_cache_dtype not in ("", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype={self.kv_cache_dtype!r} must be '' (store "
+                "at dtype) or 'int8'")
+        if self.matmul_precision not in ("", "auto", "bf16", "int8", "fp8"):
+            raise ValueError(
+                f"matmul_precision={self.matmul_precision!r} must be '' "
+                "(bf16, no tuner), 'auto' (kernel-tune winner), 'bf16', "
+                "'int8' or 'fp8'")
+        if self.matmul_precision not in ("", "bf16"):
+            raise NotImplementedError(
+                f"matmul_precision={self.matmul_precision!r}: the quantized "
+                "tiers are not ported yet")
+        if self.slot_decode and self.decode_len <= 0:
+            raise ValueError(
+                "slot_decode requires decode_len > 0 (it is a property of "
+                "the KV-cache decode mode)")
+        if self.slot_decode and self.chunked_prefill:
+            raise ValueError(
+                "slot_decode and chunked_prefill are different models of "
+                "the same cache")
+        if self.slot_decode:
+            raise NotImplementedError(
+                "slot_decode (the online serving engine) is not ported yet")
+        if self.moe_every:
+            raise NotImplementedError(
+                f"moe_every={self.moe_every}: Switch-MoE layers are not "
+                "ported yet")
+        if self.flash_block_h < 1 or self.heads % self.flash_block_h:
+            raise ValueError(f"flash_block_h={self.flash_block_h} must be "
+                             f">= 1 and divide heads={self.heads}")
+
+    def layer_window(self, layer: int) -> int:
+        """Effective sliding window of layer ``layer`` (0-indexed): 0 on a
+        designated global layer, else ``attn_window``."""
+        if (self.attn_window and self.attn_global_every
+                and (layer + 1) % self.attn_global_every == 0):
+            return 0
+        return self.attn_window
+
+    @property
+    def kv_heads_resolved(self) -> int:
+        return self.heads if self.kv_heads is None else self.kv_heads
+
+    @staticmethod
+    def by_name(name: str) -> "GPTConfig":
+        sizes = {"small": GPTConfig.gpt2_small,
+                 "medium": GPTConfig.gpt2_medium,
+                 "draft": GPTConfig.gpt2_draft,
+                 "tiny": GPTConfig.tiny}
+        if name not in sizes:
+            raise KeyError(
+                f"unknown GPT size {name!r}; pick one of {sorted(sizes)}")
+        return sizes[name]()
+
+    @staticmethod
+    def gpt2_small() -> "GPTConfig":
+        return GPTConfig()
+
+    @staticmethod
+    def gpt2_medium() -> "GPTConfig":
+        return GPTConfig(d_model=1024, layers=24, heads=16, d_ff=4096)
+
+    @staticmethod
+    def gpt2_draft() -> "GPTConfig":
+        return GPTConfig(d_model=384, layers=3, heads=6, d_ff=1536)
+
+    @staticmethod
+    def tiny(**kw) -> "GPTConfig":
+        return GPTConfig(vocab_size=128, d_model=32, layers=2, heads=4,
+                         d_ff=64, **kw)
+
+
+def effective_attn_impl(impl: str, device) -> str:
+    """Resolve ``attn_impl='auto'``: the flash kernel on CUDA, the dense
+    reference elsewhere. Sequence-parallel ring/zigzag are not ported."""
+    if impl != "auto":
+        return impl
+    return "flash" if torch.device(device).type == "cuda" else "dense"
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, INTERLEAVED: (even, odd) lane pairs rotate, not
+    the two halves. x [B,H,T,D] (D even), positions [T] (or per-row
+    [B,T]). Angles in f32; the result is cast back to x's dtype."""
+    d = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device) / d)
+    angles = positions[..., None].to(torch.float32) * freqs      # [...,T,D/2]
+    if angles.ndim == 3:                   # [B,T,D/2] → broadcast over heads
+        angles = angles[:, None]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _kv_quant(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last (d_head) axis: (int8 values, f32
+    scale with keepdim). A zero row quantizes to zeros."""
+    af = a.to(torch.float32)
+    s = af.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    q = torch.clamp(torch.round(af / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _cache_read(cfg: GPTConfig, cvar: torch.Tensor,
+                svar: Optional[torch.Tensor]) -> torch.Tensor:
+    """Cache contents at compute dtype (dequantized when int8). Without
+    int8 this is the cache tensor ITSELF: clone it before an in-place
+    write if the old contents must survive."""
+    if svar is None:
+        return cvar
+    return (cvar.to(torch.float32) * svar).to(cfg.dtype)
+
+
+def _cache_put_at(cfg: GPTConfig, cvar, svar, slots: torch.Tensor,
+                  a: torch.Tensor) -> None:
+    """Write a [B,H,len(slots),D] at ``slots`` of the L axis, IN PLACE —
+    one definition with :func:`_cache_put_dyn` of how quantization
+    happens."""
+    if svar is None:
+        cvar[:, :, slots, :] = a.to(cfg.dtype)
+    else:
+        q, s = _kv_quant(a)
+        cvar[:, :, slots, :] = q
+        svar[:, :, slots, :] = s
+
+
+def _cache_put_dyn(cfg: GPTConfig, cvar, svar, slot: int,
+                   a: torch.Tensor) -> None:
+    """Write the single position a [B,H,1,D] at ``slot``, IN PLACE (the
+    decode step)."""
+    if svar is None:
+        cvar[:, :, slot:slot + 1, :] = a.to(cfg.dtype)
+    else:
+        q, s = _kv_quant(a)
+        cvar[:, :, slot:slot + 1, :] = q
+        svar[:, :, slot:slot + 1, :] = s
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig, window: int, device=None):
+        super().__init__()
+        self.cfg = cfg
+        #: effective sliding window of THIS layer (0 on a global layer)
+        self.window = window
+        d_head = cfg.d_model // cfg.heads
+        kv = cfg.kv_heads_resolved
+
+        def dense(d_in, d_out, parallel):
+            return TpDense(d_in, d_out, parallel=parallel, dtype=cfg.dtype,
+                           device=device)
+
+        self.query = dense(cfg.d_model, cfg.heads * d_head, "column")
+        self.key = dense(cfg.d_model, kv * d_head, "column")
+        self.value = dense(cfg.d_model, kv * d_head, "column")
+        self.attn_out = dense(cfg.heads * d_head, cfg.d_model, "row")
+
+    @property
+    def cache_len(self) -> int:
+        """Rolling buffer under a window (position p in slot p % L, the
+        cache holds the last L = window positions); else decode_len."""
+        cfg = self.cfg
+        return (min(cfg.decode_len, self.window) if self.window
+                else cfg.decode_len)
+
+    def init_cache(self, batch: int, device) -> dict:
+        """This layer's cache: [B, kv_heads, L, D] keys and values (int8
+        with [B, kv_heads, L, 1] f32 scales under ``kv_cache_dtype="int8"``)
+        and the shared position counter ``cache_index`` (a Python int)."""
+        cfg = self.cfg
+        shape = (batch, cfg.kv_heads_resolved, self.cache_len,
+                 cfg.d_model // cfg.heads)
+        quant = cfg.kv_cache_dtype == "int8"
+        store = torch.int8 if quant else cfg.dtype
+        cache = {"cached_key": torch.zeros(shape, dtype=store, device=device),
+                 "cached_value": torch.zeros(shape, dtype=store,
+                                             device=device),
+                 "key_scale": None, "value_scale": None, "cache_index": 0}
+        if quant:
+            for name in ("key_scale", "value_scale"):
+                cache[name] = torch.zeros(shape[:3] + (1,),
+                                          dtype=torch.float32, device=device)
+        return cache
+
+    def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
+                chunked: bool = False) -> torch.Tensor:
+        cfg = self.cfg
+        d_head = cfg.d_model // cfg.heads
+        kv_heads = cfg.kv_heads_resolved
+        group = cfg.heads // kv_heads
+        b, t = x.shape[0], x.shape[1]
+
+        def split(y, nh):
+            return y.reshape(b, t, nh, d_head).transpose(1, 2)
+
+        q = split(self.query(x), cfg.heads)
+        k = split(self.key(x), kv_heads)
+        v = split(self.value(x), kv_heads)
+        if cache is not None and t != 1 and chunked:
+            return self._chunked_prefill(q, k, v, cache)
+        if cache is not None and t == 1:
+            return self._decode_step(q, k, v, cache)
+
+        positions = torch.arange(t, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        if cache is not None:
+            # one-shot prefill: the last min(L, t) roped-K / V rows land at
+            # their rolling slots (slot = pos % L); K/V are unexpanded
+            if cache["cache_index"] != 0:
+                raise ValueError(
+                    "multi-token decode call needs an EMPTY cache (one-shot "
+                    "prefill); to continue an advanced cache use "
+                    "GPTConfig(chunked_prefill=True) / "
+                    "generate(prefill_chunk=...)")
+            cache_len = self.cache_len
+            keep = min(cache_len, t)
+            slots = torch.remainder(
+                torch.arange(t - keep, t, device=x.device), cache_len)
+            _cache_put_at(cfg, cache["cached_key"], cache["key_scale"],
+                          slots, k[:, :, t - keep:, :])
+            _cache_put_at(cfg, cache["cached_value"], cache["value_scale"],
+                          slots, v[:, :, t - keep:, :])
+            cache["cache_index"] += t
+        if group > 1:
+            # GQA: query head h reads K/V head h // group
+            k = k.repeat_interleave(group, dim=1)
+            v = v.repeat_interleave(group, dim=1)
+        impl = effective_attn_impl(cfg.attn_impl, x.device)
+        if impl == "flash":
+            out = flash_attention(q, k, v, causal=True, window=self.window,
+                                  block_h=cfg.flash_block_h)
+        elif impl == "dense":
+            out = dense_attention(q, k, v, causal=True, window=self.window)
+        else:
+            raise NotImplementedError(
+                f"attn_impl={impl!r} (sequence parallelism) is not ported "
+                "yet; use 'auto', 'flash' or 'dense'")
+        out = out.transpose(1, 2).reshape(b, t, cfg.heads * d_head)
+        out = self.attn_out(out)
+        return F.dropout(out, cfg.dropout, self.training)
+
+    def _decode_step(self, q, k, v, cache: dict) -> torch.Tensor:
+        """One token against every cached position <= idx: the grouped
+        einsum reads the UN-expanded cache (query head kv*group + g reads
+        shared head kv)."""
+        cfg = self.cfg
+        b, _, _, d_head = q.shape
+        kv_heads = cfg.kv_heads_resolved
+        group = cfg.heads // kv_heads
+        cache_len = self.cache_len
+        idx = cache["cache_index"]
+        pos = torch.arange(idx, idx + 1, device=q.device)
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+        slot = idx % cache_len
+        _cache_put_dyn(cfg, cache["cached_key"], cache["key_scale"], slot, k)
+        _cache_put_dyn(cfg, cache["cached_value"], cache["value_scale"],
+                       slot, v)
+        cache["cache_index"] = idx + 1
+        # slot s holds position p_s = idx - ((idx - s) mod L), the newest
+        # position <= idx congruent to s; valid iff p_s >= 0
+        slots = torch.arange(cache_len, device=q.device)
+        p_s = idx - torch.remainder(idx - slots, cache_len)
+        bias = torch.zeros(cache_len, device=q.device).masked_fill(
+            p_s < 0, _NEG_INF)
+        keys = _cache_read(cfg, cache["cached_key"], cache["key_scale"])
+        vals = _cache_read(cfg, cache["cached_value"], cache["value_scale"])
+        qg = q[:, :, 0, :].reshape(b, kv_heads, group, d_head)
+        s = torch.einsum("bkgd,bkld->bkgl", qg.float(), keys.float())
+        s = s * d_head ** -0.5 + bias
+        p = torch.softmax(s, dim=-1)      # >= 1 valid key: no dead rows
+        out = torch.einsum("bkgl,bkld->bkgd", p.to(vals.dtype).float(),
+                           vals.float())
+        out = out.to(cfg.dtype).reshape(b, 1, cfg.heads * d_head)
+        return self.attn_out(out)
+
+    def _chunked_prefill(self, q, k, v, cache: dict) -> torch.Tensor:
+        """Continue a (possibly advanced) cache with a t-token chunk: rope
+        positions and slots offset by cache_index; the chunk attends the
+        PRE-write cache snapshot plus its own K/V, so a rolling buffer that
+        wraps inside the chunk cannot evict keys an earlier query sees."""
+        cfg = self.cfg
+        b, _, t, d_head = q.shape
+        kv_heads = cfg.kv_heads_resolved
+        group = cfg.heads // kv_heads
+        cache_len = self.cache_len
+        start = cache["cache_index"]
+        qpos = start + torch.arange(t, device=q.device)
+        q = rope(q, qpos, cfg.rope_theta)
+        k = rope(k, qpos, cfg.rope_theta)
+        k_old = _cache_read(cfg, cache["cached_key"], cache["key_scale"])
+        v_old = _cache_read(cfg, cache["cached_value"], cache["value_scale"])
+        if cache["key_scale"] is None:
+            # _cache_read returned the cache itself; the write below is in
+            # place, so keep the snapshot
+            k_old, v_old = k_old.clone(), v_old.clone()
+        keep = min(cache_len, t)
+        wslots = torch.remainder(qpos[t - keep:], cache_len)
+        _cache_put_at(cfg, cache["cached_key"], cache["key_scale"], wslots,
+                      k[:, :, t - keep:, :])
+        _cache_put_at(cfg, cache["cached_value"], cache["value_scale"],
+                      wslots, v[:, :, t - keep:, :])
+        cache["cache_index"] = start + t
+        # cache slots as of idx_old = start - 1 (all older than the chunk)
+        slots = torch.arange(cache_len, device=q.device)
+        idx_old = start - 1
+        p_s = idx_old - torch.remainder(idx_old - slots, cache_len)
+        ok_old = (p_s[None, :] >= 0).expand(t, cache_len)
+        ok_new = qpos[None, :] <= qpos[:, None]            # intra-chunk causal
+        if self.window:
+            ok_old = ok_old & (p_s[None, :] > qpos[:, None] - self.window)
+            ok_new = ok_new & (qpos[None, :] > qpos[:, None] - self.window)
+        ok = torch.cat([ok_old, ok_new], dim=1)                 # [t, L+t]
+        bias = torch.zeros(ok.shape, device=q.device).masked_fill(
+            ~ok, _NEG_INF)
+        keys = torch.cat([k_old, k.to(cfg.dtype)], dim=2)
+        vals = torch.cat([v_old, v.to(cfg.dtype)], dim=2)
+        qg = q.reshape(b, kv_heads, group, t, d_head)
+        s = torch.einsum("bkgtd,bkld->bkgtl", qg.float(), keys.float())
+        s = s * d_head ** -0.5 + bias
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgtl,bkld->bkgtd", p.to(vals.dtype).float(),
+                           vals.float())
+        out = out.to(cfg.dtype).permute(0, 3, 1, 2, 4)
+        return self.attn_out(out.reshape(b, t, cfg.heads * d_head))
+
+
+class Block(nn.Module):
+    """Pre-LN block: LayerNorm in f32 with eps 1e-6 (flax's), tanh GELU."""
+
+    def __init__(self, cfg: GPTConfig, window: int, device=None):
+        super().__init__()
+        self.cfg = cfg
+        f32 = torch.float32
+        self.ln1 = nn.LayerNorm(cfg.d_model, eps=1e-6, dtype=f32,
+                                device=device)
+        self.attention = CausalSelfAttention(cfg, window, device=device)
+        self.ln2 = nn.LayerNorm(cfg.d_model, eps=1e-6, dtype=f32,
+                                device=device)
+        self.mlp_in = TpDense(cfg.d_model, cfg.d_ff, parallel="column",
+                              dtype=cfg.dtype, device=device)
+        self.mlp_out = TpDense(cfg.d_ff, cfg.d_model, parallel="row",
+                               dtype=cfg.dtype, device=device)
+
+    def forward(self, x, cache=None, chunked=False):
+        h = self.ln1(x.float())
+        x = x + self.attention(h, cache, chunked)
+        h = self.ln2(x.float())
+        y = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
+        return x + F.dropout(y, self.cfg.dropout, self.training)
+
+
+class GPT(nn.Module):
+    """Decoder-only LM. ids [B,T] → f32 logits [B,T,V] (or the f32 hidden
+    states with ``return_hidden=True``). Parameter names mirror the flax
+    tree (``token_embed``, ``layer_{i}.attention.query``, ``ln_f``,
+    ``lm_head`` …) so :mod:`dtf_tpu_torch.convert` maps them one to one."""
+
+    def __init__(self, cfg: GPTConfig, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        f32 = torch.float32
+        self.token_embed = nn.Embedding(cfg.vocab_size, cfg.d_model,
+                                        dtype=f32, device=device)
+        for i in range(cfg.layers):
+            self.add_module(f"layer_{i}", Block(cfg, cfg.layer_window(i),
+                                                device=device))
+        self.ln_f = nn.LayerNorm(cfg.d_model, eps=1e-6, dtype=f32,
+                                 device=device)
+        self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,
+                                 dtype=f32, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm_head.weight.device
+
+    def blocks(self) -> list[Block]:
+        return [getattr(self, f"layer_{i}") for i in range(self.cfg.layers)]
+
+    def init_cache(self, batch: int) -> list[dict]:
+        """An empty KV cache (index 0, nothing written), one dict per layer,
+        sized by ``cfg.decode_len`` and each layer's window."""
+        if self.cfg.decode_len <= 0:
+            raise ValueError("init_cache needs cfg.decode_len > 0")
+        return [blk.attention.init_cache(batch, self.device)
+                for blk in self.blocks()]
+
+    def forward(self, input_ids: torch.Tensor, cache: Optional[list] = None,
+                *, chunked_prefill: Optional[bool] = None,
+                return_hidden: bool = False) -> torch.Tensor:
+        cfg = self.cfg
+        if (cfg.decode_len > 0) != (cache is not None):
+            raise ValueError(
+                "decode mode (cfg.decode_len > 0) runs against a KV cache "
+                "and only then: pass cache=model.init_cache(batch)")
+        chunked = (cfg.chunked_prefill if chunked_prefill is None
+                   else chunked_prefill)
+        # nn.Embed(dtype=bf16) casts the f32 table; casting the gathered
+        # rows gives the same values
+        x = F.embedding(input_ids, self.token_embed.weight).to(cfg.dtype)
+        x = F.dropout(x, cfg.dropout, self.training)
+        for i, blk in enumerate(self.blocks()):
+            x = blk(x, None if cache is None else cache[i], chunked)
+        x = self.ln_f(x.float())
+        if return_hidden:
+            return x
+        return self.lm_head(x)                         # f32 head
+
+
+def filter_logits(logits: torch.Tensor, *, top_k: int = 0,
+                  top_p: float = 1.0) -> torch.Tensor:
+    """Top-k / nucleus filtering: disallowed logits become -inf. Exactly
+    k tokens survive the k-filter (ties at the k-th logit broken by token
+    index, through a stable double argsort); the nucleus is built over
+    the k-survivors; the top token is always kept. Pass tempered logits."""
+    if top_k <= 0 and top_p >= 1.0:
+        return logits
+    vocab = logits.shape[-1]
+    desc = torch.sort(logits, dim=-1, descending=True).values
+    if top_k > 0:
+        k = min(top_k, vocab)
+        order = torch.argsort(-logits, dim=-1, stable=True)
+        ranks = torch.argsort(order, dim=-1, stable=True)   # 0 = largest
+        logits = logits.masked_fill(ranks >= k, _NEG_INF)
+        desc = desc.masked_fill(
+            torch.arange(vocab, device=logits.device) >= k, _NEG_INF)
+    if top_p < 1.0:
+        probs = torch.softmax(desc, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < top_p       # the first excluded crosses top_p
+        thresh = torch.where(keep, desc, torch.full_like(desc, float("inf"))
+                             ).amin(dim=-1, keepdim=True)
+        logits = logits.masked_fill(logits < thresh, _NEG_INF)
+    return logits
+
+
+def generate(model: GPT, prompt: torch.Tensor, n_new: int, *,
+             generator: Optional[torch.Generator] = None,
+             temperature: float = 0.0,
+             top_k: int = 0, top_p: float = 1.0,
+             eos_id: Optional[int] = None, pad_id: int = 0,
+             prefill_chunk: int = 0,
+             mesh=None) -> torch.Tensor:
+    """Autoregressive decode: one prefill over the prompt, then one token
+    per step against the KV cache. ``prompt`` [B, T_p] ints; returns
+    [B, T_p + n_new] int64 on the model's device.
+
+    Greedy at ``temperature == 0``; else the logits are tempered FIRST,
+    then filtered (:func:`filter_logits`), then sampled with
+    ``torch.multinomial`` on ``generator`` (a fresh generator seeded 0 on
+    the model's device when None). The stream is not
+    ``jax.random.categorical``'s.
+
+    ``eos_id``: once a sequence emits it, every later token is ``pad_id``
+    (``done`` flips after the EOS token itself is kept).
+    ``prefill_chunk > 0``: prefill through the cache-continuing chunked
+    path, that many tokens per call.
+    """
+    cfg = model.cfg
+    if mesh is not None:
+        raise NotImplementedError("sharded decode (mesh=...) is not ported "
+                                  "yet")
+    b, t_p = prompt.shape
+    total = t_p + n_new
+    if n_new < 1:
+        raise ValueError(f"n_new={n_new} must be >= 1")
+    if cfg.decode_len < total:
+        raise ValueError(
+            f"decode_len={cfg.decode_len} < prompt+new={total}")
+    device = model.device
+    prompt = prompt.to(device=device, dtype=torch.long)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def pick(nxt_logits):
+        if temperature > 0.0:
+            filtered = filter_logits(nxt_logits / temperature, top_k=top_k,
+                                     top_p=top_p)
+            probs = torch.softmax(filtered, dim=-1)
+            return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return torch.argmax(nxt_logits, dim=-1)
+
+    with torch.no_grad():
+        cache = model.init_cache(b)
+        logits = _prefill(model, cache, prompt, prefill_chunk)
+        tok = pick(logits[:, -1])
+        done = (tok == eos_id) if eos_id is not None else None
+        toks = [tok]
+        for _ in range(n_new - 1):
+            logits = model(tok[:, None], cache)
+            nxt = pick(logits[:, 0])
+            if eos_id is not None:
+                nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+                done = done | (nxt == eos_id)
+            toks.append(nxt)
+            tok = nxt
+    return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+
+def _prefill(model: GPT, cache: list, prompt: torch.Tensor,
+             prefill_chunk: int) -> torch.Tensor:
+    """The prompt prefill: one causal forward that writes the cache, or —
+    with ``prefill_chunk`` — a loop of cache-continuing chunk calls.
+    Returns the last call's logits; the cache is written in place."""
+    if prefill_chunk > 0:
+        logits = None
+        for s0 in range(0, prompt.shape[1], prefill_chunk):
+            logits = model(prompt[:, s0:s0 + prefill_chunk], cache,
+                           chunked_prefill=True)
+        return logits
+    return model(prompt, cache)

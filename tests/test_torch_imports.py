@@ -1,0 +1,111 @@
+"""The port stands alone: no jax, flax or dtf_tpu anywhere in it.
+
+Dynamic: a child process whose ``jax``, ``jaxlib``, ``flax`` and
+``dtf_tpu`` imports are POISONED imports every module of the port and runs
+its generate entry on ``--device=cpu`` at the tiny size. Static: no file
+of ``dtf_tpu_torch/``, and not ``chip_smoke.py``, has an import of them.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "absl", "dtf_tpu")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "dtf_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in sorted(names)
+                  if n.endswith(".py")]
+    return files
+
+
+def _port_modules():
+    mods = []
+    for path in _port_files()[1:]:
+        rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
+        mods.append(rel[:-len(".__init__")] if rel.endswith("__init__")
+                    else rel)
+    return mods
+
+
+def test_no_forbidden_import_in_the_port():
+    found = []
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in FORBIDDEN:
+                    found.append(f"{os.path.relpath(path, ROOT)}:"
+                                 f"{node.lineno} imports {name}")
+    assert not found, found
+    assert len(_port_files()) > 10
+
+
+@pytest.fixture
+def poisoned_env(tmp_path, cpu_sim_subprocess_env):
+    poison = tmp_path / "poison"
+    for mod in ("jax", "jaxlib", "flax", "dtf_tpu"):
+        d = poison / mod
+        d.mkdir(parents=True)
+        (d / "__init__.py").write_text(
+            f"raise ImportError('{mod} is poisoned: the port must not "
+            "import it')\n")
+    env = dict(cpu_sim_subprocess_env)
+    env["PYTHONPATH"] = f"{poison}{os.pathsep}{ROOT}"
+    # the child runs from outside the repository: the working directory
+    # comes first on sys.path and would shadow the poison
+    return env, str(tmp_path)
+
+
+def test_port_imports_and_generates_with_jax_poisoned(poisoned_env):
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "try:\n"
+        "    import dtf_tpu\n"
+        "    raise SystemExit('poison did not take')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "from dtf_tpu_torch import generate_gpt\n"
+        "rc = generate_gpt.main(['--size=tiny', '--init_seed=0',\n"
+        "                        '--device=cpu', '--n_new=4', '--batch=2',\n"
+        "                        '--kv_cache_dtype=int8'])\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtf_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('POISON_OK', rc)\n")
+    env, cwd = poisoned_env
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "POISON_OK 0"
+    rows = lines[:-1]
+    assert len(rows) == 2 and rows[0] == rows[1]
+    assert rows[0].startswith("1,2,3,4,") and len(rows[0].split(",")) == 8
+
+
+def test_generate_entry_as_a_module_with_jax_poisoned(poisoned_env):
+    env, cwd = poisoned_env
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.generate_gpt", "--size=tiny",
+         "--init_seed=1", "--backend=cpu", "--n_new=3",
+         "--prompt=5,6,7"], env=env, cwd=cwd, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    row = proc.stdout.strip().splitlines()[-1].split(",")
+    assert row[:3] == ["5", "6", "7"] and len(row) == 6
