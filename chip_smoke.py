@@ -24,18 +24,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (kv_heads 4), a 256 window with every 2nd layer global, an int8 KV
    cache and ``flash_block_h=2`` (B4); one greedy run, one seeded sampled
    run (temperature 0.8, top_p 0.9) twice.
+6. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
+   the plain backward on the card, bf16, dO as a transposed view: the
+   training shape, ragged T, a window, a fully masked ``kv_mask`` row
+   (gradient exactly 0), t_q != t_k, D 128, T 5.
+7. kernel_times_bwd — B2, B3 and B1 at the training shape
+   [8, 12, 1024, 64]: kernel, plain version, the library yardstick
+   (SDPA's backward) and the bound.
+8. train_grads — GPT-2 small at full width, the trainer's init, one
+   8 x 1024 batch: loss and every gradient on the flash path against the
+   dense path; exactly 12 B1/B2/B3 launches per step (24 B1 under remat).
+9. train — ``train_gpt``'s main path in process: b8 s1024, AdamW, 30
+   steps, with the launch counts of that run; a relaunch that resumes
+   from the checkpoint; ``generate_gpt --logdir`` on it; 30 steps on one
+   fixed batch, whose loss must fall by ``FIXED_BATCH_LOSS_DROP``.
+   Prints step ms, tokens/s, analytic MFU and peak memory.
 
-Then one JSON line listing every kernel (launches on its path, error
+Then one JSON line listing every kernel (launches on its main path, error
 against the plain version, times, bound), the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
-result when no GPU is present or when the port's package is not beside
-this file.
+last ``{"ok": true, "device": {...}}``. ``--phases a,b`` runs a subset
+(without the kernels line). Exits non-zero without printing a result
+when no GPU is present or when the port's package is not beside this
+file.
 """
 
 import contextlib
 import io
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -59,8 +77,36 @@ LSE_ATOL = 1e-3
 #: layers carry into the f32 head. Stated against the logits' scale.
 LOGITS_REL_TOL = 2e-2
 
-#: the slice's shapes: GPT-2 small, batch 4, prompt 1024, 64 new tokens
+#: backward kernels vs plain backward, bf16 inputs: both cast P and dS to
+#: bf16 before their products and sum in f32, but S comes from products
+#: summed in another order, so a P or dS element now and then rounds to
+#: the neighbouring bf16 value (2^-8 relative), and dq/dk/dv are rounded
+#: to bf16 (2^-9) at the end. Stated as ||kernel - plain|| / ||plain||
+#: per gradient, and max |kernel - plain| against max |plain|.
+GRAD_REL_TOL = 1e-2
+GRAD_MAX_ABS_TOL = 2e-2
+
+#: GPT-2 small at full width, one batch, flash path vs dense path of the
+#: same bf16 model: the two attention paths round P to bf16 relative to
+#: different maxima and sum in other orders, and 12 bf16 layers carry
+#: that into the loss and every gradient. Loss: relative. Gradients:
+#: ||flash - dense|| / ||dense|| per parameter, the denominator floored
+#: at GRAD_NORM_FLOOR x the whole gradient's norm (a key-projection bias
+#: has an analytic gradient of 0 — softmax ignores a per-row shift — so
+#: its own norm is rounding noise).
+TRAIN_LOSS_REL_TOL = 1e-3
+TRAIN_GRAD_REL_TOL = 5e-2
+GRAD_NORM_FLOOR = 1e-3
+#: stated before the first measuring run: over 30 AdamW steps (the
+#: launcher's recipe, lr 3e-4, 4 warmup steps) on ONE fixed batch, the
+#: last loss is at least this far below the first
+FIXED_BATCH_LOSS_DROP = 1.0
+TRAIN_STEPS = 30
+
+#: the serving slice's shapes: GPT-2 small, batch 4, prompt 1024, 64 new
 BATCH, PROMPT, N_NEW, HEADS, D_HEAD = 4, 1024, 64, 12, 64
+#: the training slice's shape: GPT-2 small, batch 8, seq 1024
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 
 
 def emit(obj):
@@ -128,22 +174,43 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(stop) / (3 * iters)
 
 
-def attention_bound_ms(b, h, t_q, t_k, d, causal, window):
-    """The least time the card could take: the larger of the bytes moved
-    (q, k, v read once; out and lse written once) over the memory rate
-    and the matmul FLOPs of the keys each query really sees over the
-    bf16 peak."""
-    nbytes = 2 * (b * h * t_q * d + 2 * b * h * t_k * d + b * h * t_q * d) \
-        + 4 * b * h * t_q
+def live_pairs(t_q, t_k, causal, window):
+    """(query, key) pairs that survive the causal / window mask: the work
+    the kernels' live-block loops must do, per batch·head."""
     seen = 0
     for qp in range(t_q):
         hi = min(qp + 1, t_k) if causal else t_k
         lo = max(0, qp - window + 1) if (causal and window) else 0
         seen += max(0, hi - lo)
-    flops = 4 * b * h * d * seen                 # QK^T and PV, 2 per MAC
+    return seen
+
+
+def bound_ms(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the bf16 matmul FLOPs over the tensor-core peak."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound_ms(b, h, t_q, t_k, d, causal, window):
+    """B1: q, k, v read once, out and lse written once; QK^T and PV on
+    the live pairs (2 FLOPs per multiply-add)."""
+    nbytes = 2 * (2 * b * h * t_q * d + 2 * b * h * t_k * d) + 4 * b * h * t_q
+    flops = 2 * 2 * b * h * d * live_pairs(t_q, t_k, causal, window)
+    return bound_ms(nbytes, flops)
+
+
+def attention_bwd_bounds_ms(b, h, t_q, t_k, d, causal, window):
+    """B2 and B3: q, k, v, dO (bf16) and lse, delta (f32) read once each.
+    B2 writes dq and does three products on the live pairs (S, dP, dQ);
+    B3 writes dk and dv and does four (S, dP, dV, dK)."""
+    reads = 2 * (2 * b * h * t_q * d + 2 * b * h * t_k * d) \
+        + 2 * 4 * b * h * t_q
+    pairs = b * h * live_pairs(t_q, t_k, causal, window)
+    dq = bound_ms(reads + 2 * b * h * t_q * d, 3 * 2 * d * pairs)
+    dkv = bound_ms(reads + 2 * 2 * b * h * t_k * d, 4 * 2 * d * pairs)
+    return dq, dkv
 
 
 def phase_kernels(torch):
@@ -243,7 +310,140 @@ def phase_kernels(torch):
           "library_ms": library, "bound_us": bound * 1e3,
           "bound_by": bound_by})
     fa.reset_launch_counts()
-    return err, timing, plain, library, bound, bound_by
+    return err, {**timing, "plain_ms": plain, "library_ms": library,
+                 "bound_ms": bound, "bound_by": bound_by}
+
+
+def phase_kernels_bwd(torch):
+    """B2/B3 against the plain backward on the card, bf16, at the
+    training shape and the edge cases; dO is a transposed view (the
+    layout autograd hands over). Returns each kernel's largest max-abs
+    error."""
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    cases = [
+        ("causal_T1024", (TRAIN_BATCH, HEADS, 1024, 1024, D_HEAD), True, 0,
+         False),
+        ("causal_T1000_ragged", (BATCH, HEADS, 1000, 1000, D_HEAD), True, 0,
+         False),
+        ("causal_window256", (BATCH, HEADS, 1024, 1024, D_HEAD), True, 256,
+         False),
+        ("kv_mask_dead_row", (BATCH, HEADS, 1024, 1024, D_HEAD), False, 0,
+         True),
+        ("tq512_tk1024", (BATCH, HEADS, 512, 1024, D_HEAD), False, 0, False),
+        ("causal_tq1024_tk600", (BATCH, HEADS, 1024, 600, D_HEAD), True, 0,
+         False),
+        ("d128_causal_T1024", (2, 8, 1024, 1024, 128), True, 0, False),
+        ("tiny_T5_causal", (1, 2, 5, 5, D_HEAD), True, 0, False),
+        ("kv_mask_causal_window128", (BATCH, HEADS, 1000, 1000, D_HEAD),
+         True, 128, True),
+    ]
+    rows, worst = [], {"flash_dq": 0.0, "flash_dkv": 0.0}
+    for name, (b, h, t_q, t_k, d), causal, window, masked in cases:
+        q, k, v = randn(b, h, t_q, d), randn(b, h, t_k, d), randn(b, h, t_k, d)
+        do = randn(b, t_q, h, d).transpose(1, 2)        # autograd's layout
+        bias = None
+        if masked:
+            m = torch.ones(b, t_k, dtype=torch.bool, device="cuda")
+            m[0, t_k - 100:] = False
+            m[b - 1, :] = False                  # every key of a row masked
+            bias = fa._mask_bias(m, b, t_k)
+        opts = dict(sm_scale=d ** -0.5, causal=causal, window=window)
+        out, lse = fa.flash_attention_cuda(q, k, v, bias, **opts)
+        got = fa.flash_attention_bwd_cuda(q, k, v, bias, out, lse, do, **opts)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_reference(q, k, v, bias, out, lse, do,
+                                                **opts)
+        row = {"case": name}
+        for gname, x, y in zip(("dq", "dk", "dv"), got, want):
+            require(x.shape == y.shape and x.dtype == torch.bfloat16,
+                    f"{name}: {gname} {tuple(x.shape)} {x.dtype}")
+            require(torch.isfinite(x).all().item(), f"{name}: non-finite "
+                                                    f"{gname}")
+            diff = (x.float() - y.float())
+            scale = y.float().abs().max().item()
+            rel = (diff.norm() / y.float().norm().clamp_min(1e-30)).item()
+            mab = diff.abs().max().item()
+            row[f"{gname}_rel"], row[f"{gname}_max_abs"] = rel, mab
+            if masked:
+                require(torch.count_nonzero(x[b - 1]).item() == 0,
+                        f"{name}: {gname} of the fully masked row is not 0")
+            require(rel <= GRAD_REL_TOL and mab <= GRAD_MAX_ABS_TOL * scale,
+                    f"{name}: {gname} disagrees with the plain backward "
+                    f"(rel {rel} > {GRAD_REL_TOL} or max-abs {mab} > "
+                    f"{GRAD_MAX_ABS_TOL} x {scale})")
+            kname = "flash_dq" if gname == "dq" else "flash_dkv"
+            worst[kname] = max(worst[kname], mab)
+        rows.append(row)
+    emit({"phase": "kernels_bwd", "rel_tol": GRAD_REL_TOL,
+          "max_abs_tol_of_max": GRAD_MAX_ABS_TOL, "cases": rows})
+    fa.reset_launch_counts()
+    return worst
+
+
+def phase_kernel_times_bwd(torch):
+    """B2, B3 and B1 at the training shape ([8, 12, 1024, 64] bf16
+    causal): kernel, plain version, library call and bound."""
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shape = (TRAIN_BATCH, HEADS, TRAIN_SEQ, D_HEAD)
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    do = torch.randn(TRAIN_BATCH, TRAIN_SEQ, HEADS, D_HEAD, generator=gen,
+                     device="cuda", dtype=torch.bfloat16).transpose(1, 2)
+    opts = dict(sm_scale=D_HEAD ** -0.5, causal=True)
+    out, lse = fa.flash_attention_cuda(q, k, v, **opts)
+    delta = (do.float() * out.reshape(shape).float()).sum(dim=-1)
+    b1_bound, b1_by = attention_bound_ms(*shape[:3], TRAIN_SEQ, D_HEAD, True,
+                                         0)
+    (dq_bound, dq_by), (dkv_bound, dkv_by) = attention_bwd_bounds_ms(
+        *shape[:3], TRAIN_SEQ, D_HEAD, True, 0)
+    res = {
+        "flash_dq": time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
+            q, k, v, do, lse, delta, **opts), 20),
+        "flash_dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, **opts), 20),
+        "flash_fwd": time_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v, **opts), 20),
+    }
+    plain_bwd = time_ms(torch, lambda: fa.flash_attention_bwd_reference(
+        q, k, v, None, out, lse, do, **opts), 3)
+    plain_fwd = time_ms(torch, lambda: fa.flash_attention_reference(
+        q, k, v, **opts), 3)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True), 20)
+    lib_fwd_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do), 20)
+    fa.reset_launch_counts()
+    timing = {
+        "flash_dq": dict(ms=res["flash_dq"], plain_ms=plain_bwd,
+                         bound_ms=dq_bound, bound_by=dq_by,
+                         library_ms=lib_fwd_bwd - lib_fwd),
+        "flash_dkv": dict(ms=res["flash_dkv"], plain_ms=plain_bwd,
+                          bound_ms=dkv_bound, bound_by=dkv_by,
+                          library_ms=lib_fwd_bwd - lib_fwd),
+        "flash_fwd_train": dict(ms=res["flash_fwd"], plain_ms=plain_fwd,
+                                bound_ms=b1_bound, bound_by=b1_by,
+                                library_ms=lib_fwd),
+    }
+    emit({"phase": "kernel_times_bwd", "shape": list(shape), "causal": True,
+          **{name: {"kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "library_ms": t["library_ms"],
+                    "bound_us": t["bound_ms"] * 1e3,
+                    "bound_by": t["bound_by"]} for name, t in timing.items()},
+          "library": "scaled_dot_product_attention(is_causal=True): "
+                     "backward = (forward + backward) - forward, for B2 and "
+                     "B3 together"})
+    return timing
 
 
 def build_model(torch, cfg, seed=0):
@@ -304,7 +504,8 @@ def phase_generate(torch):
     fa.reset_launch_counts()
     out, total_s = timed(torch, lambda: gpt.generate(model, prompt, N_NEW))
     launches = dict(fa.launch_counts)
-    require(launches == {"flash_fwd": cfg.layers, "flash_fwd_hfold": 0},
+    require(launches == {"flash_fwd": cfg.layers, "flash_fwd_hfold": 0,
+                         "flash_dq": 0, "flash_dkv": 0},
             f"flash launches per generate call {launches} != "
             f"{cfg.layers} (one per layer)")
     require(tuple(out.shape) == (BATCH, PROMPT + N_NEW), f"shape {out.shape}")
@@ -377,7 +578,8 @@ def phase_variants(torch):
     greedy = gpt.generate(model, prompt, 32)
     torch.cuda.synchronize()
     launches = dict(fa.launch_counts)
-    require(launches == {"flash_fwd": 0, "flash_fwd_hfold": cfg.layers},
+    require(launches == {"flash_fwd": 0, "flash_fwd_hfold": cfg.layers,
+                         "flash_dq": 0, "flash_dkv": 0},
             f"variant launches {launches}")
 
     def sampled(seed):
@@ -399,7 +601,227 @@ def phase_variants(torch):
     return launches
 
 
-def main():
+def _train_batch(torch, cfg, step=0):
+    from dtf_tpu_torch.data.synthetic import SyntheticData
+
+    b = SyntheticData("gpt", TRAIN_BATCH, seed=0, seq_len=TRAIN_SEQ,
+                      vocab_size=cfg.vocab_size).batch(step)
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def phase_train_grads(torch):
+    """GPT-2 small at full width, the trainer's init, one 8 x 1024 batch:
+    loss and every gradient on the flash path against the dense path, and
+    the kernels' launches per step (with and without remat)."""
+    import dataclasses
+
+    from dtf_tpu_torch.convert import init_params_flax, params_from_flax
+    from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    base = gpt.GPTConfig.gpt2_small()
+    state_dict = params_from_flax(init_params_flax(base, 0))
+    batch = _train_batch(torch, base)
+    rows = []
+    for remat in (False, True):
+        got = {}
+        for impl in ("flash", "dense"):
+            model = gpt.GPT(dataclasses.replace(base, attn_impl=impl,
+                                                remat=remat), device="cuda")
+            model.load_state_dict(state_dict)
+            params = dict(model.named_parameters())
+            fa.reset_launch_counts()
+            loss, _ = gpt.make_loss(model)(params, batch, 0)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            torch.cuda.synchronize()
+            got[impl] = (loss.item(), dict(zip(params, grads)),
+                         dict(fa.launch_counts))
+            del model, params
+        (lf, gf, launches), (ld, gd, dense_launches) = got["flash"], \
+            got["dense"]
+        want = {"flash_fwd": base.layers * (2 if remat else 1),
+                "flash_fwd_hfold": 0, "flash_dq": base.layers,
+                "flash_dkv": base.layers}
+        require(launches == want, f"remat={remat}: flash launches per step "
+                                  f"{launches} != {want}")
+        require(not any(dense_launches.values()),
+                f"dense path launched {dense_launches}")
+        require(all(torch.isfinite(g).all().item() for g in gf.values()),
+                f"remat={remat}: non-finite gradient")
+        loss_rel = abs(lf - ld) / abs(ld)
+        total = torch.sqrt(sum((g.float() ** 2).sum() for g in gd.values()))
+        worst, worst_name = 0.0, ""
+        for name, g in gd.items():
+            denom = torch.maximum(g.float().norm(), GRAD_NORM_FLOOR * total)
+            rel = ((gf[name].float() - g.float()).norm() / denom).item()
+            if rel > worst:
+                worst, worst_name = rel, name
+        rows.append({"remat": remat, "loss_flash": lf, "loss_dense": ld,
+                     "loss_rel": loss_rel, "worst_grad_rel": worst,
+                     "worst_grad_param": worst_name, "launches": launches})
+        require(loss_rel <= TRAIN_LOSS_REL_TOL,
+                f"remat={remat}: flash loss {lf} vs dense {ld}")
+        require(worst <= TRAIN_GRAD_REL_TOL,
+                f"remat={remat}: gradient of {worst_name} differs by "
+                f"{worst} > {TRAIN_GRAD_REL_TOL}")
+        del got, gf, gd
+    emit({"phase": "train_grads", "model": "gpt2-small", "batch":
+          TRAIN_BATCH, "seq": TRAIN_SEQ, "loss_rel_tol": TRAIN_LOSS_REL_TOL,
+          "grad_rel_tol": TRAIN_GRAD_REL_TOL, "runs": rows})
+    fa.reset_launch_counts()
+
+
+def phase_train(torch, smi):
+    """``train_gpt``'s main path in process: GPT-2 small, b8 s1024,
+    AdamW, 30 steps, then a relaunch that resumes from the checkpoint,
+    ``generate_gpt --logdir`` on it, and 30 steps on one fixed batch.
+    Returns the flash launches of the 30-step run."""
+    import gc
+    import statistics
+    import tempfile
+
+    from dtf_tpu_torch import generate_gpt, optim, train_gpt
+    from dtf_tpu_torch.convert import init_params_flax, params_from_flax
+    from dtf_tpu_torch.core import train as tr
+    from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    flags = ["--size=small", f"--batch_size={TRAIN_BATCH}",
+             f"--seq_len={TRAIN_SEQ}", "--log_every=1",
+             "--checkpoint_every=1000", f"--logdir={logdir}"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    state, writer = train_gpt.run(flags + [f"--train_steps={TRAIN_STEPS}"])
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    train_rows = [(s, m) for s, m in writer.history if "loss" in m]
+    losses = [m["loss"] for _, m in train_rows]
+    require(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
+            f"trained {state.step} steps, logged {len(losses)}")
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    # 12 per layer per step, plus the final eval's 4 forward batches
+    want = {"flash_fwd": 12 * (TRAIN_STEPS + 4), "flash_fwd_hfold": 0,
+            "flash_dq": 12 * TRAIN_STEPS, "flash_dkv": 12 * TRAIN_STEPS}
+    require(launches == want, f"train launches {launches} != {want}")
+    steady = [m for s, m in train_rows if s > 3]
+    step_ms = statistics.median(1e3 / m["steps_per_sec"] for m in steady)
+    mfu = statistics.median(m["mfu"] for m in steady)
+    del state, writer
+    gc.collect()
+
+    # the relaunch resumes at the saved step
+    from dtf_tpu_torch.checkpoint import Checkpointer
+
+    require(Checkpointer(os.path.join(logdir, "ckpt")).latest_step()
+            == TRAIN_STEPS, "no checkpoint at the last step")
+    state2, writer2 = train_gpt.run(flags + [
+        f"--train_steps={TRAIN_STEPS + 2}"])
+    resumed = [s for s, m in writer2.history if "loss" in m]
+    require(state2.step == TRAIN_STEPS + 2
+            and resumed == [TRAIN_STEPS + 1, TRAIN_STEPS + 2],
+            f"relaunch ran steps {resumed} to {state2.step}")
+    del state2, writer2
+    gc.collect()
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = generate_gpt.main([f"--logdir={logdir}", "--batch=2",
+                                "--prompt=464,2068,7586,21831", "--n_new=8"])
+    rows = [r for r in buf.getvalue().splitlines() if r.strip()]
+    require(rc == 0 and len(rows) == 2 and len(rows[0].split(",")) == 12,
+            f"generate_gpt --logdir printed {rows}")
+
+    # one fixed batch, the launcher's optimizer recipe, 30 steps
+    args = train_gpt.build_parser().parse_args(
+        flags + [f"--train_steps={TRAIN_STEPS}"])
+    cfg = gpt.GPTConfig.gpt2_small()
+    model = gpt.GPT(cfg, device="cuda")
+    model.load_state_dict(params_from_flax(init_params_flax(cfg, 0)))
+    tx = optim.make_optimizer(args, lambda s: optim.adamw(
+        s, weight_decay=0.1), recipe_uses_wd=True)
+    st = tr.create_train_state(model, tx, 0)
+    step = tr.make_train_step(gpt.make_loss(model), tx)
+    batch = _train_batch(torch, cfg)
+    fixed = []
+    for _ in range(TRAIN_STEPS):
+        st, metrics = step(st, batch)
+        fixed.append(metrics["loss"].item())
+    require(all(math.isfinite(x) for x in fixed), f"fixed-batch {fixed}")
+    require(fixed[-1] <= fixed[0] - FIXED_BATCH_LOSS_DROP,
+            f"fixed-batch loss fell from {fixed[0]} to {fixed[-1]}, less "
+            f"than {FIXED_BATCH_LOSS_DROP}")
+    del model, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(logdir, ignore_errors=True)
+
+    emit({"phase": "train", "model": "gpt2-small", "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "nvidia_smi": smi,
+          "losses": losses, "step_ms_median_after_3": step_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+          "mfu_analytic_vs_989tf": mfu, "max_memory_allocated": peak,
+          "flash_launches": launches, "resumed_steps": resumed,
+          "generated_rows": rows, "fixed_batch_losses": fixed,
+          "fixed_batch_drop_min": FIXED_BATCH_LOSS_DROP})
+    fa.reset_launch_counts()
+    return launches
+
+
+#: every phase, in the order a full run takes them
+PHASES = ("device", "build", "kernels", "generate", "generate_variants",
+          "kernels_bwd", "kernel_times_bwd", "train_grads", "train")
+
+
+def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
+                 timing_bwd, train_launches):
+    """The one JSON line listing every ported kernel: its launches on its
+    main path, its error against the plain version, its times and bound."""
+    fwd_common = {"route": "cuda",
+                  "source": "dtf_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "plain_ms": timing["plain_ms"],
+                  "bound_ms": timing["bound_ms"],
+                  "bound_by": timing["bound_by"],
+                  "library_ms": timing["library_ms"]}
+    bwd_src = {"route": "cuda",
+               "source": "dtf_tpu_torch/ops/csrc/flash_bwd.cu"}
+    return {"kernels": [
+        {"name": "flash_fwd", **fwd_common,
+         "replaces": "dtf_tpu/ops/flash_attention.py:164",
+         "launches": fwd_launches, "max_abs_err": err["flash_fwd"],
+         "ms": timing["flash_fwd"]},
+        {"name": "flash_fwd_hfold", **fwd_common,
+         "replaces": "dtf_tpu/ops/flash_attention.py:222",
+         "launches": variant_launches["flash_fwd_hfold"],
+         "max_abs_err": err["flash_fwd_hfold"],
+         "ms": timing["flash_fwd_hfold"]},
+        {"name": "flash_dq", **bwd_src,
+         "replaces": "dtf_tpu/ops/flash_attention.py:363",
+         "launches": train_launches["flash_dq"],
+         "max_abs_err": err_bwd["flash_dq"], **timing_bwd["flash_dq"]},
+        {"name": "flash_dkv", **bwd_src,
+         "replaces": "dtf_tpu/ops/flash_attention.py:405",
+         "launches": train_launches["flash_dkv"],
+         "max_abs_err": err_bwd["flash_dkv"], **timing_bwd["flash_dkv"]},
+    ]}
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--phases", default=",".join(PHASES),
+        help="comma-separated subset of the phases to run (default: all; "
+             "the kernels line is printed only when all run)")
+    args = parser.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}; pick from {PHASES}")
     if not os.path.isdir(os.path.join(ROOT, "dtf_tpu_torch")):
         print("chip_smoke: the dtf_tpu_torch package is not beside this "
               "file", file=sys.stderr)
@@ -416,24 +838,31 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     device, smi = phase_device(torch)
-    phase_build()
-    err, timing, plain, library, bound, bound_by = phase_kernels(torch)
-    main_launches = phase_generate(torch)
-    variant_launches = phase_variants(torch)
-    common = {"route": "cuda", "source": "dtf_tpu_torch/ops/csrc/flash_fwd.cu",
-              "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-              "library_ms": library}
-    emit({"kernels": [
-        {"name": "flash_fwd", **common,
-         "replaces": "dtf_tpu/ops/flash_attention.py:164",
-         "launches": main_launches["flash_fwd"],
-         "max_abs_err": err["flash_fwd"], "ms": timing["flash_fwd"]},
-        {"name": "flash_fwd_hfold", **common,
-         "replaces": "dtf_tpu/ops/flash_attention.py:222",
-         "launches": variant_launches["flash_fwd_hfold"],
-         "max_abs_err": err["flash_fwd_hfold"],
-         "ms": timing["flash_fwd_hfold"]},
-    ], "seconds": time.perf_counter() - t_start})
+    got = {}
+    if "build" in phases:
+        phase_build()
+    if "kernels" in phases:
+        got["kernels"] = phase_kernels(torch)
+    if "generate" in phases:
+        got["generate"] = phase_generate(torch)
+    if "generate_variants" in phases:
+        got["generate_variants"] = phase_variants(torch)
+    if "kernels_bwd" in phases:
+        got["kernels_bwd"] = phase_kernels_bwd(torch)
+    if "kernel_times_bwd" in phases:
+        got["kernel_times_bwd"] = phase_kernel_times_bwd(torch)
+    if "train_grads" in phases:
+        phase_train_grads(torch)
+    if "train" in phases:
+        got["train"] = phase_train(torch, smi)
+    if all(p in phases for p in PHASES):
+        # launches: each kernel's count on this slice's main path (the
+        # train run), B4's on the variants path, the only one it is on
+        emit({**kernels_line(got["kernels"][0], got["kernels"][1],
+                             got["train"]["flash_fwd"],
+                             got["generate_variants"], got["kernels_bwd"],
+                             got["kernel_times_bwd"], got["train"]),
+              "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -1,9 +1,22 @@
-"""The model-config manifest (the port's copy of ``dtf_tpu.checkpoint``'s reader).
+"""Checkpoints and the model-config manifest (counterpart of ``dtf_tpu.checkpoint``).
 
-The JAX training launcher writes ``model_config.json`` next to its
-checkpoint; the serving entry points read it so that the architecture
-they decode with is the one that was trained. Restoring the Orbax
-checkpoint itself is not ported yet.
+The JAX package writes Orbax checkpoints; Orbax is not on the GPU
+machine, so the port has its own format. One directory per step,
+``<dir>/<step>/``, holding
+
+- ``params.pt``: the parameters, ``{state_dict name: tensor}`` (what
+  serving reads, :meth:`Checkpointer.restore_params`);
+- ``opt_state.pt``: the optimizer state;
+- ``meta.json``: the step and the rng seed.
+
+A step is written under a temporary name and renamed into place, so a
+crash mid-save leaves no half step behind; ``max_to_keep`` steps are kept.
+Saves are synchronous and single-process: the multi-process
+``torch.distributed.checkpoint`` layout comes with the multi-GPU slice.
+
+``model_config.json`` (the architecture manifest) sits next to the step
+directories: the training launcher writes it, the serving entry points
+read it.
 """
 
 from __future__ import annotations
@@ -11,10 +24,25 @@ from __future__ import annotations
 import json
 import logging
 import os
+import shutil
+
+import torch
 
 log = logging.getLogger("dtf_tpu_torch")
 
 MODEL_CONFIG_BASENAME = "model_config.json"
+
+
+def save_model_config(directory: str | os.PathLike, config: dict) -> None:
+    """Write the architecture manifest next to the checkpoint."""
+    directory = os.fspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, MODEL_CONFIG_BASENAME)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(config, f, indent=1, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, path)
 
 
 def load_model_config(directory: str | os.PathLike) -> dict | None:
@@ -29,3 +57,140 @@ def load_model_config(directory: str | os.PathLike) -> dict | None:
     except (OSError, json.JSONDecodeError) as e:
         log.warning("unreadable %s (%s); falling back to flags", path, e)
         return None
+
+
+def _to_device(tree, device):
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
+
+
+class Checkpointer:
+    """Save / restore a :class:`~dtf_tpu_torch.core.train.TrainState`.
+
+    ``save_interval_steps``: a non-forced :meth:`save` writes only steps
+    that are multiples of it. ``max_to_keep``: older steps are deleted
+    after each save."""
+
+    def __init__(self, directory: str | os.PathLike, *, max_to_keep: int = 3,
+                 save_interval_steps: int = 1):
+        self._dir = os.fspath(directory)
+        os.makedirs(self._dir, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self.save_interval_steps = max(1, save_interval_steps)
+        #: the step the last latest-step restore loaded (it may be older
+        #: than :meth:`latest_step` when the newest step was unreadable)
+        self.last_restored_step: int | None = None
+
+    @property
+    def directory(self) -> str:
+        return self._dir
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(n) for n in os.listdir(self._dir) if n.isdigit())
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state, *, force: bool = False) -> bool:
+        """Write ``state`` as step ``step``. Returns True if written:
+        an existing step, or (unless ``force``) a step off the save
+        interval, is skipped."""
+        step = int(step)
+        if step in self.all_steps():
+            return False
+        if not force and step % self.save_interval_steps:
+            return False
+        final = os.path.join(self._dir, str(step))
+        tmp = os.path.join(self._dir, f".{step}.tmp{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save({n: p.detach() for n, p in state.params.items()},
+                   os.path.join(tmp, "params.pt"))
+        torch.save(state.opt_state, os.path.join(tmp, "opt_state.pt"))
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"step": step, "rng": int(state.rng)}, f)
+        os.replace(tmp, final)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self._dir, str(old)),
+                          ignore_errors=True)
+        return True
+
+    def _restore_one(self, target, step: int):
+        from dtf_tpu_torch.core.train import TrainState
+
+        path = os.path.join(self._dir, str(step))
+        params = torch.load(os.path.join(path, "params.pt"),
+                            map_location="cpu", weights_only=True)
+        if set(params) != set(target.params):
+            # a wrong restore target fails the same on every step: say so
+            raise KeyError(
+                f"checkpoint step {step} at {self._dir} holds parameters "
+                f"{sorted(set(params) ^ set(target.params))[:8]} that the "
+                "restore target does not (or the reverse) — a different "
+                "model configuration")
+        some = next(iter(target.params.values()))
+        opt_state = _to_device(
+            torch.load(os.path.join(path, "opt_state.pt"),
+                       map_location="cpu", weights_only=True), some.device)
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        with torch.no_grad():
+            for n, p in target.params.items():
+                p.copy_(params[n])
+        return TrainState(step=int(meta["step"]), params=target.params,
+                          opt_state=opt_state, rng=int(meta["rng"]))
+
+    def restore(self, target, step: int | None = None):
+        """Restore into ``target``'s parameter tensors (in place) and return
+        the restored state. With ``step=None`` an unreadable newest step
+        falls back to the next older one, with a warning; a parameter-name
+        mismatch (a wrong target) raises at once."""
+        if step is not None:
+            return self._restore_one(target, step)
+        steps = self.all_steps()[::-1]
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint found under {self._dir}")
+        for i, s in enumerate(steps):
+            try:
+                state = self._restore_one(target, s)
+            except KeyError:
+                raise
+            except Exception as e:  # noqa: BLE001 — any unreadable step
+                older = steps[i + 1] if i + 1 < len(steps) else None
+                log.warning("checkpoint step %d at %s is unreadable (%s: "
+                            "%.200s); falling back to %s", s, self._dir,
+                            type(e).__name__, e,
+                            f"step {older}" if older is not None
+                            else "nothing")
+                continue
+            self.last_restored_step = s
+            return state
+        raise RuntimeError(f"every checkpoint step under {self._dir} is "
+                           f"unreadable (tried {steps})")
+
+    def restore_if_exists(self, target):
+        """(state, restored_step): ``target`` unchanged if nothing is on
+        disk."""
+        if self.latest_step() is None:
+            return target, None
+        state = self.restore(target)
+        return state, self.last_restored_step
+
+    def restore_params(self, step: int | None = None) -> dict:
+        """The parameters alone, ``{state_dict name: CPU tensor}`` — the
+        serving entry."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found under {self._dir}")
+        self.last_restored_step = step
+        return torch.load(os.path.join(self._dir, str(step), "params.pt"),
+                          map_location="cpu", weights_only=True)
+
+    def close(self) -> None:
+        """Nothing to release: saves are synchronous."""

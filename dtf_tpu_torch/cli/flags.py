@@ -1,7 +1,17 @@
-"""The decode-config merge of the serving launcher (the port's copy of
-``dtf_tpu.cli.flags.resolve_decode_config``), over ``argparse`` flags."""
+"""The launchers' flag surface (the port's copy of ``dtf_tpu.cli.flags``),
+over ``argparse``: the cluster, mesh and training flags with the JAX
+package's names and defaults, the decode-config merge of the serving
+launcher, and the LM-loss and grad-shard resolution of the trainer."""
 
 from __future__ import annotations
+
+import argparse
+import logging
+import os
+import tempfile
+import torch
+
+log = logging.getLogger("dtf_tpu_torch")
 
 #: decode-config fields the checkpoint manifest is authoritative for: a
 #: hand-matched mismatch on any of these silently garbles decode.
@@ -57,3 +67,145 @@ def _validate_kv_cache_dtype(dtype: str, manifest) -> None:
                 f"kv_cache_dtype=int8 needs an even head dim (rope pairs "
                 f"lanes); manifest says d_model={d_model} / heads={heads} "
                 f"-> d_head={d_model // heads}")
+
+
+# -- the training launchers' flag surface (dtf_tpu.cli.flags, argparse) ----
+
+def parse_bool(s: str) -> bool:
+    if s.lower() in ("1", "true", "yes"):
+        return True
+    if s.lower() in ("0", "false", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
+
+
+def add_bool(p: argparse.ArgumentParser, name: str, default: bool,
+             help: str = "") -> None:
+    """absl's boolean flag: ``--name``, ``--name=false`` and ``--noname``."""
+    p.add_argument(f"--{name}", type=parse_bool, nargs="?", const=True,
+                   default=default, help=help)
+    p.add_argument(f"--no{name}", dest=name, action="store_false",
+                   help=argparse.SUPPRESS)
+
+
+def define_cluster_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--ps_hosts", default="",
+                   help="comma-separated ps host:port list (accepted for "
+                        "compatibility; a ps role exits 0)")
+    p.add_argument("--worker_hosts", default="",
+                   help="comma-separated worker host:port list; more than "
+                        "one worker is not yet ported (multi-GPU)")
+    p.add_argument("--job_name", default="worker", help="'ps' or 'worker'")
+    p.add_argument("--task_index", type=int, default=0)
+    add_bool(p, "issync", True, "sync gradient aggregation; issync=false "
+             "warns and proceeds synchronously")
+    p.add_argument("--backend", default="gpu", choices=("gpu", "cpu"),
+                   help="gpu (default) | cpu; cpu is --device=cpu")
+    p.add_argument("--devices_per_host", type=int, default=0)
+
+
+def define_mesh_flags(p: argparse.ArgumentParser) -> None:
+    for axis, default in (("data", -1), ("seq", 1), ("model", 1),
+                          ("pipe", 1), ("expert", 1)):
+        p.add_argument(f"--mesh_{axis}", type=int, default=default,
+                       help="mesh axis size; > 1 is not yet ported "
+                            "(multi-GPU)")
+
+
+def define_train_flags(p: argparse.ArgumentParser, batch_size=64,
+                       learning_rate=0.01, train_steps=1000,
+                       lr_schedule="constant") -> None:
+    p.add_argument("--data_dir", default="",
+                   help="dataset directory (empty: synthetic)")
+    p.add_argument("--logdir",
+                   default=os.path.join(tempfile.gettempdir(),
+                                        "dtf_tpu_logs"),
+                   help="checkpoint/summary dir")
+    p.add_argument("--batch_size", type=int, default=batch_size,
+                   help="GLOBAL batch size")
+    p.add_argument("--learning_rate", type=float, default=learning_rate)
+    p.add_argument("--train_steps", type=int, default=train_steps,
+                   help="stop at this global step")
+    p.add_argument("--checkpoint_every", type=int, default=200)
+    p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="gradient-accumulation microbatches")
+    add_bool(p, "grad_shard", False, "ZeRO-1 sharded accumulator; falls "
+             "back with a warning on one device")
+    p.add_argument("--clip_grad_norm", type=float, default=0.0,
+                   help="clip gradients to this global norm (0 = off)")
+    p.add_argument("--lr_schedule", default=lr_schedule,
+                   help="constant | linear | cosine")
+    p.add_argument("--warmup_steps", type=int, default=-1,
+                   help="linear warmup steps; -1 = auto")
+    p.add_argument("--lr_min_ratio", type=float, default=0.0)
+    p.add_argument("--optimizer", default="",
+                   help="sgd | momentum | adam | adamw (lamb | adafactor "
+                        "are not yet ported); empty = the recipe's")
+    p.add_argument("--weight_decay", type=float, default=-1.0,
+                   help="weight decay for adamw (-1 = default)")
+    p.add_argument("--seed", type=int, default=0, help="init, data and "
+                   "dropout seed")
+    p.add_argument("--prefetch_depth", type=int, default=2,
+                   help="device batches: the step's own plus depth-1 "
+                        "copied ahead (1 = off)")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="profiler window; not yet ported (must be 0)")
+    p.add_argument("--profile_start", type=int, default=10)
+    add_bool(p, "profile_on_demand", True, "live profile triggers; not yet "
+             "ported: accepted and inert")
+    add_bool(p, "telemetry", False, "run-wide observability; not yet ported")
+    p.add_argument("--telemetry_keep_steps", type=int, default=64)
+    p.add_argument("--telemetry_min_stall_s", type=float, default=60.0)
+    p.add_argument("--telemetry_stall_factor", type=float, default=10.0)
+
+
+#: monolithic [B,T,V] f32 logits plus their cotangent must fit inside this
+#: fraction of the device's memory (the JAX package's budget rule)
+LOGITS_HBM_FRACTION = 0.25
+
+
+def resolve_lm_loss(args, *, batch: int, seq_len: int, vocab_size: int,
+                    device) -> str:
+    """Check that the LM loss path is the monolithic one, the only one the
+    port has, and return why it was chosen. The logits are budgeted against
+    ``LOGITS_HBM_FRACTION`` of the card's memory
+    (``torch.cuda.get_device_properties(dev).total_memory``; on the CPU
+    there is no budget). When they do not fit, or a fused-loss flag is
+    set, this raises: the fused and chunked losses (B5–B7) are not yet
+    ported, and no other path is chosen silently."""
+    which = [f for f in ("loss_chunk_vocab", "loss_chunk_tokens",
+                         "loss_pallas") if getattr(args, f, 0)]
+    if which:
+        raise NotImplementedError(
+            f"--{which[0]}: not yet ported (fused LM loss, B5–B7)")
+    est = 2 * batch * seq_len * vocab_size * 4
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu: monolithic (no budget)"
+    hbm = torch.cuda.get_device_properties(device).total_memory
+    if est > LOGITS_HBM_FRACTION * hbm:
+        raise NotImplementedError(
+            f"monolithic [B,T,V] logits estimated at {est / 1e9:.2f} GB "
+            f"(> {int(LOGITS_HBM_FRACTION * 100)}% of {hbm / 1e9:.0f} GB): "
+            "not yet ported (fused LM loss); lower --batch_size or "
+            "--seq_len")
+    return (f"monolithic logits fit (est {est / 1e9:.2f} GB of "
+            f"{hbm / 1e9:.0f} GB)")
+
+
+def resolve_grad_shard(args, data_axis: int, *, blockers=()) -> bool:
+    """``--grad_shard`` viability: it needs real accumulation and a data
+    axis > 1. Returns the effective setting, warning on fallback."""
+    if not getattr(args, "grad_shard", False):
+        return False
+    reasons = list(blockers)
+    if getattr(args, "grad_accum", 1) <= 1:
+        reasons.append("--grad_accum<=1 (no accumulator to shard)")
+    if data_axis <= 1:
+        reasons.append("data axis is 1 (nothing to reduce-scatter over)")
+    if reasons:
+        log.warning("--grad_shard falls back to the replicated accumulator: "
+                    "%s", "; ".join(reasons))
+        return False
+    return True

@@ -11,7 +11,9 @@ weights [out, in]); ``embedding`` and ``scale`` → ``weight``; ``bias`` →
 
 ``.npz`` files hold the flax tree with flat ``/``-joined keys, so either
 package can read them. :func:`init_params` makes a seeded GPT-2-style
-tree in numpy, for handing the same weights to both packages.
+tree in numpy, for handing the same weights to both packages (serving);
+:func:`init_params_flax` one with the JAX package's training init
+distributions (the trainer's).
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
         else:
             raise KeyError(f"unknown flax param leaf {'/'.join(path)}")
         out[".".join(mods + [name])] = torch.from_numpy(
-            np.ascontiguousarray(arr))
+            np.array(arr, copy=True, order="C"))
     return out
 
 
@@ -132,4 +134,53 @@ def init_params(cfg, seed: int) -> dict:
             "mlp_out": dense(cfg.d_ff, d, res_std)}
     tree["ln_f"] = norm()
     tree["lm_head"] = {"kernel": normal((d, cfg.vocab_size), std)}
+    return tree
+
+
+#: flax's lecun_normal: a standard normal truncated to [-2, 2], rescaled by
+#: this constant (its std) so the kernel's std is exactly 1/sqrt(fan_in)
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def init_params_flax(cfg, seed: int) -> dict:
+    """A seeded flax tree in numpy f32 with the JAX package's TRAINING
+    init distributions (``gpt.make_init``): the ``nn.Embed`` table normal
+    at std 1/sqrt(d_model); every ``TpDense`` kernel and ``lm_head``
+    lecun-normal — truncated at ±2σ and rescaled to std 1/sqrt(fan_in), so
+    |w| <= 2.27/sqrt(fan_in); zero biases; LayerNorm scale 1, bias 0. The
+    draws are numpy's, not flax's PRNG bits: the distributions match."""
+    rng = np.random.default_rng(seed)
+    d, dh = cfg.d_model, cfg.d_model // cfg.heads
+
+    def lecun(d_in, d_out):
+        x = rng.standard_normal((d_in, d_out), dtype=np.float32)
+        bad = np.abs(x) > 2.0
+        while bad.any():
+            x[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
+            bad = np.abs(x) > 2.0
+        return x * np.float32(1.0 / (math.sqrt(d_in) * _TRUNC_NORMAL_STD))
+
+    def dense(d_in, d_out):
+        return {"kernel": lecun(d_in, d_out),
+                "bias": np.zeros((d_out,), np.float32)}
+
+    def norm():
+        return {"scale": np.ones((d,), np.float32),
+                "bias": np.zeros((d,), np.float32)}
+
+    embed = rng.standard_normal((cfg.vocab_size, d), dtype=np.float32)
+    tree = {"token_embed": {"embedding": embed * np.float32(d ** -0.5)}}
+    for i in range(cfg.layers):
+        tree[f"layer_{i}"] = {
+            "ln1": norm(),
+            "attention": {
+                "query": dense(d, cfg.heads * dh),
+                "key": dense(d, cfg.kv_heads_resolved * dh),
+                "value": dense(d, cfg.kv_heads_resolved * dh),
+                "attn_out": dense(cfg.heads * dh, d)},
+            "ln2": norm(),
+            "mlp_in": dense(d, cfg.d_ff),
+            "mlp_out": dense(cfg.d_ff, d)}
+    tree["ln_f"] = norm()
+    tree["lm_head"] = {"kernel": lecun(d, cfg.vocab_size)}
     return tree

@@ -1,0 +1,69 @@
+"""Synthetic batches (the port's copy of ``dtf_tpu.data.synthetic``).
+
+Deterministic per (seed, step, host) with the same numpy draws as the JAX
+package, so both packages see the same batches byte for byte. Ported: the
+``gpt`` kind (causal-LM next-token batches); the image, BERT and
+Wide&Deep kinds come with their slices.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+
+Batch = dict
+
+#: the kinds of the JAX package, by slice of the port that brings them
+KINDS = ("mnist", "cifar", "imagenet", "bert", "gpt", "widedeep")
+
+
+def _rng_for(seed: int, step: int, host: int) -> np.random.Generator:
+    return np.random.default_rng(np.random.SeedSequence([seed, step, host]))
+
+
+class SyntheticData:
+    """Host-sharded synthetic batches. ``batch(step)`` is addressable by
+    step, so a resumed run draws the batch of the step it resumes at."""
+
+    def __init__(self, kind: str, batch_size: int, *, seed: int = 0,
+                 host_index: int = 0, host_count: int = 1,
+                 seq_len: int = 128, vocab_size: int = 30522):
+        if batch_size % host_count:
+            raise ValueError(
+                f"global batch {batch_size} not divisible by {host_count} "
+                "hosts")
+        if kind not in KINDS:
+            raise ValueError(f"unknown synthetic dataset kind: {kind!r}")
+        if kind != "gpt":
+            raise NotImplementedError(
+                f"synthetic kind {kind!r} is not yet ported (the port has "
+                "'gpt')")
+        self.kind = kind
+        self.global_batch = batch_size
+        self.local_batch = batch_size // host_count
+        self.seed = seed
+        self.host = host_index
+        self.seq_len = seq_len
+        self.vocab = vocab_size
+
+    def batch(self, step: int) -> Batch:
+        r = _rng_for(self.seed, step, self.host)
+        n = self.local_batch
+        # learnable structure: token t+1 = (a*token_t + b) mod V on half the
+        # positions, noise on the rest — next-token CE can fall. Built
+        # sequentially so the relation holds on the visible stream.
+        ids = r.integers(0, self.vocab, (n, self.seq_len + 1), np.int32)
+        use_det = r.random((n, self.seq_len)) < 0.5
+        a, b = 3, 7
+        for t in range(self.seq_len):
+            det = (a * ids[:, t] + b) % self.vocab
+            ids[:, t + 1] = np.where(use_det[:, t], det, ids[:, t + 1])
+        return {"input_ids": ids[:, :-1].astype(np.int32),
+                "labels": ids[:, 1:].astype(np.int32)}
+
+    def __iter__(self) -> Iterator[Batch]:
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1

@@ -5,12 +5,15 @@
 
 Builds the decode-mode model (``decode_len`` = prompt + new tokens), loads
 its parameters from ``--params_npz`` (a flax-style tree, see
-:mod:`dtf_tpu_torch.convert`) or makes seeded GPT-2-style ones with
-``--init_seed``, and runs :func:`dtf_tpu_torch.models.gpt.generate` —
-greedy or temperature/top-k/nucleus sampling. Prints one token-id row per
-batch element. Runs on ``cuda`` unless ``--device=cpu`` (or
-``--backend=cpu``). The flag names are the JAX launcher's; restoring an
-Orbax checkpoint, beam search and sharded decode are not ported yet, and
+:mod:`dtf_tpu_torch.convert`), makes seeded GPT-2-style ones with
+``--init_seed``, or restores the newest checkpoint that
+``python -m dtf_tpu_torch.train_gpt`` wrote under ``--logdir`` (its
+``model_config.json`` manifest sets the architecture), and runs
+:func:`dtf_tpu_torch.models.gpt.generate` — greedy or
+temperature/top-k/nucleus sampling. Prints one token-id row per batch
+element. Runs on ``cuda`` unless ``--device=cpu`` (or ``--backend=cpu``).
+The flag names are the JAX launcher's; restoring an Orbax checkpoint of
+the JAX package, beam search and sharded decode are not ported yet, and
 ``--num_beams>1`` or a mesh axis > 1 says so.
 """
 
@@ -22,36 +25,21 @@ import os
 import sys
 
 
-def _bool(s: str) -> bool:
-    if s.lower() in ("1", "true", "yes"):
-        return True
-    if s.lower() in ("0", "false", "no"):
-        return False
-    raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
-
-
 def build_parser() -> argparse.ArgumentParser:
+    from dtf_tpu_torch.cli import flags as dflags
+
     p = argparse.ArgumentParser(
         prog="python -m dtf_tpu_torch.generate_gpt",
         description="GPT decode with the KV cache on the H100 port.")
-    # cluster flags: accepted for the reference's command shape; serving is
-    # a single-process job
-    p.add_argument("--ps_hosts", default="")
-    p.add_argument("--worker_hosts", default="")
-    p.add_argument("--job_name", default="worker")
-    p.add_argument("--task_index", type=int, default=0)
-    p.add_argument("--issync", type=_bool, nargs="?", const=True,
-                   default=True)
-    p.add_argument("--backend", default="gpu", choices=("gpu", "cpu"),
-                   help="gpu (default) | cpu; cpu is --device=cpu")
-    p.add_argument("--devices_per_host", type=int, default=0)
-    for axis, default in (("data", -1), ("seq", 1), ("model", 1),
-                          ("pipe", 1), ("expert", 1)):
-        p.add_argument(f"--mesh_{axis}", type=int, default=default,
-                       help="sharded decode is not ported yet: > 1 raises")
+    # cluster and mesh flags: the reference's command shape; serving is a
+    # single-process job, and a mesh axis > 1 raises
+    dflags.define_cluster_flags(p)
+    dflags.define_mesh_flags(p)
     p.add_argument("--logdir", default="",
-                   help="training logdir; its ckpt/model_config.json "
-                        "manifest, when present, sets the architecture")
+                   help="training logdir: its ckpt/model_config.json "
+                        "manifest, when present, sets the architecture, "
+                        "and its newest checkpoint gives the parameters "
+                        "unless --params_npz/--init_seed is passed")
     p.add_argument("--size", default="small",
                    help="small | medium | draft | tiny (manifest wins)")
     p.add_argument("--kv_heads", type=int, default=0,
@@ -109,7 +97,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from dtf_tpu_torch.checkpoint import load_model_config
+    from dtf_tpu_torch.checkpoint import Checkpointer, load_model_config
     from dtf_tpu_torch.cli.flags import resolve_decode_config
     from dtf_tpu_torch.convert import init_params, load_npz, params_from_flax
     from dtf_tpu_torch.core.device import resolve_device
@@ -153,14 +141,21 @@ def main(argv=None) -> int:
         decode_len=len(prompt_ids) + args.n_new)
 
     if args.params_npz:
-        tree = load_npz(args.params_npz)
+        state_dict = params_from_flax(load_npz(args.params_npz))
     elif args.init_seed is not None:
-        tree = init_params(cfg, args.init_seed)
+        state_dict = params_from_flax(init_params(cfg, args.init_seed))
+    elif args.logdir:
+        ckpt = Checkpointer(os.path.join(args.logdir, "ckpt"))
+        if ckpt.latest_step() is None:
+            parser.error(f"no checkpoint under {args.logdir}/ckpt")
+        state_dict = ckpt.restore_params()
+        print(f"restored checkpoint step {ckpt.last_restored_step} from "
+              f"{args.logdir}/ckpt", file=sys.stderr)
     else:
-        parser.error("no parameters: pass --params_npz or --init_seed "
-                     "(restoring an Orbax checkpoint is not yet ported)")
+        parser.error("no parameters: pass --params_npz, --init_seed or the "
+                     "--logdir of a training run")
     model = gpt.GPT(cfg, device=device)
-    model.load_state_dict(params_from_flax(tree))
+    model.load_state_dict(state_dict)
     model.eval()
 
     prompt = torch.tensor(prompt_ids, dtype=torch.long).expand(

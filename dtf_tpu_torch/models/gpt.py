@@ -10,9 +10,20 @@ the model writes IN PLACE (one dict per layer, from
 
 Ported: the full-sequence forward (with the one-shot prefill cache
 write), the single-token decode step, chunked prefill, the int8 cache,
-``filter_logits`` and ``generate``. Not yet: the serving engine's
+``filter_logits`` and ``generate``; for training, the backward through
+the flash kernels, remat per block (``torch.utils.checkpoint``), dropout
+from explicit per-step seeds, and the monolithic LM loss
+(:func:`make_loss`, :func:`make_eval`). Not yet: the serving engine's
 ``slot_decode`` and verify steps, beam search, MoE layers, tensor and
-sequence parallelism, and everything of training (remat included).
+sequence parallelism, and the fused / chunked LM losses.
+
+Dropout runs only when the caller passes ``dropout_seed`` (the training
+loss does; serving never does). Each mask is drawn from a fresh
+``torch.Generator`` seeded from (step seed, layer, site), so a block that
+remat recomputes draws the mask it drew the first time:
+``torch.utils.checkpoint`` restores the global RNG only, never a
+caller's generator. The masks are not flax's bits, only its distribution
+(keep with probability 1 - rate, scale kept values by 1 / (1 - rate)).
 """
 
 from __future__ import annotations
@@ -23,11 +34,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dtf_tpu_torch.core.comms import TpDense
 from dtf_tpu_torch.core.device import resolve_device
+from dtf_tpu_torch.core.train import LossAux, fold_in
 from dtf_tpu_torch.ops.attention import dense_attention
 from dtf_tpu_torch.ops.flash_attention import flash_attention
+from dtf_tpu_torch.ops.losses import softmax_cross_entropy
 
 _NEG_INF = float("-inf")
 
@@ -66,6 +80,9 @@ class GPTConfig:
     slot_decode: bool = False
     #: "" / "bf16" only; the quantized tiers are not ported.
     matmul_precision: str = ""
+    #: recompute each block in the backward (torch.utils.checkpoint):
+    #: activation memory for FLOPs, as ``nn.remat(Block)``.
+    remat: bool = False
 
     def __post_init__(self):
         if self.kv_heads is not None and (
@@ -221,10 +238,31 @@ def _cache_put_dyn(cfg: GPTConfig, cvar, svar, slot: int,
         svar[:, :, slot:slot + 1, :] = s
 
 
+#: dropout sites of a layer: the attention output and the MLP output (the
+#: embedding is site EMBED_SITE of layer slot 0; block i is slot i + 1)
+ATTN_SITE, MLP_SITE, EMBED_SITE = 1, 2, 0
+
+
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], slot: int,
+             site: int) -> torch.Tensor:
+    """flax's ``nn.Dropout`` with its mask drawn from (seed, slot, site):
+    kept values scaled by 1 / (1 - rate). Off when ``seed`` is None."""
+    if seed is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(fold_in(seed, slot, site))
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig, window: int, device=None):
+    def __init__(self, cfg: GPTConfig, window: int, device=None,
+                 layer: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.layer = layer
         #: effective sliding window of THIS layer (0 on a global layer)
         self.window = window
         d_head = cfg.d_model // cfg.heads
@@ -267,7 +305,8 @@ class CausalSelfAttention(nn.Module):
         return cache
 
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
-                chunked: bool = False) -> torch.Tensor:
+                chunked: bool = False,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
         cfg = self.cfg
         d_head = cfg.d_model // cfg.heads
         kv_heads = cfg.kv_heads_resolved
@@ -307,7 +346,8 @@ class CausalSelfAttention(nn.Module):
                           slots, v[:, :, t - keep:, :])
             cache["cache_index"] += t
         if group > 1:
-            # GQA: query head h reads K/V head h // group
+            # GQA: query head h reads K/V head h // group; autograd sums
+            # the gradients of the repeat back onto the kv heads
             k = k.repeat_interleave(group, dim=1)
             v = v.repeat_interleave(group, dim=1)
         impl = effective_attn_impl(cfg.attn_impl, x.device)
@@ -322,7 +362,8 @@ class CausalSelfAttention(nn.Module):
                 "yet; use 'auto', 'flash' or 'dense'")
         out = out.transpose(1, 2).reshape(b, t, cfg.heads * d_head)
         out = self.attn_out(out)
-        return F.dropout(out, cfg.dropout, self.training)
+        return _dropout(out, cfg.dropout, dropout_seed, self.layer + 1,
+                        ATTN_SITE)
 
     def _decode_step(self, q, k, v, cache: dict) -> torch.Tensor:
         """One token against every cached position <= idx: the grouped
@@ -413,13 +454,16 @@ class CausalSelfAttention(nn.Module):
 class Block(nn.Module):
     """Pre-LN block: LayerNorm in f32 with eps 1e-6 (flax's), tanh GELU."""
 
-    def __init__(self, cfg: GPTConfig, window: int, device=None):
+    def __init__(self, cfg: GPTConfig, window: int, device=None,
+                 layer: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.layer = layer
         f32 = torch.float32
         self.ln1 = nn.LayerNorm(cfg.d_model, eps=1e-6, dtype=f32,
                                 device=device)
-        self.attention = CausalSelfAttention(cfg, window, device=device)
+        self.attention = CausalSelfAttention(cfg, window, device=device,
+                                             layer=layer)
         self.ln2 = nn.LayerNorm(cfg.d_model, eps=1e-6, dtype=f32,
                                 device=device)
         self.mlp_in = TpDense(cfg.d_model, cfg.d_ff, parallel="column",
@@ -427,12 +471,13 @@ class Block(nn.Module):
         self.mlp_out = TpDense(cfg.d_ff, cfg.d_model, parallel="row",
                                dtype=cfg.dtype, device=device)
 
-    def forward(self, x, cache=None, chunked=False):
+    def forward(self, x, cache=None, chunked=False, dropout_seed=None):
         h = self.ln1(x.float())
-        x = x + self.attention(h, cache, chunked)
+        x = x + self.attention(h, cache, chunked, dropout_seed)
         h = self.ln2(x.float())
         y = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
-        return x + F.dropout(y, self.cfg.dropout, self.training)
+        return x + _dropout(y, self.cfg.dropout, dropout_seed,
+                            self.layer + 1, MLP_SITE)
 
 
 class GPT(nn.Module):
@@ -450,7 +495,7 @@ class GPT(nn.Module):
                                         dtype=f32, device=device)
         for i in range(cfg.layers):
             self.add_module(f"layer_{i}", Block(cfg, cfg.layer_window(i),
-                                                device=device))
+                                                device=device, layer=i))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=1e-6, dtype=f32,
                                  device=device)
         self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,
@@ -473,7 +518,11 @@ class GPT(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, cache: Optional[list] = None,
                 *, chunked_prefill: Optional[bool] = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """``dropout_seed``: this step's seed; None (serving) runs no
+        dropout. Under ``cfg.remat`` each block's activations are
+        recomputed in the backward (training calls only: no cache)."""
         cfg = self.cfg
         if (cfg.decode_len > 0) != (cache is not None):
             raise ValueError(
@@ -484,9 +533,15 @@ class GPT(nn.Module):
         # nn.Embed(dtype=bf16) casts the f32 table; casting the gathered
         # rows gives the same values
         x = F.embedding(input_ids, self.token_embed.weight).to(cfg.dtype)
-        x = F.dropout(x, cfg.dropout, self.training)
+        x = _dropout(x, cfg.dropout, dropout_seed, 0, EMBED_SITE)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks()):
-            x = blk(x, None if cache is None else cache[i], chunked)
+            if remat:
+                x = checkpoint(blk, x, None, chunked, dropout_seed,
+                               use_reentrant=False)
+            else:
+                x = blk(x, None if cache is None else cache[i], chunked,
+                        dropout_seed)
         x = self.ln_f(x.float())
         if return_hidden:
             return x
@@ -595,3 +650,49 @@ def _prefill(model: GPT, cache: list, prompt: torch.Tensor,
                            chunked_prefill=True)
         return logits
     return model(prompt, cache)
+
+
+def _check_monolithic(loss_chunk: int, loss_chunk_tokens: int,
+                      loss_pallas: bool) -> None:
+    if loss_chunk or loss_chunk_tokens or loss_pallas:
+        raise NotImplementedError(
+            "not yet ported (fused LM loss, B5–B7): loss_chunk, "
+            "loss_chunk_tokens and loss_pallas must be 0/False; the port "
+            "has the monolithic-logits loss only")
+
+
+def make_loss(model: GPT, *, loss_chunk: int = 0,
+              loss_chunk_tokens: int = 0, loss_pallas: bool = False):
+    """Next-token CE: batch = {"input_ids" [B,T], "labels" [B,T]} where
+    labels are input_ids shifted left by the data layer (-100 = ignore).
+    Returns ``loss_fn(params, batch, rng) -> (loss, LossAux)`` with the
+    valid-token count as the metric ``lm_tokens`` and as the weight.
+    ``params`` are the module's own tensors (the model closes over them);
+    ``rng`` seeds this step's dropout masks. Monolithic [B,T,V] f32
+    logits only: the fused / chunked losses raise."""
+    _check_monolithic(loss_chunk, loss_chunk_tokens, loss_pallas)
+
+    def loss_fn(params, batch, rng):
+        cfg = model.cfg
+        logits = model(batch["input_ids"],
+                       dropout_seed=rng if cfg.dropout else None)
+        loss, n = softmax_cross_entropy(logits, batch["labels"],
+                                        ignore_index=-100)
+        return loss, LossAux(metrics={"lm_tokens": n}, weight=n)
+
+    return loss_fn
+
+
+def make_eval(model: GPT, *, loss_chunk: int = 0,
+              loss_chunk_tokens: int = 0, loss_pallas: bool = False):
+    """Held-out eval: ``eval_fn(params, batch) -> {"eval_loss",
+    "eval_ppl"}``, mean next-token CE (ignore -100) without dropout."""
+    _check_monolithic(loss_chunk, loss_chunk_tokens, loss_pallas)
+
+    def eval_fn(params, batch):
+        logits = model(batch["input_ids"])
+        loss, _ = softmax_cross_entropy(logits, batch["labels"],
+                                        ignore_index=-100)
+        return {"eval_loss": loss, "eval_ppl": torch.exp(loss)}
+
+    return eval_fn

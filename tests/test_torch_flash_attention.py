@@ -4,8 +4,7 @@
 held against on the card) is compared, in float32 on the CPU, with the
 Pallas kernel run in interpret mode (``block_q = block_k = 32``, so the
 ragged and multi-block paths are exercised) and with the dense reference,
-at atol 1e-5 — ``out`` and the ``lse`` residual the training slice's
-backward will read. The CUDA kernel itself only runs on the card
+at atol 1e-5 — ``out`` and the ``lse`` residual the backward reads. The CUDA kernel itself only runs on the card
 (``chip_smoke.py``); here its wrapper must refuse CPU tensors.
 """
 
@@ -209,8 +208,9 @@ def test_argument_checks():
         tfa.flash_attention(q, q, q, kv_mask=torch.ones(2, 8, dtype=bool))
     with pytest.raises(ValueError, match=r"\[B, H, T, D\]"):
         tfa.flash_attention(q[0], q[0], q[0])
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfa.flash_attention(q.requires_grad_(), q, q)
+    # tensors that require grad are taken: the backward is ported
+    out = tfa.flash_attention(q.clone().requires_grad_(), q, q)
+    assert out.requires_grad
 
 
 def test_cuda_wrapper_refuses_cpu_tensors_and_counts_nothing():
@@ -218,4 +218,5 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_counts_nothing():
     q = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="cpu"):
         tfa.flash_attention_cuda(q, q, q, sm_scale=0.125)
-    assert tfa.launch_counts == {"flash_fwd": 0, "flash_fwd_hfold": 0}
+    assert tfa.launch_counts == {"flash_fwd": 0, "flash_fwd_hfold": 0,
+                                 "flash_dq": 0, "flash_dkv": 0}

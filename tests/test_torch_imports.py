@@ -2,7 +2,7 @@
 
 Dynamic: a child process whose ``jax``, ``jaxlib``, ``flax`` and
 ``dtf_tpu`` imports are POISONED imports every module of the port and runs
-its generate entry on ``--device=cpu`` at the tiny size. Static: no file
+its generate and train entries on ``--device=cpu`` at the tiny size. Static: no file
 of ``dtf_tpu_torch/``, and not ``chip_smoke.py``, has an import of them.
 """
 
@@ -97,6 +97,17 @@ def test_port_imports_and_generates_with_jax_poisoned(poisoned_env):
     rows = lines[:-1]
     assert len(rows) == 2 and rows[0] == rows[1]
     assert rows[0].startswith("1,2,3,4,") and len(rows[0].split(",")) == 8
+
+
+def test_train_entry_as_a_module_with_jax_poisoned(poisoned_env, tmp_path):
+    env, cwd = poisoned_env
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.train_gpt", "--device=cpu",
+         "--size=tiny", "--train_steps=2", "--batch_size=2", "--seq_len=16",
+         f"--logdir={tmp_path / 'run'}"], env=env, cwd=cwd,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "done: step=2"
 
 
 def test_generate_entry_as_a_module_with_jax_poisoned(poisoned_env):
