@@ -39,6 +39,23 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    from the checkpoint; ``generate_gpt --logdir`` on it; 30 steps on one
    fixed batch, whose loss must fall by ``FIXED_BATCH_LOSS_DROP``.
    Prints step ms, tokens/s, analytic MFU and peak memory.
+10. kernels_ce — the fused LM head + CE kernels (B5 forward, B6 dX, B7
+    dW) against their plain versions on the card, f32, TF32 off: the
+    training shape with ignored labels, ragged N and V (50257) with
+    out-of-range labels, an all-ignored batch (dX, dW exactly 0), N 5,
+    bf16 x, D 1024.
+11. kernel_times_ce — B5, B6, B7 at N 8192, D 768, V 50304: kernel, plain
+    version, the monolithic composite they replace (cuBLAS f32 head GEMM
+    + logsumexp/gather, and its backward; a yardstick only) and the bound
+    (3xTF32 on the tensor cores).
+12. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
+    the token- and vocab-chunked losses against the monolithic loss (loss,
+    the head's gradient, every other gradient); exactly 1/1/1 B5/B6/B7
+    launches per step on the fused path, none on the chunked ones.
+13. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
+    steps: B5 34 (one per step and per final-eval batch), B6 30, B7 30
+    launches; the first 5 losses against the ``train`` run's. Prints step
+    ms, tokens/s, analytic MFU and peak memory beside ``train``'s.
 
 Then one JSON line listing every kernel (launches on its main path, error
 against the plain version, times, bound), the ``nvidia-smi`` line, and
@@ -64,6 +81,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: bf16 tensor-core FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+#: dense TF32 tensor-core FLOP/s: an f32-accurate product on the tensor
+#: cores is 3xTF32 (three TF32 products per f32 one), the floor of B5–B7
+PEAK_TF32_FLOPS = 494.7e12
 
 #: kernel vs plain version, bf16 inputs. out: both cast p to bf16 before
 #: P·V, but relative to a different max (the kernel's running max, the
@@ -102,6 +122,39 @@ GRAD_NORM_FLOOR = 1e-3
 #: last loss is at least this far below the first
 FIXED_BATCH_LOSS_DROP = 1.0
 TRAIN_STEPS = 30
+
+#: B5–B7 against their plain versions on the card, f32 operands, TF32 off
+#: on both sides: the kernels sum each logit's 768 products in 16-deep
+#: FFMA chains, cuBLAS in its own order — a few f32 ulps per logit, far
+#: below these. lse and tgt (|.| ~ 11): max abs. dX and dW:
+#: ||kernel - plain|| / ||plain||. A bf16 x is promoted to f32 before
+#: the kernels and its dX rounded to bf16 at the end, so the bf16 dX
+#: carries a bf16 rounding of its own (2^-8 relative) where the two f32
+#: values straddle a rounding boundary: CE_BF16_DX_REL_TOL.
+CE_STAT_ATOL = 1e-4
+CE_GRAD_REL_TOL = 1e-4
+CE_BF16_DX_REL_TOL = 4e-3
+#: GPT-2 small, one batch, the fused (and each chunked) loss against the
+#: monolithic loss of the same model: the head math is f32 in both, so the
+#: loss and the head's gradient agree to f32 summation order. The trunk's
+#: gradients pass through 12 bf16 layers, where an f32-ulp change in dX
+#: flips bf16 roundings and the softmax backward at random init (dP − Δ,
+#: a small difference of large terms) amplifies them: the query/key
+#: weights are the noisiest, as in train_grads. A first run at 1e-2 saw
+#: 1.09e-2 on layer_0's query weight for the fused loss, so the trunk is
+#: held to train_grads' bound for bf16 trunk noise, TRAIN_GRAD_REL_TOL
+#: (floored as GRAD_NORM_FLOOR floors), and the chunked losses — cuBLAS
+#: f32 in another order, the same class of perturbation — are printed
+#: beside it as the noise floor.
+CE_LOSS_REL_TOL = 1e-5
+CE_HEAD_GRAD_REL_TOL = 1e-4
+CE_TRUNK_GRAD_REL_TOL = TRAIN_GRAD_REL_TOL
+#: train_ce against train: the same init and data, so the first steps'
+#: losses differ only by the head's summation order, carried by AdamW
+CE_TRAIN_LOSS_REL_TOL = 1e-3
+CE_TRAIN_COMPARED_STEPS = 5
+#: GPT-2 small's head: d_model 768, padded vocab 50304, real vocab 50257
+D_MODEL, VOCAB, VOCAB_REAL = 768, 50304, 50257
 
 #: the serving slice's shapes: GPT-2 small, batch 4, prompt 1024, 64 new
 BATCH, PROMPT, N_NEW, HEADS, D_HEAD = 4, 1024, 64, 12, 64
@@ -675,7 +728,8 @@ def phase_train(torch, smi):
     """``train_gpt``'s main path in process: GPT-2 small, b8 s1024,
     AdamW, 30 steps, then a relaunch that resumes from the checkpoint,
     ``generate_gpt --logdir`` on it, and 30 steps on one fixed batch.
-    Returns the flash launches of the 30-step run."""
+    Returns the flash launches of the 30-step run, its losses, its median
+    step ms and its peak memory."""
     import gc
     import statistics
     import tempfile
@@ -768,16 +822,338 @@ def phase_train(torch, smi):
           "generated_rows": rows, "fixed_batch_losses": fixed,
           "fixed_batch_drop_min": FIXED_BATCH_LOSS_DROP})
     fa.reset_launch_counts()
+    return {"launches": launches, "losses": losses, "step_ms": step_ms,
+            "peak": peak}
+
+
+def ce_bounds_ms(n, d, v):
+    """B5, B6, B7: x [n, d] and W [v, d] f32, labels int32 and the f32
+    statistics read once; B5 writes lse and tgt, B6 dX, B7 dW. B5 does
+    one n·d·v product, B6 and B7 two each (the recompute and their own),
+    each at 3xTF32: three TF32 products per f32 one."""
+    reads = 4 * (n * d + v * d) + 4 * n
+    prod = 2 * n * d * v
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = 3 * flops / PEAK_TF32_FLOPS
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    return {"fused_ce_fwd": bound(reads + 8 * n, prod),
+            "fused_ce_dx": bound(reads + 8 * n + 4 * n * d, 2 * prod),
+            "fused_ce_dw": bound(reads + 8 * n + 4 * v * d, 2 * prod)}
+
+
+def _ce_inputs(torch, gen, n, d, v, x_dtype=None):
+    """x ~ N(0, 1) (post-LayerNorm scale), W ~ N(0, 0.05²) — logits of
+    std ~1.4 — and labels in [0, VOCAB_REAL)."""
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    w = torch.randn(v, d, generator=gen, device="cuda") * 0.05
+    labels = torch.randint(0, min(v, VOCAB_REAL), (n,), generator=gen,
+                           device="cuda")
+    return x.to(x_dtype or torch.float32), w, labels
+
+
+def _rel(torch, got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def phase_kernels_ce(torch):
+    """B5, B6 and B7 against fused_ce_*_reference on the card: the
+    training shape with ignored labels, ragged N and V with out-of-range
+    labels, an all-ignored batch, N 5, bf16 x, and the other compiled
+    head width. Returns each kernel's largest max-abs error."""
+    from dtf_tpu_torch.ops import fused_ce as fc
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    cases = [
+        ("train_N8192", 8192, D_MODEL, VOCAB, "some_ignored", None),
+        ("ragged_N1000_V50257", 1000, D_MODEL, VOCAB_REAL, "out_of_range",
+         None),
+        ("all_ignored", 300, D_MODEL, VOCAB, "all_ignored", None),
+        ("N5", 5, D_MODEL, VOCAB, "", None),
+        ("bf16_x_N1024", 1024, D_MODEL, VOCAB, "some_ignored",
+         torch.bfloat16),
+        ("d1024_N700_V5003", 700, 1024, 5003, "out_of_range", None),
+    ]
+    rows, worst = [], {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0,
+                       "fused_ce_dw": 0.0}
+    fc.reset_launch_counts()
+    for name, n, d, v, labelling, x_dtype in cases:
+        x, w, labels = _ce_inputs(torch, gen, n, d, v, x_dtype)
+        if labelling == "some_ignored":
+            labels[::7] = -100
+        elif labelling == "out_of_range":
+            labels[0], labels[1], labels[2] = v, v + 40, 10 ** 6
+            labels[3] = -100
+        elif labelling == "all_ignored":
+            labels[:] = -100
+        valid = (labels != -100).float()
+        dce = valid / valid.sum().clamp_min(1.0)       # g_mean = 1
+        lse, tgt = fc.fused_ce_fwd_cuda(x, w, labels)
+        torch.cuda.synchronize()
+        want_lse, want_tgt = fc.fused_ce_fwd_reference(x, w, labels)
+        dx = fc.fused_ce_dx_cuda(x, w, labels, lse, dce)
+        dw = fc.fused_ce_dw_cuda(x, w, labels, lse, dce)
+        torch.cuda.synchronize()
+        want_dx, want_dw = fc.fused_ce_bwd_reference(x, w, labels, lse, dce)
+        row = {"case": name, "n": n, "d": d, "v": v,
+               "lse_max_abs": (lse - want_lse).abs().max().item(),
+               "tgt_max_abs": (tgt - want_tgt).abs().max().item(),
+               "dx_max_abs": (dx.float() - want_dx.float()).abs().max()
+               .item(),
+               "dw_max_abs": (dw - want_dw).abs().max().item()}
+        finite = all(torch.isfinite(t.float()).all().item()
+                     for t in (lse, tgt, dx, dw))
+        shapes = (tuple(dx.shape) == (n, d) and dx.dtype == x.dtype
+                  and tuple(dw.shape) == (v, d) and dw.dtype == torch.float32)
+        if labelling == "all_ignored":
+            row["dx_nonzero"] = torch.count_nonzero(dx).item()
+            row["dw_nonzero"] = torch.count_nonzero(dw).item()
+            ok = row["dx_nonzero"] == 0 and row["dw_nonzero"] == 0
+        else:
+            row["dx_rel"] = _rel(torch, dx, want_dx)
+            row["dw_rel"] = _rel(torch, dw, want_dw)
+            dx_tol = CE_BF16_DX_REL_TOL if x_dtype else CE_GRAD_REL_TOL
+            ok = row["dx_rel"] <= dx_tol and row["dw_rel"] <= CE_GRAD_REL_TOL
+        ok = (ok and finite and shapes and row["lse_max_abs"] <= CE_STAT_ATOL
+              and row["tgt_max_abs"] <= CE_STAT_ATOL)
+        row["ok"] = ok
+        emit({"phase": "kernels_ce_case", **row})
+        require(ok, f"{name}: a fused CE kernel disagrees with its plain "
+                    f"version: {row}")
+        worst["fused_ce_fwd"] = max(worst["fused_ce_fwd"],
+                                    row["lse_max_abs"], row["tgt_max_abs"])
+        worst["fused_ce_dx"] = max(worst["fused_ce_dx"], row["dx_max_abs"])
+        worst["fused_ce_dw"] = max(worst["fused_ce_dw"], row["dw_max_abs"])
+        rows.append(row)
+        del x, w, dx, dw, want_dx, want_dw
+    require(fc.launch_counts == {"fused_ce_fwd": len(cases),
+                                 "fused_ce_dx": len(cases),
+                                 "fused_ce_dw": len(cases)},
+            f"kernels_ce launches {fc.launch_counts}")
+    emit({"phase": "kernels_ce", "stat_atol": CE_STAT_ATOL,
+          "grad_rel_tol": CE_GRAD_REL_TOL,
+          "bf16_dx_rel_tol": CE_BF16_DX_REL_TOL, "max_abs": worst})
+    fc.reset_launch_counts()
+    return worst
+
+
+def phase_kernel_times_ce(torch):
+    """B5, B6 and B7 at the training shape (N 8192, D 768, V 50304, f32):
+    kernel, plain version, the monolithic composite the fused path
+    replaces (a yardstick only: the cuBLAS f32 head GEMM + logsumexp/
+    gather forward, and its autograd backward for B6 + B7) and the
+    bound."""
+    from dtf_tpu_torch.ops import fused_ce as fc
+    from dtf_tpu_torch.ops.losses import softmax_cross_entropy
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    n = TRAIN_BATCH * TRAIN_SEQ
+    x, w, labels = _ce_inputs(torch, gen, n, D_MODEL, VOCAB)
+    labels[::97] = -100
+    valid = (labels != -100).float()
+    dce = valid / valid.sum()
+    lse, _ = fc.fused_ce_fwd_cuda(x, w, labels)
+    lab32 = labels.to(torch.int32)
+    res = {
+        "fused_ce_fwd": time_ms(torch, lambda: fc.fused_ce_fwd_cuda(
+            x, w, lab32), 5),
+        "fused_ce_dx": time_ms(torch, lambda: fc.fused_ce_dx_cuda(
+            x, w, lab32, lse, dce), 3),
+        "fused_ce_dw": time_ms(torch, lambda: fc.fused_ce_dw_cuda(
+            x, w, lab32, lse, dce), 3),
+    }
+    plain_fwd = time_ms(torch, lambda: fc.fused_ce_fwd_reference(
+        x, w, labels), 3)
+    plain_bwd = time_ms(torch, lambda: fc.fused_ce_bwd_reference(
+        x, w, labels, lse, dce), 2)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    lib_fwd = time_ms(torch, lambda: softmax_cross_entropy(
+        x @ w.t(), labels, ignore_index=-100), 3)
+    lib_fwd_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        softmax_cross_entropy(xg @ wg.t(), labels, ignore_index=-100)[0],
+        (xg, wg)), 2)
+    fc.reset_launch_counts()
+    bounds = ce_bounds_ms(n, D_MODEL, VOCAB)
+    timing = {}
+    for name in res:
+        fwd = name == "fused_ce_fwd"
+        timing[name] = dict(
+            ms=res[name], plain_ms=plain_fwd if fwd else plain_bwd,
+            bound_ms=bounds[name][0], bound_by=bounds[name][1],
+            library_ms=lib_fwd if fwd else lib_fwd_bwd - lib_fwd)
+    emit({"phase": "kernel_times_ce", "n": n, "d": D_MODEL, "v": VOCAB,
+          **{name: {"kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"]} for name, t in timing.items()},
+          "plain": "fused_ce_fwd_reference; fused_ce_bwd_reference computes "
+                   "B6 and B7 together",
+          "library": "monolithic composite: softmax_cross_entropy(x @ w.T) "
+                     "forward (cuBLAS f32 GEMM + logsumexp/gather); its "
+                     "autograd backward = (forward + backward) - forward, "
+                     "for B6 and B7 together"})
+    return timing
+
+
+def phase_train_grads_ce(torch):
+    """GPT-2 small at full width, the trainer's init, one 8 x 1024 batch,
+    flash attention: the loss and every gradient of the fused loss (and of
+    each chunked loss) against the monolithic loss of the same model; the
+    kernels' launches per step."""
+    from dtf_tpu_torch.convert import init_params_flax, params_from_flax
+    from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import fused_ce as fc
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    model = gpt.GPT(cfg, device="cuda")
+    model.load_state_dict(params_from_flax(init_params_flax(cfg, 0)))
+    params = dict(model.named_parameters())
+    batch = _train_batch(torch, cfg)
+    flash_want = {"flash_fwd": cfg.layers, "flash_fwd_hfold": 0,
+                  "flash_dq": cfg.layers, "flash_dkv": cfg.layers}
+
+    def run(**opts):
+        fa.reset_launch_counts()
+        fc.reset_launch_counts()
+        loss, _ = gpt.make_loss(model, **opts)(params, batch, 0)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        return (loss.item(), dict(zip(params, grads)),
+                dict(fa.launch_counts), dict(fc.launch_counts))
+
+    l0, g0, flash0, fused0 = run()
+    require(flash0 == flash_want and not any(fused0.values()),
+            f"monolithic launches {flash0} {fused0}")
+    total = torch.sqrt(sum((g.float() ** 2).sum() for g in g0.values()))
+    rows = []
+    for name, opts, fused_want in (
+            ("loss_pallas", {"loss_pallas": True},
+             {"fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}),
+            ("loss_chunk_tokens_4096", {"loss_chunk_tokens": 4096}, None),
+            ("loss_chunk_8192", {"loss_chunk": 8192}, None)):
+        loss, grads, flash, fused = run(**opts)
+        fused_want = fused_want or {k: 0 for k in fused}
+        require(flash == flash_want and fused == fused_want,
+                f"{name}: launches per step {flash} {fused} != "
+                f"{flash_want} {fused_want}")
+        require(all(torch.isfinite(g).all().item() for g in grads.values()),
+                f"{name}: non-finite gradient")
+        head = _rel(torch, grads["lm_head.weight"], g0["lm_head.weight"])
+        worst, worst_name = 0.0, ""
+        for pname, g in g0.items():
+            if pname == "lm_head.weight":
+                continue
+            denom = torch.maximum(g.float().norm(), GRAD_NORM_FLOOR * total)
+            rel = ((grads[pname].float() - g.float()).norm() / denom).item()
+            if rel > worst:
+                worst, worst_name = rel, pname
+        row = {"loss": name, "loss_value": loss, "loss_monolithic": l0,
+               "loss_rel": abs(loss - l0) / abs(l0), "head_grad_rel": head,
+               "worst_trunk_grad_rel": worst,
+               "worst_trunk_grad_param": worst_name,
+               "flash_launches": flash, "fused_launches": fused}
+        rows.append(row)
+        del grads
+    emit({"phase": "train_grads_ce", "model": "gpt2-small",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "loss_rel_tol": CE_LOSS_REL_TOL,
+          "head_grad_rel_tol": CE_HEAD_GRAD_REL_TOL,
+          "trunk_grad_rel_tol": CE_TRUNK_GRAD_REL_TOL, "runs": rows})
+    for row in rows:
+        require(row["loss_rel"] <= CE_LOSS_REL_TOL and
+                row["head_grad_rel"] <= CE_HEAD_GRAD_REL_TOL and
+                row["worst_trunk_grad_rel"] <= CE_TRUNK_GRAD_REL_TOL,
+                f"{row['loss']} disagrees with the monolithic loss: {row}")
+    del model, params, g0
+    fa.reset_launch_counts()
+    fc.reset_launch_counts()
+
+
+def phase_train_ce(torch, smi, mono):
+    """``train_gpt --loss_pallas`` in process: GPT-2 small, b8 s1024,
+    AdamW, 30 steps. Exactly one B5/B6/B7 launch per step (plus B5 once
+    per final-eval batch); the first steps' losses against the monolithic
+    ``train`` run's (``mono``, None when that phase did not run). Returns
+    the fused kernels' launches."""
+    import gc
+    import statistics
+    import tempfile
+
+    from dtf_tpu_torch import train_gpt
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import fused_ce as fc
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_train_ce_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    fc.reset_launch_counts()
+    state, writer = train_gpt.run([
+        "--size=small", f"--batch_size={TRAIN_BATCH}",
+        f"--seq_len={TRAIN_SEQ}", "--log_every=1", "--checkpoint_every=1000",
+        f"--logdir={logdir}", f"--train_steps={TRAIN_STEPS}",
+        "--loss_pallas"])
+    torch.cuda.synchronize()
+    launches, flash = dict(fc.launch_counts), dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    rows = [(s, m) for s, m in writer.history if "loss" in m]
+    losses = [m["loss"] for _, m in rows]
+    require(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
+            f"trained {state.step} steps, logged {len(losses)}")
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    # one per step, plus the final eval's 4 forward batches for B5
+    want = {"fused_ce_fwd": TRAIN_STEPS + 4, "fused_ce_dx": TRAIN_STEPS,
+            "fused_ce_dw": TRAIN_STEPS}
+    require(launches == want, f"train_ce launches {launches} != {want}")
+    flash_want = {"flash_fwd": 12 * (TRAIN_STEPS + 4), "flash_fwd_hfold": 0,
+                  "flash_dq": 12 * TRAIN_STEPS, "flash_dkv": 12 * TRAIN_STEPS}
+    require(flash == flash_want, f"train_ce flash launches {flash}")
+    rel = None
+    if mono is not None:
+        k = CE_TRAIN_COMPARED_STEPS
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[:k],
+                                                   mono["losses"][:k])]
+        require(max(rel) <= CE_TRAIN_LOSS_REL_TOL,
+                f"train_ce losses {losses[:k]} vs monolithic "
+                f"{mono['losses'][:k]}")
+    steady = [m for s, m in rows if s > 3]
+    step_ms = statistics.median(1e3 / m["steps_per_sec"] for m in steady)
+    mfu = statistics.median(m["mfu"] for m in steady)
+    del state, writer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(logdir, ignore_errors=True)
+    emit({"phase": "train_ce", "model": "gpt2-small", "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "loss": "--loss_pallas",
+          "nvidia_smi": smi, "losses": losses,
+          "loss_rel_vs_monolithic": rel,
+          "loss_rel_tol": CE_TRAIN_LOSS_REL_TOL,
+          "step_ms_median_after_3": step_ms,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+          "mfu_analytic_vs_989tf": mfu, "max_memory_allocated": peak,
+          "monolithic_step_ms_median_after_3":
+              mono["step_ms"] if mono else None,
+          "monolithic_max_memory_allocated": mono["peak"] if mono else None,
+          "fused_launches": launches, "flash_launches": flash})
+    fc.reset_launch_counts()
+    fa.reset_launch_counts()
     return launches
 
 
 #: every phase, in the order a full run takes them
 PHASES = ("device", "build", "kernels", "generate", "generate_variants",
-          "kernels_bwd", "kernel_times_bwd", "train_grads", "train")
+          "kernels_bwd", "kernel_times_bwd", "train_grads", "train",
+          "kernels_ce", "kernel_times_ce", "train_grads_ce", "train_ce")
 
 
 def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
-                 timing_bwd, train_launches):
+                 timing_bwd, train_launches, err_ce, timing_ce,
+                 train_ce_launches):
     """The one JSON line listing every ported kernel: its launches on its
     main path, its error against the plain version, its times and bound."""
     fwd_common = {"route": "cuda",
@@ -806,6 +1182,13 @@ def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
          "replaces": "dtf_tpu/ops/flash_attention.py:405",
          "launches": train_launches["flash_dkv"],
          "max_abs_err": err_bwd["flash_dkv"], **timing_bwd["flash_dkv"]},
+        *({"name": name, "route": "cuda",
+           "source": "dtf_tpu_torch/ops/csrc/fused_ce.cu",
+           "replaces": f"dtf_tpu/ops/fused_ce.py:{line}",
+           "launches": train_ce_launches[name], "max_abs_err": err_ce[name],
+           **timing_ce[name]}
+          for name, line in (("fused_ce_fwd", 59), ("fused_ce_dx", 115),
+                             ("fused_ce_dw", 134))),
     ]}
 
 
@@ -855,13 +1238,24 @@ def main(argv=None):
         phase_train_grads(torch)
     if "train" in phases:
         got["train"] = phase_train(torch, smi)
+    if "kernels_ce" in phases:
+        got["kernels_ce"] = phase_kernels_ce(torch)
+    if "kernel_times_ce" in phases:
+        got["kernel_times_ce"] = phase_kernel_times_ce(torch)
+    if "train_grads_ce" in phases:
+        phase_train_grads_ce(torch)
+    if "train_ce" in phases:
+        got["train_ce"] = phase_train_ce(torch, smi, got.get("train"))
     if all(p in phases for p in PHASES):
-        # launches: each kernel's count on this slice's main path (the
-        # train run), B4's on the variants path, the only one it is on
+        # launches: each kernel's count on its slice's main path (the
+        # train run for B1-B3, the train_ce run for B5-B7), B4's on the
+        # variants path, the only one it is on
+        train = got["train"]["launches"]
         emit({**kernels_line(got["kernels"][0], got["kernels"][1],
-                             got["train"]["flash_fwd"],
-                             got["generate_variants"], got["kernels_bwd"],
-                             got["kernel_times_bwd"], got["train"]),
+                             train["flash_fwd"], got["generate_variants"],
+                             got["kernels_bwd"], got["kernel_times_bwd"],
+                             train, got["kernels_ce"],
+                             got["kernel_times_ce"], got["train_ce"]),
               "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

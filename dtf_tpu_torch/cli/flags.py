@@ -9,6 +9,8 @@ import argparse
 import logging
 import os
 import tempfile
+from typing import NamedTuple, Optional
+
 import torch
 
 log = logging.getLogger("dtf_tpu_torch")
@@ -163,35 +165,78 @@ def define_train_flags(p: argparse.ArgumentParser, batch_size=64,
 #: monolithic [B,T,V] f32 logits plus their cotangent must fit inside this
 #: fraction of the device's memory (the JAX package's budget rule)
 LOGITS_HBM_FRACTION = 0.25
+#: the token-chunk width the loss takes when the logits do not fit (the
+#: JAX package's default bounded-memory shape: one full-vocab product per
+#: block)
+AUTO_LOSS_CHUNK_TOKENS = 4096
+
+
+class LmLossPath(NamedTuple):
+    """The resolved LM loss path (``resolve_lm_loss``): the vocab-chunk
+    width, the token-chunk width, the fused kernels, and why."""
+
+    chunk_vocab: int
+    chunk_tokens: int
+    pallas: bool = False
+    source: str = "heuristic"
 
 
 def resolve_lm_loss(args, *, batch: int, seq_len: int, vocab_size: int,
-                    device) -> str:
-    """Check that the LM loss path is the monolithic one, the only one the
-    port has, and return why it was chosen. The logits are budgeted against
-    ``LOGITS_HBM_FRACTION`` of the card's memory
-    (``torch.cuda.get_device_properties(dev).total_memory``; on the CPU
-    there is no budget). When they do not fit, or a fused-loss flag is
-    set, this raises: the fused and chunked losses (B5–B7) are not yet
-    ported, and no other path is chosen silently."""
-    which = [f for f in ("loss_chunk_vocab", "loss_chunk_tokens",
-                         "loss_pallas") if getattr(args, f, 0)]
-    if which:
-        raise NotImplementedError(
-            f"--{which[0]}: not yet ported (fused LM loss, B5–B7)")
+                    device="cuda", hbm_bytes: Optional[float] = None
+                    ) -> LmLossPath:
+    """Pick the LM loss path from the memory estimate, the JAX package's
+    policy.
+
+    Explicit flags (``--loss_chunk_vocab``, ``--loss_chunk_tokens``,
+    ``--loss_pallas``) always win, with a warning when they force a fused
+    path on a config whose monolithic logits fit, and when
+    ``--loss_chunk_vocab`` is forced where the logits do not fit (the
+    default bounded-memory path is the token-chunked one). Otherwise the
+    monolithic path when the f32 logits plus their cotangent
+    (2·B·T·V·4 bytes) fit inside ``LOGITS_HBM_FRACTION`` of the device
+    memory, and the token-chunked loss at ``AUTO_LOSS_CHUNK_TOKENS`` when
+    they do not. The port has no tuning cache, so no measured winner ever
+    overrides this.
+
+    ``hbm_bytes``: the budget's memory; by default the card's
+    (``torch.cuda.get_device_properties(device).total_memory``). On the
+    CPU, with no ``hbm_bytes``, there is no budget: the logits fit."""
+    lchunk = getattr(args, "loss_chunk_vocab", 0)
+    tchunk = getattr(args, "loss_chunk_tokens", 0)
+    lpallas = bool(getattr(args, "loss_pallas", False))
     est = 2 * batch * seq_len * vocab_size * 4
-    device = torch.device(device)
-    if device.type != "cuda":
-        return "cpu: monolithic (no budget)"
-    hbm = torch.cuda.get_device_properties(device).total_memory
-    if est > LOGITS_HBM_FRACTION * hbm:
-        raise NotImplementedError(
-            f"monolithic [B,T,V] logits estimated at {est / 1e9:.2f} GB "
-            f"(> {int(LOGITS_HBM_FRACTION * 100)}% of {hbm / 1e9:.0f} GB): "
-            "not yet ported (fused LM loss); lower --batch_size or "
-            "--seq_len")
-    return (f"monolithic logits fit (est {est / 1e9:.2f} GB of "
-            f"{hbm / 1e9:.0f} GB)")
+    if hbm_bytes is None and torch.device(device).type == "cuda":
+        hbm_bytes = torch.cuda.get_device_properties(
+            torch.device(device)).total_memory
+    fits = hbm_bytes is None or est <= LOGITS_HBM_FRACTION * hbm_bytes
+    budget = ("no budget (cpu)" if hbm_bytes is None else
+              f"est {est / 1e9:.2f} GB of {hbm_bytes / 1e9:.0f} GB")
+    if lchunk or tchunk or lpallas:
+        which = ("--loss_chunk_vocab" if lchunk else
+                 "--loss_chunk_tokens" if tchunk else "--loss_pallas")
+        if fits and hbm_bytes is not None:
+            log.warning(
+                "%s forces a fused LM loss but the monolithic [B,T,V] "
+                "logits fit (%s): drop the flag to let the memory "
+                "estimate pick", which, budget)
+        elif lchunk and not fits:
+            log.warning(
+                "--loss_chunk_vocab forces the vocab-chunked loss, whose "
+                "online-logsumexp scan re-reads every token per chunk; the "
+                "default bounded-memory path is the token-chunked loss — "
+                "drop the flag to follow it")
+        return LmLossPath(lchunk, tchunk, lpallas, source="explicit")
+    if fits:
+        return LmLossPath(0, 0, source=f"monolithic logits fit ({budget})")
+    log.warning(
+        "monolithic [B,T,V] logits estimated at %.2f GB (> %d%% of %.0f GB "
+        "of device memory): auto-selecting the token-chunked fused loss "
+        "(chunk=%d); pass --loss_chunk_tokens/--loss_chunk_vocab/"
+        "--loss_pallas to override", est / 1e9,
+        int(LOGITS_HBM_FRACTION * 100), hbm_bytes / 1e9,
+        AUTO_LOSS_CHUNK_TOKENS)
+    return LmLossPath(0, AUTO_LOSS_CHUNK_TOKENS,
+                      source="HBM heuristic (no banked winner)")
 
 
 def resolve_grad_shard(args, data_axis: int, *, blockers=()) -> bool:

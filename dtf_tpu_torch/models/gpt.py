@@ -12,10 +12,11 @@ Ported: the full-sequence forward (with the one-shot prefill cache
 write), the single-token decode step, chunked prefill, the int8 cache,
 ``filter_logits`` and ``generate``; for training, the backward through
 the flash kernels, remat per block (``torch.utils.checkpoint``), dropout
-from explicit per-step seeds, and the monolithic LM loss
-(:func:`make_loss`, :func:`make_eval`). Not yet: the serving engine's
-``slot_decode`` and verify steps, beam search, MoE layers, tensor and
-sequence parallelism, and the fused / chunked LM losses.
+from explicit per-step seeds, and the LM loss (:func:`make_loss`,
+:func:`make_eval`): monolithic logits, or the head fused with the CE —
+vocab- or token-chunked, or the fused kernels (B5–B7). Not yet: the
+serving engine's ``slot_decode`` and verify steps, beam search, MoE
+layers, tensor and sequence parallelism.
 
 Dropout runs only when the caller passes ``dropout_seed`` (the training
 loss does; serving never does). Each mask is drawn from a fresh
@@ -41,7 +42,10 @@ from dtf_tpu_torch.core.device import resolve_device
 from dtf_tpu_torch.core.train import LossAux, fold_in
 from dtf_tpu_torch.ops.attention import dense_attention
 from dtf_tpu_torch.ops.flash_attention import flash_attention
-from dtf_tpu_torch.ops.losses import softmax_cross_entropy
+from dtf_tpu_torch.ops.fused_ce import fused_lm_cross_entropy
+from dtf_tpu_torch.ops.losses import (chunked_lm_cross_entropy,
+                                      softmax_cross_entropy,
+                                      token_chunked_lm_cross_entropy)
 
 _NEG_INF = float("-inf")
 
@@ -652,13 +656,27 @@ def _prefill(model: GPT, cache: list, prompt: torch.Tensor,
     return model(prompt, cache)
 
 
-def _check_monolithic(loss_chunk: int, loss_chunk_tokens: int,
-                      loss_pallas: bool) -> None:
-    if loss_chunk or loss_chunk_tokens or loss_pallas:
-        raise NotImplementedError(
-            "not yet ported (fused LM loss, B5–B7): loss_chunk, "
-            "loss_chunk_tokens and loss_pallas must be 0/False; the port "
-            "has the monolithic-logits loss only")
+def _fused_ce(loss_chunk: int, loss_chunk_tokens: int,
+              loss_pallas: bool = False):
+    """Resolve the head-fused CE options to one callable on
+    ``(hidden, lm_head.weight, labels)``, or None for the monolithic
+    logits. Vocab chunking bounds live logits at O(N·chunk) with an online
+    logsumexp; token chunking at O(chunk·V) with a plain CE per token
+    block; ``loss_pallas`` runs the fused kernels (B5–B7), whose logits
+    live only in on-chip tiles."""
+    if sum(map(bool, (loss_chunk, loss_chunk_tokens, loss_pallas))) > 1:
+        raise ValueError("loss_chunk (vocab), loss_chunk_tokens and "
+                         "loss_pallas are mutually exclusive")
+    if loss_pallas:
+        return lambda y, w, lab: fused_lm_cross_entropy(
+            y, w, lab, ignore_index=-100)
+    if loss_chunk_tokens:
+        return lambda y, w, lab: token_chunked_lm_cross_entropy(
+            y, w, lab, chunk=loss_chunk_tokens, ignore_index=-100)
+    if loss_chunk:
+        return lambda y, w, lab: chunked_lm_cross_entropy(
+            y, w, lab, chunk=loss_chunk, ignore_index=-100)
+    return None
 
 
 def make_loss(model: GPT, *, loss_chunk: int = 0,
@@ -668,16 +686,26 @@ def make_loss(model: GPT, *, loss_chunk: int = 0,
     Returns ``loss_fn(params, batch, rng) -> (loss, LossAux)`` with the
     valid-token count as the metric ``lm_tokens`` and as the weight.
     ``params`` are the module's own tensors (the model closes over them);
-    ``rng`` seeds this step's dropout masks. Monolithic [B,T,V] f32
-    logits only: the fused / chunked losses raise."""
-    _check_monolithic(loss_chunk, loss_chunk_tokens, loss_pallas)
+    ``rng`` seeds this step's dropout masks.
+
+    ``loss_chunk > 0``: the CE fused with the head in vocab chunks of that
+    width (:func:`~dtf_tpu_torch.ops.losses.chunked_lm_cross_entropy`);
+    ``loss_chunk_tokens > 0``: in token chunks
+    (:func:`~dtf_tpu_torch.ops.losses.token_chunked_lm_cross_entropy`);
+    ``loss_pallas``: the fused head + CE kernels
+    (:func:`~dtf_tpu_torch.ops.fused_ce.fused_lm_cross_entropy`). All give
+    the monolithic path's numbers without its [B,T,V] f32 logits."""
+    fused = _fused_ce(loss_chunk, loss_chunk_tokens, loss_pallas)
 
     def loss_fn(params, batch, rng):
         cfg = model.cfg
-        logits = model(batch["input_ids"],
-                       dropout_seed=rng if cfg.dropout else None)
-        loss, n = softmax_cross_entropy(logits, batch["labels"],
-                                        ignore_index=-100)
+        y = model(batch["input_ids"], dropout_seed=rng if cfg.dropout
+                  else None, return_hidden=fused is not None)
+        if fused is not None:
+            loss, n = fused(y, model.lm_head.weight, batch["labels"])
+        else:
+            loss, n = softmax_cross_entropy(y, batch["labels"],
+                                            ignore_index=-100)
         return loss, LossAux(metrics={"lm_tokens": n}, weight=n)
 
     return loss_fn
@@ -686,13 +714,17 @@ def make_loss(model: GPT, *, loss_chunk: int = 0,
 def make_eval(model: GPT, *, loss_chunk: int = 0,
               loss_chunk_tokens: int = 0, loss_pallas: bool = False):
     """Held-out eval: ``eval_fn(params, batch) -> {"eval_loss",
-    "eval_ppl"}``, mean next-token CE (ignore -100) without dropout."""
-    _check_monolithic(loss_chunk, loss_chunk_tokens, loss_pallas)
+    "eval_ppl"}``, mean next-token CE (ignore -100) without dropout, on
+    the loss path :func:`make_loss` takes for the same options."""
+    fused = _fused_ce(loss_chunk, loss_chunk_tokens, loss_pallas)
 
     def eval_fn(params, batch):
-        logits = model(batch["input_ids"])
-        loss, _ = softmax_cross_entropy(logits, batch["labels"],
-                                        ignore_index=-100)
+        y = model(batch["input_ids"], return_hidden=fused is not None)
+        if fused is not None:
+            loss, _ = fused(y, model.lm_head.weight, batch["labels"])
+        else:
+            loss, _ = softmax_cross_entropy(y, batch["labels"],
+                                            ignore_index=-100)
         return {"eval_loss": loss, "eval_ppl": torch.exp(loss)}
 
     return eval_fn

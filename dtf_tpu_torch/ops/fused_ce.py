@@ -1,0 +1,285 @@
+"""Fused LM head + cross-entropy (counterpart of ``dtf_tpu.ops.fused_ce``).
+
+The [N, V] logits and their cotangent are never stored: the head product
+and the CE run tile by tile, and the backward rebuilds each tile's
+dlogits from the saved per-token logsumexp. Side by side:
+
+- :func:`fused_ce_fwd_reference` / :func:`fused_ce_bwd_reference`: the
+  plain PyTorch versions. The forward is B5's contract, ``(lse, tgt)``
+  per token: the logsumexp over the V live columns and the target logit
+  (0 for a label outside [0, V)). The backward is B6 + B7:
+  ``dlogits = dce · (softmax − onehot)`` rebuilt from ``lse``, then
+  ``dx = dlogits · W`` and ``dW = dlogitsᵀ · x``.
+- :func:`fused_ce_fwd_cuda`, :func:`fused_ce_dx_cuda`,
+  :func:`fused_ce_dw_cuda`: the wrappers of the hand-written Hopper
+  kernels in ``csrc/fused_ce.cu`` (replacing the Pallas ``_fwd_kernel``,
+  ``_dx_kernel`` and ``_dw_kernel``), with the same contracts. They count
+  their launches in :data:`launch_counts`.
+- :func:`fused_lm_cross_entropy`: the public entry, differentiable
+  through :class:`_FusedCE` (the counterpart of ``_fused_ce``'s
+  ``custom_vjp``). CPU tensors take the plain versions, CUDA tensors the
+  kernels; nothing falls back.
+
+The head weight is ``nn.Linear.weight``'s layout, [V, D] (the JAX
+package's kernel transposed); the kernels read it through its row
+stride. Sums are f32 (f64 for f64 inputs in the plain versions, so that
+``gradcheck`` can run). ``bias`` is not supported, as in the reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from dtf_tpu_torch.ops.losses import _acc_dtype
+
+#: head widths (d_model) the backward kernels are compiled for: their
+#: [32, D] accumulators are spread over registers at a compile-time width
+HEAD_WIDTHS = (768, 1024)
+
+#: Launches of the CUDA kernels: ``fused_ce_fwd`` (B5), ``fused_ce_dx``
+#: (B6) and ``fused_ce_dw`` (B7). Plain integers;
+#: :func:`reset_launch_counts` zeroes them.
+launch_counts = {"fused_ce_fwd": 0, "fused_ce_dx": 0, "fused_ce_dw": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _logits(x, w, acc):
+    return torch.matmul(x.to(acc), w.to(acc).t())
+
+
+def fused_ce_fwd_reference(x: torch.Tensor, w: torch.Tensor,
+                           labels: torch.Tensor):
+    """x [N, D], w [V, D], labels [N] int → (lse [N], tgt [N]) in the
+    working type: the logsumexp of x·Wᵀ over its V columns, and the logit
+    at the label's column (0 where the label is outside [0, V))."""
+    acc = _acc_dtype(x, w)
+    logits = _logits(x, w, acc)
+    v = w.shape[0]
+    labels = labels.long()
+    live = (labels >= 0) & (labels < v)
+    picked = logits.gather(1, labels.clamp(0, v - 1)[:, None])[:, 0]
+    tgt = torch.where(live, picked, torch.zeros_like(picked))
+    return torch.logsumexp(logits, dim=-1), tgt
+
+
+def fused_ce_bwd_reference(x: torch.Tensor, w: torch.Tensor,
+                           labels: torch.Tensor, lse: torch.Tensor,
+                           dce: torch.Tensor):
+    """The backward (``_run_bwd``): dlogits = dce·(exp(x·Wᵀ − lse) −
+    onehot(label)) with an out-of-range label's onehot all 0, then
+    (dx = dlogits·W in x's dtype, dW = dlogitsᵀ·x in w's dtype)."""
+    acc = _acc_dtype(x, w)
+    logits = _logits(x, w, acc)
+    v = w.shape[0]
+    hot = (torch.arange(v, device=x.device)[None, :]
+           == labels.long()[:, None])
+    dl = dce.to(acc)[:, None] * (torch.exp(logits - lse.to(acc)[:, None])
+                                 - hot.to(acc))
+    dx = torch.matmul(dl, w.to(acc))
+    dw = torch.matmul(dl.t(), x.to(acc))
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+_lib = None
+
+
+def _kernel_lib():
+    """The built ``fused_ce`` library, with its C signatures declared."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    from dtf_tpu_torch.ops import _build
+
+    lib = _build.load("fused_ce")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # every pointer and the stream as c_void_p: an untyped ctypes argument
+    # is passed as a 32-bit int and cuts the pointer
+    lib.dtf_fused_ce_fwd_f32.argtypes = [p, ll, p, ll, p, p, p, i, i, i, p]
+    lib.dtf_fused_ce_fwd_f32.restype = i
+    for fn in (lib.dtf_fused_ce_dx_f32, lib.dtf_fused_ce_dw_f32):
+        fn.argtypes = [p, ll, p, ll, p, p, p, p, i, i, i, p]
+        fn.restype = i
+    lib.dtf_fused_ce_error_string.argtypes = [i]
+    lib.dtf_fused_ce_error_string.restype = ctypes.c_char_p
+    lib.dtf_fused_ce_smem_bytes.argtypes = [i, i]
+    lib.dtf_fused_ce_smem_bytes.restype = ll
+    _lib = lib
+    return lib
+
+
+def _rows_view(t: torch.Tensor) -> torch.Tensor:
+    """t itself when the kernel can read it through its row stride (last
+    dim contiguous, 16-byte aligned rows), else a contiguous copy."""
+    ok = (t.stride(-1) == 1 and t.stride(0) % 4 == 0
+          and t.data_ptr() % 16 == 0)
+    return t if ok else t.contiguous()
+
+
+def _check_cuda_inputs(fn: str, x, w, labels, stats=()):
+    """The checks every wrapper makes, and the kernel-readable operands:
+    x [N, D] f32 (bf16 is promoted here, as the reference's dot promotes
+    it), w [V, D] f32 on the same GPU, a compiled head width, labels [N]
+    (cast to int32 unless already), f32 [N] statistics."""
+    for name, t in (("x", x), ("w", w), ("labels", labels), *stats):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{fn}: {name} is on {t.device} (x on "
+                             f"{x.device}); the kernel takes one GPU")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"{fn}: x {tuple(x.shape)} and w {tuple(w.shape)} "
+                         "must be [N, D] and [V, D]")
+    n, d = x.shape
+    if labels.shape != (n,):
+        raise ValueError(f"{fn}: labels {tuple(labels.shape)} != ({n},)")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{fn}: x is {x.dtype}; the Hopper kernel takes "
+                         "float32 (bfloat16 is promoted)")
+    if w.dtype != torch.float32:
+        raise ValueError(f"{fn}: w is {w.dtype}; the Hopper kernel takes "
+                         "float32")
+    if labels.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{fn}: labels are {labels.dtype}; integer "
+                         "labels only")
+    if d not in HEAD_WIDTHS:
+        raise ValueError(f"{fn}: head width {d} is not supported by the "
+                         f"Hopper kernels (compiled for {HEAD_WIDTHS})")
+    for name, t in stats:
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise ValueError(f"{fn}: {name} must be f32 [{n}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return (_rows_view(x.float()), _rows_view(w),
+            labels.to(torch.int32).contiguous(),
+            [t.contiguous() for _, t in stats])
+
+
+def _check_launch(lib, err: int, which: int, name: str, d: int) -> None:
+    if err:
+        raise RuntimeError(
+            f"{name} launch failed: "
+            f"{lib.dtf_fused_ce_error_string(err).decode()} (error {err}; "
+            f"{lib.dtf_fused_ce_smem_bytes(which, d)} bytes of shared memory "
+            f"per CTA at head width {d})")
+
+
+def fused_ce_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
+                      labels: torch.Tensor):
+    """Launch B5: the contract of :func:`fused_ce_fwd_reference` on CUDA
+    tensors, (lse, tgt) f32 [N]. Raises on what the kernel does not take;
+    never computes the result another way."""
+    xk, wk, lab, _ = _check_cuda_inputs("fused_ce_fwd_cuda", x, w, labels)
+    n, d = xk.shape
+    lse = torch.empty(n, dtype=torch.float32, device=x.device)
+    tgt = torch.empty_like(lse)
+    lib = _kernel_lib()
+    err = lib.dtf_fused_ce_fwd_f32(
+        xk.data_ptr(), xk.stride(0), wk.data_ptr(), wk.stride(0),
+        lab.data_ptr(), lse.data_ptr(), tgt.data_ptr(), n, wk.shape[0], d,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(lib, err, 0, "fused_ce_fwd", d)
+    launch_counts["fused_ce_fwd"] += 1
+    return lse, tgt
+
+
+def _bwd_launch(which: int, x, w, labels, lse, dce):
+    name = ("fused_ce_dx", "fused_ce_dw")[which - 1]
+    xk, wk, lab, (lse, dce) = _check_cuda_inputs(
+        f"{name}_cuda", x, w, labels, (("lse", lse), ("dce", dce)))
+    n, d = xk.shape
+    rows = n if which == 1 else wk.shape[0]
+    out = torch.empty((rows, d), dtype=torch.float32, device=x.device)
+    lib = _kernel_lib()
+    fn = lib.dtf_fused_ce_dx_f32 if which == 1 else lib.dtf_fused_ce_dw_f32
+    err = fn(xk.data_ptr(), xk.stride(0), wk.data_ptr(), wk.stride(0),
+             lab.data_ptr(), lse.data_ptr(), dce.data_ptr(), out.data_ptr(),
+             n, wk.shape[0], d,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(lib, err, which, name, d)
+    launch_counts[name] += 1
+    return out
+
+
+def fused_ce_dx_cuda(x, w, labels, lse, dce) -> torch.Tensor:
+    """Launch B6: dx [N, D] in x's dtype from the saved lse and the
+    per-token cotangent dce (both f32 [N])."""
+    return _bwd_launch(1, x, w, labels, lse, dce).to(x.dtype)
+
+
+def fused_ce_dw_cuda(x, w, labels, lse, dce) -> torch.Tensor:
+    """Launch B7: dW [V, D] f32, the head parameter's own layout."""
+    return _bwd_launch(2, x, w, labels, lse, dce)
+
+
+def _on_cpu(*ts) -> bool:
+    devices = {t.device.type for t in ts}
+    if devices == {"cpu"}:
+        return True
+    if devices == {"cuda"}:
+        return False
+    raise ValueError(f"x/w/labels on mixed devices: {sorted(devices)}")
+
+
+class _FusedCE(torch.autograd.Function):
+    """The differentiable fused CE (``_fused_ce``'s ``custom_vjp``).
+    Forward: per-token (lse, tgt) from B5, then the masked mean and the
+    valid count in PyTorch, as the reference computes them outside its
+    kernel. Backward: dce = (g_mean / cnt)·valid, then B6 and B7; the
+    count is not differentiable. CPU tensors take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, ignore_index):
+        cpu = _on_cpu(x, w, labels)
+        if not cpu:
+            labels = labels.to(torch.int32)     # once, for all three kernels
+        fwd = fused_ce_fwd_reference if cpu else fused_ce_fwd_cuda
+        lse, tgt = fwd(x, w, labels)
+        if ignore_index is None:
+            valid = torch.ones_like(lse)
+        else:
+            valid = (labels != ignore_index).to(lse.dtype)
+        cnt = valid.sum().clamp_min(1.0)
+        mean = ((lse - tgt) * valid).sum() / cnt
+        ctx.save_for_backward(x, w, labels, lse, valid, cnt)
+        ctx.mark_non_differentiable(cnt)
+        return mean, cnt
+
+    @staticmethod
+    def backward(ctx, g_mean, _g_cnt):
+        x, w, labels, lse, valid, cnt = ctx.saved_tensors
+        dce = (g_mean / cnt) * valid
+        want_dx, want_dw = ctx.needs_input_grad[:2]
+        if _on_cpu(x, w, labels):
+            dx, dw = fused_ce_bwd_reference(x, w, labels, lse, dce)
+            return (dx if want_dx else None, dw if want_dw else None,
+                    None, None)
+        dx = fused_ce_dx_cuda(x, w, labels, lse, dce) if want_dx else None
+        dw = fused_ce_dw_cuda(x, w, labels, lse, dce) if want_dw else None
+        return dx, dw, None, None
+
+
+def fused_lm_cross_entropy(x: torch.Tensor, w: torch.Tensor,
+                           labels: torch.Tensor, *,
+                           ignore_index: Optional[int] = None,
+                           mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean_loss, valid_count) — the contract of
+    :func:`dtf_tpu_torch.ops.losses.softmax_cross_entropy` on
+    ``x @ w.T``, without the [N, V] logits.
+
+    ``x`` [..., D] (pre-head activations; bf16 is promoted to f32 and its
+    gradient returned as bf16), ``w`` [V, D] f32 (``lm_head.weight``),
+    ``labels`` [...] int. With ``ignore_index``, ignored positions count
+    0 and the mean is over the valid ones, the count clamped to 1. A
+    label outside [0, V) picks no logit (its CE is the lse).
+
+    ``mesh``: the token-sharded variant (``pallas_lm_cross_entropy_
+    sharded``) is not ported: multi-GPU comes with a later slice."""
+    if mesh is not None:
+        raise NotImplementedError("fused_lm_cross_entropy(mesh=...): the "
+                                  "sharded fused CE is not yet ported")
+    xf = x.reshape(-1, x.shape[-1])
+    return _FusedCE.apply(xf, w, labels.reshape(-1), ignore_index)

@@ -1,24 +1,28 @@
 """Profile the port's training step on the GPU (the twin of ``profile_generate``).
 
     python -m dtf_tpu_torch.profile_train [--steps 3] [--remat]
+        [--loss_pallas | --loss_chunk_tokens N]
 
 GPT-2 small at full width with the trainer's init (seed 0), batch 8 ×
-seq 1024 from ``SyntheticData("gpt")``, the launcher's AdamW recipe. After
-three warm-up steps it
+seq 1024 from ``SyntheticData("gpt")``, the launcher's AdamW recipe, the
+monolithic LM loss or, with ``--loss_pallas`` / ``--loss_chunk_tokens``,
+the fused or token-chunked one. After three warm-up steps it
 
 0. times ``--steps`` train steps without the profiler (host clock around
    work that ends in a synchronise): the wall time per step;
 1. times the step's parts with CUDA events, in the order the step runs
    them (the second of two passes, so first-use costs are not in it):
    the trunk forward (embedding → ``ln_f``), the f32 LM head + CE
-   forward, their backward, the trunk backward, the optimizer update;
+   forward (on the chosen loss path), their backward, the trunk
+   backward, the optimizer update;
 2. times the head's three f32 GEMMs alone at their shapes (logits,
-   dW, dX), so the CE's own share is the head + CE time less these;
+   dW, dX), so the CE's own share is the head + CE time less these, and
+   the fused kernels B5, B6 and B7 alone at the same shapes;
 3. profiles ``--steps`` whole train steps (``make_train_step``) with
    ``torch.profiler`` and sums the device time by kernel family: the
-   flash forward (B1), dQ (B2), dK/dV (B3), GEMMs (cuBLAS), the optimizer's
-   multi-tensor kernels, and the rest (elementwise, LayerNorm, softmax,
-   reductions).
+   flash forward (B1), dQ (B2), dK/dV (B3), the fused CE forward (B5),
+   dX (B6) and dW (B7), GEMMs (cuBLAS), the optimizer's multi-tensor
+   kernels, and the rest (elementwise, LayerNorm, softmax, reductions).
 
 It prints the top kernels by device time, then one JSON line: the card's
 name and power limit, the wall time per step (unprofiled and profiled),
@@ -44,6 +48,9 @@ FAMILIES = (
     ("flash_fwd (B1)", re.compile(r"flash_fwd_kernel")),
     ("flash_dq (B2)", re.compile(r"flash_bwd_dq_kernel")),
     ("flash_dkv (B3)", re.compile(r"flash_bwd_dkv_kernel")),
+    ("fused_ce_fwd (B5)", re.compile(r"fused_ce_fwd_kernel")),
+    ("fused_ce_dx (B6)", re.compile(r"fused_ce_dx_kernel")),
+    ("fused_ce_dw (B7)", re.compile(r"fused_ce_dw_kernel")),
     ("gemm", re.compile(r"gemm|nvjet|xmma|cutlass", re.I)),
     ("optimizer (multi-tensor)", re.compile(r"multi_tensor_apply|foreach",
                                             re.I)),
@@ -64,6 +71,12 @@ def main(argv=None) -> int:
                         "profiler")
     p.add_argument("--remat", action="store_true",
                    help="recompute each block in the backward")
+    loss = p.add_mutually_exclusive_group()
+    loss.add_argument("--loss_pallas", action="store_true",
+                      help="the fused head + CE kernels (B5-B7)")
+    loss.add_argument("--loss_chunk_tokens", type=int, default=0,
+                      help="the token-chunked loss, this many tokens a "
+                           "chunk")
     args = p.parse_args(argv)
 
     import torch
@@ -74,6 +87,7 @@ def main(argv=None) -> int:
     from dtf_tpu_torch.core import train as tr
     from dtf_tpu_torch.data.synthetic import SyntheticData
     from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.ops import fused_ce as fc
     from dtf_tpu_torch.ops.losses import softmax_cross_entropy
 
     cfg = dataclasses.replace(gpt.GPTConfig.gpt2_small(), remat=args.remat)
@@ -83,7 +97,10 @@ def main(argv=None) -> int:
         [optim.linear_schedule(0.0, 3e-4, 4),
          optim.cosine_decay_schedule(3e-4, 1000)], [4]), weight_decay=0.1)
     state = tr.create_train_state(model, tx, 0)
-    step = tr.make_train_step(gpt.make_loss(model), tx)
+    loss_opts = dict(loss_pallas=args.loss_pallas,
+                     loss_chunk_tokens=args.loss_chunk_tokens)
+    fused = gpt._fused_ce(0, args.loss_chunk_tokens, args.loss_pallas)
+    step = tr.make_train_step(gpt.make_loss(model, **loss_opts), tx)
     data = SyntheticData("gpt", BATCH, seed=0, seq_len=SEQ,
                          vocab_size=cfg.vocab_size)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in
@@ -110,8 +127,11 @@ def main(argv=None) -> int:
         hidden = model(b["input_ids"], return_hidden=True)
         ev[1].record()
         h = hidden.detach().requires_grad_()
-        loss, _ = softmax_cross_entropy(model.lm_head(h), b["labels"],
-                                        ignore_index=-100)
+        if fused is not None:
+            loss, _ = fused(h, model.lm_head.weight, b["labels"])
+        else:
+            loss, _ = softmax_cross_entropy(model.lm_head(h), b["labels"],
+                                            ignore_index=-100)
         ev[2].record()
         loss.backward()
         ev[3].record()
@@ -146,7 +166,27 @@ def main(argv=None) -> int:
     g1.record()
     torch.cuda.synchronize()
     head_gemm_ms = g0.elapsed_time(g1) / 3
-    del x, dl
+    del dl
+
+    # ... and the fused kernels B5, B6, B7 alone at the same shapes
+    labels = batches[0]["labels"].reshape(-1).to(torch.int32)
+    valid = (labels != -100).float()
+    dce = valid / valid.sum().clamp_min(1.0)
+    lse, _ = fc.fused_ce_fwd_cuda(x, w, labels)
+    kernels = {
+        "fused_ce_fwd": lambda: fc.fused_ce_fwd_cuda(x, w, labels),
+        "fused_ce_dx": lambda: fc.fused_ce_dx_cuda(x, w, labels, lse, dce),
+        "fused_ce_dw": lambda: fc.fused_ce_dw_cuda(x, w, labels, lse, dce)}
+    fused_ms = {}
+    for name, fn in kernels.items():
+        fn()
+        g0.record()
+        for _ in range(3):
+            fn()
+        g1.record()
+        torch.cuda.synchronize()
+        fused_ms[name] = g0.elapsed_time(g1) / 3
+    del x, lse
 
     # 3. whole steps under the profiler
     with profile(activities=[ProfilerActivity.CPU,
@@ -182,7 +222,11 @@ def main(argv=None) -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "model": "gpt2-small", "batch": BATCH, "seq": SEQ,
-        "remat": args.remat, "profiled_steps": args.steps,
+        "remat": args.remat, "loss": (
+            "loss_pallas" if args.loss_pallas else
+            f"loss_chunk_tokens={args.loss_chunk_tokens}"
+            if args.loss_chunk_tokens else "monolithic"),
+        "profiled_steps": args.steps,
         "wall_ms_per_step": wall_unprofiled * 1e3,
         "wall_ms_per_step_profiled": wall * 1e3,
         "device_busy_ms_per_step": busy,
@@ -190,6 +234,7 @@ def main(argv=None) -> int:
         "kernel_launches_per_step": launches / args.steps,
         "families_ms_per_step": families,
         "parts_ms": parts, "head_gemms_f32_ms": head_gemm_ms,
+        "fused_ce_kernels_ms": fused_ms,
         "head_ce_ms": head_ce, "ce_without_head_gemms_ms":
             head_ce - head_gemm_ms}))
     return 0

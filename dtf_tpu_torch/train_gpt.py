@@ -5,7 +5,10 @@
 
 The JAX launcher's flags and flow: config → LR schedule and optimizer
 (the recipe is AdamW, weight decay 0.1, cosine with warmup) → loss path
-(monolithic logits) → state (the JAX package's init distributions,
+(``resolve_lm_loss``: monolithic logits when they fit the card's memory,
+else the token-chunked loss; ``--loss_pallas`` runs the fused head + CE
+kernels, ``--loss_chunk_tokens``/``--loss_chunk_vocab`` the chunked
+losses) → state (the JAX package's init distributions,
 seeded) → data (``--data_dir`` token ``.bin``, else the synthetic ``gpt``
 stream) → ``model_config.json`` manifest → hooks → ``Trainer.fit`` →
 ``done: step=N``. Attention runs the flash kernels forward and backward
@@ -31,8 +34,7 @@ import sys
 UNPORTED = {
     "moe_every": 0, "moe_top_k": 1, "tp_overlap": False,
     "matmul_precision": "", "pipe_microbatches": 0, "pipe_interleave": 1,
-    "pipe_schedule": "gpipe", "loss_chunk_vocab": 0, "loss_chunk_tokens": 0,
-    "loss_pallas": False, "stream_spec": "", "publish_dir": "",
+    "pipe_schedule": "gpipe", "stream_spec": "", "publish_dir": "",
     "event_log_dir": "", "distill_draft": 0, "distill_from": "",
     "profile_steps": 0, "telemetry": False,
 }
@@ -74,9 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipe_interleave", type=int, default=1)
     p.add_argument("--pipe_schedule", default="gpipe",
                    choices=("gpipe", "1f1b", "zb"))
-    p.add_argument("--loss_chunk_vocab", type=int, default=0)
-    p.add_argument("--loss_chunk_tokens", type=int, default=0)
-    add_bool(p, "loss_pallas", False)
+    p.add_argument("--loss_chunk_vocab", type=int, default=0,
+                   help="CE fused with the head in vocab chunks of this "
+                        "width (0 = off)")
+    p.add_argument("--loss_chunk_tokens", type=int, default=0,
+                   help="CE fused with the head in token chunks of this "
+                        "size (0 = off)")
+    add_bool(p, "loss_pallas", False, "the fused head + CE kernels "
+             "(B5-B7): no [B,T,V] logits in device memory")
     p.add_argument("--eval_every", type=int, default=0,
                    help="held-out eval every N steps; 0 = final only")
     p.add_argument("--publish_dir", default="")
@@ -133,6 +140,11 @@ def run(argv=None):
             raise NotImplementedError(
                 f"--{name}={getattr(args, name)!r}: not yet ported (the "
                 f"port runs with its default {default!r})")
+    if sum(map(bool, (args.loss_chunk_vocab, args.loss_chunk_tokens,
+                      args.loss_pallas))) > 1:
+        parser.error("--loss_chunk_vocab, --loss_chunk_tokens and "
+                     "--loss_pallas are mutually exclusive — pick one "
+                     "fused-loss strategy")
 
     from dtf_tpu_torch import optim
     from dtf_tpu_torch.checkpoint import Checkpointer, save_model_config
@@ -165,13 +177,21 @@ def run(argv=None):
         args, lambda s: optim.adamw(s, weight_decay=(
             args.weight_decay if args.weight_decay >= 0 else 0.1)),
         recipe_uses_wd=True)
-    log.info("LM loss: %s", dflags.resolve_lm_loss(
+    # auto loss path: monolithic logits when they fit the card's memory,
+    # the token-chunked loss when they do not; explicit flags win
+    lpath = dflags.resolve_lm_loss(
         args, batch=args.batch_size, seq_len=args.seq_len,
-        vocab_size=cfg.vocab_size, device=device))
+        vocab_size=cfg.vocab_size, device=device)
+    log.info("LM loss: %s (vocab chunk %d, token chunk %d, fused kernels "
+             "%s)", lpath.source, lpath.chunk_vocab, lpath.chunk_tokens,
+             lpath.pallas)
     model = gpt.GPT(cfg, device=device)
     model.load_state_dict(params_from_flax(init_params_flax(cfg, args.seed)))
-    loss_fn = gpt.make_loss(model)
-    eval_fn = gpt.make_eval(model)
+    loss_opts = dict(loss_chunk=lpath.chunk_vocab,
+                     loss_chunk_tokens=lpath.chunk_tokens,
+                     loss_pallas=lpath.pallas)
+    loss_fn = gpt.make_loss(model, **loss_opts)
+    eval_fn = gpt.make_eval(model, **loss_opts)
     # --zero1 shards the optimizer state over the data axis, which is 1 on
     # one device: the sharding is the identity
     state = tr.create_train_state(model, tx, args.seed)

@@ -6,8 +6,10 @@ it also runs on the GPU machine, which has no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernels.py
 
-Tolerances are ``chip_smoke.py``'s, with its reasons: bf16 inputs, P and
-dS rounded to bf16 in both versions but from sums taken in other orders.
+Tolerances are ``chip_smoke.py``'s, with its reasons: for flash, bf16
+inputs, P and dS rounded to bf16 in both versions but from sums taken in
+other orders; for the fused CE (B5–B7), f32 operands with TF32 off, the
+same products summed in another order.
 """
 
 import pytest
@@ -15,10 +17,12 @@ import torch
 
 from dtf_tpu_torch.ops import attention as tatt
 from dtf_tpu_torch.ops import flash_attention as tfa
+from dtf_tpu_torch.ops import fused_ce as tfc
 
 pytestmark = pytest.mark.gpu
 
 OUT_ATOL, LSE_ATOL, GRAD_REL_TOL = 3e-2, 1e-3, 1e-2
+CE_STAT_ATOL, CE_GRAD_REL_TOL, CE_BF16_DX_REL_TOL = 1e-4, 1e-4, 4e-3
 
 
 @pytest.fixture
@@ -98,3 +102,88 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tfa.flash_attention_bwd_cuda(q32, k32, v32, None, q32,
                                      torch.zeros(2, 16, device=cuda), q32,
                                      sm_scale=0.1)
+
+
+def _ce_inputs(cuda, n, d, v, x_dtype=torch.float32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=cuda).to(x_dtype)
+    w = torch.randn(v, d, generator=g, device=cuda) * 0.05
+    labels = torch.randint(0, v, (n,), generator=g, device=cuda)
+    return x, w, labels
+
+
+CE_CASES = [(1000, 768, 50257, "out_of_range", torch.float32),
+            (5, 768, 50304, "", torch.float32),
+            (64, 768, 5003, "all_ignored", torch.float32),
+            (256, 768, 3001, "some_ignored", torch.bfloat16),
+            (300, 1024, 4097, "out_of_range", torch.float32)]
+
+
+@pytest.mark.parametrize("n,d,v,labelling,x_dtype", CE_CASES)
+def test_fused_ce_kernels_match_plain(cuda, n, d, v, labelling, x_dtype):
+    x, w, labels = _ce_inputs(cuda, n, d, v, x_dtype)
+    if labelling == "out_of_range":
+        labels[0], labels[1], labels[2] = v, v + 40, -100
+    elif labelling == "some_ignored":
+        labels[::5] = -100
+    elif labelling == "all_ignored":
+        labels[:] = -100
+    valid = (labels != -100).float()
+    dce = valid / valid.sum().clamp_min(1.0)
+    lse, tgt = tfc.fused_ce_fwd_cuda(x, w, labels)
+    want_lse, want_tgt = tfc.fused_ce_fwd_reference(x, w, labels)
+    assert (lse - want_lse).abs().max().item() <= CE_STAT_ATOL
+    assert (tgt - want_tgt).abs().max().item() <= CE_STAT_ATOL
+    dx = tfc.fused_ce_dx_cuda(x, w, labels, lse, dce)
+    dw = tfc.fused_ce_dw_cuda(x, w, labels, lse, dce)
+    want_dx, want_dw = tfc.fused_ce_bwd_reference(x, w, labels, lse, dce)
+    assert dx.dtype == x_dtype and dw.dtype == torch.float32
+    if labelling == "all_ignored":
+        assert torch.count_nonzero(dx).item() == 0
+        assert torch.count_nonzero(dw).item() == 0
+        return
+    dx_tol = CE_BF16_DX_REL_TOL if x_dtype == torch.bfloat16 \
+        else CE_GRAD_REL_TOL
+    assert _rel(dx, want_dx) <= dx_tol
+    assert _rel(dw, want_dw) <= CE_GRAD_REL_TOL
+
+
+def test_fused_ce_autograd_on_cuda_counts_each_kernel_once(cuda):
+    x, w, labels = _ce_inputs(cuda, 300, 768, 5003)
+    labels[:7] = -100
+    x.requires_grad_()
+    w.requires_grad_()
+    tfc.reset_launch_counts()
+    loss, cnt = tfc.fused_lm_cross_entropy(x, w, labels, ignore_index=-100)
+    loss.backward()
+    assert tfc.launch_counts == {"fused_ce_fwd": 1, "fused_ce_dx": 1,
+                                 "fused_ce_dw": 1}
+    assert cnt.item() == 293.0
+    fused = (loss.item(), x.grad.clone(), w.grad.clone())
+    x.grad = w.grad = None
+    logits = x @ w.t()
+    want = torch.nn.functional.cross_entropy(logits, labels,
+                                             ignore_index=-100)
+    want.backward()
+    assert abs(fused[0] - want.item()) <= 1e-5 * abs(want.item())
+    assert _rel(fused[1], x.grad) <= CE_GRAD_REL_TOL
+    assert _rel(fused[2], w.grad) <= CE_GRAD_REL_TOL
+
+
+def test_fused_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x, w, labels = _ce_inputs(cuda, 16, 768, 300)
+    stats = torch.zeros(16, device=cuda)
+    with pytest.raises(ValueError, match="one GPU"):
+        tfc.fused_ce_fwd_cuda(x, w.cpu(), labels)
+    with pytest.raises(ValueError, match="float32"):
+        tfc.fused_ce_fwd_cuda(x.half(), w, labels)
+    with pytest.raises(ValueError, match="float32"):
+        tfc.fused_ce_dw_cuda(x, w.double(), labels, stats, stats)
+    with pytest.raises(ValueError, match="labels"):
+        tfc.fused_ce_fwd_cuda(x, w, labels[:15])
+    with pytest.raises(ValueError, match=r"\[N, D\]"):
+        tfc.fused_ce_dx_cuda(x, w[:, :512], labels, stats, stats)
+    with pytest.raises(ValueError, match="head width"):
+        tfc.fused_ce_fwd_cuda(x[:, :512], w[:, :512], labels)
+    with pytest.raises(ValueError, match="lse"):
+        tfc.fused_ce_dx_cuda(x, w, labels, stats[:8], stats)

@@ -1,0 +1,213 @@
+"""The port's fused and chunked LM losses against the JAX package's.
+
+Fused (``dtf_tpu_torch.ops.fused_ce``, CPU → its plain versions) against
+``pallas_lm_cross_entropy`` run in interpret mode as
+``tests/test_fused_ce.py`` runs it, with that file's tolerances: loss
+rtol 1e-6, count exact, dx and dW rtol 2e-5 / atol 2e-6. Chunked
+(``dtf_tpu_torch.ops.losses``) against ``chunked_lm_cross_entropy`` and
+``token_chunked_lm_cross_entropy`` at 1e-5. Inputs are seeded numpy; the
+port's head is [V, D], the JAX kernel [D, V].
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dtf_tpu.ops import losses as jlosses
+from dtf_tpu.ops.fused_ce import pallas_lm_cross_entropy
+from dtf_tpu_torch.ops import fused_ce as tfc
+from dtf_tpu_torch.ops import losses as tlosses
+
+B, T, D, V = 3, 5, 16, 103          # N = 15: unaligned to block_n 8
+
+
+def _data(seed=0, b=B, t=T, d=D, v=V):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    w = rng.standard_normal((d, v)).astype(np.float32)       # JAX layout
+    labels = rng.integers(0, v, (b, t)).astype(np.int32)
+    return x, w, labels
+
+
+def _jax_grads(fn, x, w):
+    loss, cnt = fn(jnp.asarray(x), jnp.asarray(w))
+    gx, gw = jax.grad(lambda a, b: fn(a, b)[0], (0, 1))(jnp.asarray(x),
+                                                        jnp.asarray(w))
+    return float(loss), float(cnt), np.asarray(gx), np.asarray(gw)
+
+
+def _port_grads(fn, x, w, dtype=torch.float32):
+    xt = torch.tensor(x, dtype=dtype, requires_grad=True)
+    wt = torch.tensor(np.ascontiguousarray(w.T), requires_grad=True)
+    loss, cnt = fn(xt, wt)
+    loss.backward()
+    return loss, cnt, xt.grad, wt.grad.t()
+
+
+def _jax_pallas(labels, ignore):
+    return lambda x, w: pallas_lm_cross_entropy(
+        x, w, jnp.asarray(labels), ignore_index=ignore, block_n=8,
+        block_v=32, interpret=True)
+
+
+@pytest.mark.parametrize("ignore", [None, -100])
+def test_plain_fused_ce_matches_pallas_interpret(ignore):
+    """Loss, count and both gradients, with unaligned N and V, ignored
+    positions and an out-of-range label at once."""
+    x, w, labels = _data()
+    if ignore is not None:
+        labels[0, 1] = labels[2, 3] = ignore
+    labels[1, 4] = 200                       # out of range: picks nothing
+    want = _jax_grads(_jax_pallas(labels, ignore), x, w)
+    loss, cnt, dx, dw = _port_grads(
+        lambda a, b: tfc.fused_lm_cross_entropy(
+            a, b, torch.from_numpy(labels), ignore_index=ignore), x, w)
+    np.testing.assert_allclose(loss.item(), want[0], rtol=1e-6)
+    assert float(cnt) == want[1] == (13.0 if ignore else 15.0)
+    for got, ref, name in ((dx, want[2], "dx"), (dw, want[3], "dw")):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-6,
+                                   err_msg=name)
+
+
+def test_all_ignored_is_zero_not_nan():
+    x, w, labels = _data(seed=1)
+    labels[:] = -100
+    loss, cnt, dx, dw = _port_grads(
+        lambda a, b: tfc.fused_lm_cross_entropy(
+            a, b, torch.from_numpy(labels), ignore_index=-100), x, w)
+    want = _jax_grads(_jax_pallas(labels, -100), x, w)
+    assert loss.item() == want[0] == 0.0 and float(cnt) == want[1] == 1.0
+    assert torch.count_nonzero(dx).item() == 0
+    assert torch.count_nonzero(dw).item() == 0
+
+
+def test_bf16_activations_f32_head():
+    """bf16 x with an f32 head: computed in f32, dx returned in bf16."""
+    x, w, labels = _data(seed=2)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want, _ = jlosses.softmax_cross_entropy(
+        xb.astype(jnp.float32) @ jnp.asarray(w), jnp.asarray(labels),
+        ignore_index=-100)
+    xt = torch.tensor(np.asarray(xb.astype(jnp.float32)),
+                      dtype=torch.bfloat16, requires_grad=True)
+    wt = torch.tensor(np.ascontiguousarray(w.T), requires_grad=True)
+    loss, _ = tfc.fused_lm_cross_entropy(xt, wt, torch.from_numpy(labels),
+                                         ignore_index=-100)
+    np.testing.assert_allclose(loss.item(), float(want), rtol=2e-2)
+    loss.backward()
+    assert xt.grad.dtype == torch.bfloat16 and wt.grad.dtype == torch.float32
+    assert torch.isfinite(xt.grad.float()).all()
+    assert torch.isfinite(wt.grad).all()
+
+
+def test_fused_ce_gradcheck_f64():
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal((7, 6)), requires_grad=True)
+    w = torch.tensor(rng.standard_normal((11, 6)), requires_grad=True)
+    labels = torch.tensor([0, 3, -100, 10, 12, 5, 5])     # 12 out of range
+    assert torch.autograd.gradcheck(
+        lambda a, b: tfc._FusedCE.apply(a, b, labels, -100)[0], (x, w))
+
+
+def test_plain_versions_are_the_kernel_contracts():
+    """(lse, tgt) and (dx, dW) of the plain versions against JAX's full
+    path: lse is the logsumexp, tgt the label's logit (0 out of range),
+    and the backward is dce·(softmax − onehot) through both products."""
+    x, w, labels = _data(seed=4)
+    labels[0, 0] = 103                      # the first index past V
+    xf, lab = x.reshape(-1, D), labels.reshape(-1)
+    logits = xf @ w
+    lse, tgt = tfc.fused_ce_fwd_reference(
+        torch.from_numpy(xf), torch.from_numpy(np.ascontiguousarray(w.T)),
+        torch.from_numpy(lab))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(
+        jnp.asarray(logits), axis=-1)), rtol=1e-6)
+    live = lab < V
+    np.testing.assert_allclose(
+        tgt.numpy(), np.where(live, logits[np.arange(len(lab)),
+                                           np.minimum(lab, V - 1)], 0.0),
+        rtol=1e-6)
+    dce = np.random.default_rng(5).standard_normal(len(lab)).astype(
+        np.float32)
+    dx, dw = tfc.fused_ce_bwd_reference(
+        torch.from_numpy(xf), torch.from_numpy(np.ascontiguousarray(w.T)),
+        torch.from_numpy(lab), lse, torch.from_numpy(dce))
+    p = np.exp(logits - lse.numpy()[:, None])
+    hot = np.arange(V)[None, :] == lab[:, None]
+    dl = dce[:, None] * (p - hot)
+    np.testing.assert_allclose(dx.numpy(), dl @ w.T, rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(dw.numpy(), dl.T @ xf, rtol=2e-5, atol=2e-6)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing_on_cpu():
+    x, w, labels = _data(seed=6, d=768)
+    xt = torch.from_numpy(x.reshape(-1, 768)).requires_grad_()
+    wt = torch.from_numpy(np.ascontiguousarray(w.T)).requires_grad_()
+    lab = torch.from_numpy(labels.reshape(-1))
+    stats = torch.zeros(xt.shape[0])
+    tfc.reset_launch_counts()
+    for call in (lambda: tfc.fused_ce_fwd_cuda(xt, wt, lab),
+                 lambda: tfc.fused_ce_dx_cuda(xt, wt, lab, stats, stats),
+                 lambda: tfc.fused_ce_dw_cuda(xt, wt, lab, stats, stats)):
+        with pytest.raises(ValueError, match="the kernel takes one GPU"):
+            call()
+    loss, _ = tfc.fused_lm_cross_entropy(xt, wt, lab, ignore_index=-100)
+    loss.backward()
+    assert tfc.launch_counts == {"fused_ce_fwd": 0, "fused_ce_dx": 0,
+                                 "fused_ce_dw": 0}
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tfc.fused_lm_cross_entropy(xt, wt, lab, mesh=object())
+
+
+CHUNKED = {
+    "vocab": (jlosses.chunked_lm_cross_entropy,
+              tlosses.chunked_lm_cross_entropy, 32),
+    "tokens": (jlosses.token_chunked_lm_cross_entropy,
+               tlosses.token_chunked_lm_cross_entropy, 4),
+}
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("axis", sorted(CHUNKED))
+def test_chunked_losses_match_jax(axis, bias):
+    """Unaligned V (103, chunk 32) and N (15, chunk 4), a bias, −100 and
+    out-of-range labels — one in the pad band [V, V_pad) of the vocab
+    chunking, one past it: loss, count and both gradients."""
+    jfn, tfn, chunk = CHUNKED[axis]
+    x, w, labels = _data(seed=7)
+    labels[0, 1] = labels[2, 3] = -100
+    labels[1, 4], labels[0, 4] = 110, 300
+    b = (np.random.default_rng(8).standard_normal(V).astype(np.float32)
+         if bias else None)
+    want = _jax_grads(lambda a, k: jfn(
+        a, k, jnp.asarray(labels), chunk=chunk, ignore_index=-100,
+        bias=None if b is None else jnp.asarray(b)), x, w)
+    loss, cnt, dx, dw = _port_grads(lambda a, k: tfn(
+        a, k, torch.from_numpy(labels), chunk=chunk, ignore_index=-100,
+        bias=None if b is None else torch.from_numpy(b)), x, w)
+    np.testing.assert_allclose(loss.item(), want[0], rtol=1e-5)
+    assert float(cnt) == want[1] == 13.0
+    for got, ref in ((dx, want[2]), (dw, want[3])):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("axis", sorted(CHUNKED))
+def test_chunked_losses_without_ignore_equal_the_full_path(axis):
+    """No ignore_index: the mean is over every token (count N), an
+    out-of-range label's CE is its lse, and the result is the monolithic
+    softmax_cross_entropy's (the port's own) at 1e-5."""
+    _, tfn, chunk = CHUNKED[axis]
+    x, w, labels = _data(seed=9)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(np.ascontiguousarray(w.T))
+    lab = torch.from_numpy(labels)
+    loss, cnt = tfn(xt, wt, lab, chunk=chunk)
+    want, n = tlosses.softmax_cross_entropy(xt @ wt.t(), lab)
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    assert float(cnt) == float(n) == 15.0
+    labels[0, 0] = 1000
+    loss, _ = tfn(xt, wt, torch.from_numpy(labels), chunk=chunk)
+    jwant, _ = jlosses.softmax_cross_entropy(jnp.asarray(x @ w),
+                                             jnp.asarray(labels))
+    np.testing.assert_allclose(float(loss), float(jwant), rtol=1e-5)

@@ -10,7 +10,11 @@ with warmup (``cli.flags.make_lr_schedule`` / ``wrap_optimizer``); the
 port's is ``core.train.make_train_step`` with ``optim``'s AdamW built the
 same way. Three steps: loss and ``grad_norm`` each step, then every
 parameter, at atol 1e-5 (f32 on the CPU; the two frameworks sum in other
-orders).
+orders). The fused and chunked LM losses (``loss_pallas``,
+``loss_chunk_tokens``, ``loss_chunk``) are held the same way: loss and
+every gradient of one ``make_loss`` call, ``make_eval``, and three train
+steps with ``loss_pallas`` (the JAX side runs its Pallas kernels in
+interpret mode on the CPU).
 """
 
 import argparse
@@ -51,7 +55,7 @@ def _batches():
     return [data.batch(i) for i in range(STEPS)]
 
 
-def _jax_run(jcfg, tree, args, grad_accum):
+def _jax_run(jcfg, tree, args, grad_accum, loss_opts=None):
     mesh = make_mesh(MeshConfig(data=1), devices=jax.devices()[:1])
     model, init_fn = jgpt.make_init(jcfg, None, seq_len=SEQ)
     tx = jflags.wrap_optimizer(
@@ -60,8 +64,9 @@ def _jax_run(jcfg, tree, args, grad_accum):
         init_fn, tx, jax.random.PRNGKey(0), mesh)
     params = jax.tree.map(jnp.asarray, tree)
     state = state.replace(params=params, opt_state=tx.init(params))
-    step = jtr.make_train_step(jgpt.make_loss(model), tx, mesh, shardings,
-                               grad_accum=grad_accum, donate=False)
+    step = jtr.make_train_step(jgpt.make_loss(model, **(loss_opts or {})),
+                               tx, mesh, shardings, grad_accum=grad_accum,
+                               donate=False)
     losses, norms = [], []
     for b in _batches():
         state, m = step(state, b)
@@ -71,14 +76,14 @@ def _jax_run(jcfg, tree, args, grad_accum):
         jax.tree.map(np.asarray, state.params))
 
 
-def _port_run(tcfg, tree, args, grad_accum):
+def _port_run(tcfg, tree, args, grad_accum, loss_opts=None):
     model = tgpt.GPT(tcfg, device="cpu")
     model.load_state_dict(convert.params_from_flax(tree))
     tx = optim.wrap_optimizer(
         optim.adamw(optim.make_lr_schedule(args), weight_decay=0.1), args)
     state = ttr.create_train_state(model, tx, 0)
-    step = ttr.make_train_step(tgpt.make_loss(model), tx,
-                               grad_accum=grad_accum)
+    step = ttr.make_train_step(tgpt.make_loss(model, **(loss_opts or {})),
+                               tx, grad_accum=grad_accum)
     losses, norms = [], []
     for b in _batches():
         state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
@@ -94,6 +99,8 @@ CASES = {
     "gqa_window": dict(cfg={"kv_heads": 2, "attn_window": 6,
                             "attn_global_every": 2}, args={}, accum=1),
     "flash_attn": dict(cfg={"attn_impl": "flash"}, args={}, accum=1),
+    "loss_pallas": dict(cfg={}, args={}, accum=1,
+                        loss={"loss_pallas": True}),
 }
 
 
@@ -105,8 +112,10 @@ def test_train_steps_match_jax(name):
     jcfg = jgpt.GPTConfig.tiny(dtype=jnp.float32, **jkw)
     tcfg = tgpt.GPTConfig.tiny(dtype=torch.float32, **case["cfg"])
     tree = convert.init_params_flax(tcfg, seed=1)
-    want_l, want_n, want_p = _jax_run(jcfg, tree, args, case["accum"])
-    got_l, got_n, got_p = _port_run(tcfg, tree, args, case["accum"])
+    want_l, want_n, want_p = _jax_run(jcfg, tree, args, case["accum"],
+                                      case.get("loss"))
+    got_l, got_n, got_p = _port_run(tcfg, tree, args, case["accum"],
+                                    case.get("loss"))
     np.testing.assert_allclose(got_l, want_l, atol=ATOL, rtol=0)
     np.testing.assert_allclose(got_n, want_n, atol=ATOL, rtol=0)
     if name == "clip_grad_norm":
@@ -201,3 +210,63 @@ def test_zero_weight_microbatch_is_selected_out():
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["m"])
     assert float(m["grad_norm"]) == pytest.approx(1.0)
     assert float(w.detach()) == pytest.approx(-0.1)
+
+
+#: the fused / chunked loss options, each against the JAX option of the
+#: same name; the chunks leave ragged tails (V 128, N 64)
+FUSED_LOSSES = {"loss_pallas": {"loss_pallas": True},
+                "loss_chunk_tokens": {"loss_chunk_tokens": 24},
+                "loss_chunk": {"loss_chunk": 48}}
+
+
+def _fused_models(seed):
+    jcfg = jgpt.GPTConfig.tiny(dtype=jnp.float32)
+    tcfg = tgpt.GPTConfig.tiny(dtype=torch.float32)
+    tree = convert.init_params_flax(tcfg, seed=seed)
+    jmodel, _ = jgpt.make_init(jcfg, None, seq_len=SEQ)
+    tmodel = tgpt.GPT(tcfg, device="cpu")
+    tmodel.load_state_dict(convert.params_from_flax(tree))
+    return jmodel, tmodel, jax.tree.map(jnp.asarray, tree)
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_LOSSES))
+def test_fused_make_loss_and_eval_match_jax(name):
+    """Loss, lm_tokens and every gradient of one make_loss call, then
+    make_eval, on the fused / chunked path against JAX's same option."""
+    opts = FUSED_LOSSES[name]
+    jmodel, tmodel, params = _fused_models(5)
+    b = _batches()[2]
+    jloss_fn = jgpt.make_loss(jmodel, **opts)
+    (want, jaux), jgrads = jax.value_and_grad(
+        lambda p: jloss_fn(p, {}, b, jax.random.PRNGKey(0)),
+        has_aux=True)(params)
+    jgrads = convert.params_from_flax(jax.tree.map(np.asarray, jgrads))
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    tparams = dict(tmodel.named_parameters())
+    got, aux = tgpt.make_loss(tmodel, **opts)(tparams, tb, 0)
+    grads = torch.autograd.grad(got, list(tparams.values()))
+    np.testing.assert_allclose(got.item(), float(want), atol=ATOL, rtol=0)
+    assert float(aux.metrics["lm_tokens"]) == float(
+        jaux.metrics["lm_tokens"])
+    for k, g in zip(tparams, grads):
+        np.testing.assert_allclose(g.numpy(), jgrads[k].numpy(), atol=ATOL,
+                                   rtol=0, err_msg=k)
+    want_eval = jgpt.make_eval(jmodel, **opts)(params, {}, b)
+    got_eval = tgpt.make_eval(tmodel, **opts)(tparams, tb)
+    np.testing.assert_allclose(float(got_eval["eval_loss"]),
+                               float(want_eval["eval_loss"]), atol=ATOL,
+                               rtol=0)
+    # ppl = exp(loss): a loss within ATOL is a ppl within ATOL relative
+    np.testing.assert_allclose(float(got_eval["eval_ppl"]),
+                               float(want_eval["eval_ppl"]), rtol=ATOL)
+
+
+def test_fused_loss_options_are_mutually_exclusive():
+    model = tgpt.GPT(tgpt.GPTConfig.tiny(dtype=torch.float32), device="cpu")
+    for opts in ({"loss_chunk": 48, "loss_pallas": True},
+                 {"loss_chunk_tokens": 8, "loss_chunk": 48},
+                 {"loss_chunk_tokens": 8, "loss_pallas": True}):
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            tgpt.make_loss(model, **opts)
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            tgpt.make_eval(model, **opts)

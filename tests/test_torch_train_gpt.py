@@ -191,7 +191,7 @@ def test_init_distributions_match_make_init():
 @pytest.mark.parametrize("flag", [
     "--moe_every=2", "--tp_overlap", "--matmul_precision=int8",
     "--mesh_data=2", "--mesh_model=2", "--pipe_schedule=1f1b",
-    "--loss_chunk_tokens=64", "--loss_pallas", "--stream_spec=x.json",
+    "--pipe_microbatches=2", "--distill_from=d", "--stream_spec=x.json",
     "--publish_dir=p", "--event_log_dir=e", "--distill_draft=1",
     "--profile_steps=3", "--telemetry", "--optimizer=lamb",
     "--optimizer=adafactor", "--worker_hosts=a:1,b:2"])
@@ -211,28 +211,118 @@ def test_cluster_flags(tmp_path, caplog):
     assert "issync" in caplog.text and "grad_shard" in caplog.text
 
 
-def test_resolve_lm_loss_budgets_against_the_card(monkeypatch):
-    """Monolithic logits + cotangent within 25% of the card's memory pass;
-    past it, or with a fused-loss flag, the port raises (no silent switch).
-    The card's properties are stubbed: the test runs without one."""
+def test_resolve_lm_loss_budgets_against_the_card(monkeypatch, caplog):
+    """The JAX package's policy against the card's memory (stubbed: the
+    test runs without one). Logits + cotangent within 25% of it keep the
+    monolithic path; past it, the token-chunked loss at 4096 with a
+    warning. Explicit flags win, warning when the logits would fit, and
+    for a forced vocab chunk where they do not. On the CPU there is no
+    budget."""
     import argparse
     import types
 
     from dtf_tpu_torch.cli import flags as tflags
 
-    args = argparse.Namespace(loss_chunk_vocab=0, loss_chunk_tokens=0,
-                              loss_pallas=False)
-    assert "cpu" in tflags.resolve_lm_loss(args, batch=64, seq_len=4096,
-                                           vocab_size=50304, device="cpu")
+    def resolve(batch, seq, device="cuda", **flags):
+        args = argparse.Namespace(**{"loss_chunk_vocab": 0,
+                                     "loss_chunk_tokens": 0,
+                                     "loss_pallas": False, **flags})
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="dtf_tpu_torch"):
+            path = tflags.resolve_lm_loss(args, batch=batch, seq_len=seq,
+                                          vocab_size=50304, device=device)
+        return path, caplog.text
+
+    path, warned = resolve(64, 4096, device="cpu")
+    assert path[:3] == (0, 0, False) and "no budget" in path.source
+    assert not warned
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(total_memory=80e9))
     # GPT-2 small b8 s1024: 2 x 8·1024·50304 x 4 B = 3.3 GB of 80 GB
-    assert "fit" in tflags.resolve_lm_loss(args, batch=8, seq_len=1024,
-                                           vocab_size=50304, device="cuda")
-    with pytest.raises(NotImplementedError, match="fused LM loss"):
-        tflags.resolve_lm_loss(args, batch=64, seq_len=2048,
-                               vocab_size=50304, device="cuda")
-    args.loss_chunk_tokens = 4096
-    with pytest.raises(NotImplementedError, match="fused LM loss"):
-        tflags.resolve_lm_loss(args, batch=8, seq_len=1024,
-                               vocab_size=50304, device="cuda")
+    path, warned = resolve(8, 1024)
+    assert path[:3] == (0, 0, False) and "fit" in path.source
+    assert not warned
+    # b64 s2048: 52.7 GB > 20 GB
+    path, warned = resolve(64, 2048)
+    assert path == (0, tflags.AUTO_LOSS_CHUNK_TOKENS, False,
+                    "HBM heuristic (no banked winner)")
+    assert "auto-selecting the token-chunked" in warned
+    path, warned = resolve(8, 1024, loss_pallas=True)
+    assert path == (0, 0, True, "explicit")
+    assert "--loss_pallas forces a fused LM loss" in warned
+    path, warned = resolve(64, 2048, loss_chunk_vocab=8192)
+    assert path == (8192, 0, False, "explicit")
+    assert "--loss_chunk_vocab forces" in warned
+    path, warned = resolve(64, 2048, loss_chunk_tokens=1024)
+    assert path == (0, 1024, False, "explicit") and not warned
+
+
+@pytest.fixture
+def empty_tune_cache(tmp_path, monkeypatch):
+    """The JAX package's kernel-tune cache with nothing banked (the
+    ``tune_env`` pattern of tests/test_tune.py)."""
+    from dtf_tpu.tune import resolver
+
+    monkeypatch.setenv("DTF_KERNEL_TUNE_PATH",
+                       str(tmp_path / "KERNEL_TUNE.local.json"))
+    monkeypatch.setenv("DTF_KERNEL_TUNE_GOLDEN",
+                       str(tmp_path / "KERNEL_TUNE.json"))
+    resolver.invalidate()
+    yield
+    resolver.invalidate()
+
+
+@pytest.mark.parametrize("batch,seq", [(8, 1024), (64, 2048)])
+@pytest.mark.parametrize("flags", [
+    {}, {"loss_pallas": True}, {"loss_chunk_tokens": 64},
+    {"loss_chunk_vocab": 50}], ids=["auto", "pallas", "tokens", "vocab"])
+def test_resolve_lm_loss_matches_jax(empty_tune_cache, flags, batch, seq):
+    """The same path as ``dtf_tpu.cli.flags.resolve_lm_loss`` with no
+    banked winner, at the same memory budget."""
+    import argparse
+
+    from dtf_tpu.cli import flags as jflags
+    from dtf_tpu_torch.cli import flags as tflags
+
+    args = argparse.Namespace(**{"loss_chunk_vocab": 0,
+                                 "loss_chunk_tokens": 0,
+                                 "loss_pallas": False, **flags})
+    kw = dict(batch=batch, seq_len=seq, vocab_size=50304, hbm_bytes=80e9)
+    want = jflags.resolve_lm_loss(args, **kw)
+    got = tflags.resolve_lm_loss(args, device="cpu", **kw)
+    assert tuple(got[:3]) == tuple(want[:3])
+    if want.source.startswith("monolithic logits fit"):
+        assert got.source.startswith("monolithic logits fit")
+    else:
+        assert got.source == want.source
+
+
+@pytest.mark.parametrize("flag", ["--loss_pallas", "--loss_chunk_tokens=64",
+                                  "--loss_chunk_vocab=50"])
+def test_fused_loss_flags_train_like_the_monolithic_loss(tmp_path, flag):
+    """Two steps through each fused loss end in ``done: step=2`` with the
+    monolithic run's losses and parameters (f32 on the CPU, 1e-5)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert train_gpt.main(TINY + [f"--logdir={tmp_path / 'f'}",
+                                      "--train_steps=2", flag]) == 0
+    assert buf.getvalue().strip().splitlines()[-1] == "done: step=2"
+    fused = Checkpointer(tmp_path / "f" / "ckpt").restore_params(2)
+    _, fused_w = _run(tmp_path / "f2", 2, flag)
+    _, mono_w = _run(tmp_path / "m", 2)
+    mono = Checkpointer(tmp_path / "m" / "ckpt").restore_params(2)
+
+    def losses(writer):
+        return [m["loss"] for _, m in writer.history if "loss" in m]
+
+    np.testing.assert_allclose(losses(fused_w), losses(mono_w), atol=1e-5,
+                               rtol=0)
+    for k in mono:
+        np.testing.assert_allclose(fused[k].numpy(), mono[k].numpy(),
+                                   atol=1e-5, rtol=0, err_msg=k)
+
+
+def test_fused_loss_flags_are_mutually_exclusive(tmp_path):
+    with pytest.raises(SystemExit) as e:
+        _run(tmp_path, 1, "--loss_pallas", "--loss_chunk_tokens=64")
+    assert e.value.code == 2
