@@ -56,9 +56,35 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     steps: B5 34 (one per step and per final-eval batch), B6 30, B7 30
     launches; the first 5 losses against the ``train`` run's. Prints step
     ms, tokens/s, analytic MFU and peak memory beside ``train``'s.
+14. kernels_embed — the embedding-row gather (B8) against its plain
+    version on the card, exactly (a gather copies): Wide&Deep's deep
+    table [2,600,000, 16] in f32 and bf16 and its wide table [2,600,000,
+    1] with synthetic batch 0's 512 x 26 ids, rank-2 ids, 4,096 copies of
+    one id, ids 0 and R-1, D 3 and 17 in bf16, D 768, a strided table,
+    empty ids, and out-of-range ids (NaN rows); then the gather's
+    backward with duplicate ids against ``index_add_`` in f64.
+15. kernel_times_embed — B8 at the deep table with 512 x 26 ids (the
+    launcher's batch) and 8,192 x 26 (``scripts/bench_lm.py``'s), f32 and
+    bf16, and at the wide table: kernel, plain version, the library
+    yardstick (``torch.nn.functional.embedding``) and the bound, each
+    call on fresh ids so rows arrive cold, as on the path.
+16. widedeep_lookup — Wide&Deep at full width (hash_buckets 100,000,
+    embed_dim 16, mlp 256/128/64, bf16), the trainer's init, 4 synthetic
+    batches of 512: the model's two lookups again through
+    ``masked_lookup_sharded(use_kernel=True)`` on its own tables, equal
+    to the model's embeddings exactly; the tables' gradients (the wide
+    table, and the deep table gathered in f32) against the
+    ``index_select`` path within 1e-6; exactly 2 B8 launches per batch,
+    none in the backward.
+17. train_widedeep — ``train_widedeep`` in process at its defaults
+    (batch 512, Adam 1e-3, 300 steps, the final 4-batch eval), then a
+    relaunch that resumes to step 310: the loss falls, ``eval_accuracy``
+    > 0.55, and no B8 launch (the launcher looks its tables up as the
+    JAX one does, with ``take``). Prints step ms, examples/s and peak
+    memory.
 
 Then one JSON line listing every kernel (launches on its main path, error
-against the plain version, times, bound), the ``nvidia-smi`` line, and
+against the plain version, times, bound; 8 rows), the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. ``--phases a,b`` runs a subset
 (without the kernels line). Exits non-zero without printing a result
 when no GPU is present or when the port's package is not beside this
@@ -161,6 +187,21 @@ BATCH, PROMPT, N_NEW, HEADS, D_HEAD = 4, 1024, 64, 12, 64
 #: the training slice's shape: GPT-2 small, batch 8, seq 1024
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 
+#: Wide&Deep at the launcher's defaults: 26 categorical features of
+#: 100,000 buckets each (2.6M table rows), 16-wide deep embeddings,
+#: batch 512, 300 steps; scripts/bench_lm.py's batch 8192
+WD_SPARSE, WD_BUCKETS, WD_EMBED, WD_BATCH = 26, 100_000, 16, 512
+WD_ROWS = WD_SPARSE * WD_BUCKETS
+WD_BENCH_BATCH = 8192
+WD_STEPS, WD_RESUME_STEPS = 300, 310
+#: test_widedeep_learns' bar for the held-out accuracy
+WD_EVAL_ACCURACY_MIN = 0.55
+#: B8's backward (an f32 index_add_ of the cotangent) against index_add_
+#: in f64, and the kernel path's table gradients against the
+#: index_select path's (f32 scatter-adds of the same cotangents, duplicate
+#: ids summed in another order): f32 rounding of sums of a few terms
+EMBED_GRAD_REL_TOL = 1e-6
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
@@ -199,21 +240,21 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def time_ms(torch, fn, iters):
-    """Mean device milliseconds of one fn() call: iters calls captured in
-    one CUDA graph, replayed 3 times between CUDA events — the Python
-    around each launch is not in the measurement. Inputs stay in L2
-    between calls."""
-    fn()
+def graph_ms(torch, calls):
+    """Mean device milliseconds of one call of ``calls`` (a list of
+    callables): the list captured in one CUDA graph, in order, replayed 3
+    times between CUDA events — the Python around each launch is not in
+    the measurement."""
+    calls[0]()
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        calls[0]()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
+        for fn in calls:
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -224,7 +265,13 @@ def time_ms(torch, fn, iters):
         graph.replay()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (3 * iters)
+    return start.elapsed_time(stop) / (3 * len(calls))
+
+
+def time_ms(torch, fn, iters):
+    """Mean device milliseconds of one fn() call, ``iters`` calls to a
+    graph (:func:`graph_ms`). Inputs stay in L2 between calls."""
+    return graph_ms(torch, [fn] * iters)
 
 
 def live_pairs(t_q, t_k, causal, window):
@@ -1145,15 +1192,298 @@ def phase_train_ce(torch, smi, mono):
     return launches
 
 
+def _wd_flat_ids(torch, batch, step, device="cuda"):
+    """Wide&Deep's table rows for synthetic batch ``step``: the bucket ids
+    plus each feature's offset, int32 [batch, 26]."""
+    from dtf_tpu_torch.data.synthetic import SyntheticData
+
+    b = SyntheticData("widedeep", batch, seed=0,
+                      hash_buckets=WD_BUCKETS).batch(step)
+    offsets = torch.arange(WD_SPARSE, dtype=torch.int32) * WD_BUCKETS
+    return (torch.from_numpy(b["sparse"]) + offsets).to(device)
+
+
+def phase_kernels_embed(torch):
+    """B8 against gather_rows_reference on the card. A gather copies, so
+    every row must be equal exactly; an id outside [0, R) gives a NaN row
+    in both. Then the backward with duplicate ids against index_add_ in
+    f64. Returns the largest max-abs error (0)."""
+    from dtf_tpu_torch.ops import embed_gather as eg
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+
+    def table(rows, d, dtype=torch.float32):
+        return torch.randn(rows, d, generator=gen, device="cuda").to(dtype)
+
+    def ids(rows, shape):
+        return torch.randint(0, rows, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    deep, wide = table(WD_ROWS, WD_EMBED), table(WD_ROWS, 1)
+    flat = _wd_flat_ids(torch, WD_BATCH, 0)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    cases = [
+        ("deep_f32_batch0", deep, flat.reshape(-1)),
+        ("deep_bf16_batch0", deep.to(torch.bfloat16), flat.reshape(-1)),
+        ("wide_f32_batch0", wide, flat.reshape(-1)),
+        ("rank2_ids", deep, flat),
+        ("one_id_4096_copies", deep, torch.full((4096,), 123457, **i32)),
+        ("ids_0_and_last", deep, torch.tensor([0, WD_ROWS - 1, 0, 7,
+                                               WD_ROWS - 1], **i32)),
+        ("d3_bf16", table(5000, 3, torch.bfloat16), ids(5000, (999,))),
+        ("d17_bf16", table(5000, 17, torch.bfloat16), ids(5000, (999,))),
+        ("d768_f32", table(20000, 768), ids(20000, (2048,))),
+        ("strided_rows_f32", table(3000, 24)[:, 4:20], ids(3000, (777,))),
+        ("empty_ids", deep, flat.reshape(-1)[:0]),
+        ("out_of_range", table(1000, 16), torch.tensor(
+            [-1, 0, 1000, 2 ** 31 - 1, 5, -2 ** 31, 999], **i32)),
+    ]
+    eg.reset_launch_counts()
+    rows, worst = [], 0.0
+    for name, t, i in cases:
+        got = eg.gather_rows_cuda(t, i)
+        torch.cuda.synchronize()
+        want = eg.gather_rows_reference(t, i)
+        require(got.shape == want.shape and got.dtype == t.dtype,
+                f"{name}: out {tuple(got.shape)} {got.dtype}")
+        nan = torch.isnan(want)
+        require(torch.equal(torch.isnan(got), nan),
+                f"{name}: NaN rows differ from the plain version's")
+        err = ((got[~nan].float() - want[~nan].float()).abs().max().item()
+               if (~nan).any() else 0.0)
+        rows.append({"case": name, "table": list(t.shape),
+                     "dtype": str(t.dtype).replace("torch.", ""),
+                     "ids": list(i.shape),
+                     "nan_rows": int(nan.any(dim=-1).sum().item())
+                     if got.numel() else 0,
+                     "max_abs_err": err})
+        require(err == 0.0, f"{name}: kernel differs from the plain version "
+                            f"by {err}")
+        if name == "out_of_range":
+            require(rows[-1]["nan_rows"] == 4, f"{name}: {rows[-1]}")
+        worst = max(worst, err)
+    launched = eg.launch_counts["embed_gather"]
+    require(launched == len(cases) - 1,
+            f"kernels_embed launches {launched} != {len(cases) - 1} (none "
+            "for the empty ids)")
+
+    # _Gather's backward: duplicate ids (batch 0 and 4,096 copies of one)
+    t = deep.clone().requires_grad_()
+    dup = torch.cat([flat.reshape(-1), torch.full((4096,), 123457, **i32)])
+    ct = torch.randn(dup.shape[0], WD_EMBED, generator=gen, device="cuda")
+    (g,) = torch.autograd.grad((eg.gather_rows(t, dup) * ct).sum(), t)
+    want = torch.zeros(WD_ROWS, WD_EMBED, dtype=torch.float64,
+                       device="cuda").index_add_(0, dup.long(), ct.double())
+    grad_rel = _rel(torch, g, want)
+    require(grad_rel <= EMBED_GRAD_REL_TOL,
+            f"gather backward differs from index_add_ in f64 by {grad_rel}")
+    emit({"phase": "kernels_embed", "cases": rows, "max_abs_err": worst,
+          "grad_rel_vs_f64": grad_rel, "grad_rel_tol": EMBED_GRAD_REL_TOL})
+    eg.reset_launch_counts()
+    return worst
+
+
+def embed_bound_ms(n_ids, d, elt):
+    """B8: the ids read once, each gathered row read once and written
+    once; no arithmetic."""
+    return bound_ms(4 * n_ids + 2 * n_ids * d * elt, 0)
+
+
+def phase_kernel_times_embed(torch):
+    """B8 at Wide&Deep's tables: the deep table with the launcher's batch
+    (512 x 26 ids) and bench_lm's (8,192 x 26), f32 and bf16, and the wide
+    table at the launcher's batch. Kernel, plain version, library
+    yardstick (F.embedding) and bound. Each call of a graph
+    (:func:`graph_ms`) gathers the ids of its own synthetic batch, and the
+    calls together touch more than the 50 MB L2, so a call's rows are
+    evicted by the time it comes round again: rows arrive cold, as on the
+    path."""
+    from dtf_tpu_torch.ops import embed_gather as eg
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    deep = torch.randn(WD_ROWS, WD_EMBED, generator=gen, device="cuda")
+    tables = {"deep_f32": deep, "deep_bf16": deep.to(torch.bfloat16),
+              "wide_f32": torch.randn(WD_ROWS, 1, generator=gen,
+                                      device="cuda")}
+    # id sets per batch size: their rows, read and written, exceed the L2
+    id_sets = {WD_BATCH: [_wd_flat_ids(torch, WD_BATCH, s).reshape(-1)
+                          for s in range(128)],
+               WD_BENCH_BATCH: [_wd_flat_ids(torch, WD_BENCH_BATCH,
+                                             s).reshape(-1)
+                                for s in range(8)]}
+    emb = torch.nn.functional.embedding
+    res = {}
+    for name, batch in (("deep_f32", WD_BATCH), ("deep_bf16", WD_BATCH),
+                        ("wide_f32", WD_BATCH),
+                        ("deep_f32", WD_BENCH_BATCH),
+                        ("deep_bf16", WD_BENCH_BATCH)):
+        t, sets = tables[name], id_sets[batch]
+        n = sets[0].numel()
+        bound, bound_by = embed_bound_ms(n, t.shape[1], t.element_size())
+        res[f"{name}_b{batch}"] = dict(
+            ids=n, ms=graph_ms(torch, [
+                (lambda i=i: eg.gather_rows_cuda(t, i)) for i in sets]),
+            plain_ms=graph_ms(torch, [
+                (lambda i=i: eg.gather_rows_reference(t, i)) for i in sets]),
+            library_ms=graph_ms(torch, [
+                (lambda i=i: emb(i, t)) for i in sets]),
+            bound_ms=bound, bound_by=bound_by)
+    eg.reset_launch_counts()
+    emit({"phase": "kernel_times_embed", "table_rows": WD_ROWS, **res,
+          "library": "torch.nn.functional.embedding (a yardstick only)"})
+    return res
+
+
+def phase_widedeep_lookup(torch):
+    """Wide&Deep at full width, the trainer's init, 4 synthetic batches of
+    512: the model's two lookups again through masked_lookup_sharded
+    (use_kernel=True) on its own tables and flat ids — the deep table
+    after its bf16 cast, the wide one in f32 — equal to the model's
+    embeddings exactly, with 2 B8 launches per batch and none in the
+    backward; the tables' gradients from a seeded cotangent against the
+    index_select path's. Returns the B8 launches (8)."""
+    from dtf_tpu_torch.convert import init_params_widedeep, params_from_flax
+    from dtf_tpu_torch.models import widedeep
+    from dtf_tpu_torch.ops import embed_gather as eg
+    from dtf_tpu_torch.parallel import embedding as pe
+
+    model = widedeep.WideDeep(hash_buckets=WD_BUCKETS, embed_dim=WD_EMBED,
+                              device="cuda")
+    model.load_state_dict(params_from_flax(init_params_widedeep(model, 0)))
+    wide_w = model.embed_tables_wide.weight
+    deep_w = model.embed_tables_deep.weight
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    launches, rows = 0, []
+    for step in range(4):
+        flat = _wd_flat_ids(torch, WD_BATCH, step)
+        with torch.no_grad():
+            want_deep = model.embed_tables_deep(flat)
+        want_wide = model.embed_tables_wide(flat)
+        ct_w = torch.randn(want_wide.shape, generator=gen, device="cuda")
+        ct_d = torch.randn(flat.shape + (WD_EMBED,), generator=gen,
+                           device="cuda")
+        # the main path: the model's two lookups through B8, counted
+        eg.reset_launch_counts()
+        with torch.no_grad():
+            deep = pe.masked_lookup_sharded(deep_w.to(model.dtype), flat,
+                                            use_kernel=True)
+        wide = pe.masked_lookup_sharded(wide_w, flat, use_kernel=True)
+        fwd = eg.launch_counts["embed_gather"]
+        (g_wide,) = torch.autograd.grad((wide * ct_w).sum(), wide_w)
+        torch.cuda.synchronize()
+        bwd = eg.launch_counts["embed_gather"] - fwd
+        launches += fwd + bwd
+        require(fwd == 2 and bwd == 0,
+                f"batch {step}: B8 launches {fwd} forward, {bwd} backward")
+        require(deep.dtype == torch.bfloat16 and torch.equal(deep, want_deep),
+                f"batch {step}: deep lookup differs from the model's")
+        require(torch.equal(wide, want_wide),
+                f"batch {step}: wide lookup differs from the model's")
+        # the comparisons, not counted: index_select's gradients
+        (want_g_wide,) = torch.autograd.grad((want_wide * ct_w).sum(),
+                                             wide_w)
+        (g_deep,) = torch.autograd.grad((pe.masked_lookup_sharded(
+            deep_w, flat, use_kernel=True) * ct_d).sum(), deep_w)
+        (want_g_deep,) = torch.autograd.grad((pe.masked_lookup_sharded(
+            deep_w, flat) * ct_d).sum(), deep_w)
+        row = {"batch": step, "launches_fwd": fwd, "launches_bwd": bwd,
+               "wide_grad_rel": _rel(torch, g_wide, want_g_wide),
+               "deep_f32_grad_rel": _rel(torch, g_deep, want_g_deep),
+               "unique_ids": int(torch.unique(flat).numel()),
+               "ids": flat.numel()}
+        rows.append(row)
+        require(row["wide_grad_rel"] <= EMBED_GRAD_REL_TOL and
+                row["deep_f32_grad_rel"] <= EMBED_GRAD_REL_TOL,
+                f"batch {step}: table gradients differ: {row}")
+    emit({"phase": "widedeep_lookup", "hash_buckets": WD_BUCKETS,
+          "embed_dim": WD_EMBED, "batch": WD_BATCH,
+          "n_params": sum(p.numel() for p in model.parameters()),
+          "grad_rel_tol": EMBED_GRAD_REL_TOL, "embed_gather_launches":
+          launches, "batches": rows})
+    del model
+    eg.reset_launch_counts()
+    return launches
+
+
+def phase_train_widedeep(torch, smi):
+    """``train_widedeep`` in process at its defaults (batch 512, Adam
+    1e-3, 300 steps, the final held-out eval), then a relaunch into the
+    same logdir that resumes to step 310. Returns the B8 launches of the
+    300-step run (0: the launcher looks up with take, as the JAX one
+    does)."""
+    import gc
+    import statistics
+    import tempfile
+
+    from dtf_tpu_torch import train_widedeep
+    from dtf_tpu_torch.ops import embed_gather as eg
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_widedeep_")
+    flags = ["--log_every=1", f"--logdir={logdir}"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eg.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # 300 metric lines
+        state, writer = train_widedeep.run(flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = eg.launch_counts["embed_gather"]
+    peak = torch.cuda.max_memory_allocated()
+    rows = [(s, m) for s, m in writer.history if "loss" in m]
+    losses = [m["loss"] for _, m in rows]
+    evals = [m for _, m in writer.history if "eval_accuracy" in m]
+    require(state.step == WD_STEPS and len(losses) == WD_STEPS,
+            f"trained {state.step} steps, logged {len(losses)}")
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    require(last < first, f"mean loss of the last 20 steps {last} is not "
+                          f"below the first 20's {first}")
+    require(len(evals) == 1
+            and evals[0]["eval_accuracy"] > WD_EVAL_ACCURACY_MIN,
+            f"held-out eval {evals}")
+    require(launches == 0, f"train_widedeep launched B8 {launches} times")
+    steady = [m for s, m in rows if s > 10]
+    step_ms = statistics.median(1e3 / m["steps_per_sec"] for m in steady)
+    examples = statistics.median(m["examples_per_sec"] for m in steady)
+    del state, writer
+    gc.collect()
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        state2, writer2 = train_widedeep.run(
+            flags + [f"--train_steps={WD_RESUME_STEPS}"])
+    resumed = [s for s, m in writer2.history if "loss" in m]
+    require(state2.step == WD_RESUME_STEPS and
+            resumed == list(range(WD_STEPS + 1, WD_RESUME_STEPS + 1)),
+            f"relaunch ran steps {resumed} to {state2.step}")
+    del state2, writer2
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(logdir, ignore_errors=True)
+    emit({"phase": "train_widedeep", "hash_buckets": WD_BUCKETS,
+          "embed_dim": WD_EMBED, "batch": WD_BATCH, "steps": WD_STEPS,
+          "nvidia_smi": smi, "loss_first20_mean": first,
+          "loss_last20_mean": last, "losses_every_25": losses[::25],
+          "eval": evals[0], "step_ms_median_after_10": step_ms,
+          "examples_per_s_median": examples, "run_wall_s": wall,
+          "max_memory_allocated": peak, "embed_gather_launches": launches,
+          "resumed_steps": resumed})
+    return launches
+
+
 #: every phase, in the order a full run takes them
 PHASES = ("device", "build", "kernels", "generate", "generate_variants",
           "kernels_bwd", "kernel_times_bwd", "train_grads", "train",
-          "kernels_ce", "kernel_times_ce", "train_grads_ce", "train_ce")
+          "kernels_ce", "kernel_times_ce", "train_grads_ce", "train_ce",
+          "kernels_embed", "kernel_times_embed", "widedeep_lookup",
+          "train_widedeep")
 
 
 def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
                  timing_bwd, train_launches, err_ce, timing_ce,
-                 train_ce_launches):
+                 train_ce_launches, err_embed, timing_embed,
+                 embed_launches):
     """The one JSON line listing every ported kernel: its launches on its
     main path, its error against the plain version, its times and bound."""
     fwd_common = {"route": "cuda",
@@ -1189,6 +1519,12 @@ def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
            **timing_ce[name]}
           for name, line in (("fused_ce_fwd", 59), ("fused_ce_dx", 115),
                              ("fused_ce_dw", 134))),
+        {"name": "embed_gather", "route": "cuda",
+         "source": "dtf_tpu_torch/ops/csrc/embed_gather.cu",
+         "replaces": "dtf_tpu/ops/embed_gather.py:37",
+         "launches": embed_launches, "max_abs_err": err_embed,
+         **{k: timing_embed[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}},
     ]}
 
 
@@ -1246,16 +1582,30 @@ def main(argv=None):
         phase_train_grads_ce(torch)
     if "train_ce" in phases:
         got["train_ce"] = phase_train_ce(torch, smi, got.get("train"))
+    if "kernels_embed" in phases:
+        got["kernels_embed"] = phase_kernels_embed(torch)
+    if "kernel_times_embed" in phases:
+        got["kernel_times_embed"] = phase_kernel_times_embed(torch)
+    if "widedeep_lookup" in phases:
+        got["widedeep_lookup"] = phase_widedeep_lookup(torch)
+    if "train_widedeep" in phases:
+        phase_train_widedeep(torch, smi)
     if all(p in phases for p in PHASES):
         # launches: each kernel's count on its slice's main path (the
-        # train run for B1-B3, the train_ce run for B5-B7), B4's on the
-        # variants path, the only one it is on
+        # train run for B1-B3, the train_ce run for B5-B7, the Wide&Deep
+        # lookups through masked_lookup_sharded for B8), B4's on the
+        # variants path, the only one it is on; B8's times at the main
+        # path's first lookup, the bf16 deep table with 512 x 26 ids
         train = got["train"]["launches"]
         emit({**kernels_line(got["kernels"][0], got["kernels"][1],
                              train["flash_fwd"], got["generate_variants"],
                              got["kernels_bwd"], got["kernel_times_bwd"],
                              train, got["kernels_ce"],
-                             got["kernel_times_ce"], got["train_ce"]),
+                             got["kernel_times_ce"], got["train_ce"],
+                             got["kernels_embed"],
+                             got["kernel_times_embed"][
+                                 f"deep_bf16_b{WD_BATCH}"],
+                             got["widedeep_lookup"]),
               "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -13,7 +13,9 @@ weights [out, in]); ``embedding`` and ``scale`` → ``weight``; ``bias`` →
 package can read them. :func:`init_params` makes a seeded GPT-2-style
 tree in numpy, for handing the same weights to both packages (serving);
 :func:`init_params_flax` one with the JAX package's training init
-distributions (the trainer's).
+distributions (the trainer's); :func:`init_params_widedeep` the same for
+Wide&Deep (``embed_tables_{wide,deep}/embedding``, ``wide_dense``,
+``mlp_{i}``, ``deep_out``).
 """
 
 from __future__ import annotations
@@ -68,6 +70,13 @@ def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
     return out
 
 
+def _is_embedding(module: str) -> bool:
+    """A module whose 2-D ``weight`` is a flax ``embedding``, not a
+    transposed ``kernel``: GPT's ``token_embed`` and Wide&Deep's
+    ``embed_tables_*`` (``RowShardedEmbed``)."""
+    return module == "token_embed" or module.startswith("embed_tables")
+
+
 def params_to_flax(state_dict) -> dict:
     """The inverse of :func:`params_from_flax`: nested dicts of numpy."""
     items = []
@@ -80,7 +89,7 @@ def params_to_flax(state_dict) -> dict:
             raise KeyError(f"unknown state_dict entry {key}")
         elif arr.ndim == 1:
             leaf = "scale"                      # a LayerNorm
-        elif mods[-1] == "token_embed":
+        elif _is_embedding(mods[-1]):
             leaf = "embedding"
         else:
             leaf, arr = "kernel", arr.T
@@ -142,6 +151,16 @@ def init_params(cfg, seed: int) -> dict:
 _TRUNC_NORMAL_STD = 0.87962566103423978
 
 
+def _lecun_normal(rng, d_in: int, d_out: int) -> np.ndarray:
+    """flax's lecun_normal [d_in, d_out] kernel, drawn with numpy."""
+    x = rng.standard_normal((d_in, d_out), dtype=np.float32)
+    bad = np.abs(x) > 2.0
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
+        bad = np.abs(x) > 2.0
+    return x * np.float32(1.0 / (math.sqrt(d_in) * _TRUNC_NORMAL_STD))
+
+
 def init_params_flax(cfg, seed: int) -> dict:
     """A seeded flax tree in numpy f32 with the JAX package's TRAINING
     init distributions (``gpt.make_init``): the ``nn.Embed`` table normal
@@ -152,16 +171,8 @@ def init_params_flax(cfg, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     d, dh = cfg.d_model, cfg.d_model // cfg.heads
 
-    def lecun(d_in, d_out):
-        x = rng.standard_normal((d_in, d_out), dtype=np.float32)
-        bad = np.abs(x) > 2.0
-        while bad.any():
-            x[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
-            bad = np.abs(x) > 2.0
-        return x * np.float32(1.0 / (math.sqrt(d_in) * _TRUNC_NORMAL_STD))
-
     def dense(d_in, d_out):
-        return {"kernel": lecun(d_in, d_out),
+        return {"kernel": _lecun_normal(rng, d_in, d_out),
                 "bias": np.zeros((d_out,), np.float32)}
 
     def norm():
@@ -182,5 +193,37 @@ def init_params_flax(cfg, seed: int) -> dict:
             "mlp_in": dense(d, cfg.d_ff),
             "mlp_out": dense(cfg.d_ff, d)}
     tree["ln_f"] = norm()
-    tree["lm_head"] = {"kernel": lecun(d, cfg.vocab_size)}
+    tree["lm_head"] = {"kernel": _lecun_normal(rng, d, cfg.vocab_size)}
+    return tree
+
+
+def init_params_widedeep(model, seed: int) -> dict:
+    """A seeded flax tree in numpy f32 for a
+    :class:`~dtf_tpu_torch.models.widedeep.WideDeep` with the JAX
+    package's init distributions (``widedeep.make_init``): each table
+    ``variance_scaling(1.0, "fan_in", "normal", out_axis=0)`` — for a
+    [R, E] table an untruncated normal with std 1/sqrt(E) (1.0 for the
+    wide table, 0.25 for a 16-wide deep one); every ``Dense`` kernel
+    lecun-normal; zero biases. numpy's draws, not flax's PRNG bits: the
+    distributions match."""
+    rng = np.random.default_rng(seed)
+    rows = model.num_sparse * model.hash_buckets
+
+    def table(width):
+        x = rng.standard_normal((rows, width), dtype=np.float32)
+        return {"embedding": x * np.float32(width ** -0.5)}
+
+    def dense(d_in, d_out):
+        return {"kernel": _lecun_normal(rng, d_in, d_out),
+                "bias": np.zeros((d_out,), np.float32)}
+
+    tree = {"embed_tables_wide": table(1),
+            "wide_dense": dense(model.wide_dense.weight.shape[1], 1),
+            "embed_tables_deep": table(model.embed_dim)}
+    width = model.num_sparse * model.embed_dim + \
+        model.wide_dense.weight.shape[1]
+    for i, h in enumerate(model.mlp):
+        tree[f"mlp_{i}"] = dense(width, h)
+        width = h
+    tree["deep_out"] = dense(width, 1)
     return tree

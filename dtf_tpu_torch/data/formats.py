@@ -1,4 +1,5 @@
-"""Token files (the port's copy of ``dtf_tpu.data.formats``' token path).
+"""On-disk formats (the port's copy of ``dtf_tpu.data.formats``' token and
+Criteo paths).
 
 ``TokenBinData`` reads a flat little-endian uint16 token stream (uint32
 when ``vocab_size > 65535``), the nanoGPT/GPT-2 ``.bin`` convention, and
@@ -6,15 +7,26 @@ windows it into causal-LM batches (``mode="clm"``). Batches are
 deterministic per (seed, step, host) with the JAX package's numpy draws:
 the same file gives the same batches in both packages. The BERT
 ``mode="mlm"`` (dynamic masking) comes with the BERT slice.
+
+``CriteoCsvData`` reads a Criteo click-log TSV/CSV into Wide&Deep batches
+through a memory-mapped column cache built once next to the source, with
+the JAX package's parse (crc32 buckets, log1p dense features) and its
+epoch order: the same file gives the same batches in both packages.
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import logging
 import os
+import tempfile
+import zlib
 from typing import Iterator, Optional
 
 import numpy as np
+
+from dtf_tpu_torch.data.sharded import ShardedEpochs
 
 Batch = dict
 
@@ -109,3 +121,177 @@ def detect_token_data(data_dir: str, batch_size: int, seq_len: int, *,
                     "seq_len=%d?); falling back", data_dir, split, seq_len,
                     exc_info=True)
         return None
+
+
+def _hash_bucket(s: str, buckets: int) -> int:
+    # stable across processes and runs (unlike Python's salted hash())
+    return zlib.crc32(s.encode()) % buckets
+
+
+class CriteoCsvData(ShardedEpochs):
+    """Criteo click-log TSV/CSV → Wide&Deep batches, streaming-parsed.
+
+    Columns: label, 13 numeric (I1..I13), 26 categorical (C1..C26, any
+    strings; the real dataset uses hex ids). Numerics: blank → 0, then
+    log1p of the value clipped at 0. Categoricals: crc32 into
+    ``hash_buckets`` (blank → bucket 0). Delimiter detected per chunk
+    (tab, else comma); CRLF line ends are stripped.
+
+    The first construction parses the text in ``CHUNK_BYTES`` chunks (peak
+    memory one chunk) into column files in a cache directory next to the
+    source (``<file>.dtfcache-hb<B>-ns<F>``); later constructions
+    memory-map the cache. ``DTF_DATA_CACHE`` moves the cache root (keyed by
+    a hash of the source path), and an unwritable source directory falls
+    back to a per-user tmp root. The cache is rebuilt when the source's
+    mtime or size or the parse config changes. Each parse writes
+    pid-unique tmp files and renames them into place, so concurrent
+    parses never tear the cache.
+    """
+
+    CHUNK_BYTES = 64 << 20
+
+    def __init__(self, path: str, batch_size: int, *, hash_buckets: int = 1000,
+                 num_sparse: int = 26, seed: int = 0, host_index: int = 0,
+                 host_count: int = 1):
+        if os.path.isdir(path):
+            # precedence: train.txt > *.csv > *.tsv (sorted within each)
+            cands = (glob.glob(os.path.join(path, "train.txt"))
+                     + sorted(glob.glob(os.path.join(path, "*.csv")))
+                     + sorted(glob.glob(os.path.join(path, "*.tsv"))))
+            if not cands:
+                raise FileNotFoundError(f"no criteo csv/tsv in {path}")
+            path = cands[0]
+        cache = self._cache_dir(path, hash_buckets, num_sparse)
+        meta_path = os.path.join(cache, "meta.json")
+        want_meta = {"version": 2,  # v2: CRLF-stripping parser
+                     "mtime": os.path.getmtime(path),
+                     "size": os.path.getsize(path),
+                     "hash_buckets": hash_buckets, "num_sparse": num_sparse}
+        n_rows = None
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            if all(meta.get(k) == v for k, v in want_meta.items()):
+                n_rows = meta["n_rows"]
+        if n_rows is None:
+            n_rows = self._build_cache(path, cache, want_meta, hash_buckets,
+                                       num_sparse)
+        self.labels = np.memmap(os.path.join(cache, "labels.f32"),
+                                np.float32, "r", shape=(n_rows,))
+        self.dense = np.memmap(os.path.join(cache, "dense.f32"),
+                               np.float32, "r", shape=(n_rows, 13))
+        self.sparse = np.memmap(os.path.join(cache, "sparse.i32"),
+                                np.int32, "r", shape=(n_rows, num_sparse))
+        super().__init__(n_rows, batch_size, seed=seed,
+                         host_index=host_index, host_count=host_count)
+
+    @staticmethod
+    def _cache_dir(path: str, hash_buckets: int, num_sparse: int) -> str:
+        """The writable cache directory for ``(path, parse config)``; the
+        config is in the name, so builds of different configs never share
+        a directory."""
+        tag = f"dtfcache-hb{hash_buckets}-ns{num_sparse}"
+        root = os.environ.get("DTF_DATA_CACHE")
+        if not root:
+            d = f"{path}.{tag}"
+            try:
+                os.makedirs(d, exist_ok=True)
+                probe = os.path.join(d, f".w.{os.getpid()}")
+                with open(probe, "w"):
+                    pass
+                os.remove(probe)
+                return d
+            except OSError:
+                root = os.path.join(tempfile.gettempdir(),
+                                    f"dtf_data_cache_{os.getuid()}")
+        key = zlib.crc32(os.path.abspath(path).encode())
+        d = os.path.join(root, f"{os.path.basename(path)}.{key:08x}.{tag}")
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    @classmethod
+    def _build_cache(cls, path: str, cache: str, meta: dict,
+                     hash_buckets: int, num_sparse: int) -> int:
+        """Chunked parse → column files, renamed into place; returns the
+        row count."""
+        os.makedirs(cache, exist_ok=True)
+        n_cols = 1 + 13 + num_sparse
+        n_rows = 0
+        names = ("labels.f32", "dense.f32", "sparse.i32")
+        tmp = [os.path.join(cache, f"{n}.tmp.{os.getpid()}") for n in names]
+        with open(path, "rb") as src, open(tmp[0], "wb") as f_lab, \
+                open(tmp[1], "wb") as f_den, open(tmp[2], "wb") as f_spa:
+            carry = b""
+            while True:
+                block = src.read(cls.CHUNK_BYTES)
+                if not block:
+                    if carry.strip():
+                        n_rows += cls._parse_rows(
+                            [carry.decode()], path, n_cols, hash_buckets,
+                            f_lab, f_den, f_spa)
+                    break
+                block = carry + block
+                nl = block.rfind(b"\n")
+                if nl < 0:
+                    carry = block
+                    continue
+                carry = block[nl + 1:]
+                lines = block[:nl].decode().split("\n")
+                n_rows += cls._parse_rows(lines, path, n_cols, hash_buckets,
+                                          f_lab, f_den, f_spa)
+        for t, n in zip(tmp, names):
+            os.replace(t, os.path.join(cache, n))
+        meta_tmp = os.path.join(cache, f"meta.json.tmp.{os.getpid()}")
+        with open(meta_tmp, "w") as f:
+            json.dump({**meta, "n_rows": n_rows}, f)
+        os.replace(meta_tmp, os.path.join(cache, "meta.json"))
+        return n_rows
+
+    @staticmethod
+    def _parse_rows(lines, path, n_cols, hash_buckets,
+                    f_lab, f_den, f_spa) -> int:
+        # rstrip("\r"): binary chunking keeps CRLF terminators; without it
+        # the last categorical column would hash with a trailing \r
+        rows = [ln.rstrip("\r") for ln in lines if ln.rstrip("\r")]
+        if not rows:
+            return 0
+        sep = "\t" if "\t" in rows[0] else ","
+        labels = np.empty(len(rows), np.float32)
+        dense = np.empty((len(rows), 13), np.float32)
+        sparse = np.empty((len(rows), n_cols - 14), np.int32)
+        for i, line in enumerate(rows):
+            cols = line.split(sep)
+            if len(cols) != n_cols:
+                raise ValueError(f"{path}: expected {n_cols} columns, "
+                                 f"got {len(cols)}")
+            labels[i] = float(cols[0])
+            dense[i] = [float(c) if c else 0.0 for c in cols[1:14]]
+            sparse[i] = [_hash_bucket(c, hash_buckets) if c else 0
+                         for c in cols[14:]]
+        labels.tofile(f_lab)
+        np.log1p(np.maximum(dense, 0.0)).tofile(f_den)
+        sparse.tofile(f_spa)
+        return len(rows)
+
+    @staticmethod
+    def available(path: str) -> bool:
+        if os.path.isdir(path):
+            return bool(glob.glob(os.path.join(path, "train.txt"))
+                        + glob.glob(os.path.join(path, "*.csv"))
+                        + glob.glob(os.path.join(path, "*.tsv")))
+        return path.endswith((".csv", ".tsv", ".txt")) and os.path.exists(path)
+
+    def __iter__(self) -> Iterator[Batch]:
+        for idx in self._indices():
+            idx = np.sort(idx)  # sorted fancy-index: sequential mmap reads
+            yield {"dense": np.asarray(self.dense[idx]),
+                   "sparse": np.asarray(self.sparse[idx]),
+                   "label": np.asarray(self.labels[idx])}
+
+
+def detect_criteo_data(data_dir: str, batch_size: int,
+                       **kw) -> Optional[CriteoCsvData]:
+    """A Criteo TSV/CSV in ``data_dir`` (or the file itself), else None."""
+    if data_dir and CriteoCsvData.available(data_dir):
+        return CriteoCsvData(data_dir, batch_size, **kw)
+    return None

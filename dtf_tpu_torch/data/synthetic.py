@@ -2,8 +2,9 @@
 
 Deterministic per (seed, step, host) with the same numpy draws as the JAX
 package, so both packages see the same batches byte for byte. Ported: the
-``gpt`` kind (causal-LM next-token batches); the image, BERT and
-Wide&Deep kinds come with their slices.
+``gpt`` kind (causal-LM next-token batches) and the ``widedeep`` kind
+(13 dense + ``num_sparse`` categorical Criteo-like features); the image
+and BERT kinds come with their slices.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ Batch = dict
 
 #: the kinds of the JAX package, by slice of the port that brings them
 KINDS = ("mnist", "cifar", "imagenet", "bert", "gpt", "widedeep")
+#: the kinds this port draws
+PORTED = ("gpt", "widedeep")
 
 
 def _rng_for(seed: int, step: int, host: int) -> np.random.Generator:
@@ -28,17 +31,18 @@ class SyntheticData:
 
     def __init__(self, kind: str, batch_size: int, *, seed: int = 0,
                  host_index: int = 0, host_count: int = 1,
-                 seq_len: int = 128, vocab_size: int = 30522):
+                 seq_len: int = 128, vocab_size: int = 30522,
+                 num_sparse: int = 26, hash_buckets: int = 1000):
         if batch_size % host_count:
             raise ValueError(
                 f"global batch {batch_size} not divisible by {host_count} "
                 "hosts")
         if kind not in KINDS:
             raise ValueError(f"unknown synthetic dataset kind: {kind!r}")
-        if kind != "gpt":
+        if kind not in PORTED:
             raise NotImplementedError(
                 f"synthetic kind {kind!r} is not yet ported (the port has "
-                "'gpt')")
+                f"{PORTED})")
         self.kind = kind
         self.global_batch = batch_size
         self.local_batch = batch_size // host_count
@@ -46,10 +50,19 @@ class SyntheticData:
         self.host = host_index
         self.seq_len = seq_len
         self.vocab = vocab_size
+        self.num_sparse = num_sparse
+        self.hash_buckets = hash_buckets
 
     def batch(self, step: int) -> Batch:
         r = _rng_for(self.seed, step, self.host)
         n = self.local_batch
+        if self.kind == "widedeep":
+            dense = r.standard_normal((n, 13)).astype(np.float32)
+            sparse = r.integers(0, self.hash_buckets,
+                                (n, self.num_sparse), np.int32)
+            logits = dense.sum(-1) + (sparse.sum(-1) % 7 - 3) * 0.3
+            y = (logits > 0).astype(np.float32)
+            return {"dense": dense, "sparse": sparse, "label": y}
         # learnable structure: token t+1 = (a*token_t + b) mod V on half the
         # positions, noise on the rest — next-token CE can fall. Built
         # sequentially so the relation holds on the visible stream.

@@ -48,7 +48,8 @@ class StopAtStepHook(Hook):
 
 class LoggingHook(Hook):
     """Every ``every_n`` steps, write the step's metrics plus
-    ``steps_per_sec``, ``tokens_per_sec`` (with ``tokens_per_step``),
+    ``steps_per_sec``, ``throughput_name`` (default ``tokens_per_sec``;
+    with ``tokens_per_step``, the items one step consumes),
     ``mfu`` (with ``model_flops_per_step``, against the H100's dense bf16
     peak) and ``lr`` (with ``lr_schedule``, read at the step count).
     Reading the metrics waits for the step: this is the loop's
@@ -56,12 +57,14 @@ class LoggingHook(Hook):
 
     def __init__(self, writer: MetricWriter, every_n: int = 10,
                  lr_schedule=None, *, tokens_per_step=None,
-                 model_flops_per_step=None):
+                 model_flops_per_step=None,
+                 throughput_name: str = "tokens_per_sec"):
         self.writer = writer
         self.every_n = every_n
         self.lr_schedule = lr_schedule
         self.tokens_per_step = tokens_per_step
         self.model_flops_per_step = model_flops_per_step
+        self.throughput_name = throughput_name
         self._t0 = None
         self._last_logged = None
 
@@ -78,7 +81,7 @@ class LoggingHook(Hook):
         self._t0, self._last_logged = now, step
         scalars["steps_per_sec"] = sps
         if self.tokens_per_step:
-            scalars["tokens_per_sec"] = sps * self.tokens_per_step
+            scalars[self.throughput_name] = sps * self.tokens_per_step
         if self.model_flops_per_step:
             scalars["mfu"] = (sps * self.model_flops_per_step
                               / H100_PEAK_BF16_FLOPS)

@@ -1,1 +1,2 @@
-"""Ops of the port: attention and its Hopper kernel."""
+"""Ops of the port: attention, the LM losses and the embedding gather, each
+kernel beside its plain PyTorch version."""

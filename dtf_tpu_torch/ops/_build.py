@@ -26,7 +26,7 @@ _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "dtf_tpu_torch")
 
 #: Every kernel source of the package, by name (``csrc/<name>.cu``).
-KERNELS = ("flash_fwd", "flash_bwd", "fused_ce")
+KERNELS = ("flash_fwd", "flash_bwd", "fused_ce", "embed_gather")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

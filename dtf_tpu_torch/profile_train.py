@@ -57,11 +57,44 @@ FAMILIES = (
 )
 
 
-def _family(name: str) -> str:
-    for fam, pat in FAMILIES:
+def _family(name: str, families=FAMILIES) -> str:
+    for fam, pat in families:
         if pat.search(name):
             return fam
     return "other"
+
+
+def device_summary(prof, steps: int, families=FAMILIES):
+    """Print the top kernels of a ``torch.profiler`` run over ``steps``
+    steps, and return (device ms per step by family, device-busy ms per
+    step, kernel launches per step)."""
+    import torch
+
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    for e in kernels[:ROWS]:
+        print(f"{e.self_device_time_total / 1e3 / steps:10.4f} ms "
+              f"{e.count // steps:6d}x  {_family(e.key, families):36s} "
+              f"{e.key[:100]}")
+    by_family: dict = {}
+    for e in kernels:
+        fam = _family(e.key, families)
+        by_family[fam] = by_family.get(fam, 0.0) + \
+            e.self_device_time_total / 1e3 / steps
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    return by_family, sum(by_family.values()), launches / steps
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
@@ -197,27 +230,8 @@ def main(argv=None) -> int:
         float(m["loss"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.steps
-    events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    for e in kernels[:ROWS]:
-        print(f"{e.self_device_time_total / 1e3 / args.steps:10.3f} ms "
-              f"{e.count // args.steps:6d}x  {_family(e.key):26s} "
-              f"{e.key[:110]}")
-    families: dict = {}
-    for e in kernels:
-        fam = _family(e.key)
-        families[fam] = families.get(fam, 0.0) + \
-            e.self_device_time_total / 1e3 / args.steps
-    busy = sum(families.values())
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    families, busy, launches = device_summary(prof, args.steps)
+    smi = card_line()
     head_ce = parts["head_ce_fwd"] + parts["head_ce_bwd"]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -231,7 +245,7 @@ def main(argv=None) -> int:
         "wall_ms_per_step_profiled": wall * 1e3,
         "device_busy_ms_per_step": busy,
         "device_idle_share": max(0.0, 1 - busy / (wall_unprofiled * 1e3)),
-        "kernel_launches_per_step": launches / args.steps,
+        "kernel_launches_per_step": launches,
         "families_ms_per_step": families,
         "parts_ms": parts, "head_gemms_f32_ms": head_gemm_ms,
         "fused_ce_kernels_ms": fused_ms,

@@ -9,13 +9,15 @@ it also runs on the GPU machine, which has no JAX:
 Tolerances are ``chip_smoke.py``'s, with its reasons: for flash, bf16
 inputs, P and dS rounded to bf16 in both versions but from sums taken in
 other orders; for the fused CE (B5–B7), f32 operands with TF32 off, the
-same products summed in another order.
+same products summed in another order. The embedding gather (B8) copies:
+it equals its plain version exactly.
 """
 
 import pytest
 import torch
 
 from dtf_tpu_torch.ops import attention as tatt
+from dtf_tpu_torch.ops import embed_gather as teg
 from dtf_tpu_torch.ops import flash_attention as tfa
 from dtf_tpu_torch.ops import fused_ce as tfc
 
@@ -187,3 +189,65 @@ def test_fused_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tfc.fused_ce_fwd_cuda(x[:, :512], w[:, :512], labels)
     with pytest.raises(ValueError, match="lse"):
         tfc.fused_ce_dx_cuda(x, w, labels, stats[:8], stats)
+
+
+EMBED_CASES = [(1000, 16, torch.float32), (1000, 16, torch.bfloat16),
+               (1000, 1, torch.float32), (300, 3, torch.bfloat16),
+               (300, 17, torch.bfloat16), (200, 768, torch.float32)]
+
+
+@pytest.mark.parametrize("rows,d,dtype", EMBED_CASES)
+def test_embed_gather_kernel_matches_plain(cuda, rows, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    table = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    ids = torch.randint(0, rows, (7, 33), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids[0, :3] = torch.tensor([0, rows - 1, rows - 1], dtype=torch.int32)
+    got = teg.gather_rows_cuda(table, ids)
+    assert got.shape == (7, 33, d) and got.dtype == dtype
+    assert torch.equal(got, teg.gather_rows_reference(table, ids))
+
+
+def test_embed_gather_strided_table_out_of_range_and_empty(cuda):
+    base = torch.randn(50, 12, device=cuda)
+    table = base[:, 2:10]                   # row stride 12, 8 wide
+    ids = torch.tensor([-1, 0, 49, 50, 10 ** 6, 7], dtype=torch.int32,
+                       device=cuda)
+    teg.reset_launch_counts()
+    got = teg.gather_rows_cuda(table, ids)
+    want = teg.gather_rows_reference(table, ids)
+    nan = torch.isnan(want)
+    assert nan[[0, 3, 4]].all() and not nan[[1, 2, 5]].any()
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+    empty = teg.gather_rows_cuda(table, ids[:0])
+    assert empty.shape == (0, 8)
+    assert teg.launch_counts == {"embed_gather": 1}
+
+
+def test_embed_gather_autograd_counts_one_launch(cuda):
+    table = torch.randn(64, 16, device=cuda, requires_grad=True)
+    ids = torch.tensor([3, 3, 3, 7, 63, 0, 3], dtype=torch.int32,
+                       device=cuda)
+    ct = torch.randn(7, 16, device=cuda)
+    teg.reset_launch_counts()
+    (teg.gather_rows(table, ids) * ct).sum().backward()
+    assert teg.launch_counts == {"embed_gather": 1}
+    want = torch.zeros(64, 16, dtype=torch.float64, device=cuda)
+    want.index_add_(0, ids.long(), ct.double())
+    assert _rel(table.grad, want) <= 1e-6
+
+
+def test_embed_gather_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    table = torch.randn(10, 4, device=cuda)
+    ids = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        teg.gather_rows_cuda(table, ids.long())
+    with pytest.raises(ValueError, match="float16"):
+        teg.gather_rows_cuda(table.half(), ids)
+    with pytest.raises(ValueError, match="one GPU"):
+        teg.gather_rows_cuda(table.cpu(), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        teg.gather_rows_cuda(table.t(), ids)
+    with pytest.raises(ValueError, match="expected table"):
+        teg.gather_rows(table[0], ids)

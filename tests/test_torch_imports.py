@@ -3,7 +3,8 @@
 Dynamic: a child process whose ``jax``, ``jaxlib``, ``flax`` and
 ``dtf_tpu`` imports are POISONED imports every module of the port and runs
 its generate and train entries (the latter also through the fused LM
-loss) on ``--device=cpu`` at the tiny size. Static: no file
+loss) and the Wide&Deep trainer on ``--device=cpu`` at a tiny size.
+Static: no file
 of ``dtf_tpu_torch/``, and not ``chip_smoke.py``, has an import of them.
 """
 
@@ -120,6 +121,21 @@ def test_fused_loss_train_entry_with_jax_poisoned(poisoned_env, tmp_path):
          "--size=tiny", "--train_steps=2", "--batch_size=2", "--seq_len=16",
          "--loss_pallas", f"--logdir={tmp_path / 'run'}"], env=env, cwd=cwd,
         capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "done: step=2"
+
+
+def test_widedeep_train_entry_as_a_module_with_jax_poisoned(poisoned_env,
+                                                            tmp_path):
+    """``train_widedeep`` (the row-sharded embedding layer, B8's module
+    and the Criteo/synthetic loaders) runs with nothing of JAX
+    importable."""
+    env, cwd = poisoned_env
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.train_widedeep",
+         "--device=cpu", "--hash_buckets=500", "--batch_size=64",
+         "--train_steps=2", f"--logdir={tmp_path / 'run'}"], env=env,
+        cwd=cwd, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "done: step=2"
 
