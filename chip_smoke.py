@@ -9,7 +9,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 1. device — a CUDA device must exist; prints the card's name and power
    limit as ``nvidia-smi`` gives them.
 2. build — compiles every kernel of the port from ``dtf_tpu_torch/ops/csrc``
-   with ``nvcc`` for sm_90a (one nvcc per source, all started together).
+   with ``nvcc`` for sm_90a (one nvcc per source, all started together);
+   prints ptxas's registers and spills, and checks with ``cuobjdump
+   -sass`` that both backward kernels run wgmma (HGMMA) on TMA loads
+   (UTMALDG) and no mma.sync (HMMA).
 3. kernels — the flash-attention forward kernel (B1, and B4 through
    ``block_h``) against its plain PyTorch version on the card, bf16, at
    GPT-2 shapes; times the kernel, the plain version, PyTorch's
@@ -27,7 +30,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 6. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
    the plain backward on the card, bf16, dO as a transposed view: the
    training shape, ragged T, a window, a fully masked ``kv_mask`` row
-   (gradient exactly 0), t_q != t_k, D 128, T 5.
+   (gradient exactly 0), t_q != t_k, D 128, T 5, T 65 and 129 (one row
+   past a tile), t_q 1 against t_k 1024, D 128 ragged with a window;
+   then two launches of each kernel at the training shape, bitwise
+   equal.
 7. kernel_times_bwd — B2, B3 and B1 at the training shape
    [8, 12, 1024, 64]: kernel, plain version, the library yardstick
    (SDPA's backward) and the bound.
@@ -236,8 +242,42 @@ def phase_build():
              for name, log in logs.items()}
     for name in _build.KERNELS:
         _build.load(name)
+    sass = flash_bwd_sass_counts(_build)
+    for kernel, counts in sass.items():
+        require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+                and counts["HMMA"] == 0,
+                f"{kernel}: expected wgmma (HGMMA) and TMA loads (UTMALDG) "
+                f"and no mma.sync (HMMA), got {counts}")
     emit({"phase": "build", "seconds": secs, "sources": list(_build.KERNELS),
-          "ptxas": ptxas})
+          "ptxas": ptxas, "flash_bwd_sass": sass})
+
+
+def flash_bwd_sass_counts(_build):
+    """Per backward kernel (B2, B3; D 64 and 128), its count of wgmma
+    (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions, from
+    ``cuobjdump -sass`` of the built library (beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass",
+                           _build.library_path("flash_bwd")],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, kernel = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            kernel = next((k for k in ("flash_bwd_dq_kernel",
+                                       "flash_bwd_dkv_kernel") if k in name),
+                          None)
+            if kernel is not None:
+                kernel += "<128>" if "ILi128E" in name else "<64>"
+                counts[kernel] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+            continue
+        if kernel is not None:
+            for op in ("HGMMA", "UTMALDG", "HMMA"):
+                counts[kernel][op] += f" {op}." in line
+    require(len(counts) == 4, f"flash_bwd kernels in the SASS: {counts}")
+    return counts
 
 
 def graph_ms(torch, calls):
@@ -443,6 +483,13 @@ def phase_kernels_bwd(torch):
         ("tiny_T5_causal", (1, 2, 5, 5, D_HEAD), True, 0, False),
         ("kv_mask_causal_window128", (BATCH, HEADS, 1000, 1000, D_HEAD),
          True, 128, True),
+        # one row past a 64- and a 128-row block; a single query against
+        # a long key range; D 128 with a ragged T and a window
+        ("causal_T65", (BATCH, HEADS, 65, 65, D_HEAD), True, 0, False),
+        ("causal_T129", (BATCH, HEADS, 129, 129, D_HEAD), True, 0, False),
+        ("tq1_tk1024", (BATCH, HEADS, 1, 1024, D_HEAD), False, 0, False),
+        ("d128_causal_T1000_window200", (2, 8, 1000, 1000, 128), True, 200,
+         False),
     ]
     rows, worst = [], {"flash_dq": 0.0, "flash_dkv": 0.0}
     for name, (b, h, t_q, t_k, d), causal, window, masked in cases:
@@ -481,8 +528,27 @@ def phase_kernels_bwd(torch):
             kname = "flash_dq" if gname == "dq" else "flash_dkv"
             worst[kname] = max(worst[kname], mab)
         rows.append(row)
+
+    # No atomics, one write per element: two launches of each kernel on
+    # the training shape give the same bits.
+    shape = (TRAIN_BATCH, HEADS, TRAIN_SEQ, D_HEAD)
+    q, k, v = randn(*shape), randn(*shape), randn(*shape)
+    do = randn(TRAIN_BATCH, TRAIN_SEQ, HEADS, D_HEAD).transpose(1, 2)
+    opts = dict(sm_scale=D_HEAD ** -0.5, causal=True)
+    out, lse = fa.flash_attention_cuda(q, k, v, **opts)
+    delta = (do.float() * out.reshape(shape).float()).sum(dim=-1)
+    dq = [fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, **opts)
+          for _ in range(2)]
+    dkv = [fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **opts)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    require(torch.equal(dq[0], dq[1]), "flash_dq: two launches differ")
+    require(torch.equal(dkv[0][0], dkv[1][0])
+            and torch.equal(dkv[0][1], dkv[1][1]),
+            "flash_dkv: two launches differ")
     emit({"phase": "kernels_bwd", "rel_tol": GRAD_REL_TOL,
-          "max_abs_tol_of_max": GRAD_MAX_ABS_TOL, "cases": rows})
+          "max_abs_tol_of_max": GRAD_MAX_ABS_TOL, "cases": rows,
+          "bitwise_repeat": True})
     fa.reset_launch_counts()
     return worst
 

@@ -14,24 +14,48 @@
 // bf16 before its two products, as the TPU kernels cast them; every sum
 // is f32 and each output is written once, in bf16.
 //
-// Design. Two kernels, the JAX package's split, with nothing summed
-// across CTAs (no atomics):
-// - dQ: one CTA of 4 warps per (batch*head, 64-row q-block). A loop
-//   inside the CTA runs over the LIVE k-blocks only (up to the diagonal
-//   when causal, from the first in-window block under a window), which
-//   replaces _block_live and _kv_sticky_map. Each warp owns 16 query
-//   rows and keeps its dQ rows in WMMA accumulator fragments (registers)
-//   across the loop.
-// - dK/dV: one CTA of 4 warps per (batch*head, 64-key block), a loop over
-//   the live q-blocks (from the block's own diagonal to the last q-block,
-//   and only while within the window). Each warp owns 16 key rows; the
-//   f32 dK and dV accumulators live in shared memory.
-// Scores and dP are staged in shared memory because WMMA fragment
-// layouts are opaque (two lanes then own one row's elementwise work),
-// as in flash_fwd.cu. Inputs are read through their (batch, head, seq)
-// strides: dO arrives from autograd as a transposed view. The ragged
-// edges are masked here: rows past t_q / t_k load as zeros and are never
-// written.
+// Design (Hopper: wgmma, TMA, mbarriers; inline PTX, no CUTLASS). Two
+// kernels, the JAX package's split, with nothing summed across CTAs (no
+// atomics), so the result is bitwise deterministic:
+// - dQ: one CTA of one warpgroup (128 threads) per (batch*head, 64-row
+//   q-block). Q and dO are loaded once; the K and V tiles of the LIVE
+//   k-blocks (up to the diagonal when causal, from the first in-window
+//   block under a window: _block_live and _kv_sticky_map) stream through
+//   a 2-stage ring. Per k-block: S = Q K^T and dP = dO V^T as
+//   wgmma m64n64k16 (A and B from shared memory, both K-major), dS formed
+//   in the accumulator registers and converted in place to the bf16 A
+//   fragment of dQ += dS K (B = the K tile, MN-major). dQ stays in
+//   registers and is written once.
+// - dK/dV: one CTA of one warpgroup per (batch*head, 64-key block). K and
+//   V are loaded once; the Q and dO tiles of the live q-blocks (from the
+//   block's own diagonal, and only while within the window) stream
+//   through the ring, lse and Delta beside them. Per q-block:
+//   S^T = K Q^T and dP^T = V dO^T (shared-memory operands), P^T and dS^T
+//   formed in registers (lse and Delta are per column here), then
+//   dV += P^T dO and dK += dS^T Q with A from registers and B the dO / Q
+//   tile read MN-major (the descriptor's transpose bit). dK and dV stay
+//   in registers and are written once.
+// - Tiles: 64 x 64 (wgmma M = 64, one warpgroup), 2 ring stages. Every
+//   tile is moved by TMA (cp.async.bulk.tensor, 4-D maps over
+//   (D, T, H, B) built on the host for each call from the operands'
+//   strides, so dO's transposed view is read as it lies) into 128-byte
+//   swizzled shared memory that the wgmma descriptors read directly
+//   (D = 128: two 64-column swizzle atoms). Rows past T are zero-filled
+//   by the hardware. One thread issues the loads; an mbarrier per stage
+//   reports them; the next-but-one block's loads are issued as soon as
+//   the warpgroup has released the stage, so they overlap this block's
+//   products. No producer warp is split off: issuing costs one thread
+//   a few instructions per block, and the consumer keeps every register.
+// - The causal blocks are launched heaviest first (the last q-blocks in
+//   dQ, the first k-blocks in dK/dV), batch*head in grid x, so the tail
+//   of the grid is short. Masking runs only on the blocks that cross the
+//   diagonal, the window edge or the ragged t_k; a dead or padded query
+//   row takes lse = +inf inside the kernel, which makes its P exactly 0.
+// - Registers a thread (ptxas -v, nvcc 12.9, sm_90a; chip_smoke.py's
+//   build phase prints them): dQ 126 (D 64) / 156 (D 128), dK/dV 168 /
+//   234; 0 bytes of spill in all four. Shared memory a CTA: 50,712 bytes
+//   (dQ) and 51,224 (dK/dV) at D 64, so up to 4 and 3 CTAs fit on an SM.
+//   This source builds in ~13 s (inline PTX only).
 //
 // Bounds on the H100 at the training slice's shape (q/k/v
 // [8, 12, 1024, 64] bf16, causal; 989 TF/s bf16, 3.35 TB/s):
@@ -41,146 +65,225 @@
 // - dK/dV (B3): four products, ~25.8 GFLOP (26.1 us); ~76.3 MB (22.8 us):
 //   ~26 us, compute.
 //
-// What this simple design leaves on the table: WMMA (mma.sync) instead of
-// wgmma reaches a fraction of the tensor-core peak; Q/dO or K/V tiles are
-// loaded synchronously by all threads (no TMA, no cp.async double
-// buffering), so loads never overlap the products; S, dP, P and dS round
-// trip through shared memory every block, and dK/dV accumulators too; the
-// dQ and dK/dV kernels recompute S and dP twice between them (a fused
-// kernel with atomic dQ would not); 64x64 tiles re-read K/V (dQ) and
-// Q/dO (dK/dV) from L2 once per block.
+// What the design still leaves on the table: the split does seven
+// products where a fused kernel (dK/dV per CTA, dQ summed across CTAs by
+// f32 atomics or TMA reduce-add) does five, at the price of determinism;
+// Delta is a separate PyTorch pass over dO and O; one warpgroup per CTA
+// serialises S/dP, the elementwise pass and the second products within a
+// block (the CTAs resident on an SM overlap one another instead of two
+// consumer warpgroups ping-ponging); the dQ stores are 4-byte pairs from
+// the accumulator layout, not staged through shared memory.
 
+#include <cuda.h>  // CUtensorMap; the encoder is reached at run time, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BQ = 64;            // query rows per q-block
-constexpr int BK = 64;            // keys per k-block
-constexpr int WARPS = 4;          // each warp owns 16 rows of its CTA's block
-constexpr int THREADS = WARPS * 32;
-
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
 using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Row strides in elements. The pads keep WMMA pointers 32-byte aligned and
-// shift consecutive rows across shared-memory banks.
+constexpr int BM = 64;        // rows of the CTA's own block (wgmma M)
+constexpr int BN = 64;        // rows of each streamed block
+constexpr int THREADS = 128;  // one warpgroup
+constexpr int STAGES = 2;     // ring depth of the streamed tiles
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A [64, D] bf16 tile: D / 64 swizzle atoms of 64 rows x 128 bytes, each
+// 1024-byte aligned (the 128-byte swizzle repeats every 8 rows).
 template <int D>
-struct Strides {
-  static constexpr int LDT = D + 8;    // bf16 q / k / v / dO tiles
-  static constexpr int LDS = 64 + 4;   // f32 S and dP (64 columns)
-  static constexpr int LDP = 64 + 8;   // bf16 P and dS (64 columns)
-  static constexpr int LDA = D + 4;    // f32 accumulators / staging
+struct TileOf {
+  static constexpr uint32_t atoms = D / 64;
+  static constexpr uint32_t atom_bytes = 64 * 128;
+  static constexpr uint32_t bytes = atoms * atom_bytes;
 };
 
 template <int D>
-struct DqLayout : Strides<D> {
-  using S = Strides<D>;
-  static constexpr size_t tile = align128(sizeof(bf16) * 64 * S::LDT);
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + tile;
-  static constexpr size_t k_off = do_off + tile;
-  static constexpr size_t v_off = k_off + tile;
-  static constexpr size_t s_off = v_off + tile;
-  static constexpr size_t dp_off = s_off + align128(sizeof(float) * BQ * S::LDS);
-  static constexpr size_t ds_off = dp_off + align128(sizeof(float) * BQ * S::LDS);
-  static constexpr size_t a_off = ds_off + align128(sizeof(bf16) * BQ * S::LDP);
-  static constexpr size_t bytes = a_off + align128(sizeof(float) * BQ * S::LDA);
+struct DqSmem {
+  static constexpr uint32_t tile = TileOf<D>::bytes;
+  static constexpr uint32_t q = 0;
+  static constexpr uint32_t dout = q + tile;
+  static constexpr uint32_t ring = dout + tile;  // stage s: K, then V
+  static constexpr uint32_t bias = ring + STAGES * 2 * tile;  // f32 [STAGES][BN]
+  static constexpr uint32_t bars = bias + STAGES * BN * 4;    // qdo, full[STAGES]
+  static constexpr uint32_t bytes = bars + (1 + STAGES) * 8;
 };
 
 template <int D>
-struct DkvLayout : Strides<D> {
-  using S = Strides<D>;
-  static constexpr size_t tile = align128(sizeof(bf16) * 64 * S::LDT);
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + tile;
-  static constexpr size_t q_off = v_off + tile;
-  static constexpr size_t do_off = q_off + tile;
-  static constexpr size_t s_off = do_off + tile;
-  static constexpr size_t dp_off = s_off + align128(sizeof(float) * BK * S::LDS);
-  static constexpr size_t p_off = dp_off + align128(sizeof(float) * BK * S::LDS);
-  static constexpr size_t ds_off = p_off + align128(sizeof(bf16) * BK * S::LDP);
-  static constexpr size_t dk_off = ds_off + align128(sizeof(bf16) * BK * S::LDP);
-  static constexpr size_t dv_off = dk_off + align128(sizeof(float) * BK * S::LDA);
-  static constexpr size_t stat_off = dv_off + align128(sizeof(float) * BK * S::LDA);
-  static constexpr size_t bytes = stat_off + align128(sizeof(float) * 2 * BQ);
+struct DkvSmem {
+  static constexpr uint32_t tile = TileOf<D>::bytes;
+  static constexpr uint32_t k = 0;
+  static constexpr uint32_t v = k + tile;
+  static constexpr uint32_t ring = v + tile;  // stage s: Q, then dO
+  static constexpr uint32_t stat = ring + STAGES * 2 * tile;  // f32 [STAGES][2][BN]
+  static constexpr uint32_t bars = stat + STAGES * 2 * BN * 4;  // kv, full[STAGES]
+  static constexpr uint32_t bytes = bars + (1 + STAGES) * 8;
 };
 
-// Rows [base, base + 64) of a [rows, D] bf16 matrix with row stride `st`
-// (elements; D contiguous) into shared memory, 16 bytes per thread and
-// step. Rows at or past `limit` are written as zeros, so a padded row
-// contributes nothing to any product.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long st, int base, int limit) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < 64 * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (base + r < limit) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(base + r) * st + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Strides<D>::LDT + c) = val;
+// The dynamic shared memory is over-allocated by 1024 bytes and its base
+// rounded up, so every swizzle atom starts 1024-byte aligned.
+constexpr size_t kAlignPad = 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier and TMA ---------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+// A phase that never completes (a load that was never issued or never
+// lands) traps after ~2^26 polls, seconds, so the launch fails with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; ; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
   }
 }
 
-// out[16 x 64] (f32, row stride ldo) = A[16 x D] B^T for one warp, where A
-// is 16 rows of a bf16 tile and B is the 64 rows of another (row-major
-// [64, D], read as a col-major D x 64 matrix).
+// One [64 rows, 64 cols] box of a 4-D (D, T, H, B) map into a swizzle atom.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int col, int row, int h,
+                                        int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(h),
+      "r"(b), "r"(bar) : "memory");
+}
+
+// Rows [row, row + 64) of head (b, h): every 64-column atom of the tile.
 template <int D>
-__device__ __forceinline__ void warp_abt(float* out, int ldo, const bf16* a,
-                                         const bf16* b) {
-  constexpr int LDT = Strides<D>::LDT;
-  FragA fa;
-  FragBCol fb;
-  FragC fc;
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int h, int b) {
 #pragma unroll
-  for (int n = 0; n < 64 / 16; ++n) {
-    wmma::fill_fragment(fc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(fa, a + kk * 16, LDT);
-      wmma::load_matrix_sync(fb, b + n * 16 * LDT + kk * 16, LDT);
-      wmma::mma_sync(fc, fa, fb, fc);
-    }
-    wmma::store_matrix_sync(out + n * 16, fc, ldo, wmma::mem_row_major);
+  for (uint32_t a = 0; a < TileOf<D>::atoms; ++a) {
+    tma_box(dst + a * TileOf<D>::atom_bytes, map, bar, 64 * a, row, h, b);
   }
 }
 
-// acc[16 x D] (f32 in shared memory, row stride LDA) += A[16 x 64] B for
-// one warp: A is 16 rows of a bf16 [., 64] matrix (row stride LDP), B a
-// row-major bf16 [64, D] tile.
+// ---- wgmma --------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, stride 1024 bytes between 8-row groups (SBO), layout 1 =
+// 128-byte swizzle. A K-major operand's k16 slice starts 32 bytes further
+// along its swizzled row; an MN-major one's 16 rows (2048 bytes) further.
+// The leading offset (LBO) is never read: no instruction here spans more
+// than one atom along the swizzled dimension.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// K-major [64, D] tile, k16 slice kk of D.
 template <int D>
-__device__ __forceinline__ void warp_acc_ab_smem(float* acc, const bf16* a,
-                                                 const bf16* b) {
-  constexpr int LDT = Strides<D>::LDT;
-  constexpr int LDP = Strides<D>::LDP;
-  constexpr int LDA = Strides<D>::LDA;
-  FragA fa;
-  FragBRow fb;
-  FragC fc;
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk / 4) * TileOf<D>::atom_bytes + (kk % 4) * 32);
+}
+
+// MN-major [64 (K), D (N)] tile: k16 slice kk of the rows, N atom a.
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk, int a) {
+  return sw128_desc(tile + a * TileOf<D>::atom_bytes + kk * 2048);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma registers across
+// the fence / wait around them.
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::load_matrix_sync(fc, acc + n * 16, LDA, wmma::mem_row_major);
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
 #pragma unroll
-    for (int kk = 0; kk < 64 / 16; ++kk) {
-      wmma::load_matrix_sync(fa, a + kk * 16, LDP);
-      wmma::load_matrix_sync(fb, b + kk * 16 * LDT + n * 16, LDT);
-      wmma::mma_sync(fc, fa, fb, fc);
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+  }
+}
+
+#define DTF_WG_D32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+#define DTF_WG_OUT32(d)                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B in shared memory, both
+// K-major; accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DTF_WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DTF_WG_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (bf16 pairs), B in
+// shared memory MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DTF_WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : DTF_WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The accumulator layout of m64n64 (f32): thread t of the warpgroup holds
+// d[4j + 2i + c] at row 16 (t / 32) + (t % 32) / 4 + 8i and column
+// 8j + 2 (t % 4) + c, for j < 8 and i, c < 2. Converted in place to the
+// bf16 A fragments of the k16 slices kk < 4 of a following product: the
+// m16n8 C layout and the m16k16 A layout put the same elements in the
+// same thread.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void to_a_frags(const float (&d)[32],
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
     }
-    wmma::store_matrix_sync(acc + n * 16, fc, LDA, wmma::mem_row_major);
   }
 }
 
@@ -196,284 +299,561 @@ __device__ __forceinline__ bool score_ok(int qpos, int kpos, int Tk,
   return ok;
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const float* __restrict__ bias, bf16* __restrict__ dq,
-                    int H, int Tq, int Tk,
-                    long long qsb, long long qsh, long long qst,
-                    long long ksb, long long ksh, long long kst,
-                    long long vsb, long long vsh, long long vst,
-                    long long dsb, long long dsh, long long dst,
-                    float scale, int causal, int window) {
-  using L = DqLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + L::do_off);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
-  float* sS = reinterpret_cast<float*>(smem + L::s_off);
-  float* sdP = reinterpret_cast<float*>(smem + L::dp_off);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + L::ds_off);
-  float* sA = reinterpret_cast<float*>(smem + L::a_off);
+// lse in log2 units for the exp2 of P; a dead or padded row takes +inf,
+// so exp2(x - inf) = 0 and its P (and dS) is exactly 0 with no branch.
+__device__ __forceinline__ float lse2_of(float l) {
+  return l == -INFINITY ? INFINITY : l * LOG2E;
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = warp * 16 + (lane >> 1);   // this thread's query row
-  const int half = lane & 1;                 // ... and which half of it
-  const int q0 = blockIdx.x * BQ;
-  const int qpos = q0 + row;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const bf16* qp = q + b * qsb + h * qsh;
-  const bf16* kp = k + b * ksb + h * ksh;
-  const bf16* vp = v + b * vsb + h * vsh;
-  const bf16* dop = dout + b * dsb + h * dsh;
-  const float* brow = bias ? bias + (long long)b * Tk : nullptr;
-
-  // The live k-range of this q-block.
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  const int k_begin = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
-  const int kb_begin = k_begin / BK;
-  const int kb_end = (k_end + BK - 1) / BK;
-
-  load_tile<D>(sQ, qp, qst, q0, Tq);
-  load_tile<D>(sdO, dop, dst, q0, Tq);
-  // A padded row takes lse -inf, so its P is 0 (_zero_padded_q_rows).
-  const bool row_ok = qpos < Tq;
-  const float lse_r = row_ok ? lse[(long long)bh * Tq + qpos] : -INFINITY;
-  const float delta_r = row_ok ? delta[(long long)bh * Tq + qpos] : 0.f;
-  const bool dead = lse_r == -INFINITY;
-
-  FragC acc[D / 16];
+// S -> P in place for dQ (rows = queries, columns = keys): bias2 per
+// column from shared memory, lse2 per row.
+template <bool MASK>
+__device__ __forceinline__ void dq_probs(float (&s)[32], const float* bias2,
+                                         const float (&lse2)[2],
+                                         const int (&qpos)[2], int kcol0,
+                                         int quad, float sl2, int Tk,
+                                         int causal, int window) {
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const float* srow = sS + row * L::LDS + half * 32;
-  const float* dprow = sdP + row * L::LDS + half * 32;
-  bf16* dsrow = sdS + row * L::LDP + half * 32;
-
-  for (int kb = kb_begin; kb < kb_end; ++kb) {
-    const int kbase = kb * BK;
-    __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<D>(sK, kp, kst, kbase, Tk);
-    load_tile<D>(sV, vp, vst, kbase, Tk);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows.
-    warp_abt<D>(sS + warp * 16 * L::LDS, L::LDS, sQ + warp * 16 * L::LDT, sK);
-    warp_abt<D>(sdP + warp * 16 * L::LDS, L::LDS, sdO + warp * 16 * L::LDT, sV);
-    __syncwarp();
-
-    // dS over this thread's half row, cast to bf16 for dS K.
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int kpos = kbase + half * 32 + c;
-      float s = score_ok(qpos, kpos, Tk, causal, window) ? srow[c] * scale
-                                                         : -INFINITY;
-      if (brow != nullptr && kpos < Tk) s += brow[kpos];
-      const float p = dead ? 0.f : expf(s - lse_r);
-      dsrow[c] = __float2bfloat16(p * (dprow[c] - delta_r) * scale);
-    }
-    __syncwarp();
-
-    // dQ += dS K (K row-major [BK, D] is the B operand as it stands).
-    {
-      FragA fa;
-      FragBRow fb;
+  for (int j = 0; j < 8; ++j) {
+    const float2 bj = *reinterpret_cast<const float2*>(bias2 + 8 * j + 2 * quad);
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
+    for (int i = 0; i < 2; ++i) {
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::load_matrix_sync(fa, sdS + warp * 16 * L::LDP + kk * 16, L::LDP);
-          wmma::load_matrix_sync(fb, sK + kk * 16 * L::LDT + n * 16, L::LDT);
-          wmma::mma_sync(acc[n], fa, fb, acc[n]);
+      for (int c = 0; c < 2; ++c) {
+        float& x = s[4 * j + 2 * i + c];
+        float p = exp2f(fmaf(x, sl2, (c ? bj.y : bj.x) - lse2[i]));
+        if (MASK && !score_ok(qpos[i], kcol0 + 8 * j + c, Tk, causal, window)) {
+          p = 0.f;
         }
+        x = p;
       }
     }
-    __syncwarp();
   }
+}
 
-  // Stage this warp's f32 rows, then write them once in bf16.
+// S^T -> P^T in place for dK/dV (rows = keys, columns = queries): lse2
+// per column from shared memory, bias2 per row.
+template <bool MASK>
+__device__ __forceinline__ void dkv_probs(float (&s)[32], const float* lse2,
+                                          const float (&bias2)[2],
+                                          const int (&kpos)[2], int qcol0,
+                                          int quad, float sl2, int Tk,
+                                          int causal, int window) {
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(sA + warp * 16 * L::LDA + n * 16, acc[n], L::LDA,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  if (row_ok) {
-    const float* arow = sA + row * L::LDA + half * (D / 2);
-    bf16* orow = dq + ((long long)bh * Tq + qpos) * D + half * (D / 2);
+  for (int j = 0; j < 8; ++j) {
+    const float2 lj = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * quad);
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] = __float2bfloat16(arow[c]);
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = s[4 * j + 2 * i + c];
+        float p = exp2f(fmaf(x, sl2, bias2[i] - (c ? lj.y : lj.x)));
+        if (MASK && !score_ok(qcol0 + 8 * j + c, kpos[i], Tk, causal, window)) {
+          p = 0.f;
+        }
+        x = p;
+      }
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ bias, bf16* __restrict__ dq,
+                    int H, int Tq, int Tk, float scale, int causal,
+                    int window) {
+  using L = DqSmem<D>;
+  constexpr int A = TileOf<D>::atoms;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  float* sBias = reinterpret_cast<float*>(smem_raw + (sbase - raw) + L::bias);
+  const uint32_t bar_qdo = sbase + L::bars;
+  const uint32_t bar_full = bar_qdo + 8;  // + 8 s
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int quad = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest first
+  const float* brow = bias ? bias + (long long)b * Tk : nullptr;
+
+  // The live k-range of this q-block.
+  const int k_end = causal ? min(Tk, q0 + BM) : Tk;
+  const int k_begin = (causal && window > 0) ? max(0, q0 - window + 1) : 0;
+  const int kb_begin = k_begin / BN;
+  const int n_blocks = (k_end + BN - 1) / BN - kb_begin;
+
+  // This thread's two query rows.
+  int qpos[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qpos[i] = q0 + 16 * warp + (lane >> 2) + 8 * i;
+    const bool ok = qpos[i] < Tq;
+    lse2[i] = ok ? lse2_of(lse[(long long)bh * Tq + qpos[i]]) : INFINITY;
+    dlt[i] = ok ? delta[(long long)bh * Tq + qpos[i]] : 0.f;
+  }
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s <= STAGES; ++s) mbar_init(bar_qdo + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // The bias row (in log2 units) of each stage's keys; zeros without one.
+  if (tid < BN) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      const int kp = (kb_begin + s) * BN + tid;
+      sBias[s * BN + tid] = (brow && kp < Tk) ? brow[kp] * LOG2E : 0.f;
+    }
+  }
+  __syncthreads();
+
+  auto issue_kv = [&](int i) {
+    const int s = i % STAGES;
+    const uint32_t bar = bar_full + 8 * s;
+    const uint32_t dst = sbase + L::ring + s * 2 * L::tile;
+    const int row = (kb_begin + i) * BN;
+    mbar_expect_tx(bar, 2 * L::tile);
+    tma_tile<D>(dst, &tm_k, bar, row, h, b);
+    tma_tile<D>(dst + L::tile, &tm_v, bar, row, h, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_qdo, 2 * L::tile);
+    tma_tile<D>(sbase + L::q, &tm_q, bar_qdo, q0, h, b);
+    tma_tile<D>(sbase + L::dout, &tm_do, bar_qdo, q0, h, b);
+    for (int i = 0; i < STAGES && i < n_blocks; ++i) issue_kv(i);
+  }
+
+  float acc[A][32];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[a][e] = 0.f;
+  }
+  const float sl2 = scale * LOG2E;
+  mbar_wait(bar_qdo, 0);
+
+  for (int i = 0; i < n_blocks; ++i) {
+    const int s = i % STAGES;
+    const int kbase = (kb_begin + i) * BN;
+    const uint32_t sK = sbase + L::ring + s * 2 * L::tile;
+    const uint32_t sV = sK + L::tile;
+    // Next-but-one stage's bias, read now, stored after the products.
+    const bool next_bias = brow && tid < BN && i + STAGES < n_blocks;
+    float nb = 0.f;
+    if (next_bias) {
+      const int kp = kbase + STAGES * BN + tid;
+      nb = kp < Tk ? brow[kp] * LOG2E : 0.f;
+    }
+    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    __syncwarp();
+
+    // S = Q K^T, dP = dO V^T.
+    float sacc[32], dpacc[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(sacc, kmajor<D>(sbase + L::q, kk), kmajor<D>(sK, kk), kk > 0);
+    }
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(dpacc, kmajor<D>(sbase + L::dout, kk), kmajor<D>(sV, kk),
+               kk > 0);
+    }
+    wg_commit();
+
+    wg_wait<1>();
+    reg_fence(sacc);
+    const bool mask = kbase + BN > Tk ||
+                      (causal && kbase + BN - 1 > q0) ||
+                      (causal && window > 0 && q0 + BM - 1 - kbase >= window);
+    const float* bias2 = sBias + s * BN;
+    if (mask) {
+      dq_probs<true>(sacc, bias2, lse2, qpos, kbase + 2 * quad, quad, sl2, Tk,
+                     causal, window);
+    } else {
+      dq_probs<false>(sacc, bias2, lse2, qpos, kbase + 2 * quad, quad, sl2,
+                      Tk, causal, window);
+    }
+
+    wg_wait<0>();
+    reg_fence(dpacc);
+    // dS = P (dP - Delta) sm_scale, as bf16 A fragments.
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sacc[e] = sacc[e] * (dpacc[e] - dlt[(e >> 1) & 1]) * scale;
+    }
+    uint32_t dsf[4][4];
+    to_a_frags(sacc, dsf);
+    reg_fence(dsf);
+#pragma unroll
+    for (int a = 0; a < A; ++a) reg_fence(acc[a]);
+
+    // dQ += dS K.
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        wgmma_rs(acc[a], dsf[kk], mnmajor<D>(sK, kk, a));
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int a = 0; a < A; ++a) reg_fence(acc[a]);
+
+    __syncthreads();  // every warp is done with stage s
+    // Read in iteration i + STAGES, after the next iteration's barrier.
+    if (next_bias) sBias[s * BN + tid] = nb;
+    if (tid == 0 && i + STAGES < n_blocks) issue_kv(i + STAGES);
+  }
+
+  // dq [B*H, Tq, D]: bf16 pairs straight from the accumulator layout.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qpos[i] >= Tq) continue;
+    bf16* orow = dq + ((long long)bh * Tq + qpos[i]) * D + 2 * quad;
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 64 * a + 8 * j) =
+            pack_bf16(acc[a][4 * j + 2 * i], acc[a][4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const float* __restrict__ bias, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int H, int Tq, int Tk,
-                     long long qsb, long long qsh, long long qst,
-                     long long ksb, long long ksh, long long kst,
-                     long long vsb, long long vsh, long long vst,
-                     long long dsb, long long dsh, long long dst,
                      float scale, int causal, int window) {
-  using L = DkvLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* sdO = reinterpret_cast<bf16*>(smem + L::do_off);
-  float* sS = reinterpret_cast<float*>(smem + L::s_off);
-  float* sdP = reinterpret_cast<float*>(smem + L::dp_off);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p_off);
-  bf16* sdS = reinterpret_cast<bf16*>(smem + L::ds_off);
-  float* sdK = reinterpret_cast<float*>(smem + L::dk_off);
-  float* sdV = reinterpret_cast<float*>(smem + L::dv_off);
-  float* sLse = reinterpret_cast<float*>(smem + L::stat_off);
-  float* sDelta = sLse + BQ;
+  using L = DkvSmem<D>;
+  constexpr int A = TileOf<D>::atoms;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  float* sStat = reinterpret_cast<float*>(smem_raw + (sbase - raw) + L::stat);
+  const uint32_t bar_kv = sbase + L::bars;
+  const uint32_t bar_full = bar_kv + 8;  // + 8 s
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = warp * 16 + (lane >> 1);   // this thread's key row
-  const int half = lane & 1;                 // ... and which half of it
-  const int k0 = blockIdx.x * BK;
-  const int kpos = k0 + row;
-  const int bh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int quad = lane & 3;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const bf16* qp = q + b * qsb + h * qsh;
-  const bf16* kp = k + b * ksb + h * ksh;
-  const bf16* vp = v + b * vsb + h * vsh;
-  const bf16* dop = dout + b * dsb + h * dsh;
+  const int k0 = blockIdx.y * BM;  // causal: the first k-blocks are heaviest
   const float* lse_bh = lse + (long long)bh * Tq;
   const float* delta_bh = delta + (long long)bh * Tq;
-  const bool key_ok = kpos < Tk;
-  const bool has_bias = bias != nullptr && key_ok;
-  const float bias_k = has_bias ? bias[(long long)b * Tk + kpos] : 0.f;
 
   // The live q-range of this k-block: causal queries start at the block's
   // own diagonal; under a window they end W - 1 past its last key.
   const int q_begin = causal ? k0 : 0;
-  const int q_end = (causal && window > 0) ? min(Tq, k0 + BK - 1 + window) : Tq;
-  const int qb_begin = q_begin / BQ;
-  const int qb_end = (q_end + BQ - 1) / BQ;
+  const int q_end = (causal && window > 0) ? min(Tq, k0 + BM - 1 + window) : Tq;
+  const int qb_begin = q_begin / BN;
+  const int n_blocks = max(0, (q_end + BN - 1) / BN - qb_begin);
 
-  load_tile<D>(sK, kp, kst, k0, Tk);
-  load_tile<D>(sV, vp, vst, k0, Tk);
-  float* dkrow = sdK + row * L::LDA + half * (D / 2);
-  float* dvrow = sdV + row * L::LDA + half * (D / 2);
+  // This thread's two key rows.
+  int kpos[2];
+  float bias2[2];
 #pragma unroll
-  for (int c = 0; c < D / 2; ++c) {
-    dkrow[c] = 0.f;
-    dvrow[c] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    kpos[i] = k0 + 16 * warp + (lane >> 2) + 8 * i;
+    bias2[i] = (bias && kpos[i] < Tk)
+                   ? bias[(long long)b * Tk + kpos[i]] * LOG2E : 0.f;
   }
 
-  const float* srow = sS + row * L::LDS + half * 32;
-  const float* dprow = sdP + row * L::LDS + half * 32;
-  bf16* prow = sP + row * L::LDP + half * 32;
-  bf16* dsrow = sdS + row * L::LDP + half * 32;
+  // Thread t < 64 stages lse (log2 units) of query t of a block, thread
+  // 64 + t its Delta: stat[s][0][t], stat[s][1][t].
+  const int srow = tid & (BN - 1);
+  const bool is_lse = tid < BN;
+  auto stat_of = [&](int qb) {
+    const int qq = qb * BN + srow;
+    if (qq >= Tq) return is_lse ? INFINITY : 0.f;
+    return is_lse ? lse2_of(lse_bh[qq]) : delta_bh[qq];
+  };
 
-  for (int qb = qb_begin; qb < qb_end; ++qb) {
-    const int qbase = qb * BQ;
-    __syncthreads();  // every warp is done with the previous Q/dO/stats
-    load_tile<D>(sQ, qp, qst, qbase, Tq);
-    load_tile<D>(sdO, dop, dst, qbase, Tq);
-    for (int i = threadIdx.x; i < BQ; i += THREADS) {
-      const int qq = qbase + i;
-      // padded query rows take lse -inf: their P is 0
-      sLse[i] = qq < Tq ? lse_bh[qq] : -INFINITY;
-      sDelta[i] = qq < Tq ? delta_bh[qq] : 0.f;
-    }
-    __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s <= STAGES; ++s) mbar_init(bar_kv + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+    if (s < n_blocks) sStat[s * 2 * BN + tid] = stat_of(qb_begin + s);
+  }
+  __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 key rows.
-    warp_abt<D>(sS + warp * 16 * L::LDS, L::LDS, sK + warp * 16 * L::LDT, sQ);
-    warp_abt<D>(sdP + warp * 16 * L::LDS, L::LDS, sV + warp * 16 * L::LDT, sdO);
-    __syncwarp();
-
-    // P^T and dS^T over this thread's half row, both cast to bf16.
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c;
-      const int qpos = qbase + col;
-      float s = score_ok(qpos, kpos, Tk, causal, window) ? srow[c] * scale
-                                                         : -INFINITY;
-      if (has_bias) s += bias_k;
-      const float l = sLse[col];
-      const float p = (l == -INFINITY) ? 0.f : expf(s - l);
-      prow[c] = __float2bfloat16(p);
-      dsrow[c] = __float2bfloat16(p * (dprow[c] - sDelta[col]) * scale);
-    }
-    __syncwarp();
-
-    // dV += P^T dO and dK += dS^T Q (dO and Q row-major [BQ, D]).
-    warp_acc_ab_smem<D>(sdV + warp * 16 * L::LDA, sP + warp * 16 * L::LDP, sdO);
-    warp_acc_ab_smem<D>(sdK + warp * 16 * L::LDA, sdS + warp * 16 * L::LDP, sQ);
-    __syncwarp();
+  auto issue_qdo = [&](int i) {
+    const int s = i % STAGES;
+    const uint32_t bar = bar_full + 8 * s;
+    const uint32_t dst = sbase + L::ring + s * 2 * L::tile;
+    const int row = (qb_begin + i) * BN;
+    mbar_expect_tx(bar, 2 * L::tile);
+    tma_tile<D>(dst, &tm_q, bar, row, h, b);
+    tma_tile<D>(dst + L::tile, &tm_do, bar, row, h, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * L::tile);
+    tma_tile<D>(sbase + L::k, &tm_k, bar_kv, k0, h, b);
+    tma_tile<D>(sbase + L::v, &tm_v, bar_kv, k0, h, b);
+    for (int i = 0; i < STAGES && i < n_blocks; ++i) issue_qdo(i);
   }
 
-  __syncwarp();
-  if (key_ok) {
-    bf16* krow = dk + ((long long)bh * Tk + kpos) * D + half * (D / 2);
-    bf16* vrow = dv + ((long long)bh * Tk + kpos) * D + half * (D / 2);
+  float dka[A][32], dva[A][32];
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) {
-      krow[c] = __float2bfloat16(dkrow[c]);
-      vrow[c] = __float2bfloat16(dvrow[c]);
+  for (int a = 0; a < A; ++a) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      dka[a][e] = 0.f;
+      dva[a][e] = 0.f;
+    }
+  }
+  const float sl2 = scale * LOG2E;
+  mbar_wait(bar_kv, 0);
+
+  for (int i = 0; i < n_blocks; ++i) {
+    const int s = i % STAGES;
+    const int qbase = (qb_begin + i) * BN;
+    const uint32_t sQ = sbase + L::ring + s * 2 * L::tile;
+    const uint32_t sdO = sQ + L::tile;
+    const float* lse2 = sStat + s * 2 * BN;
+    const float* dlt = lse2 + BN;
+    // Next-but-one stage's lse / Delta, read now, stored after the products.
+    const bool next_stat = i + STAGES < n_blocks;
+    const float ns = next_stat ? stat_of(qb_begin + i + STAGES) : 0.f;
+    mbar_wait(bar_full + 8 * s, (i / STAGES) & 1);
+    __syncwarp();
+
+    // S^T = K Q^T, dP^T = V dO^T.
+    float sacc[32], dpacc[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(sacc, kmajor<D>(sbase + L::k, kk), kmajor<D>(sQ, kk), kk > 0);
+    }
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(dpacc, kmajor<D>(sbase + L::v, kk), kmajor<D>(sdO, kk), kk > 0);
+    }
+    wg_commit();
+
+    wg_wait<1>();
+    reg_fence(sacc);
+    const bool mask = k0 + BM > Tk ||
+                      (causal && k0 + BM - 1 > qbase) ||
+                      (causal && window > 0 && qbase + BN - 1 - k0 >= window);
+    if (mask) {
+      dkv_probs<true>(sacc, lse2, bias2, kpos, qbase + 2 * quad, quad, sl2,
+                      Tk, causal, window);
+    } else {
+      dkv_probs<false>(sacc, lse2, bias2, kpos, qbase + 2 * quad, quad, sl2,
+                       Tk, causal, window);
+    }
+    uint32_t pf[4][4];
+    to_a_frags(sacc, pf);
+    reg_fence(pf);
+#pragma unroll
+    for (int a = 0; a < A; ++a) reg_fence(dva[a]);
+
+    // dV += P^T dO (runs while dS^T is formed).
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        wgmma_rs(dva[a], pf[kk], mnmajor<D>(sdO, kk, a));
+      }
+    }
+    wg_commit();
+
+    wg_wait<1>();  // dP^T is done (dV may still run)
+    reg_fence(dpacc);
+    // dS^T = P^T (dP^T - Delta) sm_scale, Delta per column.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dj = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * quad);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int e = 4 * j + r;
+        sacc[e] = sacc[e] * (dpacc[e] - ((r & 1) ? dj.y : dj.x)) * scale;
+      }
+    }
+    uint32_t dsf[4][4];
+    to_a_frags(sacc, dsf);
+    reg_fence(dsf);
+#pragma unroll
+    for (int a = 0; a < A; ++a) reg_fence(dka[a]);
+
+    // dK += dS^T Q.
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        wgmma_rs(dka[a], dsf[kk], mnmajor<D>(sQ, kk, a));
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      reg_fence(dka[a]);
+      reg_fence(dva[a]);
+    }
+
+    __syncthreads();  // every warp is done with stage s
+    // Read in iteration i + STAGES, after the next iteration's barrier.
+    if (next_stat) sStat[s * 2 * BN + tid] = ns;
+    if (tid == 0 && i + STAGES < n_blocks) issue_qdo(i + STAGES);
+  }
+
+  // dk, dv [B*H, Tk, D]: bf16 pairs straight from the accumulator layout.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kpos[i] >= Tk) continue;
+    const long long off = ((long long)bh * Tk + kpos[i]) * D + 2 * quad;
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = 4 * j + 2 * i;
+        *reinterpret_cast<uint32_t*>(dk + off + 64 * a + 8 * j) =
+            pack_bf16(dka[a][e], dka[a][e + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + 64 * a + 8 * j) =
+            pack_bf16(dva[a][e], dva[a][e + 1]);
+      }
     }
   }
 }
 
+// ---- host ---------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A [B, H, T, D] bf16 operand read through its strides (elements) as a
+// 4-D (D, T, H, B) map with [64, 64, 1, 1] boxes, 128-byte swizzled;
+// reads outside T come back as zeros.
+int make_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int D,
+             long long sb, long long sh, long long st) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                         const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *bias;
-  int B, H, Tq, Tk;
+  int B, H, Tq, Tk, D;
   long long qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst;
   float scale;
   int causal, window;
   cudaStream_t stream;
 };
 
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+int make_maps(const Args& a, Maps* m) {
+  int err = make_map(&m->q, a.q, a.B, a.H, a.Tq, a.D, a.qsb, a.qsh, a.qst);
+  if (!err) err = make_map(&m->k, a.k, a.B, a.H, a.Tk, a.D, a.ksb, a.ksh, a.kst);
+  if (!err) err = make_map(&m->v, a.v, a.B, a.H, a.Tk, a.D, a.vsb, a.vsh, a.vst);
+  if (!err) {
+    err = make_map(&m->dout, a.dout, a.B, a.H, a.Tq, a.D, a.dsb, a.dsh, a.dst);
+  }
+  return err;
+}
+
 template <int D>
 int launch_dq(const Args& a, void* dq) {
-  constexpr size_t smem = DqLayout<D>::bytes;
+  constexpr size_t smem = DqSmem<D>::bytes + kAlignPad;
   // Above 48 KB a launch needs the opt-in, or it is refused and never runs.
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.Tq + BQ - 1) / BQ, a.B * a.H);
+  Maps m;
+  if (const int err = make_maps(a, &m)) return err;
+  const dim3 grid(a.B * a.H, (a.Tq + BM - 1) / BM);
   flash_bwd_dq_kernel<D><<<grid, THREADS, smem, a.stream>>>(
-      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-      (const bf16*)a.dout, (const float*)a.lse, (const float*)a.delta,
-      (const float*)a.bias, (bf16*)dq, a.H, a.Tq, a.Tk, a.qsb, a.qsh, a.qst,
-      a.ksb, a.ksh, a.kst, a.vsb, a.vsh, a.vst, a.dsb, a.dsh, a.dst, a.scale,
-      a.causal, a.window);
+      m.q, m.k, m.v, m.dout, (const float*)a.lse, (const float*)a.delta,
+      (const float*)a.bias, (bf16*)dq, a.H, a.Tq, a.Tk, a.scale, a.causal,
+      a.window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv(const Args& a, void* dk, void* dv) {
-  constexpr size_t smem = DkvLayout<D>::bytes;
+  constexpr size_t smem = DkvSmem<D>::bytes + kAlignPad;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((a.Tk + BK - 1) / BK, a.B * a.H);
+  Maps m;
+  if (const int err = make_maps(a, &m)) return err;
+  const dim3 grid(a.B * a.H, (a.Tk + BM - 1) / BM);
   flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, a.stream>>>(
-      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-      (const bf16*)a.dout, (const float*)a.lse, (const float*)a.delta,
-      (const float*)a.bias, (bf16*)dk, (bf16*)dv, a.H, a.Tq, a.Tk, a.qsb,
-      a.qsh, a.qst, a.ksb, a.ksh, a.kst, a.vsb, a.vsh, a.vst, a.dsb, a.dsh,
-      a.dst, a.scale, a.causal, a.window);
+      m.q, m.k, m.v, m.dout, (const float*)a.lse, (const float*)a.delta,
+      (const float*)a.bias, (bf16*)dk, (bf16*)dv, a.H, a.Tq, a.Tk, a.scale,
+      a.causal, a.window);
   return (int)cudaGetLastError();
 }
 
@@ -483,9 +863,10 @@ extern "C" {
 
 // q [B,H,Tq,D], k/v [B,H,Tk,D] and dout [B,H,Tq,D] bf16 read through the
 // given strides (elements; the last dim contiguous, every stride a
-// multiple of 8); lse and delta [B*H,Tq] f32 contiguous; bias [B,Tk] f32
-// or null. dq [B*H,Tq,D] bf16 contiguous. Launches on `stream` and
-// returns cudaGetLastError().
+// multiple of 8, the base 16-byte aligned); lse and delta [B*H,Tq] f32
+// contiguous; bias [B,Tk] f32 or null. dq [B*H,Tq,D] bf16 contiguous.
+// Launches on `stream` and returns cudaGetLastError() (or the error of
+// building the operands' TMA maps).
 int dtf_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta,
                           const void* bias, void* dq, int B, int H, int Tq,
@@ -496,7 +877,7 @@ int dtf_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                           long long dsb, long long dsh, long long dst,
                           float scale, int causal, int window, void* stream) {
   if (B * H == 0 || Tq == 0) return 0;
-  const Args a{q, k, v, dout, lse, delta, bias, B, H, Tq, Tk,
+  const Args a{q, k, v, dout, lse, delta, bias, B, H, Tq, Tk, D,
                qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst,
                scale, causal, window, (cudaStream_t)stream};
   switch (D) {
@@ -517,7 +898,7 @@ int dtf_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                            long long dsb, long long dsh, long long dst,
                            float scale, int causal, int window, void* stream) {
   if (B * H == 0 || Tk == 0) return 0;
-  const Args a{q, k, v, dout, lse, delta, bias, B, H, Tq, Tk,
+  const Args a{q, k, v, dout, lse, delta, bias, B, H, Tq, Tk, D,
                qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst,
                scale, causal, window, (cudaStream_t)stream};
   switch (D) {
@@ -535,8 +916,12 @@ const char* dtf_flash_bwd_error_string(int err) {
 // supported); which = 0 for dQ, 1 for dK/dV.
 long long dtf_flash_bwd_smem_bytes(int which, int D) {
   switch (D) {
-    case 64: return (long long)(which ? DkvLayout<64>::bytes : DqLayout<64>::bytes);
-    case 128: return (long long)(which ? DkvLayout<128>::bytes : DqLayout<128>::bytes);
+    case 64:
+      return (long long)(which ? DkvSmem<64>::bytes : DqSmem<64>::bytes) +
+             (long long)kAlignPad;
+    case 128:
+      return (long long)(which ? DkvSmem<128>::bytes : DqSmem<128>::bytes) +
+             (long long)kAlignPad;
     default: return 0;
   }
 }

@@ -48,7 +48,13 @@ def _rel(x, y):
 
 CASES = [((2, 4, 200, 200, 64), True, 0, False),
          ((2, 4, 130, 257, 64), False, 0, True),
-         ((2, 2, 300, 300, 128), True, 48, True)]
+         ((2, 2, 300, 300, 128), True, 48, True),
+         # the backward's tile edges: one row past a 64- and a 128-row
+         # block, one query against 1024 keys, D 128 ragged with a window
+         ((1, 2, 65, 65, 64), True, 0, False),
+         ((1, 2, 129, 129, 64), True, 0, False),
+         ((2, 4, 1, 1024, 64), False, 0, False),
+         ((1, 2, 1000, 1000, 128), True, 200, False)]
 
 
 @pytest.mark.parametrize("shape,causal,window,masked", CASES)
@@ -77,6 +83,20 @@ def test_forward_and_backward_kernels_match_plain(cuda, shape, causal,
         assert torch.isfinite(x).all() and _rel(x, y) <= GRAD_REL_TOL
         if masked:
             assert torch.count_nonzero(x[-1]).item() == 0
+
+
+@pytest.mark.parametrize("d", (64, 128))
+def test_backward_kernels_are_bitwise_repeatable(cuda, d):
+    # no atomics, one write per element: the same inputs give the same bits
+    q, k, v = _qkv(cuda, 2, 4, 300, 300, d)
+    do = torch.randn(2, 300, 4, d, device=cuda,
+                     dtype=torch.bfloat16).transpose(1, 2)
+    opts = dict(sm_scale=d ** -0.5, causal=True)
+    out, lse = tfa.flash_attention_cuda(q, k, v, **opts)
+    first = tfa.flash_attention_bwd_cuda(q, k, v, None, out, lse, do, **opts)
+    again = tfa.flash_attention_bwd_cuda(q, k, v, None, out, lse, do, **opts)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
 
 
 def test_autograd_on_cuda_counts_each_kernel_once(cuda):
