@@ -11,18 +11,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 2. build — compiles every kernel of the port from ``dtf_tpu_torch/ops/csrc``
    with ``nvcc`` for sm_90a (one nvcc per source, all started together);
    prints ptxas's registers and spills, and checks with ``cuobjdump
-   -sass`` that both backward kernels run wgmma (HGMMA) on TMA loads
-   (UTMALDG) and no mma.sync (HMMA).
+   -sass`` that the forward and both backward kernels (D 64 and 128, 6
+   in all) run wgmma (HGMMA) on TMA loads (UTMALDG) and no mma.sync
+   (HMMA).
 3. kernels — the flash-attention forward kernel (B1, and B4 through
    ``block_h``) against its plain PyTorch version on the card, bf16, at
-   GPT-2 shapes; times the kernel, the plain version, PyTorch's
+   GPT-2 shapes and the tile edges (T 5, 65, 129, ragged T, t_q 1 against
+   t_k 1024, D 128 ragged with a window and a ``kv_mask`` row, B·H 65,552
+   past the old grid limit); two launches at the training shape bitwise
+   equal; times the kernel, the plain version, PyTorch's
    ``scaled_dot_product_attention`` (a yardstick only — the port never
    calls it) and the bound.
 4. generate — GPT-2 small at full width, seeded random weights, batch 4,
    prompt 1024, 64 new greedy tokens through ``models.gpt.generate``; the
    flash launch count must be exactly one per layer; prefill logits and
-   greedy tokens are held against the same model on the dense path.
-   Then the ``python -m dtf_tpu_torch.generate_gpt`` entry, in process.
+   greedy tokens are held against the same model on the dense path, and
+   then, teacher-forced on the dense model's 64 tokens, the logits of
+   every step and row (256). Then the ``python -m
+   dtf_tpu_torch.generate_gpt`` entry, in process.
 5. generate-variants — GPT-2 small widths at 4 layers with GQA
    (kv_heads 4), a 256 window with every 2nd layer global, an int8 KV
    cache and ``flash_block_h=2`` (B4); one greedy run, one seeded sampled
@@ -31,9 +37,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    the plain backward on the card, bf16, dO as a transposed view: the
    training shape, ragged T, a window, a fully masked ``kv_mask`` row
    (gradient exactly 0), t_q != t_k, D 128, T 5, T 65 and 129 (one row
-   past a tile), t_q 1 against t_k 1024, D 128 ragged with a window;
-   then two launches of each kernel at the training shape, bitwise
-   equal.
+   past a tile), t_q 1 against t_k 1024, D 128 ragged with a window,
+   B·H 65,552 at T 2; then two launches of each kernel at the training
+   shape, bitwise equal.
 7. kernel_times_bwd — B2, B3 and B1 at the training shape
    [8, 12, 1024, 64]: kernel, plain version, the library yardstick
    (SDPA's backward) and the bound.
@@ -238,45 +244,51 @@ def phase_build():
     logs = _build.build(_build.KERNELS, ptxas_verbose=True)
     secs = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if any(w in ln for w in ("entry function", "registers",
+                                             "spill"))]
              for name, log in logs.items()}
     for name in _build.KERNELS:
         _build.load(name)
-    sass = flash_bwd_sass_counts(_build)
+    sass = flash_sass_counts(_build)
     for kernel, counts in sass.items():
         require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
                 and counts["HMMA"] == 0,
                 f"{kernel}: expected wgmma (HGMMA) and TMA loads (UTMALDG) "
                 f"and no mma.sync (HMMA), got {counts}")
     emit({"phase": "build", "seconds": secs, "sources": list(_build.KERNELS),
-          "ptxas": ptxas, "flash_bwd_sass": sass})
+          "ptxas": ptxas, "flash_sass": sass})
 
 
-def flash_bwd_sass_counts(_build):
-    """Per backward kernel (B2, B3; D 64 and 128), its count of wgmma
+#: the flash kernels whose SASS the build phase reads, by library
+FLASH_SASS_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
+                      "flash_bwd": ("flash_bwd_dq_kernel",
+                                    "flash_bwd_dkv_kernel")}
+
+
+def flash_sass_counts(_build):
+    """Per flash kernel (B1/B4, B2, B3; D 64 and 128), its count of wgmma
     (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions, from
-    ``cuobjdump -sass`` of the built library (beside nvcc)."""
+    ``cuobjdump -sass`` of the built libraries (beside nvcc)."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass",
-                           _build.library_path("flash_bwd")],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-    counts, kernel = {}, None
-    for line in text.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            kernel = next((k for k in ("flash_bwd_dq_kernel",
-                                       "flash_bwd_dkv_kernel") if k in name),
-                          None)
+    counts = {}
+    for lib, kernels in FLASH_SASS_KERNELS.items():
+        text = subprocess.run([cuobjdump, "-sass", _build.library_path(lib)],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        kernel = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                kernel = next((k for k in kernels if k in name), None)
+                if kernel is not None:
+                    kernel += "<128>" if "ILi128E" in name else "<64>"
+                    counts[kernel] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+                continue
             if kernel is not None:
-                kernel += "<128>" if "ILi128E" in name else "<64>"
-                counts[kernel] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
-            continue
-        if kernel is not None:
-            for op in ("HGMMA", "UTMALDG", "HMMA"):
-                counts[kernel][op] += f" {op}." in line
-    require(len(counts) == 4, f"flash_bwd kernels in the SASS: {counts}")
+                for op in ("HGMMA", "UTMALDG", "HMMA"):
+                    counts[kernel][op] += f" {op}." in line
+    require(len(counts) == 6, f"flash kernels in the SASS: {counts}")
     return counts
 
 
@@ -389,6 +401,14 @@ def phase_kernels(torch):
         ("kv_mask_causal_window128", (BATCH, HEADS, 1024, 1024, D_HEAD),
          True, 128, True, 1),
         ("d128_block_h2_T300", (2, 4, 300, 300, 128), True, 0, False, 2),
+        # the tile edges: one row past a 128-row span, a single query
+        # against 1024 keys, D 128 ragged with a window and a dead
+        # kv_mask row; B·H 65,552 (grid x) at a single row
+        ("causal_T129", (BATCH, HEADS, 129, 129, D_HEAD), True, 0, False, 1),
+        ("tq1_tk1024", (BATCH, HEADS, 1, 1024, D_HEAD), False, 0, False, 1),
+        ("d128_kv_mask_T1000_window200", (2, 8, 1000, 1000, 128), True, 200,
+         True, 1),
+        ("bh65552_T1", (4097, 16, 1, 1, D_HEAD), False, 0, False, 1),
     ]
     err = {"flash_fwd": 0.0, "flash_fwd_hfold": 0.0}
     rows = []
@@ -428,8 +448,18 @@ def phase_kernels(torch):
                      "max_abs_err_lse": d_lse, "ok": ok})
         require(ok, f"{name}: kernel disagrees with the plain version "
                     f"(out {d_out} > {OUT_ATOL} or lse {d_lse} > {LSE_ATOL})")
+
+    # No atomics, one write per element: two launches on the training
+    # shape give the same bits.
+    q, k, v = qkv(TRAIN_BATCH, HEADS, TRAIN_SEQ, TRAIN_SEQ, D_HEAD)
+    runs = [fa.flash_attention_cuda(q, k, v, sm_scale=D_HEAD ** -0.5,
+                                    causal=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    require(torch.equal(runs[0][0], runs[1][0])
+            and torch.equal(runs[0][1], runs[1][1]),
+            "flash_fwd: two launches differ")
     emit({"phase": "kernels", "out_atol": OUT_ATOL, "lse_atol": LSE_ATOL,
-          "cases": rows})
+          "cases": rows, "bitwise_repeat": True})
 
     # times at the main path's shape: [4, 12, 1024, 64] bf16 causal
     q, k, v = qkv(BATCH, HEADS, PROMPT, PROMPT, D_HEAD)
@@ -490,6 +520,9 @@ def phase_kernels_bwd(torch):
         ("tq1_tk1024", (BATCH, HEADS, 1, 1024, D_HEAD), False, 0, False),
         ("d128_causal_T1000_window200", (2, 8, 1000, 1000, 128), True, 200,
          False),
+        # B·H 65,552 in grid x; T 2, since at T 1 dQ and dK are 0 up to
+        # rounding (P = 1, dP = Delta) and no relative error is defined
+        ("bh65552_T2", (4097, 16, 2, 2, D_HEAD), False, 0, False),
     ]
     rows, worst = [], {"flash_dq": 0.0, "flash_dkv": 0.0}
     for name, (b, h, t_q, t_k, d), causal, window, masked in cases:
@@ -699,6 +732,30 @@ def phase_generate(torch):
                 f"row {row}: flash and dense greedy tokens differ before "
                 f"step {upto} (the first top-2 margin under {tol})")
         compared += upto
+
+    # teacher-forced: both models decode the dense model's greedy tokens,
+    # and every step's logits, in every row, are held against the dense
+    # model's (LOGITS_REL_TOL of the largest dense logit of the stream)
+    with torch.no_grad():
+        cache_f, cache_d = model.init_cache(BATCH), dense.init_cache(BATCH)
+        tok, diffs, scale = prompt, [], 0.0
+        for i in range(N_NEW):
+            lf = model(tok, cache_f)[:, -1]
+            ld = dense(tok, cache_d)[:, -1]
+            require(torch.isfinite(lf).all().item(),
+                    f"teacher-forced step {i}: non-finite logits")
+            diffs.append((lf - ld).abs().amax(dim=-1))        # [BATCH]
+            scale = max(scale, ld.abs().max().item())
+            tok = out_d[:, PROMPT + i:PROMPT + i + 1]
+    diffs = torch.stack(diffs)                                # [N_NEW, BATCH]
+    tf_tol = LOGITS_REL_TOL * scale
+    tf_compared = diffs.numel()
+    tf_worst = diffs.max().item()
+    require(tf_worst <= tf_tol,
+            f"teacher-forced logits: flash vs dense differ by {tf_worst} "
+            f"(> {LOGITS_REL_TOL} x {scale}) over {tf_compared} steps; "
+            f"worst (step, row) "
+            f"{divmod(int(diffs.argmax()), BATCH)}")
     emit({"phase": "generate", "model": "gpt2-small", "batch": BATCH,
           "prompt": PROMPT, "n_new": N_NEW, "flash_launches": launches,
           "prefill_ms": prefill_s * 1e3,
@@ -707,7 +764,11 @@ def phase_generate(torch):
           "decode_tokens_per_s": BATCH / decode_s,
           "generate_ms": total_s * 1e3,
           "tokens_compared_with_dense": compared,
-          "tokens_generated": BATCH * N_NEW})
+          "tokens_generated": BATCH * N_NEW,
+          "teacher_forced": {"steps_compared": tf_compared,
+                             "max_abs_diff": tf_worst,
+                             "max_abs_logit": scale,
+                             "rel_tol": LOGITS_REL_TOL}})
     del dense, logits
 
     from dtf_tpu_torch import generate_gpt

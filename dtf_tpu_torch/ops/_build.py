@@ -3,8 +3,8 @@
 Each source ``ops/csrc/<name>.cu`` has a plain C interface and compiles,
 on first use, into ``build/dtf_tpu_torch/<name>-<hash>.so`` under the
 repository root (the directory is git-ignored). The hash covers the
-source and the flags, so an edited kernel is rebuilt and a stale library
-is never loaded. Nothing here runs at import time: the CPU tests import
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+kernel or header is rebuilt and a stale library is never loaded. Nothing here runs at import time: the CPU tests import
 every module of the package on a machine with no ``nvcc``.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
@@ -14,6 +14,7 @@ every module of the package on a machine with no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -58,9 +59,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read())
+    """Where kernel ``name`` is built: the hash covers ``<name>.cu``, every
+    header ``csrc/*.cuh`` (name and text, in sorted order) and the flags."""
+    digest = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in (os.path.join(CSRC_DIR, f"{name}.cu"), *headers):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 

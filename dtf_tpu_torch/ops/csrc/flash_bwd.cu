@@ -74,30 +74,14 @@
 // consumer warpgroups ping-ponging); the dQ stores are 4-byte pairs from
 // the accumulator layout, not staged through shared memory.
 
-#include <cuda.h>  // CUtensorMap; the encoder is reached at run time, no -lcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper.cuh"  // the shared Hopper helpers (TMA, mbarriers, wgmma)
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int BM = 64;        // rows of the CTA's own block (wgmma M)
 constexpr int BN = 64;        // rows of each streamed block
 constexpr int THREADS = 128;  // one warpgroup
 constexpr int STAGES = 2;     // ring depth of the streamed tiles
-constexpr float LOG2E = 1.4426950408889634f;
-
-// A [64, D] bf16 tile: D / 64 swizzle atoms of 64 rows x 128 bytes, each
-// 1024-byte aligned (the 128-byte swizzle repeats every 8 rows).
-template <int D>
-struct TileOf {
-  static constexpr uint32_t atoms = D / 64;
-  static constexpr uint32_t atom_bytes = 64 * 128;
-  static constexpr uint32_t bytes = atoms * atom_bytes;
-};
 
 template <int D>
 struct DqSmem {
@@ -120,184 +104,6 @@ struct DkvSmem {
   static constexpr uint32_t bars = stat + STAGES * 2 * BN * 4;  // kv, full[STAGES]
   static constexpr uint32_t bytes = bars + (1 + STAGES) * 8;
 };
-
-// The dynamic shared memory is over-allocated by 1024 bytes and its base
-// rounded up, so every swizzle atom starts 1024-byte aligned.
-constexpr size_t kAlignPad = 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarrier and TMA ---------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-// A phase that never completes (a load that was never issued or never
-// lands) traps after ~2^26 polls, seconds, so the launch fails with an
-// error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; ; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// One [64 rows, 64 cols] box of a 4-D (D, T, H, B) map into a swizzle atom.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
-                                        uint32_t bar, int col, int row, int h,
-                                        int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(h),
-      "r"(b), "r"(bar) : "memory");
-}
-
-// Rows [row, row + 64) of head (b, h): every 64-column atom of the tile.
-template <int D>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int h, int b) {
-#pragma unroll
-  for (uint32_t a = 0; a < TileOf<D>::atoms; ++a) {
-    tma_box(dst + a * TileOf<D>::atom_bytes, map, bar, 64 * a, row, h, b);
-  }
-}
-
-// ---- wgmma --------------------------------------------------------------
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, stride 1024 bytes between 8-row groups (SBO), layout 1 =
-// 128-byte swizzle. A K-major operand's k16 slice starts 32 bytes further
-// along its swizzled row; an MN-major one's 16 rows (2048 bytes) further.
-// The leading offset (LBO) is never read: no instruction here spans more
-// than one atom along the swizzled dimension.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// K-major [64, D] tile, k16 slice kk of D.
-template <int D>
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
-  return sw128_desc(tile + (kk / 4) * TileOf<D>::atom_bytes + (kk % 4) * 32);
-}
-
-// MN-major [64 (K), D (N)] tile: k16 slice kk of the rows, N atom a.
-template <int D>
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk, int a) {
-  return sw128_desc(tile + a * TileOf<D>::atom_bytes + kk * 2048);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of wgmma registers across
-// the fence / wait around them.
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
-  }
-}
-
-#define DTF_WG_D32                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31}"
-#define DTF_WG_OUT32(d)                                                      \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
-      "+f"(d[31])
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B in shared memory, both
-// K-major; accumulate = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DTF_WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : DTF_WG_OUT32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (bf16 pairs), B in
-// shared memory MN-major.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DTF_WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : DTF_WG_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// The accumulator layout of m64n64 (f32): thread t of the warpgroup holds
-// d[4j + 2i + c] at row 16 (t / 32) + (t % 32) / 4 + 8i and column
-// 8j + 2 (t % 4) + c, for j < 8 and i, c < 2. Converted in place to the
-// bf16 A fragments of the k16 slices kk < 4 of a following product: the
-// m16n8 C layout and the m16k16 A layout put the same elements in the
-// same thread.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void to_a_frags(const float (&d)[32],
-                                           uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
-    }
-  }
-}
-
-// Whether (qpos, kpos) survives _score_mask (the key-range, causal and
-// window rule; the bias row is added separately).
-__device__ __forceinline__ bool score_ok(int qpos, int kpos, int Tk,
-                                         int causal, int window) {
-  bool ok = kpos < Tk;
-  if (causal) {
-    ok = ok && qpos >= kpos;
-    if (window > 0) ok = ok && (qpos - kpos < window);
-  }
-  return ok;
-}
 
 // lse in log2 units for the exp2 of P; a dead or padded row takes +inf,
 // so exp2(x - inf) = 0 and its P (and dS) is exactly 0 with no branch.
@@ -751,53 +557,6 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---- host ---------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A [B, H, T, D] bf16 operand read through its strides (elements) as a
-// 4-D (D, T, H, B) map with [64, 64, 1, 1] boxes, 128-byte swizzled;
-// reads outside T come back as zeros.
-int make_map(CUtensorMap* map, const void* ptr, int B, int H, int T, int D,
-             long long sb, long long sh, long long st) {
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(ptr), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta, *bias;

@@ -31,6 +31,11 @@ import torch
 #: cache)
 HEAD_DIMS = (64, 128)
 
+#: rows of the kernels' q- and k-blocks: one grid-y step each
+BLOCK_ROWS = 64
+#: the card's grid limits: x up to 2³¹ − 1 blocks, y up to 65,535
+GRID_X_MAX, GRID_Y_MAX = 2 ** 31 - 1, 65535
+
 #: Launches of the CUDA kernels, by the TPU kernel each call stands for:
 #: ``flash_fwd`` (B1, ``block_h == 1``), ``flash_fwd_hfold`` (B4,
 #: ``block_h > 1``), ``flash_dq`` (B2) and ``flash_dkv`` (B3). Plain
@@ -180,8 +185,8 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_cuda_inputs(fn: str, q, named) -> None:
-    """The checks every wrapper makes: one GPU, bf16, a compiled head dim
-    and a grid the card can launch."""
+    """The checks every wrapper makes: one GPU, bf16 and a compiled head
+    dim (the grid's limits are :func:`check_grid`'s)."""
     b, h, _, d = q.shape
     for name, x in named:
         if x.device.type != "cuda" or x.device != q.device:
@@ -194,6 +199,27 @@ def _check_cuda_inputs(fn: str, q, named) -> None:
         raise ValueError(
             f"{fn}: head_dim {d} is not supported by the Hopper kernel "
             f"(compiled for {HEAD_DIMS})")
+
+
+def check_grid(b: int, h: int, t_q: int, t_k: int, *, block_h: int = 1,
+               backward: bool = False) -> None:
+    """Raise unless the kernels' grids launch at these sizes. Grid x holds
+    B·H/``block_h`` head groups (B·H in the backward), up to
+    :data:`GRID_X_MAX`; grid y holds the ⌈T_q/64⌉ q-blocks of the forward
+    and dQ and, for dK/dV (``backward``), the ⌈T_k/64⌉ k-blocks, up to
+    :data:`GRID_Y_MAX`. The Pallas grids take any size; these limits are
+    the card's."""
+    groups = b * h // block_h
+    if groups > GRID_X_MAX:
+        raise ValueError(f"B·H/block_h = {groups} exceeds the grid's x "
+                         f"limit ({GRID_X_MAX})")
+    sizes = (("T_q", t_q), ("T_k", t_k)) if backward else (("T_q", t_q),)
+    for name, t in sizes:
+        blocks = -(-t // BLOCK_ROWS)
+        if blocks > GRID_Y_MAX:
+            raise ValueError(
+                f"{name} = {t} takes {blocks} blocks of {BLOCK_ROWS} rows, "
+                f"above the grid's y limit ({GRID_Y_MAX})")
 
 
 def _cuda_bias(mask_bias, q, b, t_k):
@@ -223,9 +249,7 @@ def flash_attention_cuda(q, k, v, mask_bias=None, *, sm_scale: float,
     if block_h < 1 or h % block_h:
         raise ValueError(f"block_h={block_h} must be >= 1 and divide "
                          f"heads={h}")
-    if (b * h) // block_h > 65535:
-        raise ValueError(f"B·H/block_h = {(b * h) // block_h} exceeds the "
-                         "grid's y limit (65535); raise block_h")
+    check_grid(b, h, t_q, t_k, block_h=block_h)
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     out = torch.empty((b * h, t_q, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, t_q), dtype=torch.float32, device=q.device)
@@ -261,8 +285,7 @@ def _bwd_args(q, k, v, do, lse, delta, mask_bias):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} / do "
                          f"{tuple(do.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if b * h > 65535:
-        raise ValueError(f"B·H = {b * h} exceeds the grid's y limit (65535)")
+    check_grid(b, h, t_q, t_k, backward=True)
     for name, x in (("lse", lse), ("delta", delta)):
         if x.dtype != torch.float32 or x.numel() != b * h * t_q:
             raise ValueError(f"{name} must be f32 [B·H, T_q], got "

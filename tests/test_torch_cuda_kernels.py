@@ -54,7 +54,11 @@ CASES = [((2, 4, 200, 200, 64), True, 0, False),
          ((1, 2, 65, 65, 64), True, 0, False),
          ((1, 2, 129, 129, 64), True, 0, False),
          ((2, 4, 1, 1024, 64), False, 0, False),
-         ((1, 2, 1000, 1000, 128), True, 200, False)]
+         ((1, 2, 1000, 1000, 128), True, 200, False),
+         # D 128 ragged with a window and a dead kv_mask row; B·H 65,552
+         # in grid x (T 2: at T 1, dQ and dK are 0 up to rounding)
+         ((2, 2, 1000, 1000, 128), True, 200, True),
+         ((4097, 16, 2, 2, 64), False, 0, False)]
 
 
 @pytest.mark.parametrize("shape,causal,window,masked", CASES)
@@ -97,6 +101,19 @@ def test_backward_kernels_are_bitwise_repeatable(cuda, d):
     again = tfa.flash_attention_bwd_cuda(q, k, v, None, out, lse, do, **opts)
     for x, y in zip(first, again):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", (64, 128))
+def test_forward_kernel_is_bitwise_repeatable_and_head_folding_equal(cuda, d):
+    # the training shape (D 128 at half the heads): one write per element,
+    # and block_h = 2 runs block_h = 1's per-head code
+    q, k, v = _qkv(cuda, 8, 12 * 64 // d, 1024, 1024, d)
+    opts = dict(sm_scale=d ** -0.5, causal=True)
+    first = tfa.flash_attention_cuda(q, k, v, **opts)
+    again = tfa.flash_attention_cuda(q, k, v, **opts)
+    folded = tfa.flash_attention_cuda(q, k, v, block_h=2, **opts)
+    for x, y, z in zip(first, again, folded):
+        assert torch.equal(x, y) and torch.equal(x, z)
 
 
 def test_autograd_on_cuda_counts_each_kernel_once(cuda):

@@ -220,3 +220,31 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_counts_nothing():
         tfa.flash_attention_cuda(q, q, q, sm_scale=0.125)
     assert tfa.launch_counts == {"flash_fwd": 0, "flash_fwd_hfold": 0,
                                  "flash_dq": 0, "flash_dkv": 0}
+
+
+# The kernels' grids: B·H/block_h head groups in grid x (up to 2³¹ − 1),
+# ⌈T_q/64⌉ q-blocks (and, in the backward, ⌈T_k/64⌉ k-blocks) in grid y
+# (up to 65,535). The Pallas grids take any B·H.
+Y_MAX_ROWS = 64 * 65535
+
+
+@pytest.mark.parametrize("b,h,t_q,t_k,block_h,backward", [
+    (4097, 16, 1, 1, 1, False),            # B·H 65,552: past the old limit
+    (4097, 16, 2, 2, 1, True),
+    (2 ** 20, 2 ** 11, 1, 1, 2, False),     # B·H 2³¹, halved by block_h
+    (1, 1, Y_MAX_ROWS, Y_MAX_ROWS, 1, True),
+    (1, 1, 64, Y_MAX_ROWS + 1, 1, False),   # the forward's grid has no T_k
+])
+def test_grid_rule_accepts(b, h, t_q, t_k, block_h, backward):
+    tfa.check_grid(b, h, t_q, t_k, block_h=block_h, backward=backward)
+
+
+@pytest.mark.parametrize("b,h,t_q,t_k,block_h,backward,match", [
+    (1, 1, Y_MAX_ROWS + 1, 1, 1, False, r"T_q = 4194241 .*y limit \(65535\)"),
+    (1, 1, Y_MAX_ROWS + 1, 1, 1, True, r"T_q .*y limit \(65535\)"),
+    (1, 1, 64, Y_MAX_ROWS + 1, 1, True, r"T_k = 4194241 .*y limit \(65535\)"),
+    (2 ** 20, 2 ** 11, 1, 1, 1, False, r"x limit \(2147483647\)"),
+])
+def test_grid_rule_refuses(b, h, t_q, t_k, block_h, backward, match):
+    with pytest.raises(ValueError, match=match):
+        tfa.check_grid(b, h, t_q, t_k, block_h=block_h, backward=backward)
