@@ -13,7 +13,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    prints ptxas's registers and spills, and checks with ``cuobjdump
    -sass`` that the forward and both backward kernels (D 64 and 128, 6
    in all) run wgmma (HGMMA) on TMA loads (UTMALDG) and no mma.sync
-   (HMMA).
+   (HMMA), and that the fused CE backward kernels B6 and B7 (D 384, 768
+   and 1024, 6 in all) run wgmma on TMA loads with no spill.
 3. kernels — the flash-attention forward kernel (B1, and B4 through
    ``block_h``) against its plain PyTorch version on the card, bf16, at
    GPT-2 shapes and the tile edges (T 5, 65, 129, ragged T, t_q 1 against
@@ -51,22 +52,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    from the checkpoint; ``generate_gpt --logdir`` on it; 30 steps on one
    fixed batch, whose loss must fall by ``FIXED_BATCH_LOSS_DROP``.
    Prints step ms, tokens/s, analytic MFU and peak memory.
-10. kernels_ce — the fused LM head + CE kernels (B5 forward, B6 dX, B7
-    dW) against their plain versions on the card, f32, TF32 off: the
-    training shape with ignored labels, ragged N and V (50257) with
-    out-of-range labels, an all-ignored batch (dX, dW exactly 0), N 5,
-    bf16 x, D 1024.
-11. kernel_times_ce — B5, B6, B7 at N 8192, D 768, V 50304: kernel, plain
-    version, the monolithic composite they replace (cuBLAS f32 head GEMM
-    + logsumexp/gather, and its backward; a yardstick only) and the bound
-    (3xTF32 on the tensor cores).
+10. kernels_ce — the fused LM head + CE kernels (B5 forward, the
+    backward's split pass, B6 dX, B7 dW) against their plain versions on
+    the card, f32, TF32 off: the training shape with ignored labels,
+    ragged N and V (50257) with out-of-range labels, an all-ignored batch
+    (dX, dW exactly 0), N 5, bf16 x, D 1024, D 384; the split exactly;
+    then two launches of B6 and of B7 at the training shape, bitwise
+    equal.
+11. kernel_times_ce — B5, the split pass, B6, B7 at N 8192, D 768, V
+    50304: kernel, plain version, the monolithic composite they replace
+    (cuBLAS f32 head GEMM + logsumexp/gather, and its backward; a
+    yardstick only) and the bound (3xTF32 on the tensor cores); B6's and
+    B7's clusters against the clusters the card holds at once.
 12. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
     the token- and vocab-chunked losses against the monolithic loss (loss,
-    the head's gradient, every other gradient); exactly 1/1/1 B5/B6/B7
-    launches per step on the fused path, none on the chunked ones.
+    the head's gradient, every other gradient); exactly 1/1/1/1
+    B5/split/B6/B7 launches per step on the fused path, none on the
+    chunked ones.
 13. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
-    steps: B5 34 (one per step and per final-eval batch), B6 30, B7 30
-    launches; the first 5 losses against the ``train`` run's. Prints step
+    steps: B5 34 (one per step and per final-eval batch), the split pass
+    30, B6 30, B7 30 launches; the first 5 losses against the ``train``
+    run's. Prints step
     ms, tokens/s, analytic MFU and peak memory beside ``train``'s.
 14. kernels_embed — the embedding-row gather (B8) against its plain
     version on the card, exactly (a gather copies): Wide&Deep's deep
@@ -96,7 +102,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     memory.
 
 Then one JSON line listing every kernel (launches on its main path, error
-against the plain version, times, bound; 8 rows), the ``nvidia-smi`` line, and
+against the plain version, times, bound; the 8 ported TPU kernels and the
+backward's split pass), the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. ``--phases a,b`` runs a subset
 (without the kernels line). Exits non-zero without printing a result
 when no GPU is present or when the port's package is not beside this
@@ -245,51 +252,100 @@ def phase_build():
     secs = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if any(w in ln for w in ("entry function", "registers",
-                                             "spill"))]
+                                             "spill"))
+                    or ("ptxas" in ln and "arning" in ln)]
              for name, log in logs.items()}
     for name in _build.KERNELS:
         _build.load(name)
-    sass = flash_sass_counts(_build)
+    sass = sass_counts(_build, FLASH_SASS_KERNELS, 6)
+    ce_sass = sass_counts(_build, CE_SASS_KERNELS, 6)
+    ce_regs = res_usage(_build, CE_SASS_KERNELS)
+    emit({"phase": "build", "seconds": secs, "sources": list(_build.KERNELS),
+          "ptxas": ptxas, "flash_sass": sass, "fused_ce_sass": ce_sass,
+          "fused_ce_ptxas": ce_regs})
     for kernel, counts in sass.items():
         require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
                 and counts["HMMA"] == 0,
                 f"{kernel}: expected wgmma (HGMMA) and TMA loads (UTMALDG) "
                 f"and no mma.sync (HMMA), got {counts}")
-    emit({"phase": "build", "seconds": secs, "sources": list(_build.KERNELS),
-          "ptxas": ptxas, "flash_sass": sass})
+    for kernel, counts in ce_sass.items():
+        require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+                f"{kernel}: expected wgmma (HGMMA) and TMA loads (UTMALDG), "
+                f"got {counts}")
+    # a spill needs a stack frame: none in B6/B7
+    require(len(ce_regs) == 6 and all(
+        r["stack"] == 0 and r["local"] == 0 for r in ce_regs.values()),
+        f"B6/B7 registers and stack (spills): {ce_regs}")
 
 
-#: the flash kernels whose SASS the build phase reads, by library
+#: the wgmma kernels whose SASS the build phase reads, by library
 FLASH_SASS_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                       "flash_bwd": ("flash_bwd_dq_kernel",
                                     "flash_bwd_dkv_kernel")}
+CE_SASS_KERNELS = {"fused_ce": ("fused_ce_dx_kernel", "fused_ce_dw_kernel")}
 
 
-def flash_sass_counts(_build):
-    """Per flash kernel (B1/B4, B2, B3; D 64 and 128), its count of wgmma
-    (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions, from
-    ``cuobjdump -sass`` of the built libraries (beside nvcc)."""
+def _instance(name, kernels):
+    """``kernel<D>`` for a mangled name of one of ``kernels`` (its first
+    template argument), else None."""
+    import re
+
+    kernel = next((k for k in kernels if k in name), None)
+    if kernel is None:
+        return None
+    arg = re.search(r"ILi(\d+)E", name)
+    return f"{kernel}<{arg.group(1)}>" if arg else kernel
+
+
+def sass_counts(_build, libs, expected):
+    """Per kernel instance (``kernel<D>``), its count of wgmma (HGMMA),
+    TMA load (UTMALDG) and mma.sync (HMMA) instructions, from ``cuobjdump
+    -sass`` of the built libraries (beside nvcc); ``expected`` instances."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
     counts = {}
-    for lib, kernels in FLASH_SASS_KERNELS.items():
+    for lib, kernels in libs.items():
         text = subprocess.run([cuobjdump, "-sass", _build.library_path(lib)],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
         kernel = None
         for line in text.splitlines():
             if "Function :" in line:
-                name = line.split("Function :")[1].strip()
-                kernel = next((k for k in kernels if k in name), None)
+                kernel = _instance(line.split("Function :")[1].strip(),
+                                   kernels)
                 if kernel is not None:
-                    kernel += "<128>" if "ILi128E" in name else "<64>"
                     counts[kernel] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
                 continue
             if kernel is not None:
                 for op in ("HGMMA", "UTMALDG", "HMMA"):
                     counts[kernel][op] += f" {op}." in line
-    require(len(counts) == 6, f"flash kernels in the SASS: {counts}")
+    require(len(counts) == expected, f"kernels in the SASS: {counts}")
     return counts
+
+
+def res_usage(_build, libs):
+    """Registers, stack and local bytes per kernel instance, from
+    ``cuobjdump -res-usage`` of the built libraries: it reads what was
+    built, also when this run found the libraries built already and
+    ptxas did not run."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    out = {}
+    for lib, kernels in libs.items():
+        text = subprocess.run(
+            [cuobjdump, "-res-usage", _build.library_path(lib)],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        kernel = None
+        for line in text.splitlines():
+            if "Function" in line:
+                kernel = _instance(line.split("Function", 1)[1], kernels)
+            elif kernel is not None and "REG:" in line:
+                f = dict(t.split(":", 1) for t in line.split() if ":" in t)
+                out[kernel] = {"registers": int(f["REG"]),
+                               "stack": int(f.get("STACK", -1)),
+                               "local": int(f.get("LOCAL", 0))}
+                kernel = None
+    return out
 
 
 def graph_ms(torch, calls):
@@ -1001,10 +1057,12 @@ def phase_train(torch, smi):
 
 
 def ce_bounds_ms(n, d, v):
-    """B5, B6, B7: x [n, d] and W [v, d] f32, labels int32 and the f32
-    statistics read once; B5 writes lse and tgt, B6 dX, B7 dW. B5 does
-    one n·d·v product, B6 and B7 two each (the recompute and their own),
-    each at 3xTF32: three TF32 products per f32 one."""
+    """B5, the split pass, B6, B7: x [n, d] and W [v, d] f32, labels
+    int32 and the f32 statistics read once; B5 writes lse and tgt, B6 dX,
+    B7 dW. B5 does one n·d·v product, B6 and B7 two each (the recompute
+    and their own), each at 3xTF32: three TF32 products per f32 one. B6
+    and B7 are bounded as the function they compute, from x and W: the
+    split's copies are the design's, not the function's."""
     reads = 4 * (n * d + v * d) + 4 * n
     prod = 2 * n * d * v
 
@@ -1014,7 +1072,13 @@ def ce_bounds_ms(n, d, v):
         return (max(t_bytes, t_ops) * 1e3,
                 "bytes" if t_bytes >= t_ops else "operations")
 
+    # the split pass: x and W read once, four f32 copies of each written
+    # (the transposed ones padded to 8 rows), no products
+    rp = lambda r: -(-r // 8) * 8
+    split_bytes = 4 * (n * d + v * d) + 8 * (n + v) * d + 8 * (rp(n)
+                                                               + rp(v)) * d
     return {"fused_ce_fwd": bound(reads + 8 * n, prod),
+            "fused_ce_split": bound(split_bytes, 0),
             "fused_ce_dx": bound(reads + 8 * n + 4 * n * d, 2 * prod),
             "fused_ce_dw": bound(reads + 8 * n + 4 * v * d, 2 * prod)}
 
@@ -1035,10 +1099,12 @@ def _rel(torch, got, want):
 
 
 def phase_kernels_ce(torch):
-    """B5, B6 and B7 against fused_ce_*_reference on the card: the
-    training shape with ignored labels, ragged N and V with out-of-range
-    labels, an all-ignored batch, N 5, bf16 x, and the other compiled
-    head width. Returns each kernel's largest max-abs error."""
+    """B5, the split pass, B6 and B7 against fused_ce_*_reference on the
+    card: the training shape with ignored labels, ragged N and V with
+    out-of-range labels, an all-ignored batch, N 5, bf16 x, and the other
+    compiled head widths (1024, 384); then two launches of B6 and of B7 at
+    the training shape, bitwise equal. Returns each kernel's largest
+    max-abs error."""
     from dtf_tpu_torch.ops import fused_ce as fc
 
     gen = torch.Generator(device="cuda").manual_seed(20)
@@ -1051,9 +1117,10 @@ def phase_kernels_ce(torch):
         ("bf16_x_N1024", 1024, D_MODEL, VOCAB, "some_ignored",
          torch.bfloat16),
         ("d1024_N700_V5003", 700, 1024, 5003, "out_of_range", None),
+        ("d384_N700_V5003", 700, 384, 5003, "out_of_range", None),
     ]
-    rows, worst = [], {"fused_ce_fwd": 0.0, "fused_ce_dx": 0.0,
-                       "fused_ce_dw": 0.0}
+    rows, worst = [], {"fused_ce_fwd": 0.0, "fused_ce_split": 0.0,
+                       "fused_ce_dx": 0.0, "fused_ce_dw": 0.0}
     fc.reset_launch_counts()
     for name, n, d, v, labelling, x_dtype in cases:
         x, w, labels = _ce_inputs(torch, gen, n, d, v, x_dtype)
@@ -1069,11 +1136,18 @@ def phase_kernels_ce(torch):
         lse, tgt = fc.fused_ce_fwd_cuda(x, w, labels)
         torch.cuda.synchronize()
         want_lse, want_tgt = fc.fused_ce_fwd_reference(x, w, labels)
-        dx = fc.fused_ce_dx_cuda(x, w, labels, lse, dce)
-        dw = fc.fused_ce_dw_cuda(x, w, labels, lse, dce)
+        split = fc.fused_ce_split_cuda(x, w)
+        dx = fc.fused_ce_dx_cuda(x, w, labels, lse, dce, split)
+        dw = fc.fused_ce_dw_cuda(x, w, labels, lse, dce, split)
         torch.cuda.synchronize()
+        # the split is exact: the same roundings, bit for bit
+        split_err = max(
+            (got - want).abs().max().item() if got.numel() else 0.0
+            for part, src in ((split.x, x), (split.w, w))
+            for got, want in zip(part, fc.fused_ce_split_reference(src)))
         want_dx, want_dw = fc.fused_ce_bwd_reference(x, w, labels, lse, dce)
         row = {"case": name, "n": n, "d": d, "v": v,
+               "split_max_abs": split_err,
                "lse_max_abs": (lse - want_lse).abs().max().item(),
                "tgt_max_abs": (tgt - want_tgt).abs().max().item(),
                "dx_max_abs": (dx.float() - want_dx.float()).abs().max()
@@ -1093,24 +1167,37 @@ def phase_kernels_ce(torch):
             dx_tol = CE_BF16_DX_REL_TOL if x_dtype else CE_GRAD_REL_TOL
             ok = row["dx_rel"] <= dx_tol and row["dw_rel"] <= CE_GRAD_REL_TOL
         ok = (ok and finite and shapes and row["lse_max_abs"] <= CE_STAT_ATOL
-              and row["tgt_max_abs"] <= CE_STAT_ATOL)
+              and row["tgt_max_abs"] <= CE_STAT_ATOL and split_err == 0.0)
         row["ok"] = ok
         emit({"phase": "kernels_ce_case", **row})
         require(ok, f"{name}: a fused CE kernel disagrees with its plain "
                     f"version: {row}")
         worst["fused_ce_fwd"] = max(worst["fused_ce_fwd"],
                                     row["lse_max_abs"], row["tgt_max_abs"])
+        worst["fused_ce_split"] = max(worst["fused_ce_split"], split_err)
         worst["fused_ce_dx"] = max(worst["fused_ce_dx"], row["dx_max_abs"])
         worst["fused_ce_dw"] = max(worst["fused_ce_dw"], row["dw_max_abs"])
         rows.append(row)
-        del x, w, dx, dw, want_dx, want_dw
-    require(fc.launch_counts == {"fused_ce_fwd": len(cases),
-                                 "fused_ce_dx": len(cases),
-                                 "fused_ce_dw": len(cases)},
+        del x, w, dx, dw, want_dx, want_dw, split
+    require(fc.launch_counts == {k: len(cases) for k in fc.launch_counts},
             f"kernels_ce launches {fc.launch_counts}")
+    # no atomics and a fixed summation order: two launches, the same bits
+    x, w, labels = _ce_inputs(torch, gen, 8192, D_MODEL, VOCAB)
+    labels[::7] = -100
+    valid = (labels != -100).float()
+    dce = valid / valid.sum()
+    lse, _ = fc.fused_ce_fwd_cuda(x, w, labels)
+    split = fc.fused_ce_split_cuda(x, w)
+    repeat = {name: torch.equal(fn(x, w, labels, lse, dce, split),
+                                fn(x, w, labels, lse, dce, split))
+              for name, fn in (("fused_ce_dx", fc.fused_ce_dx_cuda),
+                               ("fused_ce_dw", fc.fused_ce_dw_cuda))}
+    del x, w, split
     emit({"phase": "kernels_ce", "stat_atol": CE_STAT_ATOL,
           "grad_rel_tol": CE_GRAD_REL_TOL,
-          "bf16_dx_rel_tol": CE_BF16_DX_REL_TOL, "max_abs": worst})
+          "bf16_dx_rel_tol": CE_BF16_DX_REL_TOL, "max_abs": worst,
+          "bitwise_repeat": repeat})
+    require(all(repeat.values()), f"B6/B7 launches differ: {repeat}")
     fc.reset_launch_counts()
     return worst
 
@@ -1132,16 +1219,22 @@ def phase_kernel_times_ce(torch):
     dce = valid / valid.sum()
     lse, _ = fc.fused_ce_fwd_cuda(x, w, labels)
     lab32 = labels.to(torch.int32)
+    split = fc.fused_ce_split_cuda(x, w)
     res = {
         "fused_ce_fwd": time_ms(torch, lambda: fc.fused_ce_fwd_cuda(
             x, w, lab32), 5),
+        "fused_ce_split": time_ms(torch, lambda: fc.fused_ce_split_cuda(
+            x, w), 3),
         "fused_ce_dx": time_ms(torch, lambda: fc.fused_ce_dx_cuda(
-            x, w, lab32, lse, dce), 3),
+            x, w, lab32, lse, dce, split), 3),
         "fused_ce_dw": time_ms(torch, lambda: fc.fused_ce_dw_cuda(
-            x, w, lab32, lse, dce), 3),
+            x, w, lab32, lse, dce, split), 3),
     }
+    del split
     plain_fwd = time_ms(torch, lambda: fc.fused_ce_fwd_reference(
         x, w, labels), 3)
+    plain_split = time_ms(torch, lambda: (fc.fused_ce_split_reference(x),
+                                          fc.fused_ce_split_reference(w)), 2)
     plain_bwd = time_ms(torch, lambda: fc.fused_ce_bwd_reference(
         x, w, labels, lse, dce), 2)
     xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -1155,16 +1248,27 @@ def phase_kernel_times_ce(torch):
     timing = {}
     for name in res:
         fwd = name == "fused_ce_fwd"
+        plain = {"fused_ce_fwd": plain_fwd, "fused_ce_split": plain_split}
+        library = {"fused_ce_fwd": lib_fwd, "fused_ce_split": None}
         timing[name] = dict(
-            ms=res[name], plain_ms=plain_fwd if fwd else plain_bwd,
+            ms=res[name], plain_ms=plain.get(name, plain_bwd),
             bound_ms=bounds[name][0], bound_by=bounds[name][1],
-            library_ms=lib_fwd if fwd else lib_fwd_bwd - lib_fwd)
+            library_ms=library.get(name, lib_fwd_bwd - lib_fwd))
+    # waves: B6 has ceil(N / 128) clusters, B7 ceil(V / 128), against the
+    # clusters the card holds at once
+    waves = {name: {"clusters": -(-rows // 128),
+                    "max_active_clusters": fc.max_active_clusters(which,
+                                                                  D_MODEL)}
+             for name, which, rows in (("fused_ce_dx", 1, n),
+                                       ("fused_ce_dw", 2, VOCAB))}
     emit({"phase": "kernel_times_ce", "n": n, "d": D_MODEL, "v": VOCAB,
+          "waves": waves,
           **{name: {"kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                     "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"]} for name, t in timing.items()},
-          "plain": "fused_ce_fwd_reference; fused_ce_bwd_reference computes "
-                   "B6 and B7 together",
+          "plain": "fused_ce_fwd_reference; fused_ce_split_reference of x "
+                   "and of w; fused_ce_bwd_reference computes B6 and B7 "
+                   "together",
           "library": "monolithic composite: softmax_cross_entropy(x @ w.T) "
                      "forward (cuBLAS f32 GEMM + logsumexp/gather); its "
                      "autograd backward = (forward + backward) - forward, "
@@ -1206,7 +1310,8 @@ def phase_train_grads_ce(torch):
     rows = []
     for name, opts, fused_want in (
             ("loss_pallas", {"loss_pallas": True},
-             {"fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}),
+             {"fused_ce_fwd": 1, "fused_ce_split": 1, "fused_ce_dx": 1,
+              "fused_ce_dw": 1}),
             ("loss_chunk_tokens_4096", {"loss_chunk_tokens": 4096}, None),
             ("loss_chunk_8192", {"loss_chunk": 8192}, None)):
         loss, grads, flash, fused = run(**opts)
@@ -1249,8 +1354,8 @@ def phase_train_grads_ce(torch):
 
 def phase_train_ce(torch, smi, mono):
     """``train_gpt --loss_pallas`` in process: GPT-2 small, b8 s1024,
-    AdamW, 30 steps. Exactly one B5/B6/B7 launch per step (plus B5 once
-    per final-eval batch); the first steps' losses against the monolithic
+    AdamW, 30 steps. Exactly one B5/split/B6/B7 launch per step (plus B5
+    once per final-eval batch); the first steps' losses against the monolithic
     ``train`` run's (``mono``, None when that phase did not run). Returns
     the fused kernels' launches."""
     import gc
@@ -1281,8 +1386,8 @@ def phase_train_ce(torch, smi, mono):
             f"trained {state.step} steps, logged {len(losses)}")
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
     # one per step, plus the final eval's 4 forward batches for B5
-    want = {"fused_ce_fwd": TRAIN_STEPS + 4, "fused_ce_dx": TRAIN_STEPS,
-            "fused_ce_dw": TRAIN_STEPS}
+    want = {"fused_ce_fwd": TRAIN_STEPS + 4, "fused_ce_split": TRAIN_STEPS,
+            "fused_ce_dx": TRAIN_STEPS, "fused_ce_dw": TRAIN_STEPS}
     require(launches == want, f"train_ce launches {launches} != {want}")
     flash_want = {"flash_fwd": 12 * (TRAIN_STEPS + 4), "flash_fwd_hfold": 0,
                   "flash_dq": 12 * TRAIN_STEPS, "flash_dkv": 12 * TRAIN_STEPS}
@@ -1646,6 +1751,14 @@ def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
            **timing_ce[name]}
           for name, line in (("fused_ce_fwd", 59), ("fused_ce_dx", 115),
                              ("fused_ce_dw", 134))),
+        # the backward's split pass: no TPU kernel of its own, it prepares
+        # the operands of B6 and B7 for _run_bwd's two pallas_calls
+        {"name": "fused_ce_split", "route": "cuda",
+         "source": "dtf_tpu_torch/ops/csrc/fused_ce.cu",
+         "replaces": "dtf_tpu/ops/fused_ce.py:193",
+         "launches": train_ce_launches["fused_ce_split"],
+         "max_abs_err": err_ce["fused_ce_split"],
+         **timing_ce["fused_ce_split"]},
         {"name": "embed_gather", "route": "cuda",
          "source": "dtf_tpu_torch/ops/csrc/embed_gather.cu",
          "replaces": "dtf_tpu/ops/embed_gather.py:37",

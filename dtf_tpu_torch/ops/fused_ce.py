@@ -13,8 +13,11 @@ dlogits from the saved per-token logsumexp. Side by side:
 - :func:`fused_ce_fwd_cuda`, :func:`fused_ce_dx_cuda`,
   :func:`fused_ce_dw_cuda`: the wrappers of the hand-written Hopper
   kernels in ``csrc/fused_ce.cu`` (replacing the Pallas ``_fwd_kernel``,
-  ``_dx_kernel`` and ``_dw_kernel``), with the same contracts. They count
-  their launches in :data:`launch_counts`.
+  ``_dx_kernel`` and ``_dw_kernel``), with the same contracts. B6 and B7
+  run their products in 3xTF32 on the tensor cores and read the streamed
+  operand through :func:`fused_ce_split_cuda`, the split pass (plain
+  version :func:`fused_ce_split_reference`): one launch a backward,
+  shared by both. They count their launches in :data:`launch_counts`.
 - :func:`fused_lm_cross_entropy`: the public entry, differentiable
   through :class:`_FusedCE` (the counterpart of ``_fused_ce``'s
   ``custom_vjp``). CPU tensors take the plain versions, CUDA tensors the
@@ -29,20 +32,22 @@ stride. Sums are f32 (f64 for f64 inputs in the plain versions, so that
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from dtf_tpu_torch.ops.losses import _acc_dtype
 
-#: head widths (d_model) the backward kernels are compiled for: their
-#: [32, D] accumulators are spread over registers at a compile-time width
-HEAD_WIDTHS = (768, 1024)
+#: head widths (d_model) the backward kernels are compiled for: a
+#: cluster of CTAs (384: 2 x 192 columns, 768: 3 x 256, 1024: 8 x 128)
+#: holds the [128, D] output slice by slice in registers
+HEAD_WIDTHS = (384, 768, 1024)
 
-#: Launches of the CUDA kernels: ``fused_ce_fwd`` (B5), ``fused_ce_dx``
-#: (B6) and ``fused_ce_dw`` (B7). Plain integers;
-#: :func:`reset_launch_counts` zeroes them.
-launch_counts = {"fused_ce_fwd": 0, "fused_ce_dx": 0, "fused_ce_dw": 0}
+#: Launches of the CUDA kernels: ``fused_ce_fwd`` (B5), ``fused_ce_split``
+#: (the backward's split pass), ``fused_ce_dx`` (B6) and ``fused_ce_dw``
+#: (B7). Plain integers; :func:`reset_launch_counts` zeroes them.
+launch_counts = {"fused_ce_fwd": 0, "fused_ce_split": 0, "fused_ce_dx": 0,
+                 "fused_ce_dw": 0}
 
 
 def reset_launch_counts() -> None:
@@ -87,6 +92,54 @@ def fused_ce_bwd_reference(x: torch.Tensor, w: torch.Tensor,
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 ``t`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: 10
+    explicit mantissa bits, to nearest, ties away from zero (the low 13
+    bits of the result are 0). Finite inputs."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor):
+    """(hi, lo) with hi = tf32(t), lo = tf32(t − hi): t to ~2⁻²² relative,
+    the operand split of a 3xTF32 product (hi·hi' + hi·lo' + lo·hi')."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+#: position p of every group of 8 transposed rows holds row PERM8[p]: the
+#: K order in which a wgmma f32 accumulator is the tf32 A fragment
+PERM8 = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def padded_rows(rows: int) -> int:
+    """The transposed split's row count: ``rows`` rounded up to 8."""
+    return -(-rows // 8) * 8
+
+
+def fused_ce_split_reference(a: torch.Tensor):
+    """The split pass for one f32 matrix ``a`` [R, D]: (hi, lo) [R, D]
+    and (t_hi, t_lo) [D, padded_rows(R)], the transposed split with every
+    group of 8 rows in :data:`PERM8` order and the pad 0."""
+    r, d = a.shape
+    hi, lo = split_tf32(a.float())
+    rp = padded_rows(r)
+    pos = torch.arange(rp, device=a.device)
+    p7 = pos % 8                     # position p holds row PERM8[p]
+    idx = pos - p7 + torch.where(p7 < 4, 2 * p7, 2 * p7 - 7)
+    padded = torch.zeros(rp, d, dtype=torch.float32, device=a.device)
+    padded[:r] = a.float()
+    t_hi, t_lo = split_tf32(padded[idx].t().contiguous())
+    return hi, lo, t_hi, t_lo
+
+
+class CESplit(NamedTuple):
+    """The split pass's outputs (:func:`fused_ce_split_cuda`): W's for B6,
+    x's for B7 (None where not asked for); each (hi, lo, t_hi, t_lo)."""
+    w: Optional[tuple]
+    x: Optional[tuple]
+
+
 _lib = None
 
 
@@ -103,9 +156,16 @@ def _kernel_lib():
     # is passed as a 32-bit int and cuts the pointer
     lib.dtf_fused_ce_fwd_f32.argtypes = [p, ll, p, ll, p, p, p, i, i, i, p]
     lib.dtf_fused_ce_fwd_f32.restype = i
+    lib.dtf_fused_ce_split_f32.argtypes = [p, ll, i, i, p, p, p, p,
+                                           p, ll, i, i, p, p, p, p, i, p]
+    lib.dtf_fused_ce_split_f32.restype = i
     for fn in (lib.dtf_fused_ce_dx_f32, lib.dtf_fused_ce_dw_f32):
-        fn.argtypes = [p, ll, p, ll, p, p, p, p, i, i, i, p]
+        fn.argtypes = [p, ll, p, p, p, p, ll, p, p, p, p, p, i, i, i, p]
         fn.restype = i
+    lib.dtf_fused_ce_workspace_floats.argtypes = [i, i, i, i]
+    lib.dtf_fused_ce_workspace_floats.restype = ll
+    lib.dtf_fused_ce_max_clusters.argtypes = [i, i]
+    lib.dtf_fused_ce_max_clusters.restype = i
     lib.dtf_fused_ce_error_string.argtypes = [i]
     lib.dtf_fused_ce_error_string.restype = ctypes.c_char_p
     lib.dtf_fused_ce_smem_bytes.argtypes = [i, i]
@@ -122,39 +182,49 @@ def _rows_view(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def _check_cuda_inputs(fn: str, x, w, labels, stats=()):
-    """The checks every wrapper makes, and the kernel-readable operands:
-    x [N, D] f32 (bf16 is promoted here, as the reference's dot promotes
-    it), w [V, D] f32 on the same GPU, a compiled head width, labels [N]
-    (cast to int32 unless already), f32 [N] statistics."""
-    for name, t in (("x", x), ("w", w), ("labels", labels), *stats):
+def _check_operands(fn: str, x, w):
+    """x [N, D] f32 (bf16 is promoted here, as the reference's dot
+    promotes it) and w [V, D] f32 on one GPU, at a compiled head width:
+    the kernel-readable views of both."""
+    for name, t in (("x", x), ("w", w)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{fn}: {name} is on {t.device} (x on "
                              f"{x.device}); the kernel takes one GPU")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"{fn}: x {tuple(x.shape)} and w {tuple(w.shape)} "
                          "must be [N, D] and [V, D]")
-    n, d = x.shape
-    if labels.shape != (n,):
-        raise ValueError(f"{fn}: labels {tuple(labels.shape)} != ({n},)")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{fn}: x is {x.dtype}; the Hopper kernel takes "
                          "float32 (bfloat16 is promoted)")
     if w.dtype != torch.float32:
         raise ValueError(f"{fn}: w is {w.dtype}; the Hopper kernel takes "
                          "float32")
+    if x.shape[1] not in HEAD_WIDTHS:
+        raise ValueError(f"{fn}: head width {x.shape[1]} is not supported "
+                         f"by the Hopper kernels (compiled for {HEAD_WIDTHS})")
+    return _rows_view(x.float()), _rows_view(w)
+
+
+def _check_cuda_inputs(fn: str, x, w, labels, stats=()):
+    """The checks every wrapper makes, and the kernel-readable operands:
+    :func:`_check_operands`, labels [N] on the same GPU (cast to int32
+    unless already), f32 [N] statistics."""
+    for name, t in (("labels", labels), *stats):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{fn}: {name} is on {t.device} (x on "
+                             f"{x.device}); the kernel takes one GPU")
+    xk, wk = _check_operands(fn, x, w)
+    n = xk.shape[0]
+    if labels.shape != (n,):
+        raise ValueError(f"{fn}: labels {tuple(labels.shape)} != ({n},)")
     if labels.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"{fn}: labels are {labels.dtype}; integer "
                          "labels only")
-    if d not in HEAD_WIDTHS:
-        raise ValueError(f"{fn}: head width {d} is not supported by the "
-                         f"Hopper kernels (compiled for {HEAD_WIDTHS})")
     for name, t in stats:
         if t.dtype != torch.float32 or t.shape != (n,):
             raise ValueError(f"{fn}: {name} must be f32 [{n}], got "
                              f"{t.dtype} {tuple(t.shape)}")
-    return (_rows_view(x.float()), _rows_view(w),
-            labels.to(torch.int32).contiguous(),
+    return (xk, wk, labels.to(torch.int32).contiguous(),
             [t.contiguous() for _, t in stats])
 
 
@@ -186,33 +256,94 @@ def fused_ce_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
     return lse, tgt
 
 
-def _bwd_launch(which: int, x, w, labels, lse, dce):
+def fused_ce_split_cuda(x: torch.Tensor, w: torch.Tensor, *,
+                        for_dx: bool = True,
+                        for_dw: bool = True) -> CESplit:
+    """Launch the split pass once for the backward: W's split (B6
+    streams W) if ``for_dx``, x's (B7 streams x) if ``for_dw``; the
+    contract of :func:`fused_ce_split_reference`, bitwise. Scratch: four
+    f32 copies of each matrix split (0.72 GB at N 8192, V 50304, D 768),
+    freed with the returned tensors."""
+    xk, wk = _check_operands("fused_ce_split_cuda", x, w)
+    (n, d), v = xk.shape, wk.shape[0]
+
+    def alloc(rows):
+        rp = padded_rows(rows)
+        return tuple(torch.empty(shape, dtype=torch.float32, device=x.device)
+                     for shape in ((rows, d), (rows, d), (d, rp), (d, rp)))
+
+    xs = alloc(n) if for_dw else None
+    ws = alloc(v) if for_dx else None
+    null4 = (None,) * 4
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (*(xs or null4), *(ws or null4))]
+    lib = _kernel_lib()
+    err = lib.dtf_fused_ce_split_f32(
+        xk.data_ptr() if for_dw else None, xk.stride(0), n, padded_rows(n),
+        *ptrs[:4], wk.data_ptr() if for_dx else None, wk.stride(0), v,
+        padded_rows(v), *ptrs[4:], d,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(lib, err, 3, "fused_ce_split", d)
+    launch_counts["fused_ce_split"] += 1
+    return CESplit(w=ws, x=xs)
+
+
+def _bwd_launch(which: int, x, w, labels, lse, dce, split):
     name = ("fused_ce_dx", "fused_ce_dw")[which - 1]
     xk, wk, lab, (lse, dce) = _check_cuda_inputs(
         f"{name}_cuda", x, w, labels, (("lse", lse), ("dce", dce)))
     n, d = xk.shape
-    rows = n if which == 1 else wk.shape[0]
+    v = wk.shape[0]
+    part = (split.w if which == 1 else split.x) if split is not None else None
+    if part is None:
+        own_split = fused_ce_split_cuda(xk, wk, for_dx=which == 1,
+                                        for_dw=which == 2)
+        part = own_split.w if which == 1 else own_split.x
+    rows, streamed = (n, v) if which == 1 else (v, n)
+    want = ((streamed, d), (streamed, d), (d, padded_rows(streamed)),
+            (d, padded_rows(streamed)))
+    if tuple(tuple(t.shape) for t in part) != want:
+        raise ValueError(f"{name}_cuda: the split does not match x/w")
+    own = xk if which == 1 else wk
     out = torch.empty((rows, d), dtype=torch.float32, device=x.device)
     lib = _kernel_lib()
+    # a stream of more than 4096 rows is summed in parts (the tensor
+    # core's f32 sums truncate) and the parts added in a fixed order
+    ws_floats = lib.dtf_fused_ce_workspace_floats(which, n, v, d)
+    ws = (torch.empty(ws_floats, dtype=torch.float32, device=x.device)
+          if ws_floats else None)
     fn = lib.dtf_fused_ce_dx_f32 if which == 1 else lib.dtf_fused_ce_dw_f32
-    err = fn(xk.data_ptr(), xk.stride(0), wk.data_ptr(), wk.stride(0),
-             lab.data_ptr(), lse.data_ptr(), dce.data_ptr(), out.data_ptr(),
-             n, wk.shape[0], d,
+    err = fn(own.data_ptr(), own.stride(0), *(t.data_ptr() for t in part),
+             padded_rows(streamed), lab.data_ptr(), lse.data_ptr(),
+             dce.data_ptr(), out.data_ptr(),
+             ws.data_ptr() if ws is not None else None, n, v, d,
              torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch(lib, err, which, name, d)
     launch_counts[name] += 1
     return out
 
 
-def fused_ce_dx_cuda(x, w, labels, lse, dce) -> torch.Tensor:
+def fused_ce_dx_cuda(x, w, labels, lse, dce,
+                     split: Optional[CESplit] = None) -> torch.Tensor:
     """Launch B6: dx [N, D] in x's dtype from the saved lse and the
-    per-token cotangent dce (both f32 [N])."""
-    return _bwd_launch(1, x, w, labels, lse, dce).to(x.dtype)
+    per-token cotangent dce (both f32 [N]). ``split``: the backward's
+    split pass (W's part), launched here if not given."""
+    return _bwd_launch(1, x, w, labels, lse, dce, split).to(x.dtype)
 
 
-def fused_ce_dw_cuda(x, w, labels, lse, dce) -> torch.Tensor:
-    """Launch B7: dW [V, D] f32, the head parameter's own layout."""
-    return _bwd_launch(2, x, w, labels, lse, dce)
+def fused_ce_dw_cuda(x, w, labels, lse, dce,
+                     split: Optional[CESplit] = None) -> torch.Tensor:
+    """Launch B7: dW [V, D] f32, the head parameter's own layout.
+    ``split``: the backward's split pass (x's part), launched here if not
+    given."""
+    return _bwd_launch(2, x, w, labels, lse, dce, split)
+
+
+def max_active_clusters(which: int, d: int) -> int:
+    """How many clusters of B6 (``which`` 1) or B7 (2) the card holds at
+    once at head width ``d`` (``cudaOccupancyMaxActiveClusters``): the
+    size of one wave."""
+    return _kernel_lib().dtf_fused_ce_max_clusters(which, d)
 
 
 def _on_cpu(*ts) -> bool:
@@ -228,8 +359,9 @@ class _FusedCE(torch.autograd.Function):
     """The differentiable fused CE (``_fused_ce``'s ``custom_vjp``).
     Forward: per-token (lse, tgt) from B5, then the masked mean and the
     valid count in PyTorch, as the reference computes them outside its
-    kernel. Backward: dce = (g_mean / cnt)·valid, then B6 and B7; the
-    count is not differentiable. CPU tensors take the plain versions."""
+    kernel. Backward: dce = (g_mean / cnt)·valid, then the split pass, B6
+    and B7; the count is not differentiable. CPU tensors take the plain
+    versions."""
 
     @staticmethod
     def forward(ctx, x, w, labels, ignore_index):
@@ -257,8 +389,11 @@ class _FusedCE(torch.autograd.Function):
             dx, dw = fused_ce_bwd_reference(x, w, labels, lse, dce)
             return (dx if want_dx else None, dw if want_dw else None,
                     None, None)
-        dx = fused_ce_dx_cuda(x, w, labels, lse, dce) if want_dx else None
-        dw = fused_ce_dw_cuda(x, w, labels, lse, dce) if want_dw else None
+        split = fused_ce_split_cuda(x, w, for_dx=want_dx, for_dw=want_dw)
+        dx = (fused_ce_dx_cuda(x, w, labels, lse, dce, split) if want_dx
+              else None)
+        dw = (fused_ce_dw_cuda(x, w, labels, lse, dce, split) if want_dw
+              else None)
         return dx, dw, None, None
 
 

@@ -17,11 +17,11 @@ the fused or token-chunked one. After three warm-up steps it
    backward, the optimizer update;
 2. times the head's three f32 GEMMs alone at their shapes (logits,
    dW, dX), so the CE's own share is the head + CE time less these, and
-   the fused kernels B5, B6 and B7 alone at the same shapes;
+   the fused kernels B5, the split pass, B6 and B7 alone at the same shapes;
 3. profiles ``--steps`` whole train steps (``make_train_step``) with
    ``torch.profiler`` and sums the device time by kernel family: the
    flash forward (B1), dQ (B2), dK/dV (B3), the fused CE forward (B5),
-   dX (B6) and dW (B7), GEMMs (cuBLAS), the optimizer's multi-tensor
+   the split pass, dX (B6) and dW (B7), GEMMs (cuBLAS), the optimizer's multi-tensor
    kernels, and the rest (elementwise, LayerNorm, softmax, reductions).
 
 It prints the top kernels by device time, then one JSON line: the card's
@@ -49,6 +49,7 @@ FAMILIES = (
     ("flash_dq (B2)", re.compile(r"flash_bwd_dq_kernel")),
     ("flash_dkv (B3)", re.compile(r"flash_bwd_dkv_kernel")),
     ("fused_ce_fwd (B5)", re.compile(r"fused_ce_fwd_kernel")),
+    ("fused_ce_split", re.compile(r"fused_ce_split_kernel")),
     ("fused_ce_dx (B6)", re.compile(r"fused_ce_dx_kernel")),
     ("fused_ce_dw (B7)", re.compile(r"fused_ce_dw_kernel")),
     ("gemm", re.compile(r"gemm|nvjet|xmma|cutlass", re.I)),
@@ -201,15 +202,20 @@ def main(argv=None) -> int:
     head_gemm_ms = g0.elapsed_time(g1) / 3
     del dl
 
-    # ... and the fused kernels B5, B6, B7 alone at the same shapes
+    # ... and the fused kernels B5, the split pass, B6, B7 alone at the
+    # same shapes
     labels = batches[0]["labels"].reshape(-1).to(torch.int32)
     valid = (labels != -100).float()
     dce = valid / valid.sum().clamp_min(1.0)
     lse, _ = fc.fused_ce_fwd_cuda(x, w, labels)
+    split = fc.fused_ce_split_cuda(x, w)
     kernels = {
         "fused_ce_fwd": lambda: fc.fused_ce_fwd_cuda(x, w, labels),
-        "fused_ce_dx": lambda: fc.fused_ce_dx_cuda(x, w, labels, lse, dce),
-        "fused_ce_dw": lambda: fc.fused_ce_dw_cuda(x, w, labels, lse, dce)}
+        "fused_ce_split": lambda: fc.fused_ce_split_cuda(x, w),
+        "fused_ce_dx": lambda: fc.fused_ce_dx_cuda(x, w, labels, lse, dce,
+                                                   split),
+        "fused_ce_dw": lambda: fc.fused_ce_dw_cuda(x, w, labels, lse, dce,
+                                                   split)}
     fused_ms = {}
     for name, fn in kernels.items():
         fn()
@@ -219,7 +225,7 @@ def main(argv=None) -> int:
         g1.record()
         torch.cuda.synchronize()
         fused_ms[name] = g0.elapsed_time(g1) / 3
-    del x, lse
+    del x, lse, split
 
     # 3. whole steps under the profiler
     with profile(activities=[ProfilerActivity.CPU,

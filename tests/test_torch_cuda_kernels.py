@@ -9,8 +9,10 @@ it also runs on the GPU machine, which has no JAX:
 Tolerances are ``chip_smoke.py``'s, with its reasons: for flash, bf16
 inputs, P and dS rounded to bf16 in both versions but from sums taken in
 other orders; for the fused CE (B5–B7), f32 operands with TF32 off, the
-same products summed in another order. The embedding gather (B8) copies:
-it equals its plain version exactly.
+same products summed in another order (B6/B7 in 3xTF32, ~2^-21 a
+product). B6 and B7 sum in a fixed order with no atomics: two launches
+are bitwise equal. The embedding gather (B8) copies: it equals its
+plain version exactly.
 """
 
 import pytest
@@ -155,7 +157,8 @@ CE_CASES = [(1000, 768, 50257, "out_of_range", torch.float32),
             (5, 768, 50304, "", torch.float32),
             (64, 768, 5003, "all_ignored", torch.float32),
             (256, 768, 3001, "some_ignored", torch.bfloat16),
-            (300, 1024, 4097, "out_of_range", torch.float32)]
+            (300, 1024, 4097, "out_of_range", torch.float32),
+            (700, 384, 5003, "out_of_range", torch.float32)]
 
 
 @pytest.mark.parametrize("n,d,v,labelling,x_dtype", CE_CASES)
@@ -195,8 +198,8 @@ def test_fused_ce_autograd_on_cuda_counts_each_kernel_once(cuda):
     tfc.reset_launch_counts()
     loss, cnt = tfc.fused_lm_cross_entropy(x, w, labels, ignore_index=-100)
     loss.backward()
-    assert tfc.launch_counts == {"fused_ce_fwd": 1, "fused_ce_dx": 1,
-                                 "fused_ce_dw": 1}
+    assert tfc.launch_counts == {"fused_ce_fwd": 1, "fused_ce_split": 1,
+                                 "fused_ce_dx": 1, "fused_ce_dw": 1}
     assert cnt.item() == 293.0
     fused = (loss.item(), x.grad.clone(), w.grad.clone())
     x.grad = w.grad = None
@@ -207,6 +210,26 @@ def test_fused_ce_autograd_on_cuda_counts_each_kernel_once(cuda):
     assert abs(fused[0] - want.item()) <= 1e-5 * abs(want.item())
     assert _rel(fused[1], x.grad) <= CE_GRAD_REL_TOL
     assert _rel(fused[2], w.grad) <= CE_GRAD_REL_TOL
+
+
+@pytest.mark.parametrize("n,d,v", [(4096, 768, 50304), (700, 384, 5003)])
+def test_fused_ce_backward_is_bitwise_repeatable(cuda, n, d, v):
+    """No atomics and a fixed order of every sum (the cluster's partial
+    logits in rank order): two launches of B6 and of B7 give the same
+    bits, and the split pass equals its plain version bit for bit."""
+    x, w, labels = _ce_inputs(cuda, n, d, v, seed=3)
+    labels[::9] = -100
+    valid = (labels != -100).float()
+    dce = valid / valid.sum()
+    lse, _ = tfc.fused_ce_fwd_cuda(x, w, labels)
+    split = tfc.fused_ce_split_cuda(x, w)
+    for got, want in zip((*split.x, *split.w),
+                         (*tfc.fused_ce_split_reference(x),
+                          *tfc.fused_ce_split_reference(w))):
+        assert torch.equal(got, want)
+    for fn in (tfc.fused_ce_dx_cuda, tfc.fused_ce_dw_cuda):
+        assert torch.equal(fn(x, w, labels, lse, dce, split),
+                           fn(x, w, labels, lse, dce, split))
 
 
 def test_fused_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -224,6 +247,11 @@ def test_fused_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tfc.fused_ce_dx_cuda(x, w[:, :512], labels, stats, stats)
     with pytest.raises(ValueError, match="head width"):
         tfc.fused_ce_fwd_cuda(x[:, :512], w[:, :512], labels)
+    with pytest.raises(ValueError, match="head width"):
+        tfc.fused_ce_split_cuda(x[:, :640], w[:, :640])
+    other = tfc.fused_ce_split_cuda(x, w[:200])
+    with pytest.raises(ValueError, match="split does not match"):
+        tfc.fused_ce_dx_cuda(x, w, labels, stats, stats, other)
     with pytest.raises(ValueError, match="lse"):
         tfc.fused_ce_dx_cuda(x, w, labels, stats[:8], stats)
 

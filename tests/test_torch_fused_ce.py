@@ -149,16 +149,120 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing_on_cpu():
     stats = torch.zeros(xt.shape[0])
     tfc.reset_launch_counts()
     for call in (lambda: tfc.fused_ce_fwd_cuda(xt, wt, lab),
+                 lambda: tfc.fused_ce_split_cuda(xt, wt),
                  lambda: tfc.fused_ce_dx_cuda(xt, wt, lab, stats, stats),
                  lambda: tfc.fused_ce_dw_cuda(xt, wt, lab, stats, stats)):
         with pytest.raises(ValueError, match="the kernel takes one GPU"):
             call()
     loss, _ = tfc.fused_lm_cross_entropy(xt, wt, lab, ignore_index=-100)
     loss.backward()
-    assert tfc.launch_counts == {"fused_ce_fwd": 0, "fused_ce_dx": 0,
-                                 "fused_ce_dw": 0}
+    assert tfc.launch_counts == {"fused_ce_fwd": 0, "fused_ce_split": 0,
+                                 "fused_ce_dx": 0, "fused_ce_dw": 0}
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfc.fused_lm_cross_entropy(xt, wt, lab, mesh=object())
+
+
+def _tf32_rna_numpy(a):
+    """Round to 11 significant bits (1 implicit + 10 explicit), ties away
+    from zero, by frexp: an independent statement of cvt.rna.tf32.f32."""
+    m, e = np.frexp(a.astype(np.float64))          # a = m·2^e, |m| in [.5, 1)
+    s = m * 2.0 ** 11
+    r = np.sign(s) * np.floor(np.abs(s) + 0.5)
+    return np.ldexp(r, e - 11).astype(np.float32)
+
+
+def test_tf32_round_keeps_exactly_10_explicit_mantissa_bits():
+    """The rounding B6/B7's split uses (cvt.rna.tf32.f32): the low 13 of
+    the 23 explicit mantissa bits are 0, the 10 above them are kept and
+    used, ties round away from zero."""
+    rng = np.random.default_rng(11)
+    a = np.concatenate([
+        rng.standard_normal(100_000).astype(np.float32),
+        (rng.standard_normal(1000) * 1e-30).astype(np.float32),
+        (rng.standard_normal(1000) * 1e30).astype(np.float32),
+        # exact ties: 1 + 2^-11 (+ 2^-10 for an odd kept bit), both signs
+        np.float32([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -10 + 2 ** -11,
+                    -(1 + 2 ** -10 + 2 ** -11)])])
+    got = tfc.tf32_round(torch.from_numpy(a)).numpy()
+    bits = got.view(np.int32)
+    assert not (bits & 0x1FFF).any()
+    assert np.array_equal(got, _tf32_rna_numpy(a))
+    assert np.array_equal(got[-4:], np.float32(
+        [1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -9, -(1 + 2 ** -9)]))
+    # each of the 10 kept bits is set somewhere: none is dropped
+    for bit in range(13, 23):
+        assert ((bits >> bit) & 1).any(), bit
+    # the half-ulp bound of a 10-bit mantissa
+    _, e = np.frexp(a)
+    assert (np.abs(got.astype(np.float64) - a)
+            <= np.ldexp(1.0, e - 12) * (1 + 1e-12)).all()
+
+
+def test_split_reference_is_the_kernels_layout():
+    """hi + lo is the value to 2^-22 relative; the transposed halves hold
+    row PERM8[p] of every group of 8 at position p, the pad 0."""
+    a = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (13, 64)).astype(np.float32))
+    hi, lo, t_hi, t_lo = tfc.fused_ce_split_reference(a)
+    assert torch.equal(hi, tfc.tf32_round(a))
+    assert ((hi.double() + lo.double() - a.double()).abs()
+            <= a.double().abs() * 2.0 ** -22).all()
+    assert t_hi.shape == t_lo.shape == (64, 16)
+    order = [8 * (p // 8) + tfc.PERM8[p % 8] for p in range(16)]
+    for p, r in enumerate(order):
+        if r < 13:
+            assert torch.equal(t_hi[:, p], hi[r])
+            assert torch.equal(t_lo[:, p], lo[r])
+        else:
+            assert not t_hi[:, p].any() and not t_lo[:, p].any()
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as B6/B7 compute it: tf32 hi/lo splits (each product of two
+    tf32 values exact in f32), hi·hi + hi·lo + lo·hi summed in f32."""
+    ah, al = tfc.split_tf32(a)
+    bh, bl = tfc.split_tf32(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _mm_1xtf32(a, b):
+    return tfc.tf32_round(a) @ tfc.tf32_round(b)
+
+
+def test_3xtf32_backward_products_are_f32_accurate():
+    """The precision choice of B6/B7, held where no card runs: both
+    products of the backward (the logits recompute and dX / dW) emulated
+    in 3xTF32 with f32 sums agree with the f64 plain version within 1e-6
+    relative; one TF32 pass (~11 bits) would not. chip_smoke.py's input
+    scales: x ~ N(0, 1), W ~ N(0, 0.05²), some labels ignored."""
+    rng = np.random.default_rng(13)
+    n, d, v = 64, 768, 300
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((v, d)) * 0.05).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, v, n))
+    labels[::7] = -100
+    valid = (labels != -100).double()
+    dce = valid / valid.sum()
+    lse, _ = tfc.fused_ce_fwd_reference(x.double(), w.double(), labels)
+    want_dx, want_dw = tfc.fused_ce_bwd_reference(
+        x.double(), w.double(), labels, lse, dce)
+
+    def emulate(mm):
+        logits = mm(x, w.t())
+        hot = (torch.arange(v)[None, :] == labels[:, None]).float()
+        dl = dce.float()[:, None] * (torch.exp(logits - lse.float()[:, None])
+                                     - hot)
+        return mm(dl, w), mm(dl.t(), x)
+
+    def rel(got, want):
+        return ((got.double() - want).norm() / want.norm()).item()
+
+    dx, dw = emulate(_mm_3xtf32)
+    assert rel(dx, want_dx) <= 1e-6 and rel(dw, want_dw) <= 1e-6, (
+        rel(dx, want_dx), rel(dw, want_dw))
+    dx1, dw1 = emulate(_mm_1xtf32)
+    assert rel(dx1, want_dx) > 1e-4 and rel(dw1, want_dw) > 1e-4
 
 
 CHUNKED = {
