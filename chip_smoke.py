@@ -13,8 +13,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    prints ptxas's registers and spills, and checks with ``cuobjdump
    -sass`` that the forward and both backward kernels (D 64 and 128, 6
    in all) run wgmma (HGMMA) on TMA loads (UTMALDG) and no mma.sync
-   (HMMA), and that the fused CE backward kernels B6 and B7 (D 384, 768
-   and 1024, 6 in all) run wgmma on TMA loads with no spill.
+   (HMMA), and that the fused CE kernels B5 (one instance for every
+   width), B6 and B7 (D 384, 768 and 1024; 7 in all) run wgmma on TMA
+   loads with no spill.
 3. kernels — the flash-attention forward kernel (B1, and B4 through
    ``block_h``) against its plain PyTorch version on the card, bf16, at
    GPT-2 shapes and the tile edges (T 5, 65, 129, ragged T, t_q 1 against
@@ -52,28 +53,30 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    from the checkpoint; ``generate_gpt --logdir`` on it; 30 steps on one
    fixed batch, whose loss must fall by ``FIXED_BATCH_LOSS_DROP``.
    Prints step ms, tokens/s, analytic MFU and peak memory.
-10. kernels_ce — the fused LM head + CE kernels (B5 forward, the
-    backward's split pass, B6 dX, B7 dW) against their plain versions on
-    the card, f32, TF32 off: the training shape with ignored labels,
-    ragged N and V (50257) with out-of-range labels, an all-ignored batch
-    (dX, dW exactly 0), N 5, bf16 x, D 1024, D 384; the split exactly;
-    then two launches of B6 and of B7 at the training shape, bitwise
-    equal.
-11. kernel_times_ce — B5, the split pass, B6, B7 at N 8192, D 768, V
-    50304: kernel, plain version, the monolithic composite they replace
-    (cuBLAS f32 head GEMM + logsumexp/gather, and its backward; a
-    yardstick only) and the bound (3xTF32 on the tensor cores); B6's and
-    B7's clusters against the clusters the card holds at once.
+10. kernels_ce — the fused LM head + CE kernels (the split pass, B5 and
+    the merge of its vocab parts, B6 dX, B7 dW) against their plain
+    versions on the card, f32, TF32 off: the training shape with ignored
+    labels, the same with larger logits (W std 0.2), ragged N and V
+    (50257) with out-of-range labels, an all-ignored batch (dX, dW
+    exactly 0), N 5, bf16 x, D 1024, D 384; the split exactly, B5's parts
+    and the merge each against their own plain version, two B5 launches
+    bitwise equal in every case; then two launches of B5, B6 and B7 at
+    the training shape, bitwise equal.
+11. kernel_times_ce — B5, the merge, the split pass, B6, B7 at N 8192, D
+    768, V 50304: kernel, plain version, the monolithic composite they
+    replace (cuBLAS f32 head GEMM + logsumexp/gather, and its backward; a
+    yardstick only) and the bound (3xTF32 on the tensor cores); B5's CTAs
+    and B6's and B7's clusters against what the card holds at once.
 12. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
     the token- and vocab-chunked losses against the monolithic loss (loss,
-    the head's gradient, every other gradient); exactly 1/1/1/1
-    B5/split/B6/B7 launches per step on the fused path, none on the
+    the head's gradient, every other gradient); exactly 1/1/1/1/1
+    split/B5/merge/B6/B7 launches per step on the fused path, none on the
     chunked ones.
 13. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
-    steps: B5 34 (one per step and per final-eval batch), the split pass
-    30, B6 30, B7 30 launches; the first 5 losses against the ``train``
-    run's. Prints step
-    ms, tokens/s, analytic MFU and peak memory beside ``train``'s.
+    steps: the split pass, B5 and the merge 34 each (one per step and per
+    final-eval batch), B6 30, B7 30 launches; the first 5 losses against
+    the ``train`` run's. Prints step ms, tokens/s, analytic MFU and peak
+    memory beside ``train``'s.
 14. kernels_embed — the embedding-row gather (B8) against its plain
     version on the card, exactly (a gather copies): Wide&Deep's deep
     table [2,600,000, 16] in f32 and bf16 and its wide table [2,600,000,
@@ -102,8 +105,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     memory.
 
 Then one JSON line listing every kernel (launches on its main path, error
-against the plain version, times, bound; the 8 ported TPU kernels and the
-backward's split pass), the ``nvidia-smi`` line, and
+against the plain version, times, bound; the 8 ported TPU kernels, the
+split pass and the merge of B5's parts), the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. ``--phases a,b`` runs a subset
 (without the kernels line). Exits non-zero without printing a result
 when no GPU is present or when the port's package is not beside this
@@ -169,14 +172,19 @@ FIXED_BATCH_LOSS_DROP = 1.0
 TRAIN_STEPS = 30
 
 #: B5–B7 against their plain versions on the card, f32 operands, TF32 off
-#: on both sides: the kernels sum each logit's 768 products in 16-deep
-#: FFMA chains, cuBLAS in its own order — a few f32 ulps per logit, far
+#: on both sides: the kernels form each logit from 3xTF32 products (~2^-21
+#: relative each) summed on the tensor cores (whose f32 sums truncate),
+#: cuBLAS in IEEE f32 in its own order — a few f32 ulps per logit, far
 #: below these. lse and tgt (|.| ~ 11): max abs. dX and dW:
 #: ||kernel - plain|| / ||plain||. A bf16 x is promoted to f32 before
 #: the kernels and its dX rounded to bf16 at the end, so the bf16 dX
 #: carries a bf16 rounding of its own (2^-8 relative) where the two f32
 #: values straddle a rounding boundary: CE_BF16_DX_REL_TOL.
 CE_STAT_ATOL = 1e-4
+#: the merge of B5's parts against its plain version on the same parts:
+#: the same sums in the same order, expf / logf on the card against
+#: PyTorch's (each within 2 ulp) — a few ulps of |lse| < 32 (2^-18 each)
+CE_MERGE_ATOL = 1e-5
 CE_GRAD_REL_TOL = 1e-4
 CE_BF16_DX_REL_TOL = 4e-3
 #: GPT-2 small, one batch, the fused (and each chunked) loss against the
@@ -258,7 +266,7 @@ def phase_build():
     for name in _build.KERNELS:
         _build.load(name)
     sass = sass_counts(_build, FLASH_SASS_KERNELS, 6)
-    ce_sass = sass_counts(_build, CE_SASS_KERNELS, 6)
+    ce_sass = sass_counts(_build, CE_SASS_KERNELS, 7)
     ce_regs = res_usage(_build, CE_SASS_KERNELS)
     emit({"phase": "build", "seconds": secs, "sources": list(_build.KERNELS),
           "ptxas": ptxas, "flash_sass": sass, "fused_ce_sass": ce_sass,
@@ -272,17 +280,18 @@ def phase_build():
         require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
                 f"{kernel}: expected wgmma (HGMMA) and TMA loads (UTMALDG), "
                 f"got {counts}")
-    # a spill needs a stack frame: none in B6/B7
-    require(len(ce_regs) == 6 and all(
+    # a spill needs a stack frame: none in B5/B6/B7
+    require(len(ce_regs) == 7 and all(
         r["stack"] == 0 and r["local"] == 0 for r in ce_regs.values()),
-        f"B6/B7 registers and stack (spills): {ce_regs}")
+        f"B5/B6/B7 registers and stack (spills): {ce_regs}")
 
 
 #: the wgmma kernels whose SASS the build phase reads, by library
 FLASH_SASS_KERNELS = {"flash_fwd": ("flash_fwd_kernel",),
                       "flash_bwd": ("flash_bwd_dq_kernel",
                                     "flash_bwd_dkv_kernel")}
-CE_SASS_KERNELS = {"fused_ce": ("fused_ce_dx_kernel", "fused_ce_dw_kernel")}
+CE_SASS_KERNELS = {"fused_ce": ("fused_ce_fwd_kernel", "fused_ce_dx_kernel",
+                                 "fused_ce_dw_kernel")}
 
 
 def _instance(name, kernels):
@@ -1057,12 +1066,16 @@ def phase_train(torch, smi):
 
 
 def ce_bounds_ms(n, d, v):
-    """B5, the split pass, B6, B7: x [n, d] and W [v, d] f32, labels
-    int32 and the f32 statistics read once; B5 writes lse and tgt, B6 dX,
-    B7 dW. B5 does one n·d·v product, B6 and B7 two each (the recompute
-    and their own), each at 3xTF32: three TF32 products per f32 one. B6
-    and B7 are bounded as the function they compute, from x and W: the
-    split's copies are the design's, not the function's."""
+    """B5, the merge, the split pass, B6, B7: x [n, d] and W [v, d] f32,
+    labels int32 and the f32 statistics read once; B5 writes lse and tgt,
+    B6 dX, B7 dW. B5 does one n·d·v product, B6 and B7 two each (the
+    recompute and their own), each at 3xTF32: three TF32 products per f32
+    one. B5, B6 and B7 are bounded as the function they compute, from x
+    and W: the split's copies and B5's parts are the design's, not the
+    function's. The merge reads the parts' (m, l, tgt) and writes lse and
+    tgt, bytes only."""
+    from dtf_tpu_torch.ops.fused_ce import FWD_PART_ROWS
+
     reads = 4 * (n * d + v * d) + 4 * n
     prod = 2 * n * d * v
 
@@ -1077,17 +1090,19 @@ def ce_bounds_ms(n, d, v):
     rp = lambda r: -(-r // 8) * 8
     split_bytes = 4 * (n * d + v * d) + 8 * (n + v) * d + 8 * (rp(n)
                                                                + rp(v)) * d
+    nparts = -(-v // FWD_PART_ROWS)
     return {"fused_ce_fwd": bound(reads + 8 * n, prod),
+            "fused_ce_merge": bound(12 * nparts * n + 8 * n, 0),
             "fused_ce_split": bound(split_bytes, 0),
             "fused_ce_dx": bound(reads + 8 * n + 4 * n * d, 2 * prod),
             "fused_ce_dw": bound(reads + 8 * n + 4 * v * d, 2 * prod)}
 
 
-def _ce_inputs(torch, gen, n, d, v, x_dtype=None):
-    """x ~ N(0, 1) (post-LayerNorm scale), W ~ N(0, 0.05²) — logits of
-    std ~1.4 — and labels in [0, VOCAB_REAL)."""
+def _ce_inputs(torch, gen, n, d, v, x_dtype=None, w_std=0.05):
+    """x ~ N(0, 1) (post-LayerNorm scale), W ~ N(0, w_std²) — logits of
+    std ~1.4 at 0.05, ~5.5 at 0.2 — and labels in [0, VOCAB_REAL)."""
     x = torch.randn(n, d, generator=gen, device="cuda")
-    w = torch.randn(v, d, generator=gen, device="cuda") * 0.05
+    w = torch.randn(v, d, generator=gen, device="cuda") * w_std
     labels = torch.randint(0, min(v, VOCAB_REAL), (n,), generator=gen,
                            device="cuda")
     return x.to(x_dtype or torch.float32), w, labels
@@ -1098,32 +1113,45 @@ def _rel(torch, got, want):
             / want.float().norm().clamp_min(1e-30)).item()
 
 
+def _parts_err(got, want):
+    """Largest gap between B5's parts and their plain version, ws [parts,
+    3, N]: each part's max m and target logit, and its own logsumexp
+    m + log l (l >= 1: every part has a live column)."""
+    return max((got[:, 0] - want[:, 0]).abs().max().item(),
+               (got[:, 2] - want[:, 2]).abs().max().item(),
+               ((got[:, 0] + got[:, 1].log())
+                - (want[:, 0] + want[:, 1].log())).abs().max().item())
+
+
 def phase_kernels_ce(torch):
-    """B5, the split pass, B6 and B7 against fused_ce_*_reference on the
-    card: the training shape with ignored labels, ragged N and V with
-    out-of-range labels, an all-ignored batch, N 5, bf16 x, and the other
-    compiled head widths (1024, 384); then two launches of B6 and of B7 at
-    the training shape, bitwise equal. Returns each kernel's largest
-    max-abs error."""
+    """The split pass, B5 and its merge, B6 and B7 against
+    fused_ce_*_reference on the card: the training shape with ignored
+    labels, the same with larger logits, ragged N and V with out-of-range
+    labels, an all-ignored batch, N 5, bf16 x, and the other compiled head
+    widths (1024, 384); then two launches of B5, B6 and B7 at the training
+    shape, bitwise equal. Returns each kernel's largest max-abs error."""
     from dtf_tpu_torch.ops import fused_ce as fc
 
     gen = torch.Generator(device="cuda").manual_seed(20)
     cases = [
-        ("train_N8192", 8192, D_MODEL, VOCAB, "some_ignored", None),
+        ("train_N8192", 8192, D_MODEL, VOCAB, "some_ignored", None, 0.05),
+        ("train_N8192_w0.2", 8192, D_MODEL, VOCAB, "some_ignored", None,
+         0.2),
         ("ragged_N1000_V50257", 1000, D_MODEL, VOCAB_REAL, "out_of_range",
-         None),
-        ("all_ignored", 300, D_MODEL, VOCAB, "all_ignored", None),
-        ("N5", 5, D_MODEL, VOCAB, "", None),
+         None, 0.05),
+        ("all_ignored", 300, D_MODEL, VOCAB, "all_ignored", None, 0.05),
+        ("N5", 5, D_MODEL, VOCAB, "", None, 0.05),
         ("bf16_x_N1024", 1024, D_MODEL, VOCAB, "some_ignored",
-         torch.bfloat16),
-        ("d1024_N700_V5003", 700, 1024, 5003, "out_of_range", None),
-        ("d384_N700_V5003", 700, 384, 5003, "out_of_range", None),
+         torch.bfloat16, 0.05),
+        ("d1024_N700_V5003", 700, 1024, 5003, "out_of_range", None, 0.05),
+        ("d384_N700_V5003", 700, 384, 5003, "out_of_range", None, 0.05),
     ]
-    rows, worst = [], {"fused_ce_fwd": 0.0, "fused_ce_split": 0.0,
-                       "fused_ce_dx": 0.0, "fused_ce_dw": 0.0}
+    rows, worst = [], {"fused_ce_fwd": 0.0, "fused_ce_merge": 0.0,
+                       "fused_ce_split": 0.0, "fused_ce_dx": 0.0,
+                       "fused_ce_dw": 0.0}
     fc.reset_launch_counts()
-    for name, n, d, v, labelling, x_dtype in cases:
-        x, w, labels = _ce_inputs(torch, gen, n, d, v, x_dtype)
+    for name, n, d, v, labelling, x_dtype, w_std in cases:
+        x, w, labels = _ce_inputs(torch, gen, n, d, v, x_dtype, w_std)
         if labelling == "some_ignored":
             labels[::7] = -100
         elif labelling == "out_of_range":
@@ -1133,30 +1161,42 @@ def phase_kernels_ce(torch):
             labels[:] = -100
         valid = (labels != -100).float()
         dce = valid / valid.sum().clamp_min(1.0)       # g_mean = 1
-        lse, tgt = fc.fused_ce_fwd_cuda(x, w, labels)
-        torch.cuda.synchronize()
-        want_lse, want_tgt = fc.fused_ce_fwd_reference(x, w, labels)
         split = fc.fused_ce_split_cuda(x, w)
+        # B5 and the merge, each held on its own, then the entry point
+        # (B5 again): the same bits
+        ws = fc.fused_ce_fwd_parts_cuda(x, w, labels, split)
+        lse, tgt = fc.fused_ce_merge_cuda(ws)
+        lse2, tgt2 = fc.fused_ce_fwd_cuda(x, w, labels, split)
         dx = fc.fused_ce_dx_cuda(x, w, labels, lse, dce, split)
         dw = fc.fused_ce_dw_cuda(x, w, labels, lse, dce, split)
         torch.cuda.synchronize()
+        want_lse, want_tgt = fc.fused_ce_fwd_reference(x, w, labels)
+        want_ws = fc.fused_ce_parts_reference(x.float(), w, labels)
+        merge_lse, merge_tgt = fc.fused_ce_merge_reference(ws)
         # the split is exact: the same roundings, bit for bit
         split_err = max(
             (got - want).abs().max().item() if got.numel() else 0.0
             for part, src in ((split.x, x), (split.w, w))
             for got, want in zip(part, fc.fused_ce_split_reference(src)))
         want_dx, want_dw = fc.fused_ce_bwd_reference(x, w, labels, lse, dce)
-        row = {"case": name, "n": n, "d": d, "v": v,
+        row = {"case": name, "n": n, "d": d, "v": v, "w_std": w_std,
                "split_max_abs": split_err,
                "lse_max_abs": (lse - want_lse).abs().max().item(),
                "tgt_max_abs": (tgt - want_tgt).abs().max().item(),
+               "parts_max_abs": _parts_err(ws, want_ws),
+               "merge_max_abs": max(
+                   (lse - merge_lse).abs().max().item(),
+                   (tgt - merge_tgt).abs().max().item()),
+               "fwd_bitwise_repeat": bool(torch.equal(lse, lse2)
+                                          and torch.equal(tgt, tgt2)),
                "dx_max_abs": (dx.float() - want_dx.float()).abs().max()
                .item(),
                "dw_max_abs": (dw - want_dw).abs().max().item()}
         finite = all(torch.isfinite(t.float()).all().item()
                      for t in (lse, tgt, dx, dw))
         shapes = (tuple(dx.shape) == (n, d) and dx.dtype == x.dtype
-                  and tuple(dw.shape) == (v, d) and dw.dtype == torch.float32)
+                  and tuple(dw.shape) == (v, d) and dw.dtype == torch.float32
+                  and tuple(ws.shape) == tuple(want_ws.shape))
         if labelling == "all_ignored":
             row["dx_nonzero"] = torch.count_nonzero(dx).item()
             row["dw_nonzero"] = torch.count_nonzero(dw).item()
@@ -1167,47 +1207,57 @@ def phase_kernels_ce(torch):
             dx_tol = CE_BF16_DX_REL_TOL if x_dtype else CE_GRAD_REL_TOL
             ok = row["dx_rel"] <= dx_tol and row["dw_rel"] <= CE_GRAD_REL_TOL
         ok = (ok and finite and shapes and row["lse_max_abs"] <= CE_STAT_ATOL
-              and row["tgt_max_abs"] <= CE_STAT_ATOL and split_err == 0.0)
+              and row["tgt_max_abs"] <= CE_STAT_ATOL
+              and row["parts_max_abs"] <= CE_STAT_ATOL
+              and row["merge_max_abs"] <= CE_MERGE_ATOL
+              and row["fwd_bitwise_repeat"] and split_err == 0.0)
         row["ok"] = ok
         emit({"phase": "kernels_ce_case", **row})
         require(ok, f"{name}: a fused CE kernel disagrees with its plain "
                     f"version: {row}")
         worst["fused_ce_fwd"] = max(worst["fused_ce_fwd"],
                                     row["lse_max_abs"], row["tgt_max_abs"])
+        worst["fused_ce_merge"] = max(worst["fused_ce_merge"],
+                                      row["merge_max_abs"])
         worst["fused_ce_split"] = max(worst["fused_ce_split"], split_err)
         worst["fused_ce_dx"] = max(worst["fused_ce_dx"], row["dx_max_abs"])
         worst["fused_ce_dw"] = max(worst["fused_ce_dw"], row["dw_max_abs"])
         rows.append(row)
-        del x, w, dx, dw, want_dx, want_dw, split
-    require(fc.launch_counts == {k: len(cases) for k in fc.launch_counts},
-            f"kernels_ce launches {fc.launch_counts}")
+        del x, w, dx, dw, want_dx, want_dw, split, ws, want_ws
+    want = {k: len(cases) for k in fc.launch_counts}
+    want["fused_ce_fwd"] = want["fused_ce_merge"] = 2 * len(cases)
+    require(fc.launch_counts == want,
+            f"kernels_ce launches {fc.launch_counts} != {want}")
     # no atomics and a fixed summation order: two launches, the same bits
     x, w, labels = _ce_inputs(torch, gen, 8192, D_MODEL, VOCAB)
     labels[::7] = -100
     valid = (labels != -100).float()
     dce = valid / valid.sum()
-    lse, _ = fc.fused_ce_fwd_cuda(x, w, labels)
     split = fc.fused_ce_split_cuda(x, w)
-    repeat = {name: torch.equal(fn(x, w, labels, lse, dce, split),
-                                fn(x, w, labels, lse, dce, split))
-              for name, fn in (("fused_ce_dx", fc.fused_ce_dx_cuda),
-                               ("fused_ce_dw", fc.fused_ce_dw_cuda))}
+    lse, _ = fc.fused_ce_fwd_cuda(x, w, labels, split)
+    repeat = {"fused_ce_fwd": torch.equal(
+        fc.fused_ce_fwd_parts_cuda(x, w, labels, split),
+        fc.fused_ce_fwd_parts_cuda(x, w, labels, split))}
+    repeat.update({name: torch.equal(fn(x, w, labels, lse, dce, split),
+                                     fn(x, w, labels, lse, dce, split))
+                   for name, fn in (("fused_ce_dx", fc.fused_ce_dx_cuda),
+                                    ("fused_ce_dw", fc.fused_ce_dw_cuda))})
     del x, w, split
     emit({"phase": "kernels_ce", "stat_atol": CE_STAT_ATOL,
-          "grad_rel_tol": CE_GRAD_REL_TOL,
+          "merge_atol": CE_MERGE_ATOL, "grad_rel_tol": CE_GRAD_REL_TOL,
           "bf16_dx_rel_tol": CE_BF16_DX_REL_TOL, "max_abs": worst,
           "bitwise_repeat": repeat})
-    require(all(repeat.values()), f"B6/B7 launches differ: {repeat}")
+    require(all(repeat.values()), f"B5/B6/B7 launches differ: {repeat}")
     fc.reset_launch_counts()
     return worst
 
 
 def phase_kernel_times_ce(torch):
-    """B5, B6 and B7 at the training shape (N 8192, D 768, V 50304, f32):
-    kernel, plain version, the monolithic composite the fused path
-    replaces (a yardstick only: the cuBLAS f32 head GEMM + logsumexp/
-    gather forward, and its autograd backward for B6 + B7) and the
-    bound."""
+    """B5, the merge, the split pass, B6 and B7 at the training shape (N
+    8192, D 768, V 50304, f32): kernel, plain version, the monolithic
+    composite the fused path replaces (a yardstick only: the cuBLAS f32
+    head GEMM + logsumexp/gather forward, and its autograd backward for B6
+    + B7) and the bound."""
     from dtf_tpu_torch.ops import fused_ce as fc
     from dtf_tpu_torch.ops.losses import softmax_cross_entropy
 
@@ -1217,12 +1267,15 @@ def phase_kernel_times_ce(torch):
     labels[::97] = -100
     valid = (labels != -100).float()
     dce = valid / valid.sum()
-    lse, _ = fc.fused_ce_fwd_cuda(x, w, labels)
     lab32 = labels.to(torch.int32)
     split = fc.fused_ce_split_cuda(x, w)
+    ws = fc.fused_ce_fwd_parts_cuda(x, w, lab32, split)
+    lse, _ = fc.fused_ce_merge_cuda(ws)
     res = {
-        "fused_ce_fwd": time_ms(torch, lambda: fc.fused_ce_fwd_cuda(
-            x, w, lab32), 5),
+        "fused_ce_fwd": time_ms(torch, lambda: fc.fused_ce_fwd_parts_cuda(
+            x, w, lab32, split), 5),
+        "fused_ce_merge": time_ms(torch, lambda: fc.fused_ce_merge_cuda(ws),
+                                  20),
         "fused_ce_split": time_ms(torch, lambda: fc.fused_ce_split_cuda(
             x, w), 3),
         "fused_ce_dx": time_ms(torch, lambda: fc.fused_ce_dx_cuda(
@@ -1231,10 +1284,14 @@ def phase_kernel_times_ce(torch):
             x, w, lab32, lse, dce, split), 3),
     }
     del split
-    plain_fwd = time_ms(torch, lambda: fc.fused_ce_fwd_reference(
-        x, w, labels), 3)
-    plain_split = time_ms(torch, lambda: (fc.fused_ce_split_reference(x),
-                                          fc.fused_ce_split_reference(w)), 2)
+    plain = {
+        "fused_ce_fwd": time_ms(torch, lambda: fc.fused_ce_fwd_reference(
+            x, w, labels), 3),
+        "fused_ce_merge": time_ms(
+            torch, lambda: fc.fused_ce_merge_reference(ws), 5),
+        "fused_ce_split": time_ms(
+            torch, lambda: (fc.fused_ce_split_reference(x),
+                            fc.fused_ce_split_reference(w)), 2)}
     plain_bwd = time_ms(torch, lambda: fc.fused_ce_bwd_reference(
         x, w, labels, lse, dce), 2)
     xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -1245,29 +1302,33 @@ def phase_kernel_times_ce(torch):
         (xg, wg)), 2)
     fc.reset_launch_counts()
     bounds = ce_bounds_ms(n, D_MODEL, VOCAB)
-    timing = {}
-    for name in res:
-        fwd = name == "fused_ce_fwd"
-        plain = {"fused_ce_fwd": plain_fwd, "fused_ce_split": plain_split}
-        library = {"fused_ce_fwd": lib_fwd, "fused_ce_split": None}
-        timing[name] = dict(
-            ms=res[name], plain_ms=plain.get(name, plain_bwd),
-            bound_ms=bounds[name][0], bound_by=bounds[name][1],
-            library_ms=library.get(name, lib_fwd_bwd - lib_fwd))
-    # waves: B6 has ceil(N / 128) clusters, B7 ceil(V / 128), against the
-    # clusters the card holds at once
+    library = {"fused_ce_fwd": lib_fwd, "fused_ce_merge": None,
+               "fused_ce_split": None}
+    timing = {name: dict(
+        ms=res[name], plain_ms=plain.get(name, plain_bwd),
+        bound_ms=bounds[name][0], bound_by=bounds[name][1],
+        library_ms=library.get(name, lib_fwd_bwd - lib_fwd))
+        for name in res}
+    # waves: B5 has ceil(N / 128) x parts CTAs of one an SM, B6
+    # ceil(N / 128) clusters, B7 ceil(V / 128), against what the card
+    # holds at once
     waves = {name: {"clusters": -(-rows // 128),
                     "max_active_clusters": fc.max_active_clusters(which,
                                                                   D_MODEL)}
              for name, which, rows in (("fused_ce_dx", 1, n),
                                        ("fused_ce_dw", 2, VOCAB))}
+    waves["fused_ce_fwd"] = {
+        "ctas": -(-n // 128) * ws.shape[0], "parts": ws.shape[0],
+        "sms": torch.cuda.get_device_properties(0).multi_processor_count}
+    del ws
     emit({"phase": "kernel_times_ce", "n": n, "d": D_MODEL, "v": VOCAB,
           "waves": waves,
           **{name: {"kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                     "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"]} for name, t in timing.items()},
-          "plain": "fused_ce_fwd_reference; fused_ce_split_reference of x "
-                   "and of w; fused_ce_bwd_reference computes B6 and B7 "
+          "plain": "fused_ce_fwd_reference (the forward: B5 and the merge); "
+                   "fused_ce_merge_reference; fused_ce_split_reference of "
+                   "x and of w; fused_ce_bwd_reference computes B6 and B7 "
                    "together",
           "library": "monolithic composite: softmax_cross_entropy(x @ w.T) "
                      "forward (cuBLAS f32 GEMM + logsumexp/gather); its "
@@ -1310,8 +1371,8 @@ def phase_train_grads_ce(torch):
     rows = []
     for name, opts, fused_want in (
             ("loss_pallas", {"loss_pallas": True},
-             {"fused_ce_fwd": 1, "fused_ce_split": 1, "fused_ce_dx": 1,
-              "fused_ce_dw": 1}),
+             {"fused_ce_fwd": 1, "fused_ce_merge": 1, "fused_ce_split": 1,
+              "fused_ce_dx": 1, "fused_ce_dw": 1}),
             ("loss_chunk_tokens_4096", {"loss_chunk_tokens": 4096}, None),
             ("loss_chunk_8192", {"loss_chunk": 8192}, None)):
         loss, grads, flash, fused = run(**opts)
@@ -1354,8 +1415,9 @@ def phase_train_grads_ce(torch):
 
 def phase_train_ce(torch, smi, mono):
     """``train_gpt --loss_pallas`` in process: GPT-2 small, b8 s1024,
-    AdamW, 30 steps. Exactly one B5/split/B6/B7 launch per step (plus B5
-    once per final-eval batch); the first steps' losses against the monolithic
+    AdamW, 30 steps. Exactly one split/B5/merge/B6/B7 launch per step
+    (plus the split, B5 and the merge once per final-eval batch); the
+    first steps' losses against the monolithic
     ``train`` run's (``mono``, None when that phase did not run). Returns
     the fused kernels' launches."""
     import gc
@@ -1385,8 +1447,11 @@ def phase_train_ce(torch, smi, mono):
     require(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
             f"trained {state.step} steps, logged {len(losses)}")
     require(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    # one per step, plus the final eval's 4 forward batches for B5
-    want = {"fused_ce_fwd": TRAIN_STEPS + 4, "fused_ce_split": TRAIN_STEPS,
+    # one per step, plus the final eval's 4 forward batches for the
+    # forward's split pass, B5 and the merge
+    want = {"fused_ce_fwd": TRAIN_STEPS + 4,
+            "fused_ce_merge": TRAIN_STEPS + 4,
+            "fused_ce_split": TRAIN_STEPS + 4,
             "fused_ce_dx": TRAIN_STEPS, "fused_ce_dw": TRAIN_STEPS}
     require(launches == want, f"train_ce launches {launches} != {want}")
     flash_want = {"flash_fwd": 12 * (TRAIN_STEPS + 4), "flash_fwd_hfold": 0,
@@ -1751,14 +1816,23 @@ def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
            **timing_ce[name]}
           for name, line in (("fused_ce_fwd", 59), ("fused_ce_dx", 115),
                              ("fused_ce_dw", 134))),
-        # the backward's split pass: no TPU kernel of its own, it prepares
-        # the operands of B6 and B7 for _run_bwd's two pallas_calls
+        # the split pass: no TPU kernel of its own, it prepares the
+        # operands of B5, B6 and B7 (for _run_bwd's two pallas_calls and
+        # _run_fwd's)
         {"name": "fused_ce_split", "route": "cuda",
          "source": "dtf_tpu_torch/ops/csrc/fused_ce.cu",
          "replaces": "dtf_tpu/ops/fused_ce.py:193",
          "launches": train_ce_launches["fused_ce_split"],
          "max_abs_err": err_ce["fused_ce_split"],
          **timing_ce["fused_ce_split"]},
+        # the merge of B5's vocab parts: the _finalize of _fwd_kernel,
+        # which the TPU's sequential vocab axis reaches once
+        {"name": "fused_ce_merge", "route": "cuda",
+         "source": "dtf_tpu_torch/ops/csrc/fused_ce.cu",
+         "replaces": "dtf_tpu/ops/fused_ce.py:92",
+         "launches": train_ce_launches["fused_ce_merge"],
+         "max_abs_err": err_ce["fused_ce_merge"],
+         **timing_ce["fused_ce_merge"]},
         {"name": "embed_gather", "route": "cuda",
          "source": "dtf_tpu_torch/ops/csrc/embed_gather.cu",
          "replaces": "dtf_tpu/ops/embed_gather.py:37",

@@ -15,28 +15,54 @@
 //
 // Precision. The reference head is an f32 Dense and the fused loss
 // promises the monolithic path's numbers, so every product here is
-// f32-accurate: B5 in IEEE f32 on the FFMA pipes, B6/B7 in 3xTF32 on the
-// tensor cores. 3xTF32 splits each f32 operand a into hi = tf32(a)
-// (cvt.rna: 10 explicit mantissa bits, the low 13 bits 0) and
-// lo = tf32(a - hi), and sums hi*hi' + hi*lo' + lo*hi' in f32: ~21 bits
-// of each product, against ~11 for one TF32 pass, whose logit errors
-// exp() would turn into relative errors of the probabilities.
+// f32-accurate: 3xTF32 on the tensor cores. 3xTF32 splits each f32
+// operand a into hi = tf32(a) (cvt.rna: 10 explicit mantissa bits, the
+// low 13 bits 0) and lo = tf32(a - hi), and sums hi*hi' + hi*lo' + lo*hi'
+// in f32: ~21 bits of each product, against ~11 for one TF32 pass, whose
+// logit errors exp() would turn into relative errors of the
+// probabilities.
 //
-// B5 (SIMT). A CTA of 8 warps OWNS 64 tokens and STREAMS 256-row tiles of
-// W; the D axis is staged 16 deep through shared memory with cp.async,
-// double buffered; warp w computes the logits of its 8 tokens against the
-// 256 streamed rows, lane l holding the columns l, l+32, ..., l+224; the
-// online (m, l, tgt) per row stays in registers; lse and tgt are written
-// once. Bound at GPT-2 small b8 s1024 (N 8192, D 768, V 50304): one
-// N x D x V product (0.63 TFLOP), 3.8 ms at 3xTF32 on the H100; this
-// kernel runs on the 67 TF/s FFMA pipes instead.
+// The split pass (fused_ce_split_kernel, one launch a forward) writes W's
+// hi/lo as stored ([V, D]: B5's and B6's streamed B operand) and, when the
+// backward will need them, W's and x's transposed hi/lo and x's stored
+// hi/lo (below); the forward keeps them for the backward.
+//
+// B5 (wgmma, TMA, vocab parts). A CTA OWNS 128 tokens (two warpgroups of
+// 64) and STREAMS blocks of BS = 192 vocab rows of one part of the vocab
+// (PART_ROWS rows, grid y). Per block, S [128, BS] = x W^T runs as
+// D / 32 chunks of tf32 wgmma m64n192k8: A = the owned x rows, raw f32
+// from the slot, split in registers; B = W's stored hi and lo; every
+// two chunks the tensor cores' partial sum (their f32 sums truncate) is
+// added into the logits in IEEE f32. Warp 0
+// keeps a 3-slot ring of 64 KB TMA tiles ([128 x | BS W hi | BS W lo] x
+// 32 columns, 128-byte swizzled) in flight. The online logsumexp runs in
+// the accumulator registers, as B1's softmax does: each thread holds two
+// token rows and BS / 4 columns; the block max over the live columns is
+// reduced across the quad that shares a row (m_safe = 0 while it is
+// -inf), l = alpha l + sum exp(s - m_safe) stays per thread (summed over
+// the quad once, at the end), and the target logit is added where the
+// column IS the label. Columns >= V come back from TMA as zeros and are
+// masked. Each part writes its (m, l, tgt) per token into a workspace
+// [parts, 3, N]; fused_ce_merge_kernel combines the parts in part order:
+// lse = M + log sum_p l_p exp(m_p - M), tgt = sum_p tgt_p. No atomics:
+// two launches are bitwise equal. The parts fill the card: N / 128 = 64
+// CTAs at the training shape, 33 parts of 1536 rows make 2112, 16 waves
+// of one CTA an SM. The bound at GPT-2 small b8 s1024 (N 8192, D 768, V
+// 50304) is one N x D x V product (0.63 TFLOP), 3 x that on the tensor
+// cores: 3.84 ms at 495 TF/s. Its tile traffic from L2 is 64 x 262
+// blocks x (128 x 768 x 4 bytes of x + BS x 768 x 8 of W) = 26.4 GB:
+// W's split, read once per token block, is three quarters of it. The
+// block width is what the registers allow: the accumulator and the
+// logits are 2 x 96 registers at BS 192 (254 a thread, no spill); at 128
+// B5 took 7.5 ms, at 256 (which spills) 5.8, at 192 5.9 (H100,
+// profile_fused_ce.py).
 //
 // B6 / B7 (wgmma, TMA, a cluster across D). Both products of each kernel
 // (the logits recompute, contracted over D, and the accumulate, over the
 // vocab for B6 or the tokens for B7) run as tf32 wgmma m64nNk8. TF32
 // wgmma reads only K-major operands from shared memory, so:
-// - A split pass (fused_ce_split_kernel, one launch a backward shared by
-//   both) writes the STREAMED matrix's hi/lo as stored ([rows, D], the
+// - The split pass (one launch a forward, shared by B5, B6 and B7) has
+//   written the STREAMED matrix's hi/lo as stored ([rows, D], the
 //   recompute's B) and transposed ([D, rows_p], the accumulate's B), each
 //   group of 8 transposed rows in the order 0, 2, 4, 6, 1, 3, 5, 7. B6
 //   streams W's split, B7 x's.
@@ -80,7 +106,8 @@
 // TB/s): B6 and B7 do two N x D x V products each (1.27 TFLOP), 3 x that
 // on the tensor cores: 7.68 ms each; their bytes (x, W, labels, stats,
 // one output) are 0.2-0.3 GB. The split pass is bytes only: 0.9 GB
-// (x and W read, four times that written), 0.27 ms.
+// (x and W read, four times that written), 0.27 ms; the merge of B5's
+// parts too: 3.2 MB read, 0.001 ms.
 //
 // Registers a thread (cuobjdump -res-usage, sm_90a; the build phase of
 // chip_smoke.py prints them): B6 248 / 214 / 210 and B7
@@ -99,185 +126,304 @@
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int SB = 256;             // streamed rows per tile
-constexpr int COLS = SB / 32;       // streamed rows per lane: l + 32 c
-constexpr int BK = 16;              // depth of one staged slice of D
-constexpr int LDK = BK + 4;         // padded staged row (floats)
-constexpr int FWD_RPW = 8;          // B5: owned rows per warp (64 per CTA)
+// ---- B5: 3xTF32 wgmma on TMA-fed tiles, the vocab cut into parts -------
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  // valid == false copies no bytes and zero-fills the 16 destination bytes
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_prev() {
-  // every group but the one committed last has landed
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
   return v;
 }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ void sts(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
 }
 
-// Rows [base, base + rows) of a [*, D] f32 matrix (row stride ld), columns
-// [k0, k0 + width), into shared memory with row stride ldst. Rows at or
-// past `limit` are zero-filled.
-__device__ __forceinline__ void stage_rows(float* dst, int ldst,
-                                           const float* src, long long ld,
-                                           int base, int limit, int rows,
-                                           int k0, int width) {
-  const int per_row = width / 4;
-  for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
-    const int r = i / per_row;
-    const int c = (i % per_row) * 4;
-    const bool ok = base + r < limit;
-    const float* p = ok ? src + (long long)(base + r) * ld + k0 + c : src;
-    cp_async16(dst + r * ldst + c, p, ok);
-  }
-}
+namespace fwd {
 
-// acc[r][c] = sum_d own[own0 + warp*RPW + r][d] * str[str0 + lane + 32c][d]
-// over d < D (D a multiple of BK). `buf` holds two stages of
-// (8*RPW + SB) * LDK floats. Ends with every warp done reading `buf`.
-template <int RPW>
-__device__ __forceinline__ void logits_tile(float (&acc)[RPW][COLS],
-                                            float* buf, const float* own,
-                                            long long ldo, int own0,
-                                            int own_n, const float* str,
-                                            long long lds, int str0,
-                                            int str_n, int D) {
-  constexpr int R = WARPS * RPW;
-  constexpr int STAGE = (R + SB) * LDK;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < RPW; ++r)
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[r][c] = 0.f;
+constexpr int OWN = 128;      // owned tokens a CTA: two warpgroups of 64
+#ifndef DTF_CE_FWD_BS         // (profile_fused_ce.py builds other widths)
+#define DTF_CE_FWD_BS 192
+#endif
+constexpr int BS = DTF_CE_FWD_BS;  // streamed vocab rows a block
+constexpr int KC = 32;        // f32 in one 128-byte swizzle row: a chunk
+constexpr int THREADS = 256;  // two warpgroups; warp 0 also feeds the ring
+constexpr uint32_t X_BYTES = OWN * KC * 4;  // owned raw chunk [128, 32]
+constexpr uint32_t W_BYTES = BS * KC * 4;   // W hi (lo) chunk [BS, 32]
+constexpr uint32_t SLOT = X_BYTES + 2 * W_BYTES;
+// as many 1024-aligned slots as a CTA's 227 KB hold, at most 4 (3 at BS
+// 192)
+constexpr int STAGES = (232448 - 1024 - 64) / SLOT < 4
+                           ? (232448 - 1024 - 64) / SLOT : 4;
+// Vocab rows a part (a multiple of BS): at the training shape 33 parts of
+// 64 token blocks are 2112 CTAs, 16 waves of 132.
+constexpr int PART_ROWS = 1536;
+// Chunks of D a tensor-core partial sum runs before it is added into the
+// logits in IEEE f32: the tensor core's f32 sums truncate, and over all
+// of D (288 truncating additions at D 768) the logits of W std 0.2 came
+// out 2e-4 off (H100); the two warpgroups add theirs FLUSH / 2 chunks
+// apart, so one keeps the tensor cores busy while the other drains.
+#ifndef DTF_CE_FWD_FLUSH
+#define DTF_CE_FWD_FLUSH 2
+#endif
+constexpr int FLUSH = DTF_CE_FWD_FLUSH;
+static_assert(PART_ROWS % BS == 0 && BS % 64 == 0 && BS <= 256 &&
+              STAGES >= 2, "B5 tiles");
 
-  const int nk = D / BK;
-  stage_rows(buf, LDK, own, ldo, own0, own_n, R, 0, BK);
-  stage_rows(buf + R * LDK, LDK, str, lds, str0, str_n, SB, 0, BK);
-  cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {
-      float* nxt = buf + ((kc + 1) & 1) * STAGE;
-      stage_rows(nxt, LDK, own, ldo, own0, own_n, R, (kc + 1) * BK, BK);
-      stage_rows(nxt + R * LDK, LDK, str, lds, str0, str_n, SB,
-                 (kc + 1) * BK, BK);
+struct Smem {
+  static constexpr uint32_t ring = 0;                     // STAGES x SLOT
+  static constexpr uint32_t bars = ring + STAGES * SLOT;  // full, empty
+  static constexpr uint32_t bytes = bars + 2 * STAGES * 8;
+};
+constexpr size_t smem_bytes = Smem::bytes + kAlignPad;
+
+// The operands' tensor maps, one kernel parameter (warp 0 alone reads
+// them): x raw [N, D] in [128, 32] boxes, W's stored hi and lo [V, D] in
+// [BS, 32] boxes.
+struct Maps {
+  CUtensorMap x, w_hi, w_lo;
+};
+
+inline int parts(int V) { return (V + PART_ROWS - 1) / PART_ROWS; }
+
+}  // namespace fwd
+
+// B5: for the CTA's 128 tokens and part blockIdx.y of the vocab, the
+// running (max, sum of exp, target logit) over the part's live columns,
+// into ws[part][0 / 1 / 2][token]. D a multiple of 32.
+__global__ void __launch_bounds__(fwd::THREADS, 1)
+fused_ce_fwd_kernel(const __grid_constant__ fwd::Maps maps,
+                    const int* __restrict__ labels, float* __restrict__ ws,
+                    int N, int V, int D) {
+  using namespace fwd;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // full[s]: slot s landed (TMA bytes); empty[s]: the 8 warps are done
+  // with it
+  const uint32_t full = sbase + Smem::bars;
+  const uint32_t empty = full + 8 * STAGES;
+
+  const int nch = D / KC;  // chunks (ring slots) a block
+  const int n0 = blockIdx.x * OWN;
+  const int v_begin = blockIdx.y * PART_ROWS;
+  const int v_end = min(V, v_begin + PART_ROWS);
+  const int nblk = (v_end - v_begin + BS - 1) / BS;
+  const int nseq = nblk * nch;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const bool issuer = tid < 32;  // warp 0 keeps the ring full
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, THREADS / 32);
     }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-    const float* cur = buf + (kc & 1) * STAGE;
-    const float* so = cur + warp * RPW * LDK;
-    const float* ss = cur + R * LDK + lane * LDK;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Ring slot `seq` (block seq / nch, chunk seq % nch) into stage
+  // seq % STAGES, once all 8 warps have released what it held; warp 0.
+  auto issue = [&](int seq) {
+    const int st = seq % STAGES;
+    if (seq >= STAGES) mbar_wait(empty + 8 * st, (seq / STAGES - 1) & 1);
+    if (lane == 0) {
+      const uint32_t slot = sbase + Smem::ring + st * SLOT;
+      const uint32_t bar = full + 8 * st;
+      const int col = KC * (seq % nch);
+      const int v0 = v_begin + (seq / nch) * BS;
+      mbar_expect_tx(bar, SLOT);
+      tma_box2d(slot, &maps.x, bar, col, n0);
+      tma_box2d(slot + X_BYTES, &maps.w_hi, bar, col, v0);
+      tma_box2d(slot + X_BYTES + W_BYTES, &maps.w_lo, bar, col, v0);
+    }
+    __syncwarp();
+  };
+  // Release stage seq % STAGES (this warp is done with it) and, on warp
+  // 0, refill it with slot seq + STAGES.
+  auto release = [&](int seq) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (seq % STAGES));
+    if (issuer && seq + STAGES < nseq) issue(seq + STAGES);
+  };
+  if (issuer) {
+    for (int seq = 0; seq < STAGES && seq < nseq; ++seq) issue(seq);
+  }
+
+  // This thread's token rows r0 and r0 + 8 of the CTA's 128; a label
+  // outside [0, V) (or a row past N) matches no column.
+  const int r0 = 64 * wg + 16 * warp + g;
+  int lab[2];
+  float m[2], l[2], t[2];  // l, t: this thread's columns only
 #pragma unroll
-    for (int k = 0; k < BK; k += 4) {
-      float4 a[RPW];
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + r0 + 8 * h;
+    const int y = n < N ? labels[n] : -1;
+    lab[h] = (y >= 0 && y < V) ? y : -1;
+    m[h] = -INFINITY;
+    l[h] = 0.f;
+    t[h] = 0.f;
+  }
+
+  float acc[BS / 2];  // the tensor cores' partial sum of FLUSH chunks
+  float s[BS / 2];    // the logits: the partials added in IEEE f32
+  for (int i = 0; i < nblk; ++i) {
+    const int v0 = v_begin + i * BS;
+
+    // 1. S [64 owned, BS streamed] over D: A = the owned rows, raw f32
+    //    from the slot, split into tf32 hi/lo in registers; B = W's hi
+    //    and lo. 3xTF32: hi*hi' + hi*lo' + lo*hi'. One k8 slice a group:
+    //    each group's A fragments are read while the group before runs;
+    //    a chunk's slot is released once its four groups are done. Every
+    //    FLUSH chunks the partial is added into S and restarted.
+    uint32_t ah[2][4], al[2][4];  // [group parity][reg]
 #pragma unroll
-      for (int r = 0; r < RPW; ++r)
-        a[r] = *reinterpret_cast<const float4*>(so + r * LDK + k);
+    for (int e = 0; e < BS / 2; ++e) s[e] = 0.f;
+    fence_regs(acc);
+#pragma unroll 1
+    for (int c = 0; c < nch; ++c) {
+      const int seq = i * nch + c;
+      const uint32_t slot = sbase + Smem::ring + (seq % STAGES) * SLOT;
+      const bool flush = c > 0 && (c + wg * (FLUSH / 2)) % FLUSH == 0;
+      const bool fresh = c == 0 || flush;  // a new partial starts here
 #pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const float4 b = *reinterpret_cast<const float4*>(ss + c * 32 * LDK + k);
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t(&gh)[4] = ah[kk & 1];
+        uint32_t(&gl)[4] = al[kk & 1];
+        if (kk == 0 && flush) {
+          wg_wait<0>();  // the partial is complete
+          fence_regs(acc);
 #pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-          float s = acc[r][c];
-          s = fmaf(a[r].x, b.x, s);
-          s = fmaf(a[r].y, b.y, s);
-          s = fmaf(a[r].z, b.z, s);
-          s = fmaf(a[r].w, b.w, s);
-          acc[r][c] = s;
+          for (int e = 0; e < BS / 2; ++e) s[e] += acc[e];
+          fence_regs(acc);
+        } else {
+          wg_wait<1>();  // the group before last is done: its registers free
         }
+        fence_regs(gh);
+        fence_regs(gl);
+        // the group before last was chunk c - 1's: that chunk is done
+        if (kk == 1 && c > 0) release(seq - 1);
+        if (kk == 0) mbar_wait(full + 8 * (seq % STAGES), (seq / STAGES) & 1);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          // column 8 kk + q + 4 half: 16-byte chunk 2 kk + half of the
+          // 128-byte row, swizzled by the row's low 3 bits (= g)
+          const uint32_t at =
+              slot + r0 * 128 + (((2 * kk + half) ^ g) << 4) + q * 4;
+          split_tf32(lds(at), gh[2 * half], gl[2 * half]);
+          split_tf32(lds(at + 8 * 128), gh[2 * half + 1], gl[2 * half + 1]);
+        }
+        const uint64_t bh = sw128_desc(slot + X_BYTES + 32 * kk);
+        const uint64_t bl = sw128_desc(slot + X_BYTES + W_BYTES + 32 * kk);
+        fence_regs(gh);
+        fence_regs(gl);
+        wg_fence();
+        wgmma_tf32_rs(acc, gh, bh, kk != 0 || !fresh);
+        wgmma_tf32_rs(acc, gh, bl, 1);
+        wgmma_tf32_rs(acc, gl, bh, 1);
+        wg_commit();
       }
     }
-    __syncthreads();
-  }
-}
-
-constexpr size_t fwd_smem_bytes() {
-  return sizeof(float) * 2 * (WARPS * FWD_RPW + SB) * LDK;
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-fused_ce_fwd_kernel(const float* __restrict__ x, long long ldx,
-                    const float* __restrict__ w, long long ldw,
-                    const int* __restrict__ labels, float* __restrict__ lse,
-                    float* __restrict__ tgt, int N, int V, int D) {
-  constexpr int RPW = FWD_RPW;
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n0 = blockIdx.x * WARPS * RPW;
-
-  int lab[RPW];
-  float m[RPW], l[RPW], t[RPW];
+    wg_wait<0>();
+    fence_regs(acc);
+    fence_regs(ah);
+    fence_regs(al);
+    release(i * nch + nch - 1);
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int n = n0 + warp * RPW + r;
-    lab[r] = n < N ? labels[n] : -1;
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-    t[r] = 0.f;
-  }
-  float acc[RPW][COLS];
-  for (int v0 = 0; v0 < V; v0 += SB) {
-    logits_tile<RPW>(acc, smem, x, ldx, n0, N, w, ldw, v0, V, D);
+    for (int e = 0; e < BS / 2; ++e) s[e] += acc[e];
+
+    // 2. The online logsumexp over this block's live columns (vocab
+    //    v0 + 8j + 2q + c holds element 4j + 2h + c of row r0 + 8h), in
+    //    log2 units for exp2; the target logit where the column is the
+    //    label.
+    const bool all_live = v0 + BS <= V;
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) {
+    for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int c = 0; c < COLS; ++c)
-        if (v0 + lane + 32 * c < V) mx = fmaxf(mx, acc[r][c]);
-      mx = warp_max(mx);
-      // the running max is -inf until the first live column: a 0
-      // stand-in keeps exp(m - m_safe) at 0 instead of NaN
-      const float m_next = fmaxf(m[r], mx);
-      const float m_safe = (m_next == -INFINITY) ? 0.f : m_next;
-      float s = 0.f;
+      for (int j = 0; j < BS / 8; ++j) {
 #pragma unroll
-      for (int c = 0; c < COLS; ++c) {
-        const int v = v0 + lane + 32 * c;
-        if (v < V) {
-          s += expf(acc[r][c] - m_safe);
-          if (v == lab[r]) t[r] += acc[r][c];
+        for (int c = 0; c < 2; ++c) {
+          if (all_live || v0 + 8 * j + 2 * q + c < V) {
+            mx = fmaxf(mx, s[4 * j + 2 * h + c]);
+          }
         }
       }
-      s = warp_sum(s);
-      l[r] = expf(m[r] - m_safe) * l[r] + s;
-      m[r] = m_next;
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      // -inf until the first live column: a 0 stand-in keeps
+      // exp(m - m_safe) at 0 instead of NaN
+      const float m_safe = (m_new == -INFINITY) ? 0.f : m_new;
+      const float ms2 = m_safe * LOG2E;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BS / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (all_live || v0 + 8 * j + 2 * q + c < V) {
+            sum += exp2f(fmaf(s[4 * j + 2 * h + c], LOG2E, -ms2));
+          }
+        }
+      }
+      l[h] = exp2f(fmaf(m[h], LOG2E, -ms2)) * l[h] + sum;
+      m[h] = m_new;
+      const int col = lab[h] - v0 - 2 * q;  // = 8j + c where it is held
+      if (col >= 0 && col < BS) {
+#pragma unroll
+        for (int j = 0; j < BS / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            if (col == 8 * j + c) t[h] += s[4 * j + 2 * h + c];
+          }
+        }
+      }
     }
   }
+
+  // This part's (m, l, tgt) per token: l and tgt summed over the quad that
+  // shares the row, in lane order; each written once.
+  float* part = ws + (long long)blockIdx.y * 3 * N;
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const float picked = warp_sum(t[r]);
-    const int n = n0 + warp * RPW + r;
-    if (lane == 0 && n < N) {
-      const float l_safe = (l[r] == 0.f) ? 1.f : l[r];
-      lse[n] = m[r] + logf(l_safe);
-      tgt[n] = picked;
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], o);
+      t[h] += __shfl_xor_sync(0xffffffffu, t[h], o);
+    }
+    const int n = n0 + r0 + 8 * h;
+    if (q == 0 && n < N) {
+      part[n] = m[h];
+      part[N + n] = l[h];
+      part[2 * N + n] = t[h];
     }
   }
 }
 
+// The merge of B5's parts, per token in part order (the reference's
+// _finalize): M = max_p m_p, lse = M + log(sum_p l_p exp(m_p - M_safe))
+// with M_safe = 0 while M is -inf and the sum read as 1 when it is 0;
+// tgt = sum_p tgt_p. A part with no live column has m = -inf, l = 0.
+__global__ void __launch_bounds__(256)
+fused_ce_merge_kernel(const float* __restrict__ ws, int nparts, int N,
+                      float* __restrict__ lse, float* __restrict__ tgt) {
+  const int n = blockIdx.x * 256 + threadIdx.x;
+  if (n >= N) return;
+  float M = -INFINITY;
+  for (int p = 0; p < nparts; ++p) M = fmaxf(M, ws[3LL * p * N + n]);
+  const float M_safe = (M == -INFINITY) ? 0.f : M;
+  float L = 0.f, T = 0.f;
+  for (int p = 0; p < nparts; ++p) {
+    const float* part = ws + 3LL * p * N;
+    L += part[N + n] * expf(part[n] - M_safe);
+    T += part[2 * N + n];
+  }
+  lse[n] = M + logf(L == 0.f ? 1.f : L);
+  tgt[n] = T;
+}
 
 // ---- B6 / B7: 3xTF32 wgmma on TMA-fed tiles, a cluster across D ---------
 
@@ -314,15 +460,6 @@ constexpr size_t smem_bytes = Smem::bytes + kAlignPad;
 struct Maps {
   CUtensorMap own, s_hi, s_lo, t_hi, t_lo;
 };
-
-__device__ __forceinline__ float lds(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
-__device__ __forceinline__ void sts(uint32_t addr, float v) {
-  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
-}
 
 // How a head width is cut across the cluster: C CTAs of DS columns each
 // (384: 2 x 192; 768: 3 x 256; 1024: 8 x 128, since at 4 x 256 ptxas
@@ -697,12 +834,14 @@ fused_ce_sum_kernel(const float4* __restrict__ ws, int nparts,
   }
 }
 
-// The split pass, shared by B6 and B7: a [rows, D] f32 matrix (row stride
-// ld) into hi = tf32(a), lo = tf32(a - hi) as [rows, D], and the same of
-// its transpose as [D, rows_p] (rows_p = rows rounded up to 8, the pad
-// zero) with every group of 8 rows stored in the order 0, 2, 4, 6, 1, 3,
-// 5, 7: the K order of the accumulate product's register A operand.
-// blockIdx.z = 0 splits x (skipped if x is null), 1 splits w.
+// The split pass, shared by B5, B6 and B7: a [rows, D] f32 matrix (row
+// stride ld) into hi = tf32(a), lo = tf32(a - hi) as [rows, D], and the
+// same of its transpose as [D, rows_p] (rows_p = rows rounded up to 8,
+// the pad zero) with every group of 8 rows stored in the order 0, 2, 4,
+// 6, 1, 3, 5, 7: the K order of the accumulate product's register A
+// operand. blockIdx.z = 0 splits x (skipped if x is null), 1 splits w;
+// a null transposed hi skips that matrix's transpose (B5 reads W's
+// stored pair only).
 constexpr int SPLIT_T = 32;
 __global__ void __launch_bounds__(256)
 fused_ce_split_kernel(const float* __restrict__ x, long long ldx, int N,
@@ -737,6 +876,7 @@ fused_ce_split_kernel(const float* __restrict__ x, long long ldx, int N,
     }
     tile[k][tx] = v;
   }
+  if (thi == nullptr) return;  // the whole block: no barrier is left
   __syncthreads();
   // position p of a group of 8 holds row 2p (p < 4) or 2(p - 4) + 1
   const int p7 = tx & 7;
@@ -869,30 +1009,51 @@ int max_clusters() {
 
 extern "C" {
 
-// x [N, D] and w [V, D] f32 with row strides ldx, ldw (elements; the last
-// dim contiguous, every stride a multiple of 4, 16-byte aligned bases);
-// labels int32 [N]; lse and tgt f32 [N], contiguous. D a multiple of 16.
-// Launches on `stream` and returns cudaGetLastError().
-int dtf_fused_ce_fwd_f32(const void* x, long long ldx, const void* w,
-                         long long ldw, const void* labels, void* lse,
-                         void* tgt, int N, int V, int D, void* stream) {
+// B5: x [N, D] f32 (row stride ldx, a multiple of 4; 16-byte aligned
+// base) and W's split w_hi, w_lo [V, D] (contiguous), labels int32 [N];
+// ws [parts, 3, N] f32 (parts = V / dtf_fused_ce_fwd_part_rows(),
+// rounded up) receives every part's (m, l, tgt) per token. D a multiple
+// of 32.
+// Launches on `stream` and returns the error of building the tensor maps
+// or of the launch.
+int dtf_fused_ce_fwd_f32(const void* x, long long ldx, const void* w_hi,
+                         const void* w_lo, const void* labels, void* ws,
+                         int N, int V, int D, void* stream) {
   if (N == 0) return 0;
-  if (V == 0 || D % BK) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = fwd_smem_bytes();
-  static const int attr = opt_in(fused_ce_fwd_kernel, smem);
+  if (V == 0 || D % fwd::KC) return (int)cudaErrorInvalidValue;
+  static const int attr = opt_in(fused_ce_fwd_kernel, fwd::smem_bytes);
   if (attr) return attr;
-  const int rows = WARPS * FWD_RPW;
-  fused_ce_fwd_kernel<<<(N + rows - 1) / rows, THREADS, smem,
-                        (cudaStream_t)stream>>>(
-      (const float*)x, ldx, (const float*)w, ldw, (const int*)labels,
-      (float*)lse, (float*)tgt, N, V, D);
+  fwd::Maps m;
+  int err = make_map_f32(&m.x, x, N, D, ldx, fwd::OWN);
+  if (!err) err = make_map_f32(&m.w_hi, w_hi, V, D, D, fwd::BS);
+  if (!err) err = make_map_f32(&m.w_lo, w_lo, V, D, D, fwd::BS);
+  if (err) return err;
+  const dim3 grid((N + fwd::OWN - 1) / fwd::OWN, fwd::parts(V));
+  fused_ce_fwd_kernel<<<grid, fwd::THREADS, fwd::smem_bytes,
+                        (cudaStream_t)stream>>>(m, (const int*)labels,
+                                                (float*)ws, N, V, D);
+  return (int)cudaGetLastError();
+}
+
+// Vocab rows a part of B5 (the last part may be shorter).
+int dtf_fused_ce_fwd_part_rows() { return fwd::PART_ROWS; }
+
+// The merge: ws [nparts, 3, N] f32 (B5's workspace) into lse, tgt f32
+// [N], contiguous.
+int dtf_fused_ce_merge_f32(const void* ws, int nparts, int N, void* lse,
+                           void* tgt, void* stream) {
+  if (N == 0) return 0;
+  if (nparts < 1) return (int)cudaErrorInvalidValue;
+  fused_ce_merge_kernel<<<(N + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)ws, nparts, N, (float*)lse, (float*)tgt);
   return (int)cudaGetLastError();
 }
 
 // The split pass: x [N, D] (row stride ldx) into x_hi, x_lo [N, D] and
 // xt_hi, xt_lo [D, Np]; w [V, D] (ldw) into w_hi, w_lo [V, D] and wt_hi,
 // wt_lo [D, Vp]; Np, Vp = N, V rounded up to 8; outputs contiguous. A
-// null x (w) skips that matrix. D a multiple of 32.
+// null x (w) skips that matrix, a null xt_hi (wt_hi) its transpose. D a
+// multiple of 32.
 int dtf_fused_ce_split_f32(const void* x, long long ldx, int N, int Np,
                            void* x_hi, void* x_lo, void* xt_hi, void* xt_lo,
                            const void* w, long long ldw, int V, int Vp,
@@ -950,9 +1111,11 @@ const char* dtf_fused_ce_error_string(int err) {
 }
 
 // Shared-memory bytes one CTA takes: which 0 = B5, 1 = B6, 2 = B7, 3 =
-// the split pass (0 for a head width the backward is not compiled for).
+// the split pass, 4 = the merge (0 for a head width the backward is not
+// compiled for).
 long long dtf_fused_ce_smem_bytes(int which, int D) {
-  if (which == 0) return (long long)fwd_smem_bytes();
+  if (which == 0) return (long long)fwd::smem_bytes;
+  if (which == 4) return 0;
   if (which == 3) return (long long)sizeof(float) * SPLIT_T * (SPLIT_T + 1);
   return (D == 384 || D == 768 || D == 1024) ? (long long)bwd::smem_bytes
                                              : 0;

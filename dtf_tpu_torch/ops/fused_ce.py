@@ -13,11 +13,16 @@ dlogits from the saved per-token logsumexp. Side by side:
 - :func:`fused_ce_fwd_cuda`, :func:`fused_ce_dx_cuda`,
   :func:`fused_ce_dw_cuda`: the wrappers of the hand-written Hopper
   kernels in ``csrc/fused_ce.cu`` (replacing the Pallas ``_fwd_kernel``,
-  ``_dx_kernel`` and ``_dw_kernel``), with the same contracts. B6 and B7
-  run their products in 3xTF32 on the tensor cores and read the streamed
-  operand through :func:`fused_ce_split_cuda`, the split pass (plain
-  version :func:`fused_ce_split_reference`): one launch a backward,
-  shared by both. They count their launches in :data:`launch_counts`.
+  ``_dx_kernel`` and ``_dw_kernel``), with the same contracts. B5, B6 and
+  B7 run their products in 3xTF32 on the tensor cores and read the
+  streamed operand through :func:`fused_ce_split_cuda`, the split pass
+  (plain version :func:`fused_ce_split_reference`): one launch a forward,
+  kept for the backward. B5 runs the vocab in parts
+  (:func:`fused_ce_fwd_parts_cuda`, plain version
+  :func:`fused_ce_parts_reference`) that :func:`fused_ce_merge_cuda`
+  combines in a fixed order (plain version
+  :func:`fused_ce_merge_reference`). They count their launches in
+  :data:`launch_counts`.
 - :func:`fused_lm_cross_entropy`: the public entry, differentiable
   through :class:`_FusedCE` (the counterpart of ``_fused_ce``'s
   ``custom_vjp``). CPU tensors take the plain versions, CUDA tensors the
@@ -43,11 +48,16 @@ from dtf_tpu_torch.ops.losses import _acc_dtype
 #: holds the [128, D] output slice by slice in registers
 HEAD_WIDTHS = (384, 768, 1024)
 
-#: Launches of the CUDA kernels: ``fused_ce_fwd`` (B5), ``fused_ce_split``
-#: (the backward's split pass), ``fused_ce_dx`` (B6) and ``fused_ce_dw``
-#: (B7). Plain integers; :func:`reset_launch_counts` zeroes them.
-launch_counts = {"fused_ce_fwd": 0, "fused_ce_split": 0, "fused_ce_dx": 0,
-                 "fused_ce_dw": 0}
+#: vocab rows a part of B5 (``fwd::PART_ROWS`` in ``csrc/fused_ce.cu``; the
+#: wrapper checks that the two agree)
+FWD_PART_ROWS = 1536
+
+#: Launches of the CUDA kernels: ``fused_ce_fwd`` (B5), ``fused_ce_merge``
+#: (the merge of B5's vocab parts), ``fused_ce_split`` (the split pass),
+#: ``fused_ce_dx`` (B6) and ``fused_ce_dw`` (B7). Plain integers;
+#: :func:`reset_launch_counts` zeroes them.
+launch_counts = {"fused_ce_fwd": 0, "fused_ce_merge": 0,
+                 "fused_ce_split": 0, "fused_ce_dx": 0, "fused_ce_dw": 0}
 
 
 def reset_launch_counts() -> None:
@@ -72,6 +82,48 @@ def fused_ce_fwd_reference(x: torch.Tensor, w: torch.Tensor,
     picked = logits.gather(1, labels.clamp(0, v - 1)[:, None])[:, 0]
     tgt = torch.where(live, picked, torch.zeros_like(picked))
     return torch.logsumexp(logits, dim=-1), tgt
+
+
+def fused_ce_parts_reference(x: torch.Tensor, w: torch.Tensor,
+                             labels: torch.Tensor,
+                             part_rows: int = FWD_PART_ROWS) -> torch.Tensor:
+    """What B5 writes: for each part of ``part_rows`` vocab rows (the last
+    one ragged) and each token, the max ``m`` of its logits in the part,
+    ``l`` = Σ exp(logit − m) and the target logit if the label lies in
+    the part (else 0), as ws [parts, 3, N] in the working type. ``m`` is
+    −inf and ``l`` 0 for a part with no column."""
+    acc = _acc_dtype(x, w)
+    v = w.shape[0]
+    labels = labels.long()
+    rows = []
+    for v0 in range(0, v, part_rows):
+        logits = _logits(x, w[v0:v0 + part_rows], acc)
+        m = logits.max(dim=1).values
+        m_safe = torch.where(m == -torch.inf, torch.zeros_like(m), m)
+        l = torch.exp(logits - m_safe[:, None]).sum(dim=1)
+        inside = (labels >= v0) & (labels < v0 + logits.shape[1])
+        picked = logits.gather(1, (labels - v0).clamp(
+            0, logits.shape[1] - 1)[:, None])[:, 0]
+        rows.append(torch.stack([m, l, torch.where(
+            inside, picked, torch.zeros_like(picked))]))
+    return torch.stack(rows)
+
+
+def fused_ce_merge_reference(ws: torch.Tensor):
+    """The merge of B5's parts, ws [parts, 3, N] → (lse, tgt) [N], part by
+    part in order (the reference's ``_finalize``): M = max m_p, lse = M +
+    log Σ l_p·exp(m_p − M) with M read as 0 while it is −inf and the sum
+    as 1 when it is 0; tgt = Σ tgt_p."""
+    big_m = ws[:, 0].max(dim=0).values
+    m_safe = torch.where(big_m == -torch.inf, torch.zeros_like(big_m),
+                         big_m)
+    total = torch.zeros_like(big_m)
+    tgt = torch.zeros_like(big_m)
+    for m, l, t in ws:
+        total = total + l * torch.exp(m - m_safe)
+        tgt = tgt + t
+    return big_m + torch.log(torch.where(total == 0, torch.ones_like(total),
+                                         total)), tgt
 
 
 def fused_ce_bwd_reference(x: torch.Tensor, w: torch.Tensor,
@@ -134,8 +186,9 @@ def fused_ce_split_reference(a: torch.Tensor):
 
 
 class CESplit(NamedTuple):
-    """The split pass's outputs (:func:`fused_ce_split_cuda`): W's for B6,
-    x's for B7 (None where not asked for); each (hi, lo, t_hi, t_lo)."""
+    """The split pass's outputs (:func:`fused_ce_split_cuda`): W's for B5
+    and B6, x's for B7 (None where not asked for); each (hi, lo, t_hi,
+    t_lo), W's t_hi and t_lo None when only B5 needs W."""
     w: Optional[tuple]
     x: Optional[tuple]
 
@@ -154,8 +207,12 @@ def _kernel_lib():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # every pointer and the stream as c_void_p: an untyped ctypes argument
     # is passed as a 32-bit int and cuts the pointer
-    lib.dtf_fused_ce_fwd_f32.argtypes = [p, ll, p, ll, p, p, p, i, i, i, p]
+    lib.dtf_fused_ce_fwd_f32.argtypes = [p, ll, p, p, p, p, i, i, i, p]
     lib.dtf_fused_ce_fwd_f32.restype = i
+    lib.dtf_fused_ce_fwd_part_rows.argtypes = []
+    lib.dtf_fused_ce_fwd_part_rows.restype = i
+    lib.dtf_fused_ce_merge_f32.argtypes = [p, i, i, p, p, p]
+    lib.dtf_fused_ce_merge_f32.restype = i
     lib.dtf_fused_ce_split_f32.argtypes = [p, ll, i, i, p, p, p, p,
                                            p, ll, i, i, p, p, p, p, i, p]
     lib.dtf_fused_ce_split_f32.restype = i
@@ -237,52 +294,99 @@ def _check_launch(lib, err: int, which: int, name: str, d: int) -> None:
             f"per CTA at head width {d})")
 
 
-def fused_ce_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
-                      labels: torch.Tensor):
-    """Launch B5: the contract of :func:`fused_ce_fwd_reference` on CUDA
-    tensors, (lse, tgt) f32 [N]. Raises on what the kernel does not take;
-    never computes the result another way."""
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fused_ce_fwd_parts_cuda(x: torch.Tensor, w: torch.Tensor,
+                            labels: torch.Tensor,
+                            split: Optional[CESplit] = None) -> torch.Tensor:
+    """Launch B5: the contract of :func:`fused_ce_parts_reference` on
+    CUDA tensors, ws [parts, 3, N] f32. ``split``: the split pass (W's
+    stored hi/lo), launched here for W alone if not given. Raises on what
+    the kernel does not take; never computes the result another way."""
     xk, wk, lab, _ = _check_cuda_inputs("fused_ce_fwd_cuda", x, w, labels)
-    n, d = xk.shape
-    lse = torch.empty(n, dtype=torch.float32, device=x.device)
-    tgt = torch.empty_like(lse)
+    (n, d), v = xk.shape, wk.shape[0]
+    if split is None or split.w is None:
+        split = fused_ce_split_cuda(xk, wk, for_fwd=True, for_dx=False,
+                                    for_dw=False)
+    w_hi, w_lo = split.w[:2]
+    if tuple(w_hi.shape) != (v, d) or tuple(w_lo.shape) != (v, d):
+        raise ValueError("fused_ce_fwd_cuda: the split does not match x/w")
     lib = _kernel_lib()
+    if lib.dtf_fused_ce_fwd_part_rows() != FWD_PART_ROWS:
+        raise RuntimeError("fused_ce_fwd_cuda: FWD_PART_ROWS disagrees with "
+                           "the built kernel's")
+    ws = torch.empty((-(-v // FWD_PART_ROWS), 3, n), dtype=torch.float32,
+                     device=x.device)
     err = lib.dtf_fused_ce_fwd_f32(
-        xk.data_ptr(), xk.stride(0), wk.data_ptr(), wk.stride(0),
-        lab.data_ptr(), lse.data_ptr(), tgt.data_ptr(), n, wk.shape[0], d,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        xk.data_ptr(), xk.stride(0), w_hi.data_ptr(), w_lo.data_ptr(),
+        lab.data_ptr(), ws.data_ptr(), n, v, d, _stream(x))
     _check_launch(lib, err, 0, "fused_ce_fwd", d)
     launch_counts["fused_ce_fwd"] += 1
+    return ws
+
+
+def fused_ce_merge_cuda(ws: torch.Tensor):
+    """Launch the merge of B5's parts: the contract of
+    :func:`fused_ce_merge_reference` on a CUDA ws [parts, 3, N] f32,
+    (lse, tgt) f32 [N]."""
+    if (ws.device.type != "cuda" or ws.dtype != torch.float32
+            or ws.ndim != 3 or ws.shape[1] != 3 or ws.shape[0] < 1):
+        raise ValueError(f"fused_ce_merge_cuda: ws must be f32 [parts, 3, "
+                         f"N] on one GPU, got {ws.dtype} {tuple(ws.shape)} "
+                         f"on {ws.device}")
+    ws = ws.contiguous()
+    nparts, _, n = ws.shape
+    lse = torch.empty(n, dtype=torch.float32, device=ws.device)
+    tgt = torch.empty_like(lse)
+    lib = _kernel_lib()
+    err = lib.dtf_fused_ce_merge_f32(ws.data_ptr(), nparts, n,
+                                     lse.data_ptr(), tgt.data_ptr(),
+                                     _stream(ws))
+    _check_launch(lib, err, 4, "fused_ce_merge", 0)
+    launch_counts["fused_ce_merge"] += 1
     return lse, tgt
 
 
+def fused_ce_fwd_cuda(x: torch.Tensor, w: torch.Tensor,
+                      labels: torch.Tensor,
+                      split: Optional[CESplit] = None):
+    """B5 and the merge of its parts: the contract of
+    :func:`fused_ce_fwd_reference` on CUDA tensors, (lse, tgt) f32 [N].
+    ``split`` as for :func:`fused_ce_fwd_parts_cuda`."""
+    return fused_ce_merge_cuda(fused_ce_fwd_parts_cuda(x, w, labels, split))
+
+
 def fused_ce_split_cuda(x: torch.Tensor, w: torch.Tensor, *,
-                        for_dx: bool = True,
-                        for_dw: bool = True) -> CESplit:
-    """Launch the split pass once for the backward: W's split (B6
-    streams W) if ``for_dx``, x's (B7 streams x) if ``for_dw``; the
-    contract of :func:`fused_ce_split_reference`, bitwise. Scratch: four
-    f32 copies of each matrix split (0.72 GB at N 8192, V 50304, D 768),
-    freed with the returned tensors."""
+                        for_dx: bool = True, for_dw: bool = True,
+                        for_fwd: bool = False) -> CESplit:
+    """Launch the split pass once: W's stored hi/lo (B5 and B6 stream W)
+    if ``for_fwd`` or ``for_dx``, W's transposed hi/lo too if ``for_dx``,
+    x's four (B7 streams x) if ``for_dw``; the contract of
+    :func:`fused_ce_split_reference`, bitwise. Scratch: four f32 copies of
+    each matrix split (0.72 GB at N 8192, V 50304, D 768; W's stored pair
+    alone 0.31 GB), freed with the returned tensors."""
     xk, wk = _check_operands("fused_ce_split_cuda", x, w)
     (n, d), v = xk.shape, wk.shape[0]
 
-    def alloc(rows):
+    def alloc(rows, transposed=True):
         rp = padded_rows(rows)
+        shapes = ((rows, d), (rows, d)) + (((d, rp), (d, rp)) if transposed
+                                           else ())
         return tuple(torch.empty(shape, dtype=torch.float32, device=x.device)
-                     for shape in ((rows, d), (rows, d), (d, rp), (d, rp)))
+                     for shape in shapes) + (None,) * (4 - len(shapes))
 
     xs = alloc(n) if for_dw else None
-    ws = alloc(v) if for_dx else None
+    ws = alloc(v, for_dx) if (for_dx or for_fwd) else None
     null4 = (None,) * 4
     ptrs = [t.data_ptr() if t is not None else None
             for t in (*(xs or null4), *(ws or null4))]
     lib = _kernel_lib()
     err = lib.dtf_fused_ce_split_f32(
         xk.data_ptr() if for_dw else None, xk.stride(0), n, padded_rows(n),
-        *ptrs[:4], wk.data_ptr() if for_dx else None, wk.stride(0), v,
-        padded_rows(v), *ptrs[4:], d,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *ptrs[:4], wk.data_ptr() if ws is not None else None, wk.stride(0),
+        v, padded_rows(v), *ptrs[4:], d, _stream(x))
     _check_launch(lib, err, 3, "fused_ce_split", d)
     launch_counts["fused_ce_split"] += 1
     return CESplit(w=ws, x=xs)
@@ -302,7 +406,8 @@ def _bwd_launch(which: int, x, w, labels, lse, dce, split):
     rows, streamed = (n, v) if which == 1 else (v, n)
     want = ((streamed, d), (streamed, d), (d, padded_rows(streamed)),
             (d, padded_rows(streamed)))
-    if tuple(tuple(t.shape) for t in part) != want:
+    if tuple(tuple(t.shape) if t is not None else None
+             for t in part) != want:
         raise ValueError(f"{name}_cuda: the split does not match x/w")
     own = xk if which == 1 else wk
     out = torch.empty((rows, d), dtype=torch.float32, device=x.device)
@@ -316,8 +421,7 @@ def _bwd_launch(which: int, x, w, labels, lse, dce, split):
     err = fn(own.data_ptr(), own.stride(0), *(t.data_ptr() for t in part),
              padded_rows(streamed), lab.data_ptr(), lse.data_ptr(),
              dce.data_ptr(), out.data_ptr(),
-             ws.data_ptr() if ws is not None else None, n, v, d,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             ws.data_ptr() if ws is not None else None, n, v, d, _stream(x))
     _check_launch(lib, err, which, name, d)
     launch_counts[name] += 1
     return out
@@ -357,19 +461,25 @@ def _on_cpu(*ts) -> bool:
 
 class _FusedCE(torch.autograd.Function):
     """The differentiable fused CE (``_fused_ce``'s ``custom_vjp``).
-    Forward: per-token (lse, tgt) from B5, then the masked mean and the
-    valid count in PyTorch, as the reference computes them outside its
-    kernel. Backward: dce = (g_mean / cnt)·valid, then the split pass, B6
-    and B7; the count is not differentiable. CPU tensors take the plain
-    versions."""
+    Forward: the split pass (W's stored hi/lo for B5; with them, what the
+    backward will read: W's transposed pair if x needs a gradient, x's
+    four if W does), per-token (lse, tgt) from B5 and the merge, then the
+    masked mean and the valid count in PyTorch, as the reference computes
+    them outside its kernel. Backward: dce = (g_mean / cnt)·valid, then
+    B6 and B7 on the forward's split; the count is not differentiable. CPU
+    tensors take the plain versions."""
 
     @staticmethod
     def forward(ctx, x, w, labels, ignore_index):
-        cpu = _on_cpu(x, w, labels)
-        if not cpu:
-            labels = labels.to(torch.int32)     # once, for all three kernels
-        fwd = fused_ce_fwd_reference if cpu else fused_ce_fwd_cuda
-        lse, tgt = fwd(x, w, labels)
+        ctx.split = None
+        if _on_cpu(x, w, labels):
+            lse, tgt = fused_ce_fwd_reference(x, w, labels)
+        else:
+            labels = labels.to(torch.int32)     # once, for every kernel
+            want_dx, want_dw = ctx.needs_input_grad[:2]
+            ctx.split = fused_ce_split_cuda(x, w, for_fwd=True,
+                                            for_dx=want_dx, for_dw=want_dw)
+            lse, tgt = fused_ce_fwd_cuda(x, w, labels, ctx.split)
         if ignore_index is None:
             valid = torch.ones_like(lse)
         else:
@@ -389,7 +499,7 @@ class _FusedCE(torch.autograd.Function):
             dx, dw = fused_ce_bwd_reference(x, w, labels, lse, dce)
             return (dx if want_dx else None, dw if want_dw else None,
                     None, None)
-        split = fused_ce_split_cuda(x, w, for_dx=want_dx, for_dw=want_dw)
+        split, ctx.split = ctx.split, None
         dx = (fused_ce_dx_cuda(x, w, labels, lse, dce, split) if want_dx
               else None)
         dw = (fused_ce_dw_cuda(x, w, labels, lse, dce, split) if want_dw
@@ -417,4 +527,9 @@ def fused_lm_cross_entropy(x: torch.Tensor, w: torch.Tensor,
         raise NotImplementedError("fused_lm_cross_entropy(mesh=...): the "
                                   "sharded fused CE is not yet ported")
     xf = x.reshape(-1, x.shape[-1])
+    if not torch.is_grad_enabled():
+        # no backward will run: the forward then splits W's stored pair
+        # alone (inside the Function, needs_input_grad still reads
+        # requires_grad)
+        xf, w = xf.detach(), w.detach()
     return _FusedCE.apply(xf, w, labels.reshape(-1), ignore_index)

@@ -17,12 +17,14 @@ the fused or token-chunked one. After three warm-up steps it
    backward, the optimizer update;
 2. times the head's three f32 GEMMs alone at their shapes (logits,
    dW, dX), so the CE's own share is the head + CE time less these, and
-   the fused kernels B5, the split pass, B6 and B7 alone at the same shapes;
+   the fused kernels B5, the merge of its parts, the split pass, B6 and
+   B7 alone at the same shapes;
 3. profiles ``--steps`` whole train steps (``make_train_step``) with
    ``torch.profiler`` and sums the device time by kernel family: the
    flash forward (B1), dQ (B2), dK/dV (B3), the fused CE forward (B5),
-   the split pass, dX (B6) and dW (B7), GEMMs (cuBLAS), the optimizer's multi-tensor
-   kernels, and the rest (elementwise, LayerNorm, softmax, reductions).
+   the merge of its parts, the split pass, dX (B6) and dW (B7), GEMMs
+   (cuBLAS), the optimizer's multi-tensor kernels, and the rest
+   (elementwise, LayerNorm, softmax, reductions).
 
 It prints the top kernels by device time, then one JSON line: the card's
 name and power limit, the wall time per step (unprofiled and profiled),
@@ -49,6 +51,7 @@ FAMILIES = (
     ("flash_dq (B2)", re.compile(r"flash_bwd_dq_kernel")),
     ("flash_dkv (B3)", re.compile(r"flash_bwd_dkv_kernel")),
     ("fused_ce_fwd (B5)", re.compile(r"fused_ce_fwd_kernel")),
+    ("fused_ce_merge", re.compile(r"fused_ce_merge_kernel")),
     ("fused_ce_split", re.compile(r"fused_ce_split_kernel")),
     ("fused_ce_dx (B6)", re.compile(r"fused_ce_dx_kernel")),
     ("fused_ce_dw (B7)", re.compile(r"fused_ce_dw_kernel")),
@@ -202,15 +205,18 @@ def main(argv=None) -> int:
     head_gemm_ms = g0.elapsed_time(g1) / 3
     del dl
 
-    # ... and the fused kernels B5, the split pass, B6, B7 alone at the
-    # same shapes
+    # ... and the fused kernels B5, the merge, the split pass, B6, B7
+    # alone at the same shapes
     labels = batches[0]["labels"].reshape(-1).to(torch.int32)
     valid = (labels != -100).float()
     dce = valid / valid.sum().clamp_min(1.0)
-    lse, _ = fc.fused_ce_fwd_cuda(x, w, labels)
     split = fc.fused_ce_split_cuda(x, w)
+    ws = fc.fused_ce_fwd_parts_cuda(x, w, labels, split)
+    lse, _ = fc.fused_ce_merge_cuda(ws)
     kernels = {
-        "fused_ce_fwd": lambda: fc.fused_ce_fwd_cuda(x, w, labels),
+        "fused_ce_fwd": lambda: fc.fused_ce_fwd_parts_cuda(x, w, labels,
+                                                           split),
+        "fused_ce_merge": lambda: fc.fused_ce_merge_cuda(ws),
         "fused_ce_split": lambda: fc.fused_ce_split_cuda(x, w),
         "fused_ce_dx": lambda: fc.fused_ce_dx_cuda(x, w, labels, lse, dce,
                                                    split),
@@ -225,7 +231,7 @@ def main(argv=None) -> int:
         g1.record()
         torch.cuda.synchronize()
         fused_ms[name] = g0.elapsed_time(g1) / 3
-    del x, lse, split
+    del x, lse, split, ws
 
     # 3. whole steps under the profiler
     with profile(activities=[ProfilerActivity.CPU,

@@ -9,9 +9,9 @@ it also runs on the GPU machine, which has no JAX:
 Tolerances are ``chip_smoke.py``'s, with its reasons: for flash, bf16
 inputs, P and dS rounded to bf16 in both versions but from sums taken in
 other orders; for the fused CE (B5–B7), f32 operands with TF32 off, the
-same products summed in another order (B6/B7 in 3xTF32, ~2^-21 a
-product). B6 and B7 sum in a fixed order with no atomics: two launches
-are bitwise equal. The embedding gather (B8) copies: it equals its
+same products summed in another order (3xTF32, ~2^-21 a product). B5
+(with the merge of its vocab parts), B6 and B7 sum in a fixed order with
+no atomics: two launches are bitwise equal. The embedding gather (B8) copies: it equals its
 plain version exactly.
 """
 
@@ -27,6 +27,7 @@ pytestmark = pytest.mark.gpu
 
 OUT_ATOL, LSE_ATOL, GRAD_REL_TOL = 3e-2, 1e-3, 1e-2
 CE_STAT_ATOL, CE_GRAD_REL_TOL, CE_BF16_DX_REL_TOL = 1e-4, 1e-4, 4e-3
+CE_MERGE_ATOL = 1e-5
 
 
 @pytest.fixture
@@ -198,8 +199,9 @@ def test_fused_ce_autograd_on_cuda_counts_each_kernel_once(cuda):
     tfc.reset_launch_counts()
     loss, cnt = tfc.fused_lm_cross_entropy(x, w, labels, ignore_index=-100)
     loss.backward()
-    assert tfc.launch_counts == {"fused_ce_fwd": 1, "fused_ce_split": 1,
-                                 "fused_ce_dx": 1, "fused_ce_dw": 1}
+    assert tfc.launch_counts == {"fused_ce_fwd": 1, "fused_ce_merge": 1,
+                                 "fused_ce_split": 1, "fused_ce_dx": 1,
+                                 "fused_ce_dw": 1}
     assert cnt.item() == 293.0
     fused = (loss.item(), x.grad.clone(), w.grad.clone())
     x.grad = w.grad = None
@@ -232,6 +234,59 @@ def test_fused_ce_backward_is_bitwise_repeatable(cuda, n, d, v):
                            fn(x, w, labels, lse, dce, split))
 
 
+@pytest.mark.parametrize("n,d,v,w_std", [(8192, 768, 50304, 0.05),
+                                         (4096, 768, 50304, 0.2),
+                                         (300, 1024, 4097, 0.05)])
+def test_fused_ce_forward_parts_merge_and_bitwise_repeat(cuda, n, d, v,
+                                                         w_std):
+    """B5's parts against fused_ce_parts_reference (each part's max,
+    logsumexp and target logit), the merge against its plain version on
+    B5's parts, lse and tgt against fused_ce_fwd_reference, at chip_smoke's
+    gate, with larger logits too (W std 0.2); two B5 launches give the
+    same bits."""
+    x, w, labels = _ce_inputs(cuda, n, d, v, seed=4)
+    w = w * (w_std / 0.05)
+    labels[::9] = -100
+    labels[1] = v
+    split = tfc.fused_ce_split_cuda(x, w, for_fwd=True, for_dx=False,
+                                    for_dw=False)
+    assert split.x is None and split.w[2] is None and split.w[3] is None
+    ws = tfc.fused_ce_fwd_parts_cuda(x, w, labels, split)
+    assert torch.equal(ws, tfc.fused_ce_fwd_parts_cuda(x, w, labels, split))
+    want_ws = tfc.fused_ce_parts_reference(x, w, labels)
+    assert ws.shape == want_ws.shape == (-(-v // tfc.FWD_PART_ROWS), 3, n)
+    for i in (0, 2):
+        assert (ws[:, i] - want_ws[:, i]).abs().max().item() <= CE_STAT_ATOL
+    own_lse = ws[:, 0] + ws[:, 1].log()
+    want_own = want_ws[:, 0] + want_ws[:, 1].log()
+    assert (own_lse - want_own).abs().max().item() <= CE_STAT_ATOL
+    lse, tgt = tfc.fused_ce_merge_cuda(ws)
+    m_lse, m_tgt = tfc.fused_ce_merge_reference(ws)
+    assert (lse - m_lse).abs().max().item() <= CE_MERGE_ATOL
+    assert (tgt - m_tgt).abs().max().item() <= CE_MERGE_ATOL
+    want_lse, want_tgt = tfc.fused_ce_fwd_reference(x, w, labels)
+    assert (lse - want_lse).abs().max().item() <= CE_STAT_ATOL
+    assert (tgt - want_tgt).abs().max().item() <= CE_STAT_ATOL
+    assert tgt[1].item() == 0.0
+
+
+def test_fused_ce_without_grad_splits_w_alone(cuda):
+    """Under no_grad (an eval batch) the forward launches the split pass
+    for W's stored pair only, B5 and the merge, and nothing else."""
+    x, w, labels = _ce_inputs(cuda, 300, 768, 5003)
+    x.requires_grad_()
+    w.requires_grad_()
+    tfc.reset_launch_counts()
+    with torch.no_grad():
+        loss, _ = tfc.fused_lm_cross_entropy(x, w, labels)
+    assert tfc.launch_counts == {"fused_ce_fwd": 1, "fused_ce_merge": 1,
+                                 "fused_ce_split": 1, "fused_ce_dx": 0,
+                                 "fused_ce_dw": 0}
+    want = torch.nn.functional.cross_entropy(x.detach() @ w.detach().t(),
+                                             labels)
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+
+
 def test_fused_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x, w, labels = _ce_inputs(cuda, 16, 768, 300)
     stats = torch.zeros(16, device=cuda)
@@ -254,6 +309,14 @@ def test_fused_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tfc.fused_ce_dx_cuda(x, w, labels, stats, stats, other)
     with pytest.raises(ValueError, match="lse"):
         tfc.fused_ce_dx_cuda(x, w, labels, stats[:8], stats)
+    with pytest.raises(ValueError, match="split does not match"):
+        tfc.fused_ce_fwd_cuda(x, w, labels, other)
+    fwd_only = tfc.fused_ce_split_cuda(x, w, for_fwd=True, for_dx=False,
+                                       for_dw=False)
+    with pytest.raises(ValueError, match="split does not match"):
+        tfc.fused_ce_dx_cuda(x, w, labels, stats, stats, fwd_only)
+    with pytest.raises(ValueError, match=r"\[parts, 3, N\]"):
+        tfc.fused_ce_merge_cuda(torch.zeros(2, 4, 16, device=cuda))
 
 
 EMBED_CASES = [(1000, 16, torch.float32), (1000, 16, torch.bfloat16),

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from dtf_tpu.ops import losses as jlosses
-from dtf_tpu.ops.fused_ce import pallas_lm_cross_entropy
+from dtf_tpu.ops.fused_ce import _run_fwd, pallas_lm_cross_entropy
 from dtf_tpu_torch.ops import fused_ce as tfc
 from dtf_tpu_torch.ops import losses as tlosses
 
@@ -149,15 +149,19 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing_on_cpu():
     stats = torch.zeros(xt.shape[0])
     tfc.reset_launch_counts()
     for call in (lambda: tfc.fused_ce_fwd_cuda(xt, wt, lab),
+                 lambda: tfc.fused_ce_fwd_parts_cuda(xt, wt, lab),
                  lambda: tfc.fused_ce_split_cuda(xt, wt),
                  lambda: tfc.fused_ce_dx_cuda(xt, wt, lab, stats, stats),
                  lambda: tfc.fused_ce_dw_cuda(xt, wt, lab, stats, stats)):
         with pytest.raises(ValueError, match="the kernel takes one GPU"):
             call()
+    with pytest.raises(ValueError, match="on one GPU"):
+        tfc.fused_ce_merge_cuda(torch.zeros(2, 3, xt.shape[0]))
     loss, _ = tfc.fused_lm_cross_entropy(xt, wt, lab, ignore_index=-100)
     loss.backward()
-    assert tfc.launch_counts == {"fused_ce_fwd": 0, "fused_ce_split": 0,
-                                 "fused_ce_dx": 0, "fused_ce_dw": 0}
+    assert tfc.launch_counts == {"fused_ce_fwd": 0, "fused_ce_merge": 0,
+                                 "fused_ce_split": 0, "fused_ce_dx": 0,
+                                 "fused_ce_dw": 0}
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfc.fused_lm_cross_entropy(xt, wt, lab, mesh=object())
 
@@ -263,6 +267,113 @@ def test_3xtf32_backward_products_are_f32_accurate():
         rel(dx, want_dx), rel(dw, want_dw))
     dx1, dw1 = emulate(_mm_1xtf32)
     assert rel(dx1, want_dx) > 1e-4 and rel(dw1, want_dw) > 1e-4
+
+
+PART_CASES = [
+    # N not a multiple of 128, a ragged last part (103 = 3 x 32 + 7),
+    # labels out of range and ignored
+    (15, 103, 32, "out_of_range"),
+    # one part holding the whole vocab; every label ignored
+    (130, 97, 128, "all_ignored"),
+    # parts that divide the vocab; a label on each part's first and last
+    # column
+    (5, 64, 16, "part_edges"),
+]
+
+
+@pytest.mark.parametrize("n,v,part_rows,labelling", PART_CASES)
+def test_vocab_parts_merged_in_order_equal_the_pallas_forward(
+        n, v, part_rows, labelling):
+    """B5's arithmetic on the CPU: per-part (m, l, tgt) and their merge in
+    part order give the lse and target logit of fused_ce_fwd_reference
+    and of the Pallas forward (``_run_fwd`` in interpret mode)."""
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    w = rng.standard_normal((D, v)).astype(np.float32)      # JAX layout
+    labels = rng.integers(0, v, n).astype(np.int32)
+    if labelling == "out_of_range":
+        labels[0], labels[1], labels[2], labels[3] = v, v + 40, -100, -1
+    elif labelling == "all_ignored":
+        labels[:] = -100
+    else:
+        labels[:4] = [0, part_rows - 1, part_rows, v - 1]
+    xt = torch.from_numpy(x)
+    wt = torch.from_numpy(np.ascontiguousarray(w.T))
+    lab = torch.from_numpy(labels)
+    ws = tfc.fused_ce_parts_reference(xt, wt, lab, part_rows)
+    assert ws.shape == (-(-v // part_rows), 3, n)
+    lse, tgt = tfc.fused_ce_merge_reference(ws)
+    want_lse, want_tgt = tfc.fused_ce_fwd_reference(xt, wt, lab)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(tgt.numpy(), want_tgt.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    jlse, jtgt = _run_fwd(jnp.asarray(x), jnp.asarray(w), jnp.asarray(labels),
+                          8, 32, True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-6)
+    np.testing.assert_allclose(tgt.numpy(), np.asarray(jtgt), rtol=1e-6,
+                               atol=1e-6)
+    live = (labels >= 0) & (labels < v)
+    assert not tgt.numpy()[~live].any()
+
+
+def test_merge_takes_parts_with_no_live_column():
+    """A part with no live column (m −inf, l 0, tgt 0) changes no bit of
+    the merge, wherever it stands; with no live column at all, lse is −inf
+    (the reference's ``_finalize``: l read as 1) and nothing is NaN."""
+    x, w, labels = _data(seed=16)
+    ws = tfc.fused_ce_parts_reference(
+        torch.from_numpy(x.reshape(-1, D)),
+        torch.from_numpy(np.ascontiguousarray(w.T)),
+        torch.from_numpy(labels.reshape(-1)), 32)
+    empty = torch.zeros_like(ws[:1])
+    empty[:, 0] = -torch.inf
+    want = tfc.fused_ce_merge_reference(ws)
+    for at in (0, 2, ws.shape[0]):
+        got = tfc.fused_ce_merge_reference(torch.cat([ws[:at], empty,
+                                                      ws[at:]]))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    lse, tgt = tfc.fused_ce_merge_reference(torch.cat([empty, empty]))
+    assert (lse == -torch.inf).all() and not tgt.any()
+
+
+@pytest.mark.parametrize("w_std", [0.05, 0.2])
+def test_3xtf32_forward_logits_are_f32_accurate(w_std, monkeypatch):
+    """The precision of B5, held where no card runs: its logits emulated
+    as the kernel forms them (x split as the registers split it, W's
+    stored hi/lo from the split pass; hi·hi' + hi·lo' + lo·hi' in f32)
+    are within 1e-6 (relative) of f64, and the parts and their merge
+    built on them give lse and tgt within a quarter of chip_smoke.py's
+    1e-4 gate; one TF32 pass is ~300× further off. chip_smoke.py's
+    input scales (W std 0.05) and its larger-logit case (0.2)."""
+    rng = np.random.default_rng(17)
+    n, d, v = 64, 768, 4000
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((v, d)) * w_std).astype(
+        np.float32))
+    labels = torch.from_numpy(rng.integers(0, v, n))
+    labels[::7] = -100
+    want = x.double() @ w.double().t()
+    want_lse, want_tgt = tfc.fused_ce_fwd_reference(x.double(), w.double(),
+                                                    labels)
+
+    def b5_logits(a, b, acc):
+        ah, al = tfc.split_tf32(a)
+        bh, bl = tfc.fused_ce_split_reference(b)[:2]
+        return ah @ bh.t() + ah @ bl.t() + al @ bh.t()
+
+    def one_pass(a, b, acc):
+        return tfc.tf32_round(a) @ tfc.tf32_round(b).t()
+
+    def rel(got):
+        return ((got.double() - want).norm() / want.norm()).item()
+
+    assert rel(b5_logits(x, w, None)) <= 1e-6
+    assert rel(one_pass(x, w, None)) > 1e-4
+    monkeypatch.setattr(tfc, "_logits", b5_logits)
+    lse, tgt = tfc.fused_ce_merge_reference(
+        tfc.fused_ce_parts_reference(x, w, labels))
+    assert (lse.double() - want_lse).abs().max().item() <= 2.5e-5
+    assert (tgt.double() - want_tgt).abs().max().item() <= 2.5e-5
 
 
 CHUNKED = {
