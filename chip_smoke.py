@@ -104,10 +104,32 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     JAX one does, with ``take``). Prints step ms, examples/s and peak
     memory.
 
+18. dist_nccl — a process group of ONE over NCCL, made by this script,
+    with the entry points run inside it: ``python -m
+    dtf_tpu_torch.distributed`` (MNIST softmax, 200 steps; its loss and
+    held-out accuracy), and ``train_gpt --loss_pallas --mesh_data 1``
+    (GPT-2 small, b8 s1024, 5 steps, ZeRO-1 on: every collective of the
+    data-parallel step runs) against the same run with no group: losses
+    within ``DIST_LOSS_REL_TOL``, exact fused CE and flash launch counts,
+    the step ms of both.
+19. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
+    group made by this script's ``--dist-child`` ranks; the kernels
+    built before the spawn; each rank's output in a file, the wait
+    bounded by ``DIST_CHILD_TIMEOUT_S``): ``train_widedeep --mesh_model
+    2`` (2.6M-row tables split over the ranks, batch 512, 20 steps;
+    exactly 2 B8 launches a step a rank; losses against the 1-rank
+    ``index_select`` run within ``DIST_WD_LOSS_REL_TOL``), then
+    ``train_gpt --loss_pallas --mesh_data 2`` (4 rows a rank, ZeRO-1,
+    5 steps; one B5/B6/B7 a step a rank; losses against one rank on the
+    same global batch within ``DIST_LOSS_REL_TOL``). Its times go
+    through the host (gloo): a check that it runs, not a speed.
+
 Then one JSON line listing every kernel (launches on its main path, error
 against the plain version, times, bound; the 8 ported TPU kernels, the
-split pass and the merge of B5's parts), the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``. ``--phases a,b`` runs a subset
+split pass and the merge of B5's parts; B5-B7's, the split's and the
+merge's launches from rank 0 of the 2-rank GPT run, B8's from rank 0 of
+the 2-rank Wide&Deep run), the ``nvidia-smi`` line, and last ``{"ok":
+true, "device": {...}}``. ``--phases a,b`` runs a subset
 (without the kernels line). Exits non-zero without printing a result
 when no GPU is present or when the port's package is not beside this
 file.
@@ -1638,7 +1660,7 @@ def phase_widedeep_lookup(torch):
     after its bf16 cast, the wide one in f32 — equal to the model's
     embeddings exactly, with 2 B8 launches per batch and none in the
     backward; the tables' gradients from a seeded cotangent against the
-    index_select path's. Returns the B8 launches (8)."""
+    index_select path's."""
     from dtf_tpu_torch.convert import init_params_widedeep, params_from_flax
     from dtf_tpu_torch.models import widedeep
     from dtf_tpu_torch.ops import embed_gather as eg
@@ -1699,7 +1721,6 @@ def phase_widedeep_lookup(torch):
           launches, "batches": rows})
     del model
     eg.reset_launch_counts()
-    return launches
 
 
 def phase_train_widedeep(torch, smi):
@@ -1769,12 +1790,370 @@ def phase_train_widedeep(torch, smi):
     return launches
 
 
+#: the multi-process slice: GPT-2 small with the fused loss, b8 s1024 in
+#: all (4 rows a rank at 2 ranks), 5 steps; Wide&Deep at the launcher's
+#: defaults with its tables over 2 ranks, 20 steps
+DIST_GPT_STEPS, DIST_WD_STEPS = 5, 20
+#: the batches of the launchers' final held-out eval
+EVAL_BATCHES = 4
+#: a run under a process group against the same run without one (a world
+#: of 1), or against one rank on the same global batch (2 ranks): the same
+#: math, but the gradient is Σw·g/Σw over ranks (not bitwise g), and the
+#: reductions and cuBLAS's products at another batch sum in other orders;
+#: AdamW carries that through bf16 layers, as in train_ce against train
+DIST_LOSS_REL_TOL = 1e-3
+#: Wide&Deep's tables over 2 ranks (B8's backward scatter-adds duplicate
+#: ids in f32) against index_select (take's backward: a bf16 scatter-add):
+#: Queue C's bf16 tolerance, 2^-6, relative, on every loss
+DIST_WD_LOSS_REL_TOL = 2.0 ** -6
+#: the bound on the wait for the two ranks of dist_two_ranks_one_card
+DIST_CHILD_TIMEOUT_S = 480
+
+
+def _counted(torch, fn):
+    """``fn()`` with every launch count set to 0 just before it and read
+    just after, its stdout dropped: (result, fused CE counts, flash counts,
+    B8 launches, wall seconds)."""
+    from dtf_tpu_torch.ops import embed_gather as eg
+    from dtf_tpu_torch.ops import flash_attention as fa
+    from dtf_tpu_torch.ops import fused_ce as fc
+
+    for mod in (fa, fc, eg):
+        mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = fn()
+    torch.cuda.synchronize()
+    return (out, dict(fc.launch_counts), dict(fa.launch_counts),
+            eg.launch_counts["embed_gather"], time.perf_counter() - t0)
+
+
+def _history(writer):
+    """The run's losses and its median step ms after step 1 (from the
+    LoggingHook's steps_per_sec at --log_every=1)."""
+    import statistics
+
+    rows = [(s, m) for s, m in writer.history if "loss" in m]
+    return ([m["loss"] for _, m in rows],
+            statistics.median(1e3 / m["steps_per_sec"]
+                              for s, m in rows if s > 1))
+
+
+def _gpt_dist_flags(logdir, *extra):
+    return ["--size=small", f"--batch_size={TRAIN_BATCH}",
+            f"--seq_len={TRAIN_SEQ}", "--log_every=1",
+            "--checkpoint_every=1000", f"--logdir={logdir}",
+            f"--train_steps={DIST_GPT_STEPS}", "--loss_pallas", *extra]
+
+
+def _gpt_dist_want(steps=DIST_GPT_STEPS):
+    """One fused CE and 12 flash launches of each kind a step, plus the
+    final eval's forwards."""
+    fwd = steps + EVAL_BATCHES
+    return ({"fused_ce_fwd": fwd, "fused_ce_merge": fwd,
+             "fused_ce_split": fwd, "fused_ce_dx": steps,
+             "fused_ce_dw": steps},
+            {"flash_fwd": 12 * fwd, "flash_fwd_hfold": 0,
+             "flash_dq": 12 * steps, "flash_dkv": 12 * steps})
+
+
+def _rel_losses(got, want):
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def phase_dist_nccl(torch, smi):
+    """A process group of ONE over NCCL, made here, with the entry points
+    run inside it: ``python -m dtf_tpu_torch.distributed`` (MNIST softmax,
+    200 steps; loss and held-out accuracy) and ``train_gpt --loss_pallas
+    --mesh_data 1`` with ZeRO-1 on (every collective of the step runs),
+    against the same ``train_gpt`` run with no group: losses within
+    DIST_LOSS_REL_TOL, exact launch counts, step ms of both."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from dtf_tpu_torch import distributed as mnist_launcher
+    from dtf_tpu_torch import train_gpt
+    from dtf_tpu_torch.core.dist import free_port
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_dist_nccl_")
+    want_fused, want_flash = _gpt_dist_want()
+    (state, writer), fused, flash, _, wall_ref = _counted(
+        torch, lambda: train_gpt.run(_gpt_dist_flags(f"{logdir}/ref")))
+    require(state.layout is None, "the run with no group has a layout")
+    ref_losses, ref_ms = _history(writer)
+    require(fused == want_fused and flash == want_flash,
+            f"no-group launches {fused} {flash}")
+    del state, writer
+    gc.collect()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        require(dist.get_backend() == "nccl", dist.get_backend())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = mnist_launcher.main(["--train_steps=200", "--log_every=50",
+                                      f"--logdir={logdir}/mnist"])
+        lines = buf.getvalue().strip().splitlines()
+        mnist_loss = [float(ln.split("loss=")[1].split(",")[0])
+                      for ln in lines if ln.startswith("[200]")
+                      and " loss=" in ln]
+        require(rc == 0 and lines[-1].startswith(
+            "done: step=200 eval_accuracy=") and len(mnist_loss) == 1
+            and math.isfinite(mnist_loss[0]), f"distributed printed {lines}")
+        mnist_acc = float(lines[-1].split("eval_accuracy=")[1])
+        require(dist.is_initialized(), "the launcher left the caller's "
+                                       "group destroyed")
+        (state, writer), fused, flash, _, wall = _counted(
+            torch, lambda: train_gpt.run(_gpt_dist_flags(
+                f"{logdir}/nccl", "--mesh_data=1")))
+        require(state.layout is not None, "the run inside the group has "
+                                          "no layout (no mesh)")
+        losses, step_ms = _history(writer)
+        rel = _rel_losses(losses, ref_losses)
+        require(len(losses) == DIST_GPT_STEPS
+                and max(rel) <= DIST_LOSS_REL_TOL,
+                f"losses in the group {losses} vs without {ref_losses}")
+        require(fused == want_fused and flash == want_flash,
+                f"launches in the group {fused} {flash}")
+        del state, writer
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(logdir, ignore_errors=True)
+    emit({"phase": "dist_nccl", "world_size": 1, "backend": "nccl",
+          "nvidia_smi": smi, "mnist": {"model": "softmax", "steps": 200,
+                                       "loss_at_200": mnist_loss[0],
+                                       "eval_accuracy": mnist_acc},
+          "gpt": {"model": "gpt2-small", "batch": TRAIN_BATCH,
+                  "seq": TRAIN_SEQ, "steps": DIST_GPT_STEPS,
+                  "loss": "--loss_pallas", "zero1": True,
+                  "losses_in_group": losses, "losses_no_group": ref_losses,
+                  "loss_rel": rel, "loss_rel_tol": DIST_LOSS_REL_TOL,
+                  "step_ms_median_after_1_in_group": step_ms,
+                  "step_ms_median_after_1_no_group": ref_ms,
+                  "run_wall_s_in_group": wall, "run_wall_s_no_group":
+                      wall_ref, "fused_launches": fused,
+                  "flash_launches": flash}})
+
+
+def _gpt_global_batch_losses(torch):
+    """One rank on the 2 ranks' global batch: train_gpt's recipe through
+    the library, each step's batch the rows of synthetic host 0 then host
+    1 of 2 (what the ranks read), the fused loss."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from dtf_tpu_torch import optim, train_gpt
+    from dtf_tpu_torch.convert import init_params_flax, params_from_flax
+    from dtf_tpu_torch.core import train as tr
+    from dtf_tpu_torch.data.synthetic import SyntheticData
+    from dtf_tpu_torch.models import gpt
+
+    args = train_gpt.build_parser().parse_args(_gpt_dist_flags("unused"))
+    cfg = dataclasses.replace(gpt.GPTConfig.by_name(args.size),
+                              remat=args.remat, attn_impl=args.attn_impl)
+    model = gpt.GPT(cfg, device="cuda")
+    model.load_state_dict(params_from_flax(init_params_flax(cfg,
+                                                            args.seed)))
+    tx = optim.make_optimizer(args, lambda s: optim.adamw(
+        s, weight_decay=0.1), recipe_uses_wd=True)
+    state = tr.create_train_state(model, tx, args.seed)
+    step = tr.make_train_step(gpt.make_loss(model, loss_pallas=True), tx)
+    hosts = [SyntheticData("gpt", TRAIN_BATCH, seed=args.seed,
+                           seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size,
+                           host_index=k, host_count=2) for k in range(2)]
+    losses = []
+    for i in range(DIST_GPT_STEPS):
+        parts = [h.batch(i) for h in hosts]
+        batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts]))
+                 .cuda() for k in parts[0]}
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def dist_child(rank, world, store, logdir):
+    """One rank of dist_two_ranks_one_card: joins the gloo group through
+    ``file://store`` on cuda:0, runs ``train_widedeep --mesh_model 2`` and
+    ``train_gpt --loss_pallas --mesh_data 2`` inside it, each counted, and
+    writes ``logdir/rank{rank}.json``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from dtf_tpu_torch import train_gpt, train_widedeep
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    out = {"rank": rank, "backend": dist.get_backend()}
+    (state, writer), _, _, embed, wall = _counted(torch, lambda: (
+        train_widedeep.run([f"--train_steps={DIST_WD_STEPS}",
+                            "--log_every=1", "--checkpoint_every=1000",
+                            "--mesh_model=2", f"--logdir={logdir}/wd"])))
+    losses, step_ms = _history(writer)
+    out["widedeep"] = {
+        "losses": losses, "step_ms_median_after_1": step_ms,
+        "run_wall_s": wall, "embed_gather_launches": embed,
+        "table_rows": state.params["embed_tables_deep.weight"].shape[0],
+        "eval_accuracy": [m["eval_accuracy"] for _, m in writer.history
+                          if "eval_accuracy" in m]}
+    del state, writer
+    gc.collect()
+    torch.cuda.empty_cache()
+    (state, writer), fused, flash, _, wall = _counted(torch, lambda: (
+        train_gpt.run(_gpt_dist_flags(f"{logdir}/gpt", "--mesh_data=2"))))
+    losses, step_ms = _history(writer)
+    mu = state.opt_state[0]["mu"]
+    out["gpt"] = {
+        "losses": losses, "step_ms_median_after_1": step_ms,
+        "run_wall_s": wall, "fused_launches": fused, "flash_launches": flash,
+        "zero1_leaves": len(state.layout.zero1_dims),
+        "adam_mu_elements": sum(t.numel() for t in mu.values()),
+        "param_elements": sum(p.numel() for p in state.params.values())}
+    with open(os.path.join(logdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_dist_two_ranks_one_card(torch, smi):
+    """Two processes on cuda:0 over gloo, the group made by this script
+    (``dist_child``), the kernels built before the spawn:
+    ``train_widedeep --mesh_model 2`` (the tables' rows split over the
+    ranks; exactly 2 B8 launches a step a rank, the losses against the
+    1-rank index_select run within DIST_WD_LOSS_REL_TOL) and ``train_gpt
+    --loss_pallas --mesh_data 2`` (4 rows a rank, ZeRO-1; one B5/B6/B7 a
+    step a rank, the losses against one rank on the same global batch
+    within DIST_LOSS_REL_TOL). Every collective crosses the host through
+    gloo: the times say that it runs, not how fast. Returns rank 0's B8
+    and fused CE launches."""
+    import gc
+    import tempfile
+
+    from dtf_tpu_torch import train_widedeep
+    from dtf_tpu_torch.ops import _build
+
+    _build.build(_build.KERNELS)
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_dist_2r_")
+    (state, writer), _, _, embed_ref, _ = _counted(torch, lambda: (
+        train_widedeep.run([f"--train_steps={DIST_WD_STEPS}",
+                            "--log_every=1", "--checkpoint_every=1000",
+                            f"--logdir={logdir}/wd_ref"])))
+    wd_ref, _ = _history(writer)
+    require(embed_ref == 0, f"the 1-rank Wide&Deep run launched B8 "
+                            f"{embed_ref} times")
+    del state, writer
+    gc.collect()
+    gpt_ref = _gpt_global_batch_losses(torch)
+    torch.cuda.empty_cache()
+    store = os.path.join(logdir, "store")
+    # the ranks' output goes to files: a full pipe would stall a rank
+    # inside a collective
+    logs = [open(os.path.join(logdir, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-child", str(r),
+         "2", store, logdir], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(2)]
+    deadline = time.monotonic() + DIST_CHILD_TIMEOUT_S
+    failed = None
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                failed = f"rank {r} did not finish in {DIST_CHILD_TIMEOUT_S} s"
+                break
+            if p.returncode:
+                failed = f"rank {r} exited {p.returncode}"
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if failed:
+        tails = []
+        for r in range(2):
+            with open(os.path.join(logdir, f"rank{r}.log")) as f:
+                tails.append(f"rank {r}:\n" + f.read()[-4000:])
+        require(False, f"{failed}; output of the ranks:\n" +
+                "\n----\n".join(tails))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(logdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    want_fused, want_flash = _gpt_dist_want()
+    want_embed = 2 * (DIST_WD_STEPS + EVAL_BATCHES)
+    for got in ranks:
+        wd, g = got["widedeep"], got["gpt"]
+        require(got["backend"] == "gloo", got["backend"])
+        require(wd["table_rows"] * 2 == WD_ROWS, f"rank {got['rank']} "
+                f"holds {wd['table_rows']} of {WD_ROWS} table rows")
+        require(wd["embed_gather_launches"] == want_embed,
+                f"rank {got['rank']}: B8 launched "
+                f"{wd['embed_gather_launches']} times, want {want_embed} "
+                f"(2 a step and 2 an eval batch)")
+        require(g["fused_launches"] == want_fused
+                and g["flash_launches"] == want_flash,
+                f"rank {got['rank']} GPT launches {g['fused_launches']} "
+                f"{g['flash_launches']}")
+        # ZeRO-1: adam's first moment holds about half of the parameters
+        require(g["adam_mu_elements"] < 0.51 * g["param_elements"],
+                f"rank {got['rank']}: ZeRO-1 holds {g['adam_mu_elements']} "
+                f"of {g['param_elements']} moment elements")
+    wd_losses, gpt_losses = (ranks[0]["widedeep"]["losses"],
+                             ranks[0]["gpt"]["losses"])
+    wd_rel, gpt_rel = (_rel_losses(wd_losses, wd_ref),
+                       _rel_losses(gpt_losses, gpt_ref))
+    require(len(wd_losses) == DIST_WD_STEPS
+            and max(wd_rel) <= DIST_WD_LOSS_REL_TOL,
+            f"Wide&Deep over 2 ranks {wd_losses} vs 1 rank {wd_ref}")
+    require(len(gpt_losses) == DIST_GPT_STEPS
+            and max(gpt_rel) <= DIST_LOSS_REL_TOL,
+            f"GPT over 2 ranks {gpt_losses} vs one rank {gpt_ref}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    emit({"phase": "dist_two_ranks_one_card", "world_size": 2,
+          "backend": "gloo", "device": "cuda:0 (both ranks)",
+          "nvidia_smi": smi, "zero1": True,
+          "note": "collectives cross the host through gloo: the times "
+                  "show that it runs, not a speed",
+          "widedeep": {"mesh_model": 2, "steps": DIST_WD_STEPS,
+                       "batch": WD_BATCH, "losses_2_ranks": wd_losses,
+                       "losses_1_rank_index_select": wd_ref,
+                       "loss_rel": wd_rel,
+                       "loss_rel_tol": DIST_WD_LOSS_REL_TOL,
+                       "ranks": [g["widedeep"] for g in ranks]},
+          "gpt": {"mesh_data": 2, "steps": DIST_GPT_STEPS,
+                  "rows_a_rank": TRAIN_BATCH // 2, "seq": TRAIN_SEQ,
+                  "losses_2_ranks": gpt_losses,
+                  "losses_1_rank_global_batch": gpt_ref,
+                  "loss_rel": gpt_rel, "loss_rel_tol": DIST_LOSS_REL_TOL,
+                  "ranks": [g["gpt"] for g in ranks]}})
+    return {"embed_gather": ranks[0]["widedeep"]["embed_gather_launches"],
+            "fused": ranks[0]["gpt"]["fused_launches"]}
+
+
 #: every phase, in the order a full run takes them
 PHASES = ("device", "build", "kernels", "generate", "generate_variants",
           "kernels_bwd", "kernel_times_bwd", "train_grads", "train",
           "kernels_ce", "kernel_times_ce", "train_grads_ce", "train_ce",
           "kernels_embed", "kernel_times_embed", "widedeep_lookup",
-          "train_widedeep")
+          "train_widedeep", "dist_nccl", "dist_two_ranks_one_card")
 
 
 def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
@@ -1845,6 +2224,10 @@ def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
 def main(argv=None):
     import argparse
 
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--dist-child"]:        # a rank of dist_two_ranks_...
+        sys.path.insert(0, ROOT)
+        return dist_child(int(argv[1]), int(argv[2]), argv[3], argv[4])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--phases", default=",".join(PHASES),
@@ -1901,25 +2284,32 @@ def main(argv=None):
     if "kernel_times_embed" in phases:
         got["kernel_times_embed"] = phase_kernel_times_embed(torch)
     if "widedeep_lookup" in phases:
-        got["widedeep_lookup"] = phase_widedeep_lookup(torch)
+        phase_widedeep_lookup(torch)
     if "train_widedeep" in phases:
         phase_train_widedeep(torch, smi)
+    if "dist_nccl" in phases:
+        phase_dist_nccl(torch, smi)
+    if "dist_two_ranks_one_card" in phases:
+        got["dist_two_ranks_one_card"] = phase_dist_two_ranks_one_card(
+            torch, smi)
     if all(p in phases for p in PHASES):
         # launches: each kernel's count on its slice's main path (the
-        # train run for B1-B3, the train_ce run for B5-B7, the Wide&Deep
-        # lookups through masked_lookup_sharded for B8), B4's on the
-        # variants path, the only one it is on; B8's times at the main
-        # path's first lookup, the bf16 deep table with 512 x 26 ids
+        # train run for B1-B3; B5-B7, the merge and the split pass under
+        # data parallelism, and B8 with the tables over 2 ranks: rank 0 of
+        # dist_two_ranks_one_card), B4's on the variants path, the only
+        # one it is on; B8's times at the main path's lookup, the bf16 deep
+        # table with 512 x 26 ids
         train = got["train"]["launches"]
+        two = got["dist_two_ranks_one_card"]
         emit({**kernels_line(got["kernels"][0], got["kernels"][1],
                              train["flash_fwd"], got["generate_variants"],
                              got["kernels_bwd"], got["kernel_times_bwd"],
                              train, got["kernels_ce"],
-                             got["kernel_times_ce"], got["train_ce"],
+                             got["kernel_times_ce"], two["fused"],
                              got["kernels_embed"],
                              got["kernel_times_embed"][
                                  f"deep_bf16_b{WD_BATCH}"],
-                             got["widedeep_lookup"]),
+                             two["embed_gather"]),
               "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -14,23 +14,29 @@ or anything of ``dtf_tpu``. The module layout mirrors the JAX package:
 - ``ops/embed_gather.py`` + ``ops/csrc/embed_gather.cu``: the
   embedding-row gather, a hand-written Hopper kernel, differentiable;
 - ``parallel/embedding.py``: the row-sharded embedding table
-  (``RowShardedEmbed``) and the masked lookup
-  (``masked_lookup_sharded``, one device);
-- ``core/comms.py``: ``tp_dense`` / ``TpDense`` (unsharded);
-- ``core/train.py``: ``TrainState``, ``make_train_step``,
-  ``make_eval_step``; ``core/dist.py``: the cluster-flag collapse;
+  (``RowShardedEmbed``), the masked lookup over a process group
+  (``masked_lookup_sharded``) and ``embedding_rules``;
+- ``core/dist.py``: the cluster-flag collapse and the process group
+  (NCCL / gloo); ``core/mesh.py``: ``MeshConfig``, ``HostView`` and the
+  data and model axes' groups; ``core/comms.py``: the collectives over a
+  group and ``tp_dense`` / ``TpDense`` (unsharded);
+  ``core/sharding.py``: the placement rules and ZeRO-1's;
+- ``core/train.py``: ``TrainState``, ``make_train_step`` (data
+  parallelism, ZeRO-1), ``make_eval_step``;
 - ``optim.py``: optax-semantics optimizers and LR schedules;
 - ``models/gpt.py``: ``GPTConfig``, ``GPT``, the KV cache, ``generate``,
   ``make_loss``, ``make_eval``; ``models/widedeep.py``: ``WideDeep``,
-  ``make_loss``, ``make_eval``;
-- ``data/``: the synthetic (``gpt``, ``widedeep``), token-file and
-  Criteo loaders;
+  ``make_loss``, ``make_eval``; ``models/mnist.py``:
+  ``SoftmaxRegression``, ``MLP``, ``make_loss``, ``make_eval``;
+- ``data/``: the synthetic (``mnist``, ``gpt``, ``widedeep``), MNIST
+  IDX, token-file and Criteo loaders;
 - ``loop.py``, ``hooks.py``, ``metrics.py``, ``checkpoint.py``: the
   training loop, its hooks, the metric writer, checkpoints and the
   model-config manifest;
 - ``convert.py``: the flax param tree <-> the port's ``state_dict``;
 - ``cli/``: the launchers' flags and setup;
-- ``train_gpt.py``, ``generate_gpt.py``, ``train_widedeep.py``:
+- ``train_gpt.py``, ``generate_gpt.py``, ``train_widedeep.py``,
+  ``distributed.py`` (MNIST, the reference's launcher):
   ``python -m dtf_tpu_torch.<name>``; ``profile_train.py``,
   ``profile_generate.py``, ``profile_widedeep.py``: their profilers on
   the GPU.

@@ -11,8 +11,13 @@ machine, so the port has its own format. One directory per step,
 
 A step is written under a temporary name and renamed into place, so a
 crash mid-save leaves no half step behind; ``max_to_keep`` steps are kept.
-Saves are synchronous and single-process: the multi-process
-``torch.distributed.checkpoint`` layout comes with the multi-GPU slice.
+Saves are synchronous.
+
+Over a mesh every rank takes part in a save and the chief writes: the
+parameters a model axis splits and the optimizer state ZeRO-1 splits are
+gathered whole first (``TrainState.layout``), and every rank waits at a
+barrier until the step is on disk. On restore each rank takes its own
+blocks again, so the files do not depend on the world size.
 
 ``model_config.json`` (the architecture manifest) sits next to the step
 directories: the training launcher writes it, the serving entry points
@@ -59,6 +64,19 @@ def load_model_config(directory: str | os.PathLike) -> dict | None:
         return None
 
 
+def _map_param_leaves(tree, names: frozenset, fn):
+    """``fn(name, tensor)`` on every parameter-shaped leaf of an optimizer
+    state (the leaves of a dict keyed by the parameters' names, as adam's
+    ``mu``/``nu``), the rest as it is."""
+    if isinstance(tree, dict):
+        if tree and set(tree) == names:
+            return {n: fn(n, t) for n, t in tree.items()}
+        return {k: _map_param_leaves(v, names, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_param_leaves(v, names, fn) for v in tree)
+    return tree
+
+
 def _to_device(tree, device):
     if torch.is_tensor(tree):
         return tree.to(device)
@@ -69,17 +87,28 @@ def _to_device(tree, device):
     return tree
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
 class Checkpointer:
     """Save / restore a :class:`~dtf_tpu_torch.core.train.TrainState`.
 
     ``save_interval_steps``: a non-forced :meth:`save` writes only steps
     that are multiples of it. ``max_to_keep``: older steps are deleted
-    after each save."""
+    after each save. ``mesh``: a save and a restore are collective over
+    the default process group (module docstring)."""
 
     def __init__(self, directory: str | os.PathLike, *, max_to_keep: int = 3,
-                 save_interval_steps: int = 1):
+                 save_interval_steps: int = 1, mesh=None):
         self._dir = os.fspath(directory)
-        os.makedirs(self._dir, exist_ok=True)
+        self.mesh = mesh
+        self._chief = mesh is None or _rank() == 0
+        if self._chief:
+            os.makedirs(self._dir, exist_ok=True)
+        self._barrier()
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(1, save_interval_steps)
         #: the step the last latest-step restore loaded (it may be older
@@ -97,28 +126,59 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
+
+    def _agree(self, flag: bool) -> bool:
+        """The chief's ``flag`` on every rank (one broadcast)."""
+        if self.mesh is None:
+            return flag
+        import torch.distributed as dist
+
+        t = torch.tensor([int(flag)], device=self.mesh.device)
+        dist.broadcast(t, 0)
+        return bool(t.item())
+
+    def _whole(self, state):
+        """(params, opt_state) whole: gathered from every rank's blocks."""
+        layout, mesh = state.layout, self.mesh
+        params = {n: p.detach() for n, p in state.params.items()}
+        if layout is None or mesh is None:
+            return params, state.opt_state
+        opt_state = _map_param_leaves(
+            state.opt_state, frozenset(params), lambda n, t: (
+                layout.gather_param(n, layout.gather_leaf(n, t, mesh), mesh)))
+        return ({n: layout.gather_param(n, p, mesh)
+                 for n, p in params.items()}, opt_state)
+
     def save(self, step: int, state, *, force: bool = False) -> bool:
         """Write ``state`` as step ``step``. Returns True if written:
         an existing step, or (unless ``force``) a step off the save
-        interval, is skipped."""
+        interval, is skipped. Over a mesh, collective: every rank must
+        call it with the same arguments."""
         step = int(step)
-        if step in self.all_steps():
-            return False
         if not force and step % self.save_interval_steps:
             return False
-        final = os.path.join(self._dir, str(step))
-        tmp = os.path.join(self._dir, f".{step}.tmp{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save({n: p.detach() for n, p in state.params.items()},
-                   os.path.join(tmp, "params.pt"))
-        torch.save(state.opt_state, os.path.join(tmp, "opt_state.pt"))
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump({"step": step, "rng": int(state.rng)}, f)
-        os.replace(tmp, final)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self._dir, str(old)),
-                          ignore_errors=True)
+        if not self._agree(self._chief and step not in self.all_steps()):
+            return False
+        params, opt_state = self._whole(state)
+        if self._chief:
+            final = os.path.join(self._dir, str(step))
+            tmp = os.path.join(self._dir, f".{step}.tmp{os.getpid()}")
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(params, os.path.join(tmp, "params.pt"))
+            torch.save(opt_state, os.path.join(tmp, "opt_state.pt"))
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump({"step": step, "rng": int(state.rng)}, f)
+            os.replace(tmp, final)
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self._dir, str(old)),
+                              ignore_errors=True)
+        self._barrier()
         return True
 
     def _restore_one(self, target, step: int):
@@ -135,16 +195,25 @@ class Checkpointer:
                 "restore target does not (or the reverse) — a different "
                 "model configuration")
         some = next(iter(target.params.values()))
-        opt_state = _to_device(
-            torch.load(os.path.join(path, "opt_state.pt"),
-                       map_location="cpu", weights_only=True), some.device)
+        opt_state = torch.load(os.path.join(path, "opt_state.pt"),
+                               map_location="cpu", weights_only=True)
+        layout, mesh = target.layout, self.mesh
+        if layout is not None and mesh is not None:
+            # this rank's blocks of the whole tensors
+            params = {n: layout.shard_param(n, p, mesh)
+                      for n, p in params.items()}
+            opt_state = _map_param_leaves(
+                opt_state, frozenset(params), lambda n, t: layout.shard_leaf(
+                    n, layout.shard_param(n, t, mesh), mesh).contiguous())
+        opt_state = _to_device(opt_state, some.device)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         with torch.no_grad():
             for n, p in target.params.items():
                 p.copy_(params[n])
         return TrainState(step=int(meta["step"]), params=target.params,
-                          opt_state=opt_state, rng=int(meta["rng"]))
+                          opt_state=opt_state, rng=int(meta["rng"]),
+                          layout=layout)
 
     def restore(self, target, step: int | None = None):
         """Restore into ``target``'s parameter tensors (in place) and return

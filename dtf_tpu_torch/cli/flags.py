@@ -95,14 +95,16 @@ def define_cluster_flags(p: argparse.ArgumentParser) -> None:
                    help="comma-separated ps host:port list (accepted for "
                         "compatibility; a ps role exits 0)")
     p.add_argument("--worker_hosts", default="",
-                   help="comma-separated worker host:port list; more than "
-                        "one worker is not yet ported (multi-GPU)")
+                   help="comma-separated worker host:port list: one process "
+                        "per device, the first one's address the "
+                        "rendezvous")
     p.add_argument("--job_name", default="worker", help="'ps' or 'worker'")
     p.add_argument("--task_index", type=int, default=0)
     add_bool(p, "issync", True, "sync gradient aggregation; issync=false "
              "warns and proceeds synchronously")
     p.add_argument("--backend", default="gpu", choices=("gpu", "cpu"),
-                   help="gpu (default) | cpu; cpu is --device=cpu")
+                   help="gpu (default; NCCL between processes) | cpu "
+                        "(--device=cpu; gloo between processes)")
     p.add_argument("--devices_per_host", type=int, default=0)
 
 
@@ -110,8 +112,9 @@ def define_mesh_flags(p: argparse.ArgumentParser) -> None:
     for axis, default in (("data", -1), ("seq", 1), ("model", 1),
                           ("pipe", 1), ("expert", 1)):
         p.add_argument(f"--mesh_{axis}", type=int, default=default,
-                       help="mesh axis size; > 1 is not yet ported "
-                            "(multi-GPU)")
+                       help="mesh axis size over the processes (data -1: "
+                            "the rest); seq, pipe and expert > 1 are not "
+                            "yet ported")
 
 
 def define_train_flags(p: argparse.ArgumentParser, batch_size=64,
@@ -133,7 +136,8 @@ def define_train_flags(p: argparse.ArgumentParser, batch_size=64,
     p.add_argument("--grad_accum", type=int, default=1,
                    help="gradient-accumulation microbatches")
     add_bool(p, "grad_shard", False, "ZeRO-1 sharded accumulator; falls "
-             "back with a warning on one device")
+             "back with a warning without accumulation, a data axis > 1 "
+             "or ZeRO-1")
     p.add_argument("--clip_grad_norm", type=float, default=0.0,
                    help="clip gradients to this global norm (0 = off)")
     p.add_argument("--lr_schedule", default=lr_schedule,

@@ -1,8 +1,10 @@
-"""Launch glue (the port's copy of ``dtf_tpu.cli.launch.setup``): flags →
-cluster collapse → one device."""
+"""Launch glue (the port's copy of ``dtf_tpu.cli.launch``): flags → cluster
+collapse → process group → mesh → this rank's device and loader."""
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import logging
 import sys
 
@@ -10,17 +12,25 @@ import torch
 
 from dtf_tpu_torch.core import dist
 from dtf_tpu_torch.core.device import resolve_device
+from dtf_tpu_torch.core.mesh import AXES, HostView, MeshConfig, \
+    make_mesh, mesh_summary, refuse_unported
 
 log = logging.getLogger("dtf_tpu_torch")
 
-MESH_AXES = ("data", "seq", "model", "pipe", "expert")
 
+def setup(args):
+    """Resolve the cluster, the device and the mesh from parsed flags;
+    returns ``(device, info, mesh)``, the mesh None for one process with
+    no process group.
 
-def setup(args) -> tuple[torch.device, dist.ClusterInfo]:
-    """Resolve the cluster and the device from parsed flags. A ps role
-    exits the process with status 0; ``--issync=false`` warns and runs
-    synchronously; any mesh axis > 1, or more than one worker, raises:
-    multi-GPU training is not yet ported."""
+    A ps role exits the process with status 0; ``--issync=false`` warns
+    and runs synchronously. More than one worker starts the process group
+    (NCCL for ``--backend gpu``, gloo for ``cpu``; one process per
+    device, rank = ``--task_index`` on ``cuda:{rank % device_count}``).
+    A default group that exists already (one the caller made) is used as
+    it is, whatever its backend. ``--mesh_seq/pipe/expert`` > 1 raise
+    "not yet ported"; a mesh of more than one device without a group
+    raises."""
     info = dist.collapse_cluster_flags(
         ps_hosts=[h for h in args.ps_hosts.split(",") if h],
         worker_hosts=[h for h in args.worker_hosts.split(",") if h],
@@ -31,13 +41,62 @@ def setup(args) -> tuple[torch.device, dist.ClusterInfo]:
     if not args.issync:
         log.warning("--issync=0 (async PS SGD) is not reproduced: "
                     "proceeding with synchronous updates")
-    big = {a: getattr(args, f"mesh_{a}") for a in MESH_AXES
-           if getattr(args, f"mesh_{a}") > 1}
-    if big or info.num_processes > 1:
+    if getattr(args, "devices_per_host", 0):
         raise NotImplementedError(
-            f"not yet ported (multi-GPU): mesh {big or {}} / "
-            f"{info.num_processes} worker(s); this slice trains on one "
-            "device")
-    device = resolve_device(getattr(args, "device", None) or
-                            ("cpu" if args.backend == "cpu" else "cuda"))
-    return device, info
+            "--devices_per_host (the fake-hosts harness's mesh size): not "
+            "yet ported; the port runs one process per device")
+    sizes = {a: getattr(args, f"mesh_{a}") for a in AXES}
+    refuse_unported(MeshConfig(**sizes))
+    kind = torch.device(getattr(args, "device", None) or
+                        ("cpu" if args.backend == "cpu" else "cuda")).type
+    dist.initialize(info, "nccl" if kind == "cuda" else "gloo")
+    import torch.distributed as tdist
+
+    if not tdist.is_initialized():
+        big = {a: s for a, s in sizes.items() if s > 1}
+        if big:
+            raise ValueError(
+                f"mesh {big} needs one process per device, and this launch "
+                "is one process: give --worker_hosts (one per process) and "
+                "--task_index")
+        return resolve_device(kind), info, None
+    world, rank = tdist.get_world_size(), tdist.get_rank()
+    if info.num_processes > 1 and (info.num_processes, info.process_id) \
+            != (world, rank):
+        raise ValueError(
+            f"worker {info.process_id} of {info.num_processes} on the flags "
+            f"but rank {rank} of {world} in the process group")
+    info = dataclasses.replace(info, num_processes=world, process_id=rank,
+                               is_chief=rank == 0)
+    if tdist.get_backend() == "nccl":
+        dist.check_nccl_devices("nccl", world)
+    device = resolve_device(dist.rank_device(rank, kind))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh = make_mesh(MeshConfig(**sizes), device)
+    if info.is_chief:
+        log.info("%s | %d process(es)", mesh_summary(mesh), world)
+    return device, info, mesh
+
+
+def host_batches(mesh, make_loader):
+    """This rank's loader: ``make_loader(host_index=, host_count=)`` at
+    the rank's DATA coordinate (every rank of one model group reads the
+    same rows); the one global loader without a mesh."""
+    view = mesh.host_view if mesh is not None else HostView(0, 1)
+    return make_loader(host_index=view.host_index,
+                       host_count=view.host_count)
+
+
+@contextlib.contextmanager
+def own_process_group():
+    """On leaving, destroy the default process group if the body made it
+    (one that existed before is its maker's)."""
+    import torch.distributed as tdist
+
+    existed = tdist.is_initialized()
+    try:
+        yield
+    finally:
+        if not existed and tdist.is_initialized():
+            tdist.destroy_process_group()

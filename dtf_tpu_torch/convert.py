@@ -15,7 +15,8 @@ tree in numpy, for handing the same weights to both packages (serving);
 :func:`init_params_flax` one with the JAX package's training init
 distributions (the trainer's); :func:`init_params_widedeep` the same for
 Wide&Deep (``embed_tables_{wide,deep}/embedding``, ``wide_dense``,
-``mlp_{i}``, ``deep_out``).
+``mlp_{i}``, ``deep_out``); :func:`init_params_mnist` for the MNIST
+models (``hidden_{i}``, ``logits``).
 """
 
 from __future__ import annotations
@@ -77,6 +78,13 @@ def _is_embedding(module: str) -> bool:
     return module == "token_embed" or module.startswith("embed_tables")
 
 
+def is_kernel(name: str, ndim: int) -> bool:
+    """Whether the ``state_dict`` entry ``name`` is a flax ``kernel``,
+    stored transposed: a 2-D ``weight`` that is not an embedding."""
+    *mods, leaf = name.split(".")
+    return leaf == "weight" and ndim == 2 and not _is_embedding(mods[-1])
+
+
 def params_to_flax(state_dict) -> dict:
     """The inverse of :func:`params_from_flax`: nested dicts of numpy."""
     items = []
@@ -89,10 +97,10 @@ def params_to_flax(state_dict) -> dict:
             raise KeyError(f"unknown state_dict entry {key}")
         elif arr.ndim == 1:
             leaf = "scale"                      # a LayerNorm
-        elif _is_embedding(mods[-1]):
-            leaf = "embedding"
-        else:
+        elif is_kernel(key, arr.ndim):
             leaf, arr = "kernel", arr.T
+        else:
+            leaf = "embedding"
         items.append((tuple(mods) + (leaf,), np.ascontiguousarray(arr)))
     return _unflatten(items)
 
@@ -226,4 +234,20 @@ def init_params_widedeep(model, seed: int) -> dict:
         tree[f"mlp_{i}"] = dense(width, h)
         width = h
     tree["deep_out"] = dense(width, 1)
+    return tree
+
+
+def init_params_mnist(model, seed: int) -> dict:
+    """A seeded flax tree in numpy f32 for a
+    :class:`~dtf_tpu_torch.models.mnist.SoftmaxRegression` or ``MLP``
+    with the JAX package's init (``mnist.make_init``: flax ``Dense``'s
+    lecun-normal kernels, zero biases); numpy's draws."""
+    rng = np.random.default_rng(seed)
+    tree, width = {}, model.input_dim
+    for i, h in enumerate(model.hidden):
+        tree[f"hidden_{i}"] = {"kernel": _lecun_normal(rng, width, h),
+                               "bias": np.zeros((h,), np.float32)}
+        width = h
+    tree["logits"] = {"kernel": _lecun_normal(rng, width, model.num_classes),
+                      "bias": np.zeros((model.num_classes,), np.float32)}
     return tree

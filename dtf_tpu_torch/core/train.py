@@ -1,4 +1,4 @@
-"""The train step (counterpart of ``dtf_tpu.core.train``), on one device.
+"""The train step (counterpart of ``dtf_tpu.core.train``).
 
 ``make_train_step(loss_fn, tx)`` builds ``step(state, batch) -> (state,
 metrics)``: the loss and its gradients with ``torch.autograd.grad``,
@@ -7,10 +7,16 @@ optimizer update (:mod:`dtf_tpu_torch.optim`, optax's semantics) and the
 metrics ``loss`` and ``grad_norm``. The parameters are updated IN PLACE:
 ``state.params`` holds the module's own tensors.
 
-This slice runs one device. ZeRO-1 (``--zero1``) shards the optimizer
-state over the data axis; with one device that axis is 1 and the sharding
-is the identity, so nothing here shards. Multi-GPU data parallelism over
-NCCL comes with a later slice.
+With a ``mesh`` (:mod:`dtf_tpu_torch.core.mesh`) each rank holds its
+rows of the global batch, and the weighted mean runs over the ranks of
+the data group as it runs over microbatches, so the gradient is the
+global batch's also when ranks hold different numbers of valid labels.
+Under ZeRO-1 (``state.layout.zero1_dims``, from
+:func:`dtf_tpu_torch.core.sharding.make_layout`) the sum over ranks is a
+reduce-scatter into this rank's blocks, the optimizer updates those
+blocks against the sharded optimizer state, and an all-gather over the
+data group makes the parameters whole again; without it, one all-reduce.
+A world of one runs the same collectives; only ``mesh=None`` skips them.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from dtf_tpu_torch import optim
+from dtf_tpu_torch.core import comms
 
 #: loss_fn(params, batch, rng) -> (loss, LossAux)
 LossFn = Callable[..., tuple[torch.Tensor, "LossAux"]]
@@ -38,6 +45,11 @@ class LossAux:
 
     metrics: dict = dataclasses.field(default_factory=dict)
     weight: Any = 1.0
+    #: the loss is already the mean over the whole data group, and each
+    #: rank's gradients are its part of that mean's gradient (the
+    #: token-sharded fused CE): the step sums the gradients over ranks,
+    #: and ``weight`` (the global count) is the same on every rank
+    global_mean: bool = False
 
 
 @dataclasses.dataclass
@@ -45,12 +57,15 @@ class TrainState:
     """``step`` (Python int: the host-side counter the loop keeps anyway),
     ``params`` (the module's parameters by ``state_dict`` name — the same
     tensors, updated in place), ``opt_state`` (the optimizer's state) and
-    ``rng`` (the seed every step's dropout seed is derived from)."""
+    ``rng`` (the seed every step's dropout seed is derived from);
+    ``layout`` (how the parameters and the optimizer state are split over
+    a mesh, :class:`~dtf_tpu_torch.core.sharding.Layout`; None: whole)."""
 
     step: int
     params: dict
     opt_state: Any
     rng: int
+    layout: Any = None
 
 
 def fold_in(seed: int, *data: int) -> int:
@@ -62,12 +77,18 @@ def fold_in(seed: int, *data: int) -> int:
 
 
 def create_train_state(model: torch.nn.Module, tx: optim.Transform,
-                       seed: int) -> TrainState:
-    """Step 0 over the module's parameters, a fresh optimizer state, and
-    ``seed`` as the dropout root."""
+                       seed: int, *, mesh=None, layout=None) -> TrainState:
+    """Step 0 over the module's parameters, a fresh optimizer state (of
+    this rank's ZeRO-1 blocks under ``layout``), and ``seed`` as the
+    dropout root."""
     params = dict(model.named_parameters())
-    return TrainState(step=0, params=params, opt_state=tx.init(params),
-                      rng=int(seed))
+    if layout is not None and layout.zero1_dims:
+        opt_params = {n: layout.shard_leaf(n, p, mesh)
+                      for n, p in params.items()}
+    else:
+        opt_params = params
+    return TrainState(step=0, params=params, opt_state=tx.init(opt_params),
+                      rng=int(seed), layout=layout)
 
 
 def _split(batch: dict, n: int) -> list[dict]:
@@ -79,8 +100,16 @@ def _split(batch: dict, n: int) -> list[dict]:
     return [{k: parts[k][i] for k in batch} for i in range(n)]
 
 
+def _weighted(v: torch.Tensor, w: torch.Tensor,
+              keep: torch.Tensor) -> torch.Tensor:
+    """v·w in f32, exactly 0 where ``keep`` (w > 0) is false: selected
+    out, not multiplied (0·NaN would poison the sum)."""
+    return torch.where(keep, v.float() * w, 0.0)
+
+
 def make_train_step(loss_fn: LossFn, tx: optim.Transform, *,
-                    grad_accum: int = 1, log_grad_norm: bool = True):
+                    grad_accum: int = 1, log_grad_norm: bool = True,
+                    mesh=None, grad_shard: bool = False):
     """The train step. ``loss_fn(params, batch, rng) -> (loss, LossAux)``
     computes the mean loss over its batch.
 
@@ -92,6 +121,14 @@ def make_train_step(loss_fn: LossFn, tx: optim.Transform, *,
     the mean gradient before clipping (clipping is part of ``tx``). Each
     step's rng is ``fold_in(state.rng, state.step)``, each microbatch's
     ``fold_in(rng, i)``.
+
+    ``mesh``: ``batch`` is this rank's rows, and the sums Σwᵢgᵢ, Σwᵢ, the
+    loss and the metrics run over the data group too (module docstring),
+    the gradients in two collectives whatever their number
+    (:class:`~dtf_tpu_torch.core.comms.GradBuckets`). ``grad_shard``
+    (with ZeRO-1 dims in ``state.layout``): each microbatch's weighted
+    gradients are reduce-scattered into a shard-sized accumulator instead
+    of summed whole on the rank and reduce-scattered once.
     """
 
     def grads_of(params, batch, rng):
@@ -99,54 +136,108 @@ def make_train_step(loss_fn: LossFn, tx: optim.Transform, *,
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), aux, dict(zip(params, grads))
 
-    def step(state: TrainState, batch: dict):
-        rng = fold_in(state.rng, state.step)
+    def accumulate(params, batch, rng, pack, reduce_mb=None):
+        """Σ reduce_mb(wᵢ·pack(gᵢ)) (``pack``: the gradients as a list of
+        tensors), Σ wᵢ, Σ wᵢ·lossᵢ and Σ wᵢ·metricᵢ over the
+        microbatches; and whether the loss is a global mean."""
+        acc, w_sum, loss, msum = None, 0.0, 0.0, {}
+        for i, mb in enumerate(_split(batch, grad_accum)):
+            mloss, aux, grads = grads_of(params, mb, fold_in(rng, i)
+                                         if grad_accum > 1 else rng)
+            w = torch.as_tensor(aux.weight, dtype=torch.float32,
+                                device=mloss.device)
+            keep = w > 0
+            part = [_weighted(t, w, keep) for t in pack(grads)]
+            if reduce_mb is not None:
+                part = reduce_mb(part)
+            acc = part if acc is None else [a + p for a, p in zip(acc, part)]
+            w_sum = w_sum + w
+            loss = loss + _weighted(mloss, w, keep)
+            for k, v in aux.metrics.items():
+                msum[k] = msum.get(k, 0.0) + _weighted(torch.as_tensor(
+                    v, device=mloss.device).detach(), w, keep)
+        return acc, w_sum, loss, msum, aux.global_mean
+
+    def local_step(state: TrainState, batch: dict, rng: int):
         params = state.params
         if grad_accum == 1:
             loss, aux, grads = grads_of(params, batch, rng)
             metrics = {k: v.detach() if torch.is_tensor(v) else v
                        for k, v in aux.metrics.items()}
         else:
-            acc = {n: torch.zeros_like(p, dtype=torch.float32)
-                   for n, p in params.items()}
-            w_sum = loss = 0.0
-            msum: dict = {}
-            for i, mb in enumerate(_split(batch, grad_accum)):
-                mloss, aux, grads = grads_of(params, mb, fold_in(rng, i))
-                w = torch.as_tensor(aux.weight, dtype=torch.float32,
-                                    device=mloss.device)
-
-                def wmul(v, w=w):
-                    return torch.where(w > 0, v.float() * w,
-                                       torch.zeros_like(v, dtype=torch.float32))
-
-                for n, g in grads.items():
-                    acc[n] += wmul(g)
-                w_sum = w_sum + w
-                loss = loss + wmul(mloss)
-                for k, v in aux.metrics.items():
-                    msum[k] = msum.get(k, 0.0) + wmul(torch.as_tensor(
-                        v, device=mloss.device).detach())
+            acc, w_sum, loss, msum, _ = accumulate(
+                params, batch, rng, lambda g: list(g.values()))
             grads = {n: (a / w_sum).to(params[n].dtype)
-                     for n, a in acc.items()}
+                     for n, a in zip(params, acc)}
             loss = loss / w_sum
             metrics = {k: v / w_sum for k, v in msum.items()}
         updates, opt_state = tx.update(grads, state.opt_state, params)
         optim.apply_updates(params, updates)
+        return opt_state, grads, loss, metrics
+
+    def mesh_step(state: TrainState, batch: dict, rng: int):
+        params, group = state.params, mesh.data_group
+        layout = state.layout
+        dims = layout.zero1_dims if layout is not None else {}
+        buckets = comms.GradBuckets(params, group, dims)
+        per_mb = grad_shard and bool(dims)
+        acc, w_sum, loss, msum, global_mean = accumulate(
+            params, batch, rng, buckets.flatten,
+            buckets.grad_reduce_scatter if per_mb else None)
+        if not per_mb:
+            acc = buckets.grad_reduce_scatter(acc)
+        # Σw, Σw·loss and Σw·metric in one all-reduce; a global mean is
+        # the same on every rank already
+        names = sorted(msum)
+        stats = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                             device=mesh.device)
+                             for v in [w_sum, loss] + [msum[k]
+                                                       for k in names]])
+        if not global_mean:
+            stats = comms.psum(stats, group)
+        grads = {n: g.to(params[n].dtype) for n, g in buckets.split(
+            [a / stats[0] for a in acc]).items()}
+        metrics = {k: stats[2 + i] / stats[0] for i, k in enumerate(names)}
+        loss = stats[1] / stats[0]
+        if not dims:
+            updates, opt_state = tx.update(grads, state.opt_state, params)
+            optim.apply_updates(params, updates)
+            return opt_state, grads, loss, metrics
+        blocks = {n: layout.shard_leaf(n, p, mesh) for n, p in params.items()}
+        grads = optim.ShardedTree(grads, dims, group)
+        updates, opt_state = tx.update(grads, state.opt_state, blocks)
+        optim.apply_updates(blocks, updates)       # into the views
+        buckets.all_gather_into(params, blocks)
+        return opt_state, grads, loss, metrics
+
+    def step(state: TrainState, batch: dict):
+        rng = fold_in(state.rng, state.step)
+        opt_state, grads, loss, metrics = (
+            local_step if mesh is None else mesh_step)(state, batch, rng)
         metrics["loss"] = loss
         if log_grad_norm:
-            metrics["grad_norm"] = optim.global_norm(grads.values())
-        return TrainState(step=state.step + 1, params=params,
-                          opt_state=opt_state, rng=state.rng), metrics
+            metrics["grad_norm"] = optim.tree_norm(grads)
+        return dataclasses.replace(state, step=state.step + 1,
+                                   opt_state=opt_state), metrics
 
     return step
 
 
-def make_eval_step(eval_fn: Callable):
-    """``eval_fn(params, batch) -> metrics dict``, under ``no_grad``."""
+def make_eval_step(eval_fn: Callable, mesh=None):
+    """``eval_fn(params, batch) -> metrics dict``, under ``no_grad``; with
+    a ``mesh``, each metric's mean over the data group (one
+    all-reduce)."""
 
     def step(state: TrainState, batch: dict):
         with torch.no_grad():
-            return eval_fn(state.params, batch)
+            metrics = eval_fn(state.params, batch)
+            if mesh is None:
+                return metrics
+            names = sorted(metrics)
+            mean = comms.pmean(torch.stack([
+                torch.as_tensor(metrics[k], dtype=torch.float32,
+                                device=mesh.device) for k in names]),
+                mesh.data_group)
+            return dict(zip(names, mean))
 
     return step

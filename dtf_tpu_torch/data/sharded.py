@@ -38,6 +38,12 @@ class ShardedEpochs:
         self.host_index = host_index
         self.host_count = host_count
 
+    def batches_per_epoch_uniform(self) -> int:
+        """Batches a full epoch gives on EVERY host (the least any host
+        fills): a sweep that runs collectives takes the same count on
+        every rank, or the ranks deadlock."""
+        return (self.n_rows // self.host_count) // self.local_batch
+
     def _indices(self) -> Iterator[np.ndarray]:
         epoch = 0
         while True:

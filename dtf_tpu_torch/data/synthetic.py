@@ -18,7 +18,7 @@ Batch = dict
 #: the kinds of the JAX package, by slice of the port that brings them
 KINDS = ("mnist", "cifar", "imagenet", "bert", "gpt", "widedeep")
 #: the kinds this port draws
-PORTED = ("gpt", "widedeep")
+PORTED = ("mnist", "gpt", "widedeep")
 
 
 def _rng_for(seed: int, step: int, host: int) -> np.random.Generator:
@@ -56,6 +56,11 @@ class SyntheticData:
     def batch(self, step: int) -> Batch:
         r = _rng_for(self.seed, step, self.host)
         n = self.local_batch
+        if self.kind == "mnist":
+            x = r.random((n, 784), np.float32)
+            w = _rng_for(self.seed, 0, 0).standard_normal((784, 10))
+            y = (x @ w).argmax(-1).astype(np.int32)
+            return {"image": x, "label": y}
         if self.kind == "widedeep":
             dense = r.standard_normal((n, 13)).astype(np.float32)
             sparse = r.integers(0, self.hash_buckets,

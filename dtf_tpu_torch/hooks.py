@@ -1,7 +1,12 @@
 """Training hooks (counterpart of ``dtf_tpu.hooks``): the begin /
 before-step / after-step / end lifecycle of ``tf.train.SessionRunHook``,
 run by :class:`dtf_tpu_torch.loop.Trainer` on the host around each step.
-The profiler and publish hooks are not ported yet."""
+The profiler and publish hooks are not ported yet.
+
+Over a mesh every rank runs the same hooks at the same steps, so their
+collectives (the eval's reduction, a checkpoint's gathers, the
+preemption flag's agreement) meet in the same order on every rank; only
+the chief's :class:`~dtf_tpu_torch.metrics.MetricWriter` prints."""
 
 from __future__ import annotations
 
@@ -9,6 +14,8 @@ import logging
 import signal
 import time
 from typing import Any, Callable, Mapping
+
+import torch
 
 from dtf_tpu_torch.metrics import H100_PEAK_BF16_FLOPS, MetricWriter
 
@@ -112,13 +119,19 @@ class CheckpointHook(Hook):
 class PreemptionHook(Hook):
     """SIGTERM → save the current step → stop cleanly. The handler only
     sets a flag; the loop acts on it at the next step boundary, so the
-    relaunch resumes with no lost step. One process: the multi-host flag
-    agreement comes with the multi-GPU slice. Must run ``begin`` in the
-    main thread (``signal.signal``); ``end`` restores the previous
-    handler."""
+    relaunch resumes with no lost step. Over a ``mesh`` the save is
+    collective, so the ranks agree first: every ``CHECK_EVERY`` steps the
+    flag is OR-reduced over the default group (a reduction the host
+    waits on; every step would forfeit the host's run-ahead), and all
+    save the same step. Must run ``begin`` in the main thread
+    (``signal.signal``); ``end`` restores the previous handler."""
 
-    def __init__(self, ckpt):
+    #: steps between the ranks' agreements on the flag (the JAX hook's)
+    CHECK_EVERY = 8
+
+    def __init__(self, ckpt, *, mesh=None):
         self.ckpt = ckpt
+        self.mesh = mesh
         self.preempted = False
         self._prev = None
 
@@ -128,8 +141,19 @@ class PreemptionHook(Hook):
     def _on_signal(self, signum, frame):
         self.preempted = True
 
+    def _agreed(self, step) -> bool:
+        if self.mesh is None:
+            return self.preempted
+        if step % self.CHECK_EVERY:
+            return False
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(self.preempted)], device=self.mesh.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
     def after_step(self, step, state, metrics):
-        if self.preempted:
+        if self._agreed(step):
             self.ckpt.save(step, state, force=True)
             log.warning("preempted: saved step %d, stopping", step)
             raise StopTraining

@@ -30,16 +30,21 @@ def analytic_lm_flops_per_step(*, n_params: int, layers: int, width: int,
 
 class MetricWriter:
     """Scalar writer: one stdout line per call, and ``history`` (a list of
-    ``(step, {name: float})``) for callers that read the run back."""
+    ``(step, {name: float})``) for callers that read the run back.
+    ``echo=False`` (a rank that is not the chief) keeps the history and
+    prints nothing."""
 
-    def __init__(self):
+    def __init__(self, echo: bool = True):
+        self.echo = echo
         self.history: list[tuple[int, dict]] = []
 
     def write_scalars(self, step: int, scalars: Mapping[str, float]) -> None:
         scalars = {k: float(v) for k, v in scalars.items()}
         self.history.append((int(step), scalars))
-        body = ", ".join(f"{k}={v:.6g}" for k, v in sorted(scalars.items()))
-        print(f"[{int(step)}] {body}", flush=True)
+        if self.echo:
+            body = ", ".join(f"{k}={v:.6g}"
+                             for k, v in sorted(scalars.items()))
+            print(f"[{int(step)}] {body}", flush=True)
 
     def flush(self) -> None:
         sys.stdout.flush()

@@ -25,12 +25,16 @@ remat recomputes draws the mask it drew the first time:
 ``torch.utils.checkpoint`` restores the global RNG only, never a
 caller's generator. The masks are not flax's bits, only its distribution
 (keep with probability 1 - rate, scale kept values by 1 / (1 - rate)).
+Under data parallelism every rank holds the same seed, so a mask is
+drawn for the GLOBAL batch and each rank takes its own rows
+(:class:`DropoutKey`): ranks get different masks, and N ranks train as
+one rank on the whole batch does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -247,17 +251,32 @@ def _cache_put_dyn(cfg: GPTConfig, cvar, svar, slot: int,
 ATTN_SITE, MLP_SITE, EMBED_SITE = 1, 2, 0
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], slot: int,
+class DropoutKey(NamedTuple):
+    """A step's dropout seed on rank ``shard`` of ``shards`` along the
+    data axis: masks are drawn for the global batch (``shards`` times
+    the rank's rows) and the rank takes its block of rows."""
+
+    seed: int
+    shard: int = 0
+    shards: int = 1
+
+
+def _dropout(x: torch.Tensor, rate: float, seed, slot: int,
              site: int) -> torch.Tensor:
     """flax's ``nn.Dropout`` with its mask drawn from (seed, slot, site):
-    kept values scaled by 1 / (1 - rate). Off when ``seed`` is None."""
+    kept values scaled by 1 / (1 - rate). ``seed``: an int or a
+    :class:`DropoutKey`; off when None."""
     if seed is None or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
+    key = seed if isinstance(seed, DropoutKey) else DropoutKey(seed)
     gen = torch.Generator(device=x.device)
-    gen.manual_seed(fold_in(seed, slot, site))
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    gen.manual_seed(fold_in(key.seed, slot, site))
+    rows = x.shape[0]
+    keep = torch.rand((rows * key.shards,) + x.shape[1:], generator=gen,
+                      device=x.device)[key.shard * rows:
+                                       (key.shard + 1) * rows] < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -309,8 +328,7 @@ class CausalSelfAttention(nn.Module):
         return cache
 
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
-                chunked: bool = False,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                chunked: bool = False, dropout_seed=None) -> torch.Tensor:
         cfg = self.cfg
         d_head = cfg.d_model // cfg.heads
         kv_heads = cfg.kv_heads_resolved
@@ -523,9 +541,10 @@ class GPT(nn.Module):
     def forward(self, input_ids: torch.Tensor, cache: Optional[list] = None,
                 *, chunked_prefill: Optional[bool] = None,
                 return_hidden: bool = False,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
-        """``dropout_seed``: this step's seed; None (serving) runs no
-        dropout. Under ``cfg.remat`` each block's activations are
+                dropout_seed=None) -> torch.Tensor:
+        """``dropout_seed``: this step's seed (an int, or a
+        :class:`DropoutKey` under data parallelism); None (serving) runs
+        no dropout. Under ``cfg.remat`` each block's activations are
         recomputed in the backward (training calls only: no cache)."""
         cfg = self.cfg
         if (cfg.decode_len > 0) != (cache is not None):
@@ -657,19 +676,20 @@ def _prefill(model: GPT, cache: list, prompt: torch.Tensor,
 
 
 def _fused_ce(loss_chunk: int, loss_chunk_tokens: int,
-              loss_pallas: bool = False):
+              loss_pallas: bool = False, mesh=None):
     """Resolve the head-fused CE options to one callable on
     ``(hidden, lm_head.weight, labels)``, or None for the monolithic
     logits. Vocab chunking bounds live logits at O(N·chunk) with an online
     logsumexp; token chunking at O(chunk·V) with a plain CE per token
     block; ``loss_pallas`` runs the fused kernels (B5–B7), whose logits
-    live only in on-chip tiles."""
+    live only in on-chip tiles — token-sharded over ``mesh``'s data
+    group when one is given."""
     if sum(map(bool, (loss_chunk, loss_chunk_tokens, loss_pallas))) > 1:
         raise ValueError("loss_chunk (vocab), loss_chunk_tokens and "
                          "loss_pallas are mutually exclusive")
     if loss_pallas:
         return lambda y, w, lab: fused_lm_cross_entropy(
-            y, w, lab, ignore_index=-100)
+            y, w, lab, ignore_index=-100, mesh=mesh)
     if loss_chunk_tokens:
         return lambda y, w, lab: token_chunked_lm_cross_entropy(
             y, w, lab, chunk=loss_chunk_tokens, ignore_index=-100)
@@ -680,7 +700,8 @@ def _fused_ce(loss_chunk: int, loss_chunk_tokens: int,
 
 
 def make_loss(model: GPT, *, loss_chunk: int = 0,
-              loss_chunk_tokens: int = 0, loss_pallas: bool = False):
+              loss_chunk_tokens: int = 0, loss_pallas: bool = False,
+              mesh=None):
     """Next-token CE: batch = {"input_ids" [B,T], "labels" [B,T]} where
     labels are input_ids shifted left by the data layer (-100 = ignore).
     Returns ``loss_fn(params, batch, rng) -> (loss, LossAux)`` with the
@@ -694,29 +715,43 @@ def make_loss(model: GPT, *, loss_chunk: int = 0,
     (:func:`~dtf_tpu_torch.ops.losses.token_chunked_lm_cross_entropy`);
     ``loss_pallas``: the fused head + CE kernels
     (:func:`~dtf_tpu_torch.ops.fused_ce.fused_lm_cross_entropy`). All give
-    the monolithic path's numbers without its [B,T,V] f32 logits."""
-    fused = _fused_ce(loss_chunk, loss_chunk_tokens, loss_pallas)
+    the monolithic path's numbers without its [B,T,V] f32 logits.
+
+    ``mesh``: the batch is this rank's rows of the data axis; dropout
+    takes the rank's rows of the global masks, and ``loss_pallas`` is the
+    token-sharded fused CE, whose loss and count are the global ones
+    (``LossAux.global_mean``)."""
+    if mesh is not None and mesh.model_size > 1:
+        raise NotImplementedError("GPT over a model axis (tensor "
+                                  "parallelism): not yet ported")
+    fused = _fused_ce(loss_chunk, loss_chunk_tokens, loss_pallas, mesh)
+    shard = ((mesh.data_index, mesh.data_size) if mesh is not None
+             else (0, 1))
 
     def loss_fn(params, batch, rng):
         cfg = model.cfg
-        y = model(batch["input_ids"], dropout_seed=rng if cfg.dropout
-                  else None, return_hidden=fused is not None)
+        y = model(batch["input_ids"], dropout_seed=DropoutKey(rng, *shard)
+                  if cfg.dropout else None,
+                  return_hidden=fused is not None)
         if fused is not None:
             loss, n = fused(y, model.lm_head.weight, batch["labels"])
         else:
             loss, n = softmax_cross_entropy(y, batch["labels"],
                                             ignore_index=-100)
-        return loss, LossAux(metrics={"lm_tokens": n}, weight=n)
+        return loss, LossAux(metrics={"lm_tokens": n}, weight=n,
+                             global_mean=bool(loss_pallas
+                                              and mesh is not None))
 
     return loss_fn
 
 
 def make_eval(model: GPT, *, loss_chunk: int = 0,
-              loss_chunk_tokens: int = 0, loss_pallas: bool = False):
+              loss_chunk_tokens: int = 0, loss_pallas: bool = False,
+              mesh=None):
     """Held-out eval: ``eval_fn(params, batch) -> {"eval_loss",
     "eval_ppl"}``, mean next-token CE (ignore -100) without dropout, on
     the loss path :func:`make_loss` takes for the same options."""
-    fused = _fused_ce(loss_chunk, loss_chunk_tokens, loss_pallas)
+    fused = _fused_ce(loss_chunk, loss_chunk_tokens, loss_pallas, mesh)
 
     def eval_fn(params, batch):
         y = model(batch["input_ids"], return_hidden=fused is not None)

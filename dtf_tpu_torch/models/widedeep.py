@@ -13,11 +13,12 @@ Module names are flax's, so :mod:`dtf_tpu_torch.convert` carries a flax
 tree across. Dtypes are flax's ``Dense``'s: ``mlp_{i}`` compute at
 ``dtype`` (bf16 by default) with f32 parameters; ``wide_dense`` and
 ``deep_out`` compute in f32; the deep table is cast to ``dtype`` before
-its gather, the wide table stays f32. The tables are looked up with
-``index_select`` (:class:`~dtf_tpu_torch.parallel.embedding.
-RowShardedEmbed`), as the reference looks them up with ``jnp.take``: the
-B8 kernel serves ``masked_lookup_sharded(use_kernel=True)``, which the
-model does not call.
+its gather, the wide table stays f32. On one rank the tables are looked
+up with ``index_select`` (:class:`~dtf_tpu_torch.parallel.embedding.
+RowShardedEmbed`), as the reference looks them up with ``jnp.take``.
+Given a ``mesh`` whose model axis is > 1, both tables are row-sharded
+over it (:data:`rules`) and looked up by ``masked_lookup_sharded`` with
+the B8 gather, two launches a forward; the dense half stays replicated.
 """
 
 from __future__ import annotations
@@ -28,16 +29,20 @@ from torch.nn import functional as F
 
 from dtf_tpu_torch.core.comms import TpDense
 from dtf_tpu_torch.core.train import LossAux
-from dtf_tpu_torch.parallel.embedding import RowShardedEmbed
+from dtf_tpu_torch.parallel.embedding import RowShardedEmbed, \
+    embedding_rules
 
 #: dense (numeric) features of a Criteo row
 NUM_DENSE = 13
+#: the placement rules: both tables row-sharded over the model axis
+rules = embedding_rules("model")
 
 
 class WideDeep(nn.Module):
     def __init__(self, num_sparse: int = 26, hash_buckets: int = 1000,
                  embed_dim: int = 16, mlp: tuple[int, ...] = (256, 128, 64),
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 mesh=None):
         super().__init__()
         self.num_sparse = num_sparse
         self.hash_buckets = hash_buckets
@@ -45,12 +50,14 @@ class WideDeep(nn.Module):
         self.mlp = tuple(mlp)
         self.dtype = dtype
         rows = num_sparse * hash_buckets
+        group = (mesh.model_group if mesh is not None and mesh.model_size > 1
+                 else None)
         self.embed_tables_wide = RowShardedEmbed(rows, 1, torch.float32,
-                                                 device=device)
+                                                 device=device, group=group)
         self.wide_dense = TpDense(NUM_DENSE, 1, parallel="column",
                                   dtype=torch.float32, device=device)
         self.embed_tables_deep = RowShardedEmbed(rows, embed_dim, dtype,
-                                                 device=device)
+                                                 device=device, group=group)
         width = num_sparse * embed_dim + NUM_DENSE
         for i, h in enumerate(self.mlp):
             setattr(self, f"mlp_{i}", TpDense(width, h, parallel="column",

@@ -464,13 +464,19 @@ class _FusedCE(torch.autograd.Function):
     Forward: the split pass (W's stored hi/lo for B5; with them, what the
     backward will read: W's transposed pair if x needs a gradient, x's
     four if W does), per-token (lse, tgt) from B5 and the merge, then the
-    masked mean and the valid count in PyTorch, as the reference computes
-    them outside its kernel. Backward: dce = (g_mean / cnt)·valid, then
-    B6 and B7 on the forward's split; the count is not differentiable. CPU
-    tensors take the plain versions."""
+    masked sum and the valid count in PyTorch, as the reference computes
+    them outside its kernel. With a ``group`` (tokens split over its
+    ranks) the sum and the count are all-reduced, explicitly, and every
+    rank returns the global (mean, count). Backward: dce = (g_mean /
+    cnt)·valid with the global count, then B6 and B7 on the forward's
+    split: dX of this rank's tokens, and dW as this rank's part of the
+    sum, which the train step's reduction over ranks completes (the
+    reference leaves both halves to shard_map's transpose convention;
+    ADVICE.md #1). The count is not differentiable. CPU tensors take the
+    plain versions."""
 
     @staticmethod
-    def forward(ctx, x, w, labels, ignore_index):
+    def forward(ctx, x, w, labels, ignore_index, group=None):
         ctx.split = None
         if _on_cpu(x, w, labels):
             lse, tgt = fused_ce_fwd_reference(x, w, labels)
@@ -484,8 +490,16 @@ class _FusedCE(torch.autograd.Function):
             valid = torch.ones_like(lse)
         else:
             valid = (labels != ignore_index).to(lse.dtype)
-        cnt = valid.sum().clamp_min(1.0)
-        mean = ((lse - tgt) * valid).sum() / cnt
+        if group is None:
+            cnt = valid.sum().clamp_min(1.0)
+            mean = ((lse - tgt) * valid).sum() / cnt
+        else:
+            import torch.distributed as dist
+
+            sums = torch.stack([((lse - tgt) * valid).sum(), valid.sum()])
+            dist.all_reduce(sums, group=group)
+            cnt = sums[1].clamp_min(1.0)
+            mean = sums[0] / cnt
         ctx.save_for_backward(x, w, labels, lse, valid, cnt)
         ctx.mark_non_differentiable(cnt)
         return mean, cnt
@@ -498,13 +512,13 @@ class _FusedCE(torch.autograd.Function):
         if _on_cpu(x, w, labels):
             dx, dw = fused_ce_bwd_reference(x, w, labels, lse, dce)
             return (dx if want_dx else None, dw if want_dw else None,
-                    None, None)
+                    None, None, None)
         split, ctx.split = ctx.split, None
         dx = (fused_ce_dx_cuda(x, w, labels, lse, dce, split) if want_dx
               else None)
         dw = (fused_ce_dw_cuda(x, w, labels, lse, dce, split) if want_dw
               else None)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def fused_lm_cross_entropy(x: torch.Tensor, w: torch.Tensor,
@@ -521,15 +535,24 @@ def fused_lm_cross_entropy(x: torch.Tensor, w: torch.Tensor,
     0 and the mean is over the valid ones, the count clamped to 1. A
     label outside [0, V) picks no logit (its CE is the lse).
 
-    ``mesh``: the token-sharded variant (``pallas_lm_cross_entropy_
-    sharded``) is not ported: multi-GPU comes with a later slice."""
+    ``mesh`` (:mod:`dtf_tpu_torch.core.mesh`): the token-sharded variant
+    (``pallas_lm_cross_entropy_sharded``). ``x`` and ``labels`` are this
+    rank's tokens of the data axis, ``w`` whole on every rank; each rank
+    runs the kernels on its own tokens, and the mean and the count are
+    the global ones (:class:`_FusedCE`). The vocab stays whole, so a
+    model axis > 1 raises."""
+    group = None
     if mesh is not None:
-        raise NotImplementedError("fused_lm_cross_entropy(mesh=...): the "
-                                  "sharded fused CE is not yet ported")
+        if mesh.model_size > 1:
+            raise ValueError(
+                "the fused CE keeps the vocab whole per rank; it cannot "
+                "combine with a model (TP) mesh axis — use the standard "
+                "loss")
+        group = mesh.data_group
     xf = x.reshape(-1, x.shape[-1])
     if not torch.is_grad_enabled():
         # no backward will run: the forward then splits W's stored pair
         # alone (inside the Function, needs_input_grad still reads
         # requires_grad)
         xf, w = xf.detach(), w.detach()
-    return _FusedCE.apply(xf, w, labels.reshape(-1), ignore_index)
+    return _FusedCE.apply(xf, w, labels.reshape(-1), ignore_index, group)

@@ -27,6 +27,8 @@ from typing import Callable, NamedTuple, Union
 import numpy as np
 import torch
 
+from dtf_tpu_torch.core import comms
+
 Params = dict
 Schedule = Union[float, Callable[[int], float]]
 
@@ -61,9 +63,33 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(n * n for n in norms))
 
 
+class ShardedTree(dict):
+    """Named tensors of which those named in ``sharded`` are this rank's
+    ZeRO-1 blocks over ``group``; the rest every rank holds whole. The
+    train step hands the gradients to the optimizer so, and
+    :func:`tree_norm` takes the norm of the whole tree from it."""
+
+    def __init__(self, tensors: dict, sharded, group):
+        super().__init__(tensors)
+        self.sharded = frozenset(sharded)
+        self.group = group
+
+
+def tree_norm(tree: dict) -> torch.Tensor:
+    """The global L2 norm of a dict of tensors, whole or
+    :class:`ShardedTree` (the shards' squares summed over the group once,
+    the whole leaves' added once, not once a rank)."""
+    if isinstance(tree, ShardedTree):
+        return comms.global_norm(
+            [t for n, t in tree.items() if n in tree.sharded],
+            [t for n, t in tree.items() if n not in tree.sharded],
+            tree.group)
+    return global_norm(tree.values())
+
+
 def clip_by_global_norm(max_norm: float) -> Transform:
     def update(updates, state, params=None):
-        g_norm = global_norm(updates.values())
+        g_norm = tree_norm(updates)
         keep = g_norm < max_norm           # optax's lax.select(trigger, ...)
         return {n: torch.where(keep, t, (t / g_norm) * max_norm)
                 for n, t in updates.items()}, state

@@ -8,10 +8,16 @@ range, contributes zeros elsewhere, and one ``psum`` sums the shards.
 ``use_kernel=True`` runs the per-shard gather through the B8 kernel
 (:func:`dtf_tpu_torch.ops.embed_gather.gather_rows`).
 
-This slice runs one device: the whole table is shard 0 and the ``psum``
-is the identity. The multi-GPU lookup (a process group of size > 1, one
-NCCL all-reduce of [batch, dim]) and the placement rules
-(``embedding_rules``) come with the multi-GPU slice.
+Over a process group (the model axis of :mod:`dtf_tpu_torch.core.mesh`)
+rank k holds rows [k·R/N, (k+1)·R/N) of every table
+(:func:`embedding_rules`), and the ``psum`` is one all-reduce of
+[batch, dim]. Torch has no partitioner to turn a plain gather on a
+sharded table into that, so :class:`RowShardedEmbed` calls the explicit
+lookup when it is given a group. The all-reduce's backward is the
+identity: every rank runs the same computation downstream of the summed
+rows, so the cotangent each rank receives is already the whole one (the
+transpose of ``psum`` under ``shard_map``); all-reducing it again would
+scale the tables' gradients by N.
 """
 
 from __future__ import annotations
@@ -50,27 +56,43 @@ def masked_lookup(table_shard: torch.Tensor, ids: torch.Tensor,
     return torch.where(in_range[..., None], rows, torch.zeros_like(rows))
 
 
+class _SumOverShards(torch.autograd.Function):
+    """All-reduce (sum) of the shards' rows over ``group``; the backward
+    is the identity (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, rows, group):
+        import torch.distributed as dist
+
+        rows = rows.clone()
+        dist.all_reduce(rows, group=group)
+        return rows
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def masked_lookup_sharded(table: torch.Tensor, ids: torch.Tensor,
                           group=None, *,
                           use_kernel: bool = False) -> torch.Tensor:
     """``table[ids]`` through :func:`masked_lookup` over the shards of
-    ``group``, summed. One device here: ``group`` None (or of size 1) is
-    one shard holding the whole table, and the sum is the identity.
-    ``use_kernel=True`` gathers with the B8 kernel on CUDA tensors (its
-    plain version on CPU tensors)."""
-    if group is not None:
-        import torch.distributed as dist
-
-        if dist.get_world_size(group) > 1:
-            raise NotImplementedError(
-                "masked_lookup_sharded over a process group of size "
-                f"{dist.get_world_size(group)}: not yet ported (multi-GPU)")
+    ``group``, summed: ``table`` is this rank's shard (rank k of the group
+    holds rows from k·len(table) on), ``ids`` the global row ids, the
+    same on every rank of the group. ``group`` None is one shard holding
+    the whole table, and no collective. ``use_kernel=True`` gathers with
+    the B8 kernel on CUDA tensors (its plain version on CPU tensors)."""
     gather_fn = None
     if use_kernel:
         from dtf_tpu_torch.ops.embed_gather import gather_rows
 
         gather_fn = gather_rows
-    return masked_lookup(table, ids, 0, gather_fn)
+    if group is None:
+        return masked_lookup(table, ids, 0, gather_fn)
+    import torch.distributed as dist
+
+    rows = masked_lookup(table, ids, dist.get_rank(group), gather_fn)
+    return _SumOverShards.apply(rows, group)
 
 
 class RowShardedEmbed(nn.Module):
@@ -82,14 +104,38 @@ class RowShardedEmbed(nn.Module):
     bf16 table), then the cast back to f32, as JAX's transpose does; the
     table's gradient is dense, every row. Initialize it with
     :func:`dtf_tpu_torch.convert.init_params_widedeep` (or load a flax
-    tree)."""
+    tree).
+
+    ``group``: the table is row-sharded over the group's ranks, this
+    rank's ``weight`` holding its num_embeddings / size rows, and the
+    lookup is :func:`masked_lookup_sharded` with the B8 gather
+    (``use_kernel=True``)."""
 
     def __init__(self, num_embeddings: int, features: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 group=None):
         super().__init__()
         self.dtype = dtype
+        self.group = group
+        if group is not None:
+            import torch.distributed as dist
+
+            n = dist.get_world_size(group)
+            if num_embeddings % n:
+                raise ValueError(f"{num_embeddings} table rows do not "
+                                 f"split over {n} ranks")
+            num_embeddings //= n
         self.weight = nn.Parameter(torch.zeros(
             num_embeddings, features, dtype=torch.float32, device=device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return _take(self.weight.to(self.dtype), ids)
+        table = self.weight.to(self.dtype)
+        if self.group is None:
+            return _take(table, ids)
+        return masked_lookup_sharded(table, ids, self.group, use_kernel=True)
+
+
+def embedding_rules(axis: str = "model"):
+    """The placement rule of every :class:`RowShardedEmbed` table: rows
+    over ``axis`` (:mod:`dtf_tpu_torch.core.sharding`)."""
+    return [(r"embed_tables.*\.weight$", (axis, None))]

@@ -1,7 +1,7 @@
 """Profile the port's training step on the GPU (the twin of ``profile_generate``).
 
     python -m dtf_tpu_torch.profile_train [--steps 3] [--remat]
-        [--loss_pallas | --loss_chunk_tokens N]
+        [--loss_pallas | --loss_chunk_tokens N] [--nccl_world1]
 
 GPT-2 small at full width with the trainer's init (seed 0), batch 8 ×
 seq 1024 from ``SyntheticData("gpt")``, the launcher's AdamW recipe, the
@@ -23,8 +23,13 @@ the fused or token-chunked one. After three warm-up steps it
    ``torch.profiler`` and sums the device time by kernel family: the
    flash forward (B1), dQ (B2), dK/dV (B3), the fused CE forward (B5),
    the merge of its parts, the split pass, dX (B6) and dW (B7), GEMMs
-   (cuBLAS), the optimizer's multi-tensor kernels, and the rest
-   (elementwise, LayerNorm, softmax, reductions).
+   (cuBLAS), the optimizer's multi-tensor kernels, NCCL's, and the
+   rest (elementwise, LayerNorm, softmax, reductions).
+
+``--nccl_world1``: the whole steps (0 and 3) run the data-parallel step
+inside a process group of ONE over NCCL, with ZeRO-1 on: every
+collective and every pass the data-parallel step adds, at world size 1
+(the parts of 1 and 2 are the plain step's).
 
 It prints the top kernels by device time, then one JSON line: the card's
 name and power limit, the wall time per step (unprofiled and profiled),
@@ -58,6 +63,7 @@ FAMILIES = (
     ("gemm", re.compile(r"gemm|nvjet|xmma|cutlass", re.I)),
     ("optimizer (multi-tensor)", re.compile(r"multi_tensor_apply|foreach",
                                             re.I)),
+    ("nccl", re.compile(r"nccl", re.I)),
 )
 
 
@@ -114,6 +120,9 @@ def main(argv=None) -> int:
     loss.add_argument("--loss_chunk_tokens", type=int, default=0,
                       help="the token-chunked loss, this many tokens a "
                            "chunk")
+    p.add_argument("--nccl_world1", action="store_true",
+                   help="whole steps inside a process group of one over "
+                        "NCCL, ZeRO-1 on")
     args = p.parse_args(argv)
 
     import torch
@@ -133,11 +142,26 @@ def main(argv=None) -> int:
     tx = optim.adamw(optim.join_schedules(
         [optim.linear_schedule(0.0, 3e-4, 4),
          optim.cosine_decay_schedule(3e-4, 1000)], [4]), weight_decay=0.1)
-    state = tr.create_train_state(model, tx, 0)
     loss_opts = dict(loss_pallas=args.loss_pallas,
                      loss_chunk_tokens=args.loss_chunk_tokens)
     fused = gpt._fused_ce(0, args.loss_chunk_tokens, args.loss_pallas)
-    step = tr.make_train_step(gpt.make_loss(model, **loss_opts), tx)
+    mesh = layout = None
+    if args.nccl_world1:
+        import torch.distributed as dist
+
+        from dtf_tpu_torch.core.dist import free_port
+        from dtf_tpu_torch.core.mesh import MeshConfig, make_mesh
+        from dtf_tpu_torch.core.sharding import make_layout
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                f"{free_port()}", world_size=1, rank=0)
+        mesh = make_mesh(MeshConfig(data=1), torch.device("cuda", 0))
+        layout = make_layout(dict(model.named_parameters()), mesh,
+                             zero1=True)
+    state = tr.create_train_state(model, tx, 0, mesh=mesh, layout=layout)
+    step = tr.make_train_step(gpt.make_loss(model, **loss_opts, mesh=mesh),
+                              tx, mesh=mesh)
     data = SyntheticData("gpt", BATCH, seed=0, seq_len=SEQ,
                          vocab_size=cfg.vocab_size)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in
@@ -248,7 +272,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "model": "gpt2-small", "batch": BATCH, "seq": SEQ,
-        "remat": args.remat, "loss": (
+        "remat": args.remat, "nccl_world1": args.nccl_world1, "loss": (
             "loss_pallas" if args.loss_pallas else
             f"loss_chunk_tokens={args.loss_chunk_tokens}"
             if args.loss_chunk_tokens else "monolithic"),
@@ -263,6 +287,10 @@ def main(argv=None) -> int:
         "fused_ce_kernels_ms": fused_ms,
         "head_ce_ms": head_ce, "ce_without_head_gemms_ms":
             head_ce - head_gemm_ms}))
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

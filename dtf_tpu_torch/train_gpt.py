@@ -15,10 +15,17 @@ stream) → ``model_config.json`` manifest → hooks → ``Trainer.fit`` →
 on ``cuda`` (``--attn_impl=auto``). A relaunch into the same ``--logdir``
 resumes from its newest checkpoint, at the batch of the step it resumes.
 
-One device. Flags whose features are not ported raise when set away from
-their defaults (the ``UNPORTED`` table; any mesh axis > 1 raises too).
-``--profile_on_demand`` is on by default, as in the JAX launcher, and
-inert here: the profiler hooks are not ported.
+More than one process (``--worker_hosts``, one process per device) is
+data parallelism over ``--mesh_data``: each rank reads its rows of the
+global ``--batch_size``, the gradient is the global batch's (one
+all-reduce, or under ``--zero1``, on by default, a reduce-scatter, the
+update on this rank's blocks of the optimizer state and an all-gather
+of the parameters), and ``--loss_pallas`` runs the token-sharded fused
+CE on each rank's tokens. The chief prints the metrics and writes the
+checkpoint. ``--mesh_model`` > 1 (tensor parallelism) and the other
+unported flags raise when set away from their defaults (the
+``UNPORTED`` table). ``--profile_on_demand`` is on by default, as in the
+JAX launcher, and inert here: the profiler hooks are not ported.
 """
 
 from __future__ import annotations
@@ -57,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--size", default="small",
                    help="small (gpt2-124M) | medium (gpt2-355M) | tiny")
     add_bool(p, "zero1", True, "shard optimizer state over the data axis "
-             "(the identity on one device)")
+             "(ZeRO-1)")
     p.add_argument("--moe_every", type=int, default=0)
     p.add_argument("--moe_top_k", type=int, default=1)
     add_bool(p, "remat", False, "recompute each block in the backward")
@@ -97,21 +104,22 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _eval_hook(args, device, eval_fn, writer, vocab_size):
+def _eval_hook(args, device, eval_fn, writer, vocab_size, mesh):
     """The held-out eval (``lm_eval_hook``): ``<data_dir>/val.bin`` when
     present; a synthetic stream at seed+1 only when training itself is
     synthetic; none (with a warning) for real tokens without a val split.
-    4 batches a sweep."""
+    4 batches a sweep, each rank its rows, the metrics reduced over the
+    data group."""
+    from dtf_tpu_torch.cli.launch import host_batches
     from dtf_tpu_torch.core import train as tr
     from dtf_tpu_torch.data.formats import TokenBinData, detect_token_data
     from dtf_tpu_torch.data.synthetic import SyntheticData
     from dtf_tpu_torch.hooks import EvalHook
     from dtf_tpu_torch.loop import place_batch
 
-    eval_data = detect_token_data(args.data_dir, args.batch_size,
-                                  args.seq_len, mode="clm",
-                                  vocab_size=vocab_size, seed=args.seed,
-                                  split="val")
+    eval_data = host_batches(mesh, lambda **host: detect_token_data(
+        args.data_dir, args.batch_size, args.seq_len, mode="clm",
+        vocab_size=vocab_size, seed=args.seed, split="val", **host))
     if eval_data is not None:
         def batches():
             return (eval_data.batch(i) for i in range(4))
@@ -120,12 +128,13 @@ def _eval_hook(args, device, eval_fn, writer, vocab_size):
                     "scoring on synthetic data", args.data_dir)
         return None
     else:
-        held_out = SyntheticData("gpt", args.batch_size, seed=args.seed + 1,
-                                 seq_len=args.seq_len, vocab_size=vocab_size)
+        held_out = host_batches(mesh, lambda **host: SyntheticData(
+            "gpt", args.batch_size, seed=args.seed + 1, seq_len=args.seq_len,
+            vocab_size=vocab_size, **host))
 
         def batches():
             return (held_out.batch(10_000_000 + i) for i in range(4))
-    return EvalHook(tr.make_eval_step(eval_fn), batches, writer,
+    return EvalHook(tr.make_eval_step(eval_fn, mesh), batches, writer,
                     args.eval_every or args.train_steps,
                     place_batch=lambda b: place_batch(b, device))
 
@@ -149,9 +158,10 @@ def run(argv=None):
     from dtf_tpu_torch import optim
     from dtf_tpu_torch.checkpoint import Checkpointer, save_model_config
     from dtf_tpu_torch.cli import flags as dflags
-    from dtf_tpu_torch.cli.launch import setup
+    from dtf_tpu_torch.cli.launch import host_batches, setup
     from dtf_tpu_torch.convert import init_params_flax, params_from_flax
     from dtf_tpu_torch.core import train as tr
+    from dtf_tpu_torch.core.sharding import make_layout
     from dtf_tpu_torch.data.formats import detect_token_data
     from dtf_tpu_torch.data.synthetic import SyntheticData
     from dtf_tpu_torch.hooks import (CheckpointHook, LoggingHook,
@@ -162,7 +172,11 @@ def run(argv=None):
                                        param_count)
     from dtf_tpu_torch.models import gpt
 
-    device, _ = setup(args)
+    if args.mesh_model > 1:
+        raise NotImplementedError(
+            f"--mesh_model={args.mesh_model}: GPT over a model axis (tensor "
+            "parallelism) is not yet ported")
+    device, info, mesh = setup(args)
     try:
         base = gpt.GPTConfig.by_name(args.size)
     except KeyError as e:
@@ -189,41 +203,49 @@ def run(argv=None):
     model.load_state_dict(params_from_flax(init_params_flax(cfg, args.seed)))
     loss_opts = dict(loss_chunk=lpath.chunk_vocab,
                      loss_chunk_tokens=lpath.chunk_tokens,
-                     loss_pallas=lpath.pallas)
+                     loss_pallas=lpath.pallas, mesh=mesh)
     loss_fn = gpt.make_loss(model, **loss_opts)
     eval_fn = gpt.make_eval(model, **loss_opts)
-    # --zero1 shards the optimizer state over the data axis, which is 1 on
-    # one device: the sharding is the identity
-    state = tr.create_train_state(model, tx, args.seed)
+    layout = (make_layout(dict(model.named_parameters()), mesh,
+                          zero1=args.zero1) if mesh is not None else None)
+    state = tr.create_train_state(model, tx, args.seed, mesh=mesh,
+                                  layout=layout)
 
-    data = detect_token_data(args.data_dir, args.batch_size, args.seq_len,
-                             mode="clm", vocab_size=cfg.vocab_size,
-                             seed=args.seed)
+    data = host_batches(mesh, lambda **host: detect_token_data(
+        args.data_dir, args.batch_size, args.seq_len, mode="clm",
+        vocab_size=cfg.vocab_size, seed=args.seed, **host))
     if data is None:
         if args.data_dir:
             log.warning("no token .bin in %s; using synthetic data",
                         args.data_dir)
-        data = SyntheticData("gpt", args.batch_size, seed=args.seed,
-                             seq_len=args.seq_len, vocab_size=cfg.vocab_size)
-    dflags.resolve_grad_shard(args, data_axis=1)
-    step = tr.make_train_step(loss_fn, tx, grad_accum=args.grad_accum)
+        data = host_batches(mesh, lambda **host: SyntheticData(
+            "gpt", args.batch_size, seed=args.seed, seq_len=args.seq_len,
+            vocab_size=cfg.vocab_size, **host))
+    grad_shard = dflags.resolve_grad_shard(
+        args, data_axis=mesh.data_size if mesh is not None else 1,
+        blockers=() if args.zero1 else ["--nozero1 (the sharded update "
+                                        "needs ZeRO-1's optimizer state)"])
+    step = tr.make_train_step(loss_fn, tx, grad_accum=args.grad_accum,
+                              mesh=mesh, grad_shard=grad_shard)
 
     tokens_per_step = args.batch_size * args.seq_len
     model_flops = analytic_lm_flops_per_step(
         n_params=param_count(state.params), layers=cfg.layers,
         width=cfg.d_model, seq_len=args.seq_len,
         tokens_per_step=tokens_per_step)
-    writer = MetricWriter()
+    writer = MetricWriter(echo=info.is_chief)
     ckpt = Checkpointer(os.path.join(args.logdir, "ckpt"),
-                        save_interval_steps=args.checkpoint_every)
-    save_model_config(ckpt.directory, {
-        "model": "gpt", "size": args.size,
-        "kv_heads": args.kv_heads, "attn_window": args.attn_window,
-        "attn_global_every": args.attn_global_every,
-        "moe_every": args.moe_every, "vocab_size": cfg.vocab_size,
-        "d_model": cfg.d_model, "layers": cfg.layers, "heads": cfg.heads,
-        "d_ff": cfg.d_ff, "kv_cache_dtype": ""})
-    eval_hook = _eval_hook(args, device, eval_fn, writer, cfg.vocab_size)
+                        save_interval_steps=args.checkpoint_every, mesh=mesh)
+    if info.is_chief:
+        save_model_config(ckpt.directory, {
+            "model": "gpt", "size": args.size,
+            "kv_heads": args.kv_heads, "attn_window": args.attn_window,
+            "attn_global_every": args.attn_global_every,
+            "moe_every": args.moe_every, "vocab_size": cfg.vocab_size,
+            "d_model": cfg.d_model, "layers": cfg.layers, "heads": cfg.heads,
+            "d_ff": cfg.d_ff, "kv_cache_dtype": ""})
+    eval_hook = _eval_hook(args, device, eval_fn, writer, cfg.vocab_size,
+                           mesh)
     # mfu is a device metric against the H100's peak: on the card only
     hooks = [LoggingHook(writer, args.log_every, lr_schedule=sched,
                          tokens_per_step=tokens_per_step,
@@ -231,7 +253,7 @@ def run(argv=None):
                                                if device.type == "cuda"
                                                else None)),
              CheckpointHook(ckpt, args.checkpoint_every),
-             PreemptionHook(ckpt),
+             PreemptionHook(ckpt, mesh=mesh),
              *([eval_hook] if eval_hook else []),
              StopAtStepHook(args.train_steps)]
     trainer = Trainer(step, device, hooks, checkpointer=ckpt,
@@ -243,7 +265,10 @@ def run(argv=None):
 
 
 def main(argv=None) -> int:
-    state, _ = run(sys.argv[1:] if argv is None else list(argv))
+    from dtf_tpu_torch.cli.launch import own_process_group
+
+    with own_process_group():
+        state, _ = run(sys.argv[1:] if argv is None else list(argv))
     print(f"done: step={int(state.step)}", flush=True)
     return 0
 

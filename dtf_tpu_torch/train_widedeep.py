@@ -16,11 +16,14 @@ held-out eval on a ``seed + 1`` stream every ``--eval_every`` steps, or
 at the end) → ``Trainer.fit`` → ``done: step=N``. A relaunch into the
 same ``--logdir`` resumes from its newest checkpoint.
 
-One device: the tables are looked up whole (``RowShardedEmbed``), as the
-reference's GSPMD path does on a mesh whose ``model`` axis is 1.
-``--mesh_model > 1`` (and any other mesh axis or worker count > 1)
-raises: row-sharding the tables over GPUs comes with the multi-GPU
-slice. ``--telemetry`` and ``--profile_steps`` are not ported and raise.
+On one process the tables are looked up whole (``RowShardedEmbed``,
+``index_select``), as the reference's GSPMD path does on a mesh whose
+``model`` axis is 1. Over processes (``--worker_hosts``, one per device)
+``--mesh_model N`` row-shards both tables over N ranks (``widedeep.rules``:
+each holds 1/N of the 2.6M rows) and looks them up with the masked
+lookup and one all-reduce of [batch, dim], the B8 gather on every step;
+the dense half stays replicated, and ``--mesh_data`` splits the batch as
+for GPT. ``--telemetry`` and ``--profile_steps`` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -71,9 +74,10 @@ def run(argv=None):
 
     from dtf_tpu_torch import optim
     from dtf_tpu_torch.checkpoint import Checkpointer
-    from dtf_tpu_torch.cli.launch import setup
+    from dtf_tpu_torch.cli.launch import host_batches, setup
     from dtf_tpu_torch.convert import init_params_widedeep, params_from_flax
     from dtf_tpu_torch.core import train as tr
+    from dtf_tpu_torch.core.sharding import make_layout
     from dtf_tpu_torch.data.formats import detect_criteo_data
     from dtf_tpu_torch.data.synthetic import SyntheticData
     from dtf_tpu_torch.hooks import (CheckpointHook, EvalHook, LoggingHook,
@@ -82,45 +86,49 @@ def run(argv=None):
     from dtf_tpu_torch.metrics import MetricWriter
     from dtf_tpu_torch.models import widedeep
 
-    device, info = setup(args)
+    device, info, mesh = setup(args)
     model = widedeep.WideDeep(hash_buckets=args.hash_buckets,
-                              embed_dim=args.embed_dim, device=device)
-    model.load_state_dict(params_from_flax(
-        init_params_widedeep(model, args.seed)))
+                              embed_dim=args.embed_dim, device=device,
+                              mesh=mesh)
+    # ZeRO-1 on, the JAX package's create_train_state default
+    layout = (make_layout(dict(model.named_parameters()), mesh,
+                          widedeep.rules, zero1=True)
+              if mesh is not None else None)
+    full = params_from_flax(init_params_widedeep(model, args.seed))
+    model.load_state_dict(full if layout is None else {
+        n: layout.shard_param(n, t, mesh) for n, t in full.items()})
+    del full
     sched = optim.make_lr_schedule(args)        # LoggingHook shows the LR
     tx = optim.make_optimizer(args, optim.adam)
-    state = tr.create_train_state(model, tx, args.seed)
+    state = tr.create_train_state(model, tx, args.seed, mesh=mesh,
+                                  layout=layout)
     step = tr.make_train_step(widedeep.make_loss(model), tx,
-                              grad_accum=args.grad_accum)
+                              grad_accum=args.grad_accum, mesh=mesh)
 
-    data = detect_criteo_data(
+    data = host_batches(mesh, lambda **host: detect_criteo_data(
         args.data_dir, args.batch_size, hash_buckets=args.hash_buckets,
-        seed=args.seed, host_index=info.process_id,
-        host_count=info.num_processes)
+        seed=args.seed, **host))
     if data is None:
         if args.data_dir:
             log.warning("no criteo csv/tsv in %s; using synthetic data",
                         args.data_dir)
-        data = SyntheticData("widedeep", args.batch_size, seed=args.seed,
-                             hash_buckets=args.hash_buckets,
-                             host_index=info.process_id,
-                             host_count=info.num_processes)
+        data = host_batches(mesh, lambda **host: SyntheticData(
+            "widedeep", args.batch_size, seed=args.seed,
+            hash_buckets=args.hash_buckets, **host))
 
-    writer = MetricWriter()
+    writer = MetricWriter(echo=info.is_chief)
     ckpt = Checkpointer(os.path.join(args.logdir, "ckpt"),
-                        save_interval_steps=args.checkpoint_every)
+                        save_interval_steps=args.checkpoint_every, mesh=mesh)
     # held-out CTR eval on a disjoint synthetic stream (seed + 1) only when
     # training itself is synthetic: real Criteo data with no holdout split
     # skips eval rather than score on unrelated rows
     eval_hook = None
     if isinstance(data, SyntheticData):
-        held_out = SyntheticData("widedeep", args.batch_size,
-                                 seed=args.seed + 1,
-                                 hash_buckets=args.hash_buckets,
-                                 host_index=info.process_id,
-                                 host_count=info.num_processes)
+        held_out = host_batches(mesh, lambda **host: SyntheticData(
+            "widedeep", args.batch_size, seed=args.seed + 1,
+            hash_buckets=args.hash_buckets, **host))
         eval_hook = EvalHook(
-            tr.make_eval_step(widedeep.make_eval(model)),
+            tr.make_eval_step(widedeep.make_eval(model), mesh),
             lambda: (held_out.batch(10_000_000 + i) for i in range(4)),
             writer, args.eval_every or args.train_steps,
             place_batch=lambda b: place_batch(b, device))
@@ -131,7 +139,7 @@ def run(argv=None):
                          tokens_per_step=args.batch_size,
                          throughput_name="examples_per_sec"),
              CheckpointHook(ckpt, args.checkpoint_every),
-             PreemptionHook(ckpt),
+             PreemptionHook(ckpt, mesh=mesh),
              *([eval_hook] if eval_hook else []),
              StopAtStepHook(args.train_steps)]
     trainer = Trainer(step, device, hooks, checkpointer=ckpt,
@@ -143,7 +151,10 @@ def run(argv=None):
 
 
 def main(argv=None) -> int:
-    state, _ = run(sys.argv[1:] if argv is None else list(argv))
+    from dtf_tpu_torch.cli.launch import own_process_group
+
+    with own_process_group():
+        state, _ = run(sys.argv[1:] if argv is None else list(argv))
     print(f"done: step={int(state.step)}", flush=True)
     return 0
 

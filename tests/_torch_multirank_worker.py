@@ -1,0 +1,234 @@
+"""One rank of the port's 2-rank gloo checks (``tests/test_torch_multirank.py``).
+
+    python tests/_torch_multirank_worker.py RANK WORLD STORE_FILE OUT_DIR
+
+Imports torch, numpy and the port only (the parent holds the JAX side).
+Each rank joins a gloo group through ``file://STORE_FILE`` and writes
+``OUT_DIR/rank{RANK}.pt``; the parent compares. The cases and their
+inputs are built here, from seeds, for the parent and the ranks alike.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from dtf_tpu_torch import convert, optim  # noqa: E402
+from dtf_tpu_torch.core import train as ttr  # noqa: E402
+from dtf_tpu_torch.core.sharding import make_layout  # noqa: E402
+from dtf_tpu_torch.data.synthetic import SyntheticData  # noqa: E402
+from dtf_tpu_torch.models import gpt as tgpt  # noqa: E402
+from dtf_tpu_torch.models import mnist as tmnist  # noqa: E402
+
+STEPS = 3
+GPT_SEQ, GPT_BATCH = 16, 4
+MNIST_BATCH = 8
+#: ignored labels a step on each rank's rows: rank 0 holds rows 0-1 of
+#: the global batch, rank 1 rows 2-3 (unequal counts, so a mean of the
+#: ranks' means would differ from the global mean)
+IGNORED = ((0, 11), (2, 3))
+
+#: name → (model, grad_accum, grad_shard, zero1, dropout)
+CASES = {
+    "gpt": ("gpt", 1, False, True, 0.0),
+    "gpt_nozero1": ("gpt", 1, False, False, 0.0),
+    "gpt_accum2_grad_shard": ("gpt", 2, True, True, 0.0),
+    "gpt_dropout": ("gpt", 1, False, True, 0.1),
+    "mlp": ("mlp", 1, False, True, 0.0),
+    "mlp_nozero1": ("mlp", 1, False, False, 0.0),
+    "mlp_accum2_grad_shard": ("mlp", 2, True, True, 0.0),
+}
+
+
+class Args:
+    """The launcher's optimizer flags for GPT (cosine with warmup)."""
+    learning_rate, lr_schedule, warmup_steps = 1e-2, "cosine", -1
+    lr_min_ratio, train_steps, clip_grad_norm = 0.1, 10, 1.0
+
+
+def gpt_batches():
+    data = SyntheticData("gpt", GPT_BATCH, seed=3, seq_len=GPT_SEQ,
+                         vocab_size=128)
+    out = []
+    for i in range(STEPS):
+        b = data.batch(i)
+        for row, n in IGNORED:
+            b["labels"][row, :n] = -100
+        out.append(b)
+    return out
+
+
+def mnist_batches():
+    data = SyntheticData("mnist", MNIST_BATCH, seed=5)
+    return [data.batch(i) for i in range(STEPS)]
+
+
+def gpt_tree(dropout=0.0):
+    cfg = tgpt.GPTConfig.tiny(dtype=torch.float32, dropout=dropout)
+    return cfg, convert.init_params_flax(cfg, seed=1)
+
+
+def mlp_tree():
+    return convert.init_params_mnist(tmnist.MLP(device="cpu"), seed=2)
+
+
+def port_run(name, mesh=None):
+    """STEPS steps of case ``name`` on this rank's rows (all of them
+    without a mesh): (losses, grad_norms, whole params, opt_state)."""
+    kind, accum, grad_shard, zero1, dropout = CASES[name]
+    if kind == "gpt":
+        cfg, tree = gpt_tree(dropout)
+        model = tgpt.GPT(cfg, device="cpu")
+        loss_fn = tgpt.make_loss(model, mesh=mesh)
+        tx = optim.wrap_optimizer(optim.adamw(
+            optim.make_lr_schedule(Args), weight_decay=0.1), Args)
+        batches = gpt_batches()
+    else:
+        model, tree = tmnist.MLP(device="cpu"), mlp_tree()
+        loss_fn = tmnist.make_loss(model)
+        tx = optim.sgd(0.1)
+        batches = mnist_batches()
+    model.load_state_dict(convert.params_from_flax(tree))
+    params = dict(model.named_parameters())
+    layout = (make_layout(params, mesh, zero1=zero1) if mesh is not None
+              else None)
+    state = ttr.create_train_state(model, tx, 7, mesh=mesh, layout=layout)
+    step = ttr.make_train_step(loss_fn, tx, grad_accum=accum, mesh=mesh,
+                               grad_shard=grad_shard)
+    losses, norms = [], []
+    for b in batches:
+        if mesh is not None:
+            lo, hi = mesh.host_view.batch_rows(len(next(iter(b.values()))))
+            b = {k: v[lo:hi] for k, v in b.items()}
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    whole = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return {"losses": losses, "norms": norms, "params": whole,
+            "opt_state": state.opt_state,
+            "zero1_dims": dict(layout.zero1_dims) if layout else {}}
+
+
+def lookup_inputs():
+    """A table [R, D], ids with duplicates and ids in both halves, and a
+    cotangent for the rows."""
+    rng = np.random.default_rng(11)
+    table = rng.standard_normal((40, 6)).astype(np.float32)
+    ids = rng.integers(0, 40, (5, 7)).astype(np.int32)
+    ids[0, :3] = 21                                # duplicates
+    ids[1, 0], ids[1, 1] = 0, 39
+    cot = rng.standard_normal((5, 7, 6)).astype(np.float32)
+    return table, ids, cot
+
+
+def ce_inputs():
+    """x [N, D], W [V, D], labels with ignored positions unequal per
+    rank half."""
+    rng = np.random.default_rng(12)
+    n, d, v = 24, 16, 40
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = (rng.standard_normal((v, d)) * 0.3).astype(np.float32)
+    labels = rng.integers(0, v, (n,)).astype(np.int64)
+    labels[:7] = -100
+    labels[n // 2:n // 2 + 2] = -100
+    return x, w, labels
+
+
+def comms_input(rank):
+    """Rank ``rank``'s [3, 4, 2] operand of the collectives' check."""
+    return torch.arange(24, dtype=torch.float32).reshape(3, 4, 2) \
+        * (rank + 1)
+
+
+def dropout_inputs():
+    cfg = tgpt.GPTConfig.tiny(dtype=torch.float32, dropout=0.5)
+    ids = gpt_batches()[0]["input_ids"]
+    return cfg, convert.init_params_flax(cfg, seed=4), ids
+
+
+def dropout_run(cfg, tree, ids, key):
+    model = tgpt.GPT(cfg, device="cpu")
+    model.load_state_dict(convert.params_from_flax(tree))
+    with torch.no_grad():
+        return model(torch.from_numpy(ids), dropout_seed=key)
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("rank", type=int)
+    p.add_argument("world", type=int)
+    p.add_argument("store")
+    p.add_argument("out")
+    a = p.parse_args()
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from dtf_tpu_torch.core.mesh import MeshConfig, make_mesh
+    from dtf_tpu_torch.ops.fused_ce import fused_lm_cross_entropy
+    from dtf_tpu_torch.parallel.embedding import masked_lookup_sharded
+
+    dist.init_process_group("gloo", init_method=f"file://{a.store}",
+                            world_size=a.world, rank=a.rank)
+    cpu = torch.device("cpu")
+    out = {}
+    # (a) the train steps over the data axis
+    data_mesh = make_mesh(MeshConfig(data=a.world), cpu)
+    out["train"] = {name: port_run(name, data_mesh) for name in CASES}
+
+    # (b) the row-sharded lookup over the model axis
+    model_mesh = make_mesh(MeshConfig(model=a.world), cpu)
+    table, ids, cot = lookup_inputs()
+    rows = table.shape[0] // a.world
+    shard = torch.from_numpy(table[a.rank * rows:(a.rank + 1) * rows]
+                             ).requires_grad_()
+    got = {}
+    for kernel in (False, True):
+        y = masked_lookup_sharded(shard, torch.from_numpy(ids),
+                                  model_mesh.model_group, use_kernel=kernel)
+        (g,) = torch.autograd.grad((y * torch.from_numpy(cot)).sum(), shard)
+        got[kernel] = (y.detach(), g)
+    out["lookup"] = got
+
+    # (c) the token-sharded fused CE over the data axis
+    x, w, labels = ce_inputs()
+    lo, hi = data_mesh.host_view.batch_rows(len(x))
+    xt = torch.from_numpy(x[lo:hi]).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    mean, n = fused_lm_cross_entropy(xt, wt, torch.from_numpy(labels[lo:hi]),
+                                     ignore_index=-100, mesh=data_mesh)
+    dx, dw = torch.autograd.grad(mean, (xt, wt))
+    dist.all_reduce(dw)
+    out["ce"] = {"mean": mean.detach(), "n": n, "dx": dx, "dw": dw}
+
+    # the collectives over a group, on a dim other than the first
+    from dtf_tpu_torch.core import comms
+
+    x = comms_input(a.rank)
+    out["comms"] = {
+        "psum": comms.psum(x, data_mesh.data_group),
+        "pmean": comms.pmean(x, data_mesh.data_group),
+        "psum_scatter": comms.psum_scatter(x, data_mesh.data_group,
+                                           scatter_dimension=1),
+        "all_gather": comms.all_gather(x, data_mesh.data_group,
+                                       gather_dimension=1)}
+
+    # (d) the dropout masks: this rank's rows of the global masks
+    cfg, tree, ids = dropout_inputs()
+    lo, hi = data_mesh.host_view.batch_rows(len(ids))
+    out["dropout"] = dropout_run(cfg, tree, ids[lo:hi],
+                                 tgpt.DropoutKey(5, a.rank, a.world))
+    torch.save(out, os.path.join(a.out, f"rank{a.rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

@@ -162,8 +162,14 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_count_nothing_on_cpu():
     assert tfc.launch_counts == {"fused_ce_fwd": 0, "fused_ce_merge": 0,
                                  "fused_ce_split": 0, "fused_ce_dx": 0,
                                  "fused_ce_dw": 0}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfc.fused_lm_cross_entropy(xt, wt, lab, mesh=object())
+    # the token-sharded variant is ported (tests/test_torch_multirank.py);
+    # the vocab stays whole, so a model axis is refused
+    from dtf_tpu_torch.core.mesh import Mesh
+
+    tp = Mesh(data_size=1, model_size=2, data_index=0, model_index=0,
+              data_group=None, model_group=None, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="model"):
+        tfc.fused_lm_cross_entropy(xt, wt, lab, mesh=tp)
 
 
 def _tf32_rna_numpy(a):

@@ -3,7 +3,8 @@
 Dynamic: a child process whose ``jax``, ``jaxlib``, ``flax`` and
 ``dtf_tpu`` imports are POISONED imports every module of the port and runs
 its generate and train entries (the latter also through the fused LM
-loss) and the Wide&Deep trainer on ``--device=cpu`` at a tiny size.
+loss), the Wide&Deep trainer and the MNIST ``distributed`` launcher on
+``--device=cpu`` at a tiny size.
 Static: no file
 of ``dtf_tpu_torch/``, and not ``chip_smoke.py``, has an import of them.
 """
@@ -150,3 +151,18 @@ def test_generate_entry_as_a_module_with_jax_poisoned(poisoned_env):
     assert proc.returncode == 0, proc.stderr[-3000:]
     row = proc.stdout.strip().splitlines()[-1].split(",")
     assert row[:3] == ["5", "6", "7"] and len(row) == 6
+
+
+def test_distributed_entry_as_a_module_with_jax_poisoned(poisoned_env,
+                                                         tmp_path):
+    """``python -m dtf_tpu_torch.distributed`` (MNIST: the cluster flags,
+    the launcher, the mesh and collectives' modules, the train step) runs
+    with nothing of JAX importable."""
+    env, cwd = poisoned_env
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.distributed", "--backend=cpu",
+         "--train_steps=3", "--model=mlp", f"--logdir={tmp_path / 'run'}"],
+        env=env, cwd=cwd, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1].startswith(
+        "done: step=3 eval_accuracy=")

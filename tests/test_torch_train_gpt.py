@@ -190,12 +190,16 @@ def test_init_distributions_match_make_init():
 
 @pytest.mark.parametrize("flag", [
     "--moe_every=2", "--tp_overlap", "--matmul_precision=int8",
-    "--mesh_data=2", "--mesh_model=2", "--pipe_schedule=1f1b",
+    "--mesh_model=2", "--mesh_seq=2", "--mesh_pipe=2", "--mesh_expert=2",
+    "--devices_per_host=2", "--pipe_schedule=1f1b",
     "--pipe_microbatches=2", "--distill_from=d", "--stream_spec=x.json",
     "--publish_dir=p", "--event_log_dir=e", "--distill_draft=1",
     "--profile_steps=3", "--telemetry", "--optimizer=lamb",
-    "--optimizer=adafactor", "--worker_hosts=a:1,b:2"])
+    "--optimizer=adafactor"])
 def test_unported_flags_raise(tmp_path, flag):
+    """More than one worker and ``--mesh_data`` are ported (data
+    parallelism, ``tests/test_torch_multirank.py``); a data axis > 1 in
+    one process is a usage error (``tests/test_torch_dist.py``)."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _run(tmp_path, 1, flag)
 

@@ -308,5 +308,7 @@ def test_train_widedeep_entry_trains_resumes_and_refuses_a_mesh(tmp_path,
     state, writer = train_widedeep.run(flags + ["--train_steps=3"])
     assert state.step == 3
     assert [s for s, m in writer.history if "loss" in m] == [3]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # row-sharded tables need one process per rank (they run in
+    # tests/test_torch_multirank.py); one process refuses the mesh
+    with pytest.raises(ValueError, match="one process per device"):
         train_widedeep.run(flags + ["--mesh_model=2"])
