@@ -12,10 +12,14 @@ or anything of ``dtf_tpu``. The module layout mirrors the JAX package:
   ``ops/fused_ce.py`` + ``ops/csrc/fused_ce.cu``: the fused LM head +
   cross-entropy kernels;
 - ``ops/embed_gather.py`` + ``ops/csrc/embed_gather.cu``: the
-  embedding-row gather, a hand-written Hopper kernel, differentiable;
+  embedding-row gather and the masked lookup of a row shard (up to two
+  tables a launch, the bf16 cast folded in), a hand-written Hopper
+  kernel, differentiable;
 - ``parallel/embedding.py``: the row-sharded embedding table
   (``RowShardedEmbed``), the masked lookup over a process group
-  (``masked_lookup_sharded``) and ``embedding_rules``;
+  (``masked_lookup_sharded``; ``masked_lookup_grouped`` and
+  ``lookup_tables`` for the tables of one group in one launch) and
+  ``embedding_rules``;
 - ``core/dist.py``: the cluster-flag collapse and the process group
   (NCCL / gloo); ``core/mesh.py``: ``MeshConfig``, ``HostView`` and the
   data and model axes' groups; ``core/comms.py``: the collectives over a

@@ -17,8 +17,10 @@ its gather, the wide table stays f32. On one rank the tables are looked
 up with ``index_select`` (:class:`~dtf_tpu_torch.parallel.embedding.
 RowShardedEmbed`), as the reference looks them up with ``jnp.take``.
 Given a ``mesh`` whose model axis is > 1, both tables are row-sharded
-over it (:data:`rules`) and looked up by ``masked_lookup_sharded`` with
-the B8 gather, two launches a forward; the dense half stays replicated.
+over it (:data:`rules`) and looked up together
+(:func:`~dtf_tpu_torch.parallel.embedding.lookup_tables`): ONE B8 launch
+a forward serves both, the deep rows rounded to ``dtype`` as they are
+stored (no cast of the shard); the dense half stays replicated.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from torch.nn import functional as F
 from dtf_tpu_torch.core.comms import TpDense
 from dtf_tpu_torch.core.train import LossAux
 from dtf_tpu_torch.parallel.embedding import RowShardedEmbed, \
-    embedding_rules
+    embedding_rules, lookup_tables
 
 #: dense (numeric) features of a Criteo row
 NUM_DENSE = 13
@@ -79,9 +81,9 @@ class WideDeep(nn.Module):
                 sparse: torch.Tensor) -> torch.Tensor:
         """dense [B, 13] f32, sparse [B, num_sparse] int → logits [B] f32."""
         flat = self.flat_ids(sparse)
-        wide = self.embed_tables_wide(flat)[..., 0].sum(-1)
-        wide = wide + self.wide_dense(dense)[..., 0]
-        emb = self.embed_tables_deep(flat)                 # [B, F, E]
+        wide, emb = lookup_tables((self.embed_tables_wide,
+                                   self.embed_tables_deep), flat)
+        wide = wide[..., 0].sum(-1) + self.wide_dense(dense)[..., 0]
         x = torch.cat([emb.reshape(emb.shape[0], -1),
                        dense.to(self.dtype)], dim=-1)
         for i in range(len(self.mlp)):

@@ -129,6 +129,73 @@ def lookup_inputs():
     return table, ids, cot
 
 
+#: the tiny Wide&Deep of check (b): 3 features of 8 buckets (24 table
+#: rows, 12 a rank), 4-wide deep embeddings
+WD_SPARSE, WD_BUCKETS, WD_EMBED = 3, 8, 4
+WD_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def widedeep_model(dtype, mesh=None):
+    from dtf_tpu_torch.models.widedeep import WideDeep
+
+    return WideDeep(num_sparse=WD_SPARSE, hash_buckets=WD_BUCKETS,
+                    embed_dim=WD_EMBED, mlp=(8,), dtype=dtype, device="cpu",
+                    mesh=mesh)
+
+
+def widedeep_inputs():
+    """The tiny Wide&Deep's whole tables (wide [24, 1], deep [24, 4], the
+    trainer's init), bucket ids [6, 3] with a repeated row, and a
+    cotangent for each table's rows."""
+    tree = convert.init_params_widedeep(widedeep_model(torch.float32), 13)
+    rng = np.random.default_rng(14)
+    sparse = rng.integers(0, WD_BUCKETS, (6, WD_SPARSE)).astype(np.int32)
+    sparse[1] = sparse[0]                          # every id twice
+    sparse[2, 0] = sparse[0, 0]                    # one id 3 times
+    cots = [rng.standard_normal((6, WD_SPARSE, w)).astype(np.float32)
+            for w in (1, WD_EMBED)]
+    return ([tree["embed_tables_wide"]["embedding"],
+             tree["embed_tables_deep"]["embedding"]], sparse, cots)
+
+
+def widedeep_lookup_run(mesh, rank, world):
+    """The tiny Wide&Deep's two tables row-sharded over the model axis,
+    per dtype: the grouped lookup the model's forward takes
+    (``lookup_tables``) and, independent of it, the per-table composite
+    it replaces (each shard cast, ``masked_lookup`` with the
+    plain-contract ``gather_rows``, the sum over the shards) — outputs
+    and this rank's table gradients of both."""
+    from dtf_tpu_torch.ops.embed_gather import gather_rows
+    from dtf_tpu_torch.parallel.embedding import _SumOverShards, \
+        lookup_tables, masked_lookup
+
+    tables, sparse, cots = widedeep_inputs()
+    rows = tables[0].shape[0] // world
+    got = {}
+    for dtype in WD_DTYPES:
+        model = widedeep_model(dtype, mesh)
+        embeds = (model.embed_tables_wide, model.embed_tables_deep)
+        with torch.no_grad():
+            for e, t in zip(embeds, tables):
+                e.weight.copy_(torch.from_numpy(
+                    t[rank * rows:(rank + 1) * rows]))
+        flat = model.flat_ids(torch.from_numpy(sparse))
+        weights = [e.weight for e in embeds]
+        runs = {}
+        for name, fn in (
+                ("grouped", lambda: lookup_tables(embeds, flat)),
+                ("per_table", lambda: [_SumOverShards.apply(masked_lookup(
+                    e.weight.to(e.dtype), flat, rank, gather_fn=gather_rows),
+                    mesh.model_group) for e in embeds])):
+            outs = fn()
+            loss = sum((o.float() * torch.from_numpy(c)).sum()
+                       for o, c in zip(outs, cots))
+            grads = torch.autograd.grad(loss, weights)
+            runs[name] = ([o.detach() for o in outs], list(grads))
+        got[str(dtype)] = runs
+    return got
+
+
 def ce_inputs():
     """x [N, D], W [V, D], labels with ignored positions unequal per
     rank half."""
@@ -196,6 +263,7 @@ def main():
         (g,) = torch.autograd.grad((y * torch.from_numpy(cot)).sum(), shard)
         got[kernel] = (y.detach(), g)
     out["lookup"] = got
+    out["widedeep_lookup"] = widedeep_lookup_run(model_mesh, a.rank, a.world)
 
     # (c) the token-sharded fused CE over the data axis
     x, w, labels = ce_inputs()

@@ -12,7 +12,10 @@ other orders; for the fused CE (B5–B7), f32 operands with TF32 off, the
 same products summed in another order (3xTF32, ~2^-21 a product). B5
 (with the merge of its vocab parts), B6 and B7 sum in a fixed order with
 no atomics: two launches are bitwise equal. The embedding gather (B8) copies: it equals its
-plain version exactly.
+plain version exactly, in its masked form too (one launch for one or two
+tables of a row shard, f32 rounded to bf16 to nearest even as it is
+stored), and the masked lookup's table gradients equal today's per-table
+composite bit for bit (index_add_ deterministic).
 """
 
 import pytest
@@ -379,3 +382,103 @@ def test_embed_gather_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         teg.gather_rows_cuda(table.t(), ids)
     with pytest.raises(ValueError, match="expected table"):
         teg.gather_rows(table[0], ids)
+
+
+#: (rows a shard, [(d, table dtype, out dtype)], shard)
+MASKED_CASES = [
+    (500, [(1, torch.float32, torch.float32),
+           (16, torch.float32, torch.bfloat16)], 1),
+    (500, [(16, torch.float32, torch.float32)], 0),
+    (500, [(16, torch.float32, torch.bfloat16)], 2),
+    (500, [(16, torch.bfloat16, torch.bfloat16)], 1),
+    (300, [(3, torch.bfloat16, torch.bfloat16),
+           (17, torch.float32, torch.bfloat16)], 1),
+    (200, [(768, torch.float32, torch.bfloat16),
+           (1, torch.float32, torch.float32)], 1),
+]
+
+
+@pytest.mark.parametrize("rows,specs,shard", MASKED_CASES)
+def test_masked_gather_kernel_matches_plain(cuda, rows, specs, shard):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    tables = [torch.randn(rows, d, generator=g, device=cuda).to(dt)
+              for d, dt, _ in specs]
+    out_dtypes = [o for _, _, o in specs]
+    ids = torch.randint(-5, 3 * rows + 5, (9, 41), generator=g,
+                        device=cuda, dtype=torch.int32)
+    ids[0, :4] = torch.tensor([shard * rows, (shard + 1) * rows - 1,
+                               (shard + 1) * rows, shard * rows - 1])
+    teg.reset_launch_counts()
+    got = teg.masked_gather_rows_cuda(tables, ids, shard, out_dtypes)
+    want = teg.masked_gather_rows_reference(tables, ids, shard, out_dtypes)
+    assert teg.launch_counts == {"embed_gather": 1}
+    inside = (ids >= shard * rows) & (ids < (shard + 1) * rows)
+    for o, w, t, (d, _, dt) in zip(got, want, tables, specs):
+        assert o.shape == (9, 41, d) and o.dtype == dt
+        assert torch.equal(o, w)
+        assert not o[~inside].any()
+        assert torch.equal(o[inside],
+                           t.to(dt)[(ids[inside] - shard * rows).long()])
+
+
+def test_masked_gather_strided_and_empty(cuda):
+    base = torch.randn(100, 12, device=cuda)
+    tables = (base[50:, 2:10], base[50:, :1])          # row stride 12
+    ids = torch.tensor([-1, 0, 49, 50, 99, 100, 75, 2 ** 31 - 1],
+                       dtype=torch.int32, device=cuda)
+    dtypes = (torch.bfloat16, torch.float32)
+    teg.reset_launch_counts()
+    got = teg.masked_gather_rows_cuda(tables, ids, 1, dtypes)
+    want = teg.masked_gather_rows_reference(tables, ids, 1, dtypes)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    empty = teg.masked_gather_rows_cuda(tables, ids[:0], 1, dtypes)
+    assert [tuple(e.shape) for e in empty] == [(0, 8), (0, 1)]
+    assert teg.launch_counts == {"embed_gather": 1}
+
+
+def test_masked_gather_autograd_one_launch_grads_equal_composite(cuda):
+    from dtf_tpu_torch.parallel import embedding as temb
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    weights = [torch.randn(64, d, generator=g, device=cuda) for d in (1, 16)]
+    dtypes = (torch.float32, torch.bfloat16)
+    ids = torch.randint(0, 128, (32, 26), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids[1] = ids[0]
+    ids[2, :4] = ids[0, 0]                     # one id 6 times
+    cts = [torch.randn(32, 26, d, generator=g, device=cuda).to(dt)
+           for d, dt in zip((1, 16), dtypes)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        params = [w.clone().requires_grad_() for w in weights]
+        teg.reset_launch_counts()
+        outs = teg.masked_gather_rows(params, ids, 1, dtypes)
+        assert teg.launch_counts == {"embed_gather": 1}
+        got = torch.autograd.grad(outs, params, cts)
+        assert teg.launch_counts == {"embed_gather": 1}
+        params = [w.clone().requires_grad_() for w in weights]
+        today = [temb.masked_lookup(p.to(dt), ids, 1,
+                                    gather_fn=teg.gather_rows)
+                 for p, dt in zip(params, dtypes)]
+        want = torch.autograd.grad(today, params, cts)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for o, t in zip(outs, today):
+        assert torch.equal(o, t)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.float32 and torch.equal(a, b)
+
+
+def test_masked_gather_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    table = torch.randn(10, 4, device=cuda)
+    ids = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one or two"):
+        teg.masked_gather_rows_cuda((table,) * 3, ids, 0)
+    with pytest.raises(ValueError, match="share ids"):
+        teg.masked_gather_rows_cuda((table, table[:5]), ids, 0)
+    with pytest.raises(ValueError, match="bf16 from f32"):
+        teg.masked_gather_rows_cuda((table.bfloat16(),), ids, 0,
+                                    (torch.float32,))
+    with pytest.raises(ValueError, match="int32"):
+        teg.masked_gather_rows_cuda((table,), ids.long(), 0)

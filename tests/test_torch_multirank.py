@@ -20,7 +20,15 @@ their stderr.
 (b) ``masked_lookup_sharded`` with the table's rows split over the model
     axis equals ``jnp.take`` exactly (a gather copies), and the shards'
     gradients put together equal ``take``'s within ``F32_TOL`` (an
-    all-reduce in the backward would double them).
+    all-reduce in the backward would double them). A tiny Wide&Deep's two
+    row-sharded tables (f32, and the deep one at bf16) through the
+    grouped lookup its forward takes (one B8 launch on the card) equal
+    the per-table composite it replaces (each shard cast,
+    ``masked_lookup`` with ``gather_rows``, the shards summed) bit for
+    bit, outputs and gradients; the outputs equal ``jnp.take`` of the
+    cast tables exactly, and the gradients ``take``'s within ``F32_TOL``,
+    the bf16 table's within ``BF16_GRAD_TOL`` of its largest element
+    (JAX sums a repeated id's cotangents in bf16, the port in f32).
 (c) The token-sharded fused CE (its plain version on the CPU) gives the
     unsharded ``(mean, n)``, dX row for row, and dW summed over the ranks,
     within ``F32_TOL``.
@@ -57,6 +65,8 @@ from dtf_tpu_torch.models import gpt as tgpt
 from dtf_tpu_torch.ops.fused_ce import fused_lm_cross_entropy
 
 F32_TOL = 1e-5
+#: a bf16 table's gradient against JAX's, relative to its largest element
+BF16_GRAD_TOL = 2.0 ** -6
 #: the bound on every wait for the ranks
 WAIT_S = 60
 WORLD = 2
@@ -186,6 +196,24 @@ def test_two_ranks_equal_one_rank_and_jax(tmp_path):
         ce_mean, ce_n = fused_lm_cross_entropy(
             xt, wt, torch.from_numpy(labels), ignore_index=-100)
         ce_dx, ce_dw = torch.autograd.grad(ce_mean, (xt, wt))
+        wd_tables, wd_sparse, wd_cots = worker.widedeep_inputs()
+        wd_flat = wd_sparse + np.arange(worker.WD_SPARSE, dtype=np.int32) \
+            * worker.WD_BUCKETS
+        wd_take = {}
+        for dtype in worker.WD_DTYPES:
+            deep_dt = (jnp.bfloat16 if dtype == torch.bfloat16
+                       else jnp.float32)
+
+            def take(t, dt):
+                return jnp.take(t.astype(dt), wd_flat, axis=0)
+
+            outs = [take(t, dt) for t, dt in
+                    zip(wd_tables, (jnp.float32, deep_dt))]
+            grads = [jax.grad(lambda t, dt=dt, c=c: (take(t, dt).astype(
+                jnp.float32) * c).sum())(jnp.asarray(t))
+                for t, dt, c in zip(wd_tables, (jnp.float32, deep_dt),
+                                    wd_cots)]
+            wd_take[str(dtype)] = (outs, grads)
         cfg, tree, drop_ids = worker.dropout_inputs()
         dropped = worker.dropout_run(cfg, tree, drop_ids, 5)
     finally:
@@ -218,6 +246,29 @@ def test_two_ranks_equal_one_rank_and_jax(tmp_path):
         np.testing.assert_array_equal(rows.numpy(), want_rows)
         grad = torch.cat([r["lookup"][kernel][1] for r in ranks])
         _close(grad, take_grad, f"lookup grad (use_kernel={kernel})")
+
+    for dtype in worker.WD_DTYPES:
+        want_outs, want_grads = wd_take[str(dtype)]
+        for r, got in enumerate(ranks):
+            runs = got["widedeep_lookup"][str(dtype)]
+            for a, b in zip(*(runs[k][0] + runs[k][1]
+                              for k in ("grouped", "per_table"))):
+                assert a.dtype == b.dtype and torch.equal(a, b), dtype
+            for o, w in zip(runs["grouped"][0], want_outs):
+                np.testing.assert_array_equal(
+                    o.float().numpy(), np.asarray(w.astype(jnp.float32)))
+        for t, w in enumerate(want_grads):
+            grad = torch.cat([r["widedeep_lookup"][str(dtype)][
+                "grouped"][1][t] for r in ranks])
+            what = f"Wide&Deep table {t} grad vs take ({dtype})"
+            if dtype == torch.bfloat16 and t == 1:
+                w = np.asarray(w)
+                np.testing.assert_allclose(
+                    grad.numpy(), w, rtol=0.0,
+                    atol=BF16_GRAD_TOL * float(np.abs(w).max()),
+                    err_msg=what)
+            else:
+                _close(grad, w, what)
 
     # (c)
     for r, got in enumerate(ranks):
