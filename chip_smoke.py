@@ -116,16 +116,39 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     > 0.55, and no B8 launch (the launcher looks its tables up as the
     JAX one does, with ``take``). Prints step ms, examples/s and peak
     memory.
-
-18. dist_nccl — a process group of ONE over NCCL, made by this script,
+18. resnet_batchnorm — train-mode BatchNorm as the model runs it on
+    the card (PyTorch's fused batch-norm kernels) against the port's
+    plain f32 ops (what the CPU tests hold against flax) on the same
+    bf16 channels-last inputs at ResNet-50's stem, first-stage and
+    last-stage shapes at b256: y, mean, variance, dx, dscale, dbias
+    within ``BN_BF16_TOL`` / ``BN_F32_TOL``; the device ms of both.
+19. train_resnet — ``train_resnet`` in process: ``--config=imagenet``
+    (ResNet-50 v1.5 at full width, 25,557,032 parameters, batch 256, the
+    synthetic ImageNet stream) for 10 steps — finite losses, every
+    BatchNorm running statistic moved, every tensor on the card — and a
+    relaunch that resumes to 12; ``--config=cifar`` (ResNet-20, batch
+    256, 20 steps); then 30 steps of bench.py's recipe on one fixed batch
+    of 128, whose loss must fall by ``RN_FIXED_LOSS_DROP``. No hand
+    kernel launches on this path (cuDNN convolutions, as the JAX
+    package's are XLA's).
+20. resnet_bench — ``profile_resnet``'s measurement at bench.py's batch
+    128 and the launcher's 256 (one fixed batch on the card, SGD 0.1
+    momentum 0.9, 3 warm-up and 20 timed steps): step ms, images/s,
+    analytic MFU, peak memory, device busy and idle share, launches and
+    device ms by family (convolutions, BatchNorm, the rest).
+21. dist_nccl — a process group of ONE over NCCL, made by this script,
     with the entry points run inside it: ``python -m
     dtf_tpu_torch.distributed`` (MNIST softmax, 200 steps; its loss and
     held-out accuracy), and ``train_gpt --loss_pallas --mesh_data 1``
     (GPT-2 small, b8 s1024, 5 steps, ZeRO-1 on: every collective of the
     data-parallel step runs) against the same run with no group: losses
     within ``DIST_LOSS_REL_TOL``, exact fused CE and flash launch counts,
+    the step ms of both; and ``train_resnet --config=cifar --mesh_data
+    1`` (ResNet-20, batch 256, 5 steps, every BatchNorm synchronised over
+    the group) against the same run with no group: losses within
+    ``DIST_LOSS_REL_TOL``, running statistics within ``DIST_RN_STAT_TOL``,
     the step ms of both.
-19. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
+22. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
     group made by this script's ``--dist-child`` ranks; the kernels
     built before the spawn; each rank's output in a file, the wait
     bounded by ``DIST_CHILD_TIMEOUT_S``): ``train_widedeep --mesh_model
@@ -134,8 +157,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     the 1-rank ``index_select`` run within ``DIST_WD_LOSS_REL_TOL``), then
     ``train_gpt --loss_pallas --mesh_data 2`` (4 rows a rank, ZeRO-1,
     5 steps; one B5/B6/B7 a step a rank; losses against one rank on the
-    same global batch within ``DIST_LOSS_REL_TOL``). Its times go
-    through the host (gloo): a check that it runs, not a speed.
+    same global batch within ``DIST_LOSS_REL_TOL``), then ``train_resnet
+    --config=cifar --mesh_data 2`` (128 rows a rank, BatchNorm over both
+    ranks, 5 steps; losses within ``DIST_LOSS_REL_TOL`` and running
+    statistics within ``DIST_RN_STAT_TOL`` of one rank on the same global
+    batch). Its times go through the host (gloo): a check that it runs,
+    not a speed.
 
 Then one JSON line listing every kernel (launches on its main path, error
 against the plain version, times, bound; the 8 ported TPU kernels, the
@@ -2028,6 +2055,38 @@ def phase_train_widedeep(torch, smi):
     return launches
 
 
+#: the ResNet slice (BASELINE configs 2-3): train_resnet --config=imagenet
+#: (ResNet-50 v1.5, 224x224x3, 1000 classes) at the launcher's batch 256,
+#: 10 steps and a relaunch that resumes to 12; --config=cifar (ResNet-20)
+#: at 256, 20 steps
+RN_BATCH, RN_STEPS, RN_RESUME_STEPS, RN_CIFAR_STEPS = 256, 10, 12, 20
+#: stated before the first run: 30 steps of bench.py's recipe (SGD 0.1,
+#: momentum 0.9) on ONE fixed batch of 128 ImageNet-shaped images with
+#: random labels (first loss ~ln 1000 = 6.9) bring the last loss at least
+#: this far below the first
+RN_FIXED_STEPS, RN_FIXED_BATCH, RN_FIXED_LOSS_DROP = 30, 128, 1.0
+#: BatchNorm on the card (PyTorch's fused kernels) against the port's
+#: plain f32 ops on the same bf16 inputs, at ResNet-50's layers at b256:
+#: y and dx are bf16 on both sides, rounded from f32 values that differ
+#: by the statistics' f32 rounding, so an element may land one bf16 step
+#: (2^-7 of its magnitude) away — stated against each tensor's largest
+#: |value|; the f32 statistics and the dscale / dbias sums (over up to
+#: 3.2M elements, Welford's and tree sums' orders): 1e-4 of the largest
+BN_BF16_TOL, BN_F32_TOL = 2.0 ** -7, 1e-4
+#: [N, C, H, W] of ResNet-50's stem, first stage and last stage BatchNorms
+BN_SHAPES = ((256, 64, 112, 112), (256, 256, 56, 56), (256, 2048, 7, 7))
+#: profile_resnet's batches (bench.py's 128 and the launcher's 256) and
+#: its timed steps
+RN_BENCH_BATCHES, RN_BENCH_STEPS = (128, 256), 20
+#: ResNet-20 at batch 256 in a group of one (against no group) and over 2
+#: ranks (against one rank on the same global batch), 5 steps: the losses
+#: within DIST_LOSS_REL_TOL, and every BatchNorm running statistic within
+#: this share of its buffer's largest |value|: the statistics are of bf16
+#: activations (2^-8 relative each), whose sums over 128 rows a rank and
+#: 256 in one process, and the convolutions' at 128 and 256 images, round
+#: in other orders
+DIST_RN_STEPS, DIST_RN_STAT_TOL = 5, 1e-2
+
 #: the multi-process slice: GPT-2 small with the fused loss, b8 s1024 in
 #: all (4 rows a rank at 2 ranks), 5 steps; Wide&Deep at the launcher's
 #: defaults with its tables over 2 ranks, 20 steps
@@ -2046,6 +2105,264 @@ DIST_LOSS_REL_TOL = 1e-3
 DIST_WD_LOSS_REL_TOL = 2.0 ** -6
 #: the bound on the wait for the two ranks of dist_two_ranks_one_card
 DIST_CHILD_TIMEOUT_S = 480
+
+
+def _rn_flags(logdir, *extra, config="imagenet", steps=RN_STEPS):
+    return [f"--config={config}", f"--batch_size={RN_BATCH}",
+            f"--train_steps={steps}", "--log_every=1",
+            f"--checkpoint_every={RN_STEPS}", f"--logdir={logdir}", *extra]
+
+
+def _no_hand_kernels(torch, fn):
+    """``fn()`` counted: the ResNet path launches none of the port's hand
+    kernels (its convolutions are cuDNN's, as the JAX package's are XLA's
+    with no Pallas kernel). Returns (result, wall seconds)."""
+    out, fused, flash, embed, wall = _counted(torch, fn)
+    launches = {**fused, **flash, "embed_gather": embed}
+    require(not any(launches.values()), f"hand kernels launched: {launches}")
+    return out, wall
+
+
+def _on_card(state):
+    bad = [n for n, t in {**state.params, **state.extra}.items()
+           if not t.is_cuda]
+    require(not bad, f"tensors off the card: {bad[:5]}")
+
+
+def phase_resnet_batchnorm(torch, smi):
+    """Train-mode BatchNorm's fused CUDA path (``_fused_forward`` /
+    ``_fused_backward``, what the model runs on the card) against its
+    plain f32 ops (``_plain_forward`` / ``_plain_backward``, what the CPU
+    tests hold against flax) on the same bf16 channels-last inputs at
+    ResNet-50's shapes: y, the batch mean and variance, dx, dscale and
+    dbias; and the device ms of each, forward plus backward."""
+    from dtf_tpu_torch.models import resnet
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = []
+    for shape in BN_SHAPES:
+        def rand(*size, scale=1.0, shift=0.0):
+            return torch.randn(size, device="cuda", generator=gen) \
+                * scale + shift
+
+        x = rand(*shape, scale=2.0, shift=0.5).to(torch.bfloat16) \
+            .contiguous(memory_format=torch.channels_last)
+        gy = rand(*shape).to(torch.bfloat16) \
+            .contiguous(memory_format=torch.channels_last)
+        c = shape[1]
+        scale, bias = rand(c, scale=0.3, shift=1.0), rand(c, scale=0.2)
+        out, ms = {}, {}
+        for name, fwd, bwd in (
+                ("plain", resnet._plain_forward, resnet._plain_backward),
+                ("fused", resnet._fused_forward, resnet._fused_backward)):
+            def run():
+                y, mean, var, saved = fwd(x, scale, bias, resnet.EPSILON,
+                                          None)
+                return (y, mean, var) + tuple(bwd(gy, saved, None))
+            out[name] = run()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):      # ms a call: launches are not the cost
+                run()
+            stop.record()
+            torch.cuda.synchronize()
+            ms[name] = start.elapsed_time(stop) / 5
+        errs = {}
+        for i, what in enumerate(("y", "mean", "var", "dx", "dscale",
+                                  "dbias")):
+            a, b = out["fused"][i].float(), out["plain"][i].float()
+            errs[what] = float((a - b).abs().max() / b.abs().max())
+            tol = BN_BF16_TOL if what in ("y", "dx") else BN_F32_TOL
+            require(errs[what] <= tol, f"BatchNorm {shape} {what}: fused "
+                    f"vs plain {errs[what]} > {tol}")
+            require(out["fused"][i].dtype == out["plain"][i].dtype,
+                    f"BatchNorm {shape} {what} dtypes")
+        cases.append({"shape": list(shape), "rel_err": errs,
+                      "fused_ms": ms["fused"], "plain_ms": ms["plain"]})
+        del x, gy, out
+    torch.cuda.empty_cache()
+    emit({"phase": "resnet_batchnorm", "nvidia_smi": smi,
+          "tol_bf16": BN_BF16_TOL, "tol_f32": BN_F32_TOL, "cases": cases})
+
+
+def phase_train_resnet(torch, smi):
+    """``train_resnet`` in process: ``--config=imagenet`` (ResNet-50 at
+    full width, batch 256) for RN_STEPS steps — finite losses, every
+    BatchNorm statistic moved from its init, everything on the card —,
+    a relaunch that resumes to RN_RESUME_STEPS, then ``--config=cifar``
+    (ResNet-20, batch 256); RN_FIXED_STEPS steps of bench.py's recipe on
+    one fixed batch must lower the loss by RN_FIXED_LOSS_DROP. No hand
+    kernel launches on this path."""
+    import gc
+    import tempfile
+
+    from dtf_tpu_torch import optim, train_resnet
+    from dtf_tpu_torch.convert import (init_params_resnet, params_from_flax,
+                                       stats_from_flax)
+    from dtf_tpu_torch.core import train as tr
+    from dtf_tpu_torch.models import resnet
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_resnet_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (state, writer), wall = _no_hand_kernels(torch, lambda: train_resnet.run(
+        _rn_flags(f"{logdir}/in")))
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_ms = _history(writer)
+    evals = [m for _, m in writer.history if "eval_accuracy" in m]
+    require(state.step == RN_STEPS and len(losses) == RN_STEPS
+            and all(math.isfinite(x) for x in losses), f"losses {losses}")
+    require(len(evals) == 1 and math.isfinite(evals[0]["eval_loss"]),
+            f"held-out eval {evals}")
+    _on_card(state)
+    require(len(state.extra) == 106, f"{len(state.extra)} buffers")
+    still = [n for n, t in state.extra.items() if torch.equal(
+        t, torch.full_like(t, 0.0 if n.endswith(".mean") else 1.0))]
+    require(not still, f"BatchNorm statistics at their init: {still[:5]}")
+    n_params = sum(p.numel() for p in state.params.values())
+    require(n_params == 25_557_032, f"{n_params} parameters")
+    del state, writer
+    gc.collect()
+    (state, writer), _ = _no_hand_kernels(torch, lambda: train_resnet.run(
+        _rn_flags(f"{logdir}/in", steps=RN_RESUME_STEPS)))
+    resumed = [s for s, m in writer.history if "loss" in m]
+    require(state.step == RN_RESUME_STEPS and resumed == list(
+        range(RN_STEPS + 1, RN_RESUME_STEPS + 1)),
+        f"relaunch ran steps {resumed} to {state.step}")
+    del state, writer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    (state, writer), cifar_wall = _no_hand_kernels(
+        torch, lambda: train_resnet.run(_rn_flags(
+            f"{logdir}/cifar", config="cifar", steps=RN_CIFAR_STEPS)))
+    cifar_losses, cifar_ms = _history(writer)
+    require(len(cifar_losses) == RN_CIFAR_STEPS
+            and all(math.isfinite(x) for x in cifar_losses),
+            f"ResNet-20 losses {cifar_losses}")
+    _on_card(state)
+    del state, writer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one fixed batch, bench.py's recipe
+    model = resnet.resnet50(device="cuda")
+    variables = init_params_resnet(model, 0)
+    model.load_state_dict({**params_from_flax(variables["params"]),
+                           **stats_from_flax(variables["batch_stats"])})
+    tx = optim.sgd(0.1, momentum=0.9)
+    state = tr.create_train_state(model, tx, 0)
+    step = tr.make_train_step(resnet.make_loss(model), tx, model=model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"image": torch.rand((RN_FIXED_BATCH, 224, 224, 3),
+                                 device="cuda", generator=gen),
+             "label": torch.randint(0, 1000, (RN_FIXED_BATCH,),
+                                    device="cuda", generator=gen,
+                                    dtype=torch.int32)}
+    fixed = []
+    for _ in range(RN_FIXED_STEPS):
+        state, m = step(state, batch)
+        fixed.append(m["loss"].item())
+    require(all(math.isfinite(x) for x in fixed), f"fixed-batch {fixed}")
+    require(fixed[-1] <= fixed[0] - RN_FIXED_LOSS_DROP,
+            f"fixed-batch loss fell from {fixed[0]} to {fixed[-1]}, less "
+            f"than {RN_FIXED_LOSS_DROP}")
+    del model, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(logdir, ignore_errors=True)
+    emit({"phase": "train_resnet", "nvidia_smi": smi,
+          "imagenet": {"model": "resnet50", "batch": RN_BATCH,
+                       "steps": RN_STEPS, "params": n_params,
+                       "losses": losses, "eval": evals[0],
+                       "step_ms_median_after_1": step_ms,
+                       "examples_per_s": RN_BATCH * 1e3 / step_ms,
+                       "run_wall_s": wall, "max_memory_allocated": peak,
+                       "resumed_steps": resumed},
+          "cifar": {"model": "resnet20", "batch": RN_BATCH,
+                    "steps": RN_CIFAR_STEPS, "losses": cifar_losses,
+                    "step_ms_median_after_1": cifar_ms,
+                    "run_wall_s": cifar_wall},
+          "fixed_batch": {"batch": RN_FIXED_BATCH, "losses": fixed,
+                          "drop_min": RN_FIXED_LOSS_DROP},
+          "hand_kernel_launches": 0})
+
+
+def phase_resnet_bench(torch, smi):
+    """``profile_resnet``'s measurement (bench.py's recipe: ResNet-50, one
+    fixed batch on the card, SGD 0.1 momentum 0.9, 3 warm-up and 20 timed
+    steps) at batch 128 and 256: step ms, images/s, analytic MFU, peak
+    memory, device busy and idle share, launches and device ms by
+    family."""
+    import gc
+
+    from dtf_tpu_torch.profile_resnet import measure
+
+    for batch in RN_BENCH_BATCHES:
+        with contextlib.redirect_stdout(io.StringIO()):   # the top kernels
+            out = measure(batch, RN_BENCH_STEPS, None)
+        require(math.isfinite(out["loss_last"]) and out["images_per_s"] > 0,
+                f"resnet_bench b{batch}: {out}")
+        emit({"phase": "resnet_bench", "nvidia_smi": smi, **out})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _rn_dist_flags(logdir, *extra):
+    return _rn_flags(logdir, *extra, config="cifar", steps=DIST_RN_STEPS)
+
+
+def _rn_stats_rel(torch, got, want):
+    """max over buffers of max|got - want| / max|want|."""
+    return max(float((torch.as_tensor(got[k]) - torch.as_tensor(v)).abs()
+                     .max() / torch.as_tensor(v).abs().max().clamp_min(1e-30))
+               for k, v in want.items())
+
+
+def _rn_global_batch_run(torch):
+    """ResNet-20 on one rank over the 2 ranks' global batch: train_resnet's
+    recipe through the library, each step's batch the rows of synthetic
+    host 0 then host 1 of 2 (what the ranks read)."""
+    import gc
+
+    import numpy as np
+
+    from dtf_tpu_torch import optim, train_resnet
+    from dtf_tpu_torch.cli import flags as dflags
+    from dtf_tpu_torch.convert import (init_params_resnet, params_from_flax,
+                                       stats_from_flax)
+    from dtf_tpu_torch.core import train as tr
+    from dtf_tpu_torch.data.synthetic import SyntheticData
+    from dtf_tpu_torch.models import resnet
+
+    args = train_resnet.build_parser().parse_args(_rn_dist_flags("unused"))
+    model, kind = train_resnet.build_model("cifar", "cuda")
+    variables = init_params_resnet(model, args.seed)
+    model.load_state_dict({**params_from_flax(variables["params"]),
+                           **stats_from_flax(variables["batch_stats"])})
+    l2 = dflags.resolve_loss_l2(args, recipe_l2=train_resnet.RECIPE_L2)
+    tx = optim.make_optimizer(args, lambda s: optim.sgd(
+        s, momentum=0.9, nesterov=True), recipe_uses_wd=True)
+    state = tr.create_train_state(model, tx, args.seed)
+    step = tr.make_train_step(resnet.make_loss(model, weight_decay=l2), tx,
+                              model=model)
+    hosts = [SyntheticData(kind, RN_BATCH, seed=args.seed, host_index=k,
+                           host_count=2) for k in range(2)]
+    losses = []
+    for i in range(DIST_RN_STEPS):
+        parts = [h.batch(i) for h in hosts]
+        batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts]))
+                 .cuda() for k in parts[0]}
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+    stats = {n: t.tolist() for n, t in state.extra.items()}
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, stats
 
 
 def _counted(torch, fn):
@@ -2112,10 +2429,16 @@ def phase_dist_nccl(torch, smi):
     import torch.distributed as dist
 
     from dtf_tpu_torch import distributed as mnist_launcher
-    from dtf_tpu_torch import train_gpt
+    from dtf_tpu_torch import train_gpt, train_resnet
     from dtf_tpu_torch.core.dist import free_port
 
     logdir = tempfile.mkdtemp(prefix="chip_smoke_dist_nccl_")
+    (state, writer), rn_ref_wall = _no_hand_kernels(
+        torch, lambda: train_resnet.run(_rn_dist_flags(f"{logdir}/rn_ref")))
+    rn_ref_losses, rn_ref_ms = _history(writer)
+    rn_ref_stats = {n: t.tolist() for n, t in state.extra.items()}
+    del state, writer
+    gc.collect()
     want_fused, want_flash = _gpt_dist_want()
     (state, writer), fused, flash, _, wall_ref = _counted(
         torch, lambda: train_gpt.run(_gpt_dist_flags(f"{logdir}/ref")))
@@ -2144,6 +2467,15 @@ def phase_dist_nccl(torch, smi):
         mnist_acc = float(lines[-1].split("eval_accuracy=")[1])
         require(dist.is_initialized(), "the launcher left the caller's "
                                        "group destroyed")
+        (state, writer), rn_wall = _no_hand_kernels(
+            torch, lambda: train_resnet.run(_rn_dist_flags(
+                f"{logdir}/rn_nccl", "--mesh_data=1")))
+        require(state.layout is not None, "ResNet-20 in the group has no "
+                                          "layout (no mesh)")
+        rn_losses, rn_ms = _history(writer)
+        rn_stats = {n: t.tolist() for n, t in state.extra.items()}
+        del state, writer
+        gc.collect()
         (state, writer), fused, flash, _, wall = _counted(
             torch, lambda: train_gpt.run(_gpt_dist_flags(
                 f"{logdir}/nccl", "--mesh_data=1")))
@@ -2162,6 +2494,13 @@ def phase_dist_nccl(torch, smi):
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(logdir, ignore_errors=True)
+    rn_rel = _rel_losses(rn_losses, rn_ref_losses)
+    rn_stat_rel = _rn_stats_rel(torch, rn_stats, rn_ref_stats)
+    require(len(rn_losses) == DIST_RN_STEPS
+            and max(rn_rel) <= DIST_LOSS_REL_TOL
+            and rn_stat_rel <= DIST_RN_STAT_TOL,
+            f"ResNet-20 in the group {rn_losses} vs without {rn_ref_losses}"
+            f", statistics {rn_stat_rel}")
     emit({"phase": "dist_nccl", "world_size": 1, "backend": "nccl",
           "nvidia_smi": smi, "mnist": {"model": "softmax", "steps": 200,
                                        "loss_at_200": mnist_loss[0],
@@ -2175,7 +2514,18 @@ def phase_dist_nccl(torch, smi):
                   "step_ms_median_after_1_no_group": ref_ms,
                   "run_wall_s_in_group": wall, "run_wall_s_no_group":
                       wall_ref, "fused_launches": fused,
-                  "flash_launches": flash}})
+                  "flash_launches": flash},
+          "resnet20": {"batch": RN_BATCH, "steps": DIST_RN_STEPS,
+                       "zero1": True, "batchnorm": "synchronised over the "
+                       "data group (2 NCCL all-reduces a layer)",
+                       "losses_in_group": rn_losses,
+                       "losses_no_group": rn_ref_losses, "loss_rel": rn_rel,
+                       "stats_rel": rn_stat_rel,
+                       "stats_rel_tol": DIST_RN_STAT_TOL,
+                       "step_ms_median_after_1_in_group": rn_ms,
+                       "step_ms_median_after_1_no_group": rn_ref_ms,
+                       "run_wall_s_in_group": rn_wall,
+                       "run_wall_s_no_group": rn_ref_wall}})
 
 
 def _gpt_global_batch_losses(torch):
@@ -2229,7 +2579,7 @@ def dist_child(rank, world, store, logdir):
     import torch
     import torch.distributed as dist
 
-    from dtf_tpu_torch import train_gpt, train_widedeep
+    from dtf_tpu_torch import train_gpt, train_resnet, train_widedeep
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2260,6 +2610,16 @@ def dist_child(rank, world, store, logdir):
         "zero1_leaves": len(state.layout.zero1_dims),
         "adam_mu_elements": sum(t.numel() for t in mu.values()),
         "param_elements": sum(p.numel() for p in state.params.values())}
+    del state, writer
+    gc.collect()
+    torch.cuda.empty_cache()
+    (state, writer), _, _, _, wall = _counted(torch, lambda: (
+        train_resnet.run(_rn_dist_flags(f"{logdir}/rn", "--mesh_data=2"))))
+    losses, step_ms = _history(writer)
+    out["resnet20"] = {
+        "losses": losses, "step_ms_median_after_1": step_ms,
+        "run_wall_s": wall,
+        "stats": {n: t.tolist() for n, t in state.extra.items()}}
     with open(os.path.join(logdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -2296,6 +2656,7 @@ def phase_dist_two_ranks_one_card(torch, smi):
     del state, writer
     gc.collect()
     gpt_ref = _gpt_global_batch_losses(torch)
+    rn_ref, rn_ref_stats = _rn_global_batch_run(torch)
     torch.cuda.empty_cache()
     store = os.path.join(logdir, "store")
     # the ranks' output goes to files: a full pipe would stall a rank
@@ -2364,6 +2725,14 @@ def phase_dist_two_ranks_one_card(torch, smi):
     require(len(gpt_losses) == DIST_GPT_STEPS
             and max(gpt_rel) <= DIST_LOSS_REL_TOL,
             f"GPT over 2 ranks {gpt_losses} vs one rank {gpt_ref}")
+    rn_losses = ranks[0]["resnet20"]["losses"]
+    rn_rel = _rel_losses(rn_losses, rn_ref)
+    rn_stat_rel = [_rn_stats_rel(torch, g["resnet20"]["stats"], rn_ref_stats)
+                   for g in ranks]
+    require(len(rn_losses) == DIST_RN_STEPS and max(rn_rel) <=
+            DIST_LOSS_REL_TOL and max(rn_stat_rel) <= DIST_RN_STAT_TOL,
+            f"ResNet-20 over 2 ranks {rn_losses} vs one rank {rn_ref}, "
+            f"statistics {rn_stat_rel}")
     shutil.rmtree(logdir, ignore_errors=True)
     emit({"phase": "dist_two_ranks_one_card", "world_size": 2,
           "backend": "gloo", "device": "cuda:0 (both ranks)",
@@ -2381,7 +2750,16 @@ def phase_dist_two_ranks_one_card(torch, smi):
                   "losses_2_ranks": gpt_losses,
                   "losses_1_rank_global_batch": gpt_ref,
                   "loss_rel": gpt_rel, "loss_rel_tol": DIST_LOSS_REL_TOL,
-                  "ranks": [g["gpt"] for g in ranks]}})
+                  "ranks": [g["gpt"] for g in ranks]},
+          "resnet20": {"mesh_data": 2, "steps": DIST_RN_STEPS,
+                       "rows_a_rank": RN_BATCH // 2,
+                       "batchnorm": "synchronised over the 2 ranks",
+                       "losses_2_ranks": rn_losses,
+                       "losses_1_rank_global_batch": rn_ref,
+                       "loss_rel": rn_rel, "stats_rel": rn_stat_rel,
+                       "stats_rel_tol": DIST_RN_STAT_TOL,
+                       "ranks": [{k: v for k, v in g["resnet20"].items()
+                                  if k != "stats"} for g in ranks]}})
     return {"embed_gather": ranks[0]["widedeep"]["embed_gather_launches"],
             "fused": ranks[0]["gpt"]["fused_launches"]}
 
@@ -2391,7 +2769,8 @@ PHASES = ("device", "build", "kernels", "generate", "generate_variants",
           "kernels_bwd", "kernel_times_bwd", "train_grads", "train",
           "kernels_ce", "kernel_times_ce", "train_grads_ce", "train_ce",
           "kernels_embed", "kernel_times_embed", "widedeep_lookup",
-          "train_widedeep", "dist_nccl", "dist_two_ranks_one_card")
+          "train_widedeep", "resnet_batchnorm", "train_resnet",
+          "resnet_bench", "dist_nccl", "dist_two_ranks_one_card")
 
 
 def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
@@ -2525,6 +2904,12 @@ def main(argv=None):
         phase_widedeep_lookup(torch)
     if "train_widedeep" in phases:
         phase_train_widedeep(torch, smi)
+    if "resnet_batchnorm" in phases:
+        phase_resnet_batchnorm(torch, smi)
+    if "train_resnet" in phases:
+        phase_train_resnet(torch, smi)
+    if "resnet_bench" in phases:
+        phase_resnet_bench(torch, smi)
     if "dist_nccl" in phases:
         phase_dist_nccl(torch, smi)
     if "dist_two_ranks_one_card" in phases:

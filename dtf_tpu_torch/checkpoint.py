@@ -7,6 +7,9 @@ machine, so the port has its own format. One directory per step,
 - ``params.pt``: the parameters, ``{state_dict name: tensor}`` (what
   serving reads, :meth:`Checkpointer.restore_params`);
 - ``opt_state.pt``: the optimizer state;
+- ``extra.pt``: the module's persistent buffers (``TrainState.extra``:
+  BatchNorm's running statistics), ``{state_dict name: tensor}``; a step
+  written without it restores as none;
 - ``meta.json``: the step and the rng seed.
 
 A step is written under a temporary name and renamed into place, so a
@@ -15,7 +18,8 @@ Saves are synchronous.
 
 Over a mesh every rank takes part in a save and the chief writes: the
 parameters a model axis splits and the optimizer state ZeRO-1 splits are
-gathered whole first (``TrainState.layout``), and every rank waits at a
+gathered whole first (``TrainState.layout``), the buffers are the same on
+every rank and the chief's are written, and every rank waits at a
 barrier until the step is on disk. On restore each rank takes its own
 blocks again, so the files do not depend on the world size.
 
@@ -172,6 +176,8 @@ class Checkpointer:
             os.makedirs(tmp)
             torch.save(params, os.path.join(tmp, "params.pt"))
             torch.save(opt_state, os.path.join(tmp, "opt_state.pt"))
+            torch.save({n: t.detach() for n, t in state.extra.items()},
+                       os.path.join(tmp, "extra.pt"))
             with open(os.path.join(tmp, "meta.json"), "w") as f:
                 json.dump({"step": step, "rng": int(state.rng)}, f)
             os.replace(tmp, final)
@@ -194,6 +200,15 @@ class Checkpointer:
                 f"{sorted(set(params) ^ set(target.params))[:8]} that the "
                 "restore target does not (or the reverse) — a different "
                 "model configuration")
+        extra_path = os.path.join(path, "extra.pt")
+        extra = (torch.load(extra_path, map_location="cpu", weights_only=True)
+                 if os.path.exists(extra_path) else {})
+        if set(extra) != set(target.extra):
+            raise KeyError(
+                f"checkpoint step {step} at {self._dir} holds buffers "
+                f"{sorted(set(extra) ^ set(target.extra))[:8]} that the "
+                "restore target does not (or the reverse) — a different "
+                "model configuration")
         some = next(iter(target.params.values()))
         opt_state = torch.load(os.path.join(path, "opt_state.pt"),
                                map_location="cpu", weights_only=True)
@@ -211,15 +226,17 @@ class Checkpointer:
         with torch.no_grad():
             for n, p in target.params.items():
                 p.copy_(params[n])
+            for n, t in target.extra.items():
+                t.copy_(extra[n])
         return TrainState(step=int(meta["step"]), params=target.params,
                           opt_state=opt_state, rng=int(meta["rng"]),
-                          layout=layout)
+                          layout=layout, extra=target.extra)
 
     def restore(self, target, step: int | None = None):
-        """Restore into ``target``'s parameter tensors (in place) and return
-        the restored state. With ``step=None`` an unreadable newest step
-        falls back to the next older one, with a warning; a parameter-name
-        mismatch (a wrong target) raises at once."""
+        """Restore into ``target``'s parameter and buffer tensors (in
+        place) and return the restored state. With ``step=None`` an unreadable newest step
+        falls back to the next older one, with a warning; a parameter- or
+        buffer-name mismatch (a wrong target) raises at once."""
         if step is not None:
             return self._restore_one(target, step)
         steps = self.all_steps()[::-1]

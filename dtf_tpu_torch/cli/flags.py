@@ -1,7 +1,8 @@
 """The launchers' flag surface (the port's copy of ``dtf_tpu.cli.flags``),
 over ``argparse``: the cluster, mesh and training flags with the JAX
 package's names and defaults, the decode-config merge of the serving
-launcher, and the LM-loss and grad-shard resolution of the trainer."""
+launcher, the loss-side L2 of the ResNet recipe, and the LM-loss and
+grad-shard resolution of the trainer."""
 
 from __future__ import annotations
 
@@ -164,6 +165,31 @@ def define_train_flags(p: argparse.ArgumentParser, batch_size=64,
     p.add_argument("--telemetry_keep_steps", type=int, default=64)
     p.add_argument("--telemetry_min_stall_s", type=float, default=60.0)
     p.add_argument("--telemetry_stall_factor", type=float, default=10.0)
+
+
+#: optimizer families that apply weight decay themselves (decoupled decay):
+#: a launcher whose recipe regularizes with a loss-side L2 drops the L2
+#: when one of these is selected, and routes the decay to it instead
+DECOUPLED_DECAY_OPTIMIZERS = ("adamw", "lamb", "adafactor")
+
+
+def resolve_loss_l2(args, recipe_l2: float) -> float:
+    """The loss-side L2 coefficient of a launcher with an L2 recipe:
+    ``--weight_decay`` when set, else ``recipe_l2``. A decoupled-decay
+    ``--optimizer`` takes the decay itself, so the loss-side L2 is 0; an
+    unset ``--weight_decay`` then inherits ``recipe_l2`` (with a warning),
+    so the recipe's regularization survives the swap. Resolve before
+    ``optim.make_optimizer``, which reads the promoted value."""
+    name = (getattr(args, "optimizer", "") or "").lower()
+    if name not in DECOUPLED_DECAY_OPTIMIZERS:
+        return args.weight_decay if args.weight_decay >= 0 else recipe_l2
+    if args.weight_decay < 0:
+        args.weight_decay = recipe_l2
+        log.warning(
+            "--optimizer=%s drops the recipe's loss-side L2; defaulting "
+            "--weight_decay to the recipe's %g (decoupled decay). Pass "
+            "--weight_decay explicitly to override.", name, recipe_l2)
+    return 0.0
 
 
 #: monolithic [B,T,V] f32 logits plus their cotangent must fit inside this

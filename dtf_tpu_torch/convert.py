@@ -6,8 +6,12 @@ The flax tree is nested dicts of arrays (``token_embed/embedding``,
 ``ln_f/...``, ``lm_head/kernel``). The port names its modules the same, so
 a flax path ``a/b/leaf`` is the ``state_dict`` key ``a.b.<param>``:
 ``kernel`` → ``weight`` transposed (flax kernels are [in, out], torch
-weights [out, in]); ``embedding`` and ``scale`` → ``weight``; ``bias`` →
-``bias``. Both directions copy values exactly.
+weights [out, in]; a flax convolution's [kh, kw, in, out] is torch's
+[out, in, kh, kw]); ``embedding`` and ``scale`` (LayerNorm's, BatchNorm's)
+→ ``weight``; ``bias`` → ``bias``. Both directions copy values exactly.
+BatchNorm's running statistics (flax's ``batch_stats`` collection,
+``.../mean`` and ``.../var``) are the module's buffers of those names:
+:func:`stats_from_flax`, :func:`stats_to_flax`.
 
 ``.npz`` files hold the flax tree with flat ``/``-joined keys, so either
 package can read them. :func:`init_params` makes a seeded GPT-2-style
@@ -16,7 +20,8 @@ tree in numpy, for handing the same weights to both packages (serving);
 distributions (the trainer's); :func:`init_params_widedeep` the same for
 Wide&Deep (``embed_tables_{wide,deep}/embedding``, ``wide_dense``,
 ``mlp_{i}``, ``deep_out``); :func:`init_params_mnist` for the MNIST
-models (``hidden_{i}``, ``logits``).
+models (``hidden_{i}``, ``logits``); :func:`init_params_resnet` the
+ResNets' variables (``params`` and ``batch_stats``).
 """
 
 from __future__ import annotations
@@ -56,10 +61,11 @@ def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
         arr = np.asarray(val)
         *mods, leaf = path
         if leaf == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{'/'.join(path)}: expected a 2-D kernel, "
-                                 f"got shape {arr.shape}")
-            name, arr = "weight", arr.T
+            if arr.ndim not in _KERNEL_FROM_FLAX:
+                raise ValueError(f"{'/'.join(path)}: expected a 2-D kernel "
+                                 f"(or a 4-D convolution's), got shape "
+                                 f"{arr.shape}")
+            name, arr = "weight", arr.transpose(_KERNEL_FROM_FLAX[arr.ndim])
         elif leaf in ("embedding", "scale"):
             name = "weight"
         elif leaf == "bias":
@@ -78,11 +84,29 @@ def _is_embedding(module: str) -> bool:
     return module == "token_embed" or module.startswith("embed_tables")
 
 
+#: flax kernel [in, out] / [kh, kw, in, out] → torch weight: the flax
+#: dims in torch's order ([out, in] / [out, in, kh, kw])
+_KERNEL_FROM_FLAX = {2: (1, 0), 4: (3, 2, 0, 1)}
+#: torch weight → flax kernel: the torch dims in flax's order
+_KERNEL_TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0)}
+
+
 def is_kernel(name: str, ndim: int) -> bool:
     """Whether the ``state_dict`` entry ``name`` is a flax ``kernel``,
-    stored transposed: a 2-D ``weight`` that is not an embedding."""
+    stored transposed: a 2-D ``weight`` that is not an embedding, or a
+    4-D (convolution) ``weight``."""
     *mods, leaf = name.split(".")
-    return leaf == "weight" and ndim == 2 and not _is_embedding(mods[-1])
+    return leaf == "weight" and (ndim == 4 or (
+        ndim == 2 and not _is_embedding(mods[-1])))
+
+
+def flax_dims(name: str, ndim: int) -> tuple:
+    """The dims of the port's tensor ``name`` in the order of its flax
+    leaf: a kernel's transposition (:func:`is_kernel`), else as they
+    are."""
+    if is_kernel(name, ndim):
+        return _KERNEL_TO_FLAX[ndim]
+    return tuple(range(ndim))
 
 
 def params_to_flax(state_dict) -> dict:
@@ -98,11 +122,33 @@ def params_to_flax(state_dict) -> dict:
         elif arr.ndim == 1:
             leaf = "scale"                      # a LayerNorm
         elif is_kernel(key, arr.ndim):
-            leaf, arr = "kernel", arr.T
+            leaf, arr = "kernel", arr.transpose(_KERNEL_TO_FLAX[arr.ndim])
         else:
             leaf = "embedding"
         items.append((tuple(mods) + (leaf,), np.ascontiguousarray(arr)))
     return _unflatten(items)
+
+
+def stats_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
+    """flax's ``batch_stats`` tree (optionally wrapped as
+    ``{"batch_stats": ...}``) as the port's buffers, ``a.b.mean`` and
+    ``a.b.var``, f32 CPU tensors."""
+    if set(tree) == {"batch_stats"}:
+        tree = tree["batch_stats"]
+    out = OrderedDict()
+    for path, val in _flatten(tree):
+        if path[-1] not in ("mean", "var"):
+            raise KeyError(f"unknown batch_stats leaf {'/'.join(path)}")
+        out[".".join(path)] = torch.from_numpy(
+            np.array(np.asarray(val), copy=True, order="C"))
+    return out
+
+
+def stats_to_flax(buffers) -> dict:
+    """The inverse of :func:`stats_from_flax`: nested dicts of numpy."""
+    return _unflatten((tuple(k.split(".")),
+                       np.ascontiguousarray(v.detach().cpu().numpy()))
+                      for k, v in buffers.items())
 
 
 def save_npz(path: str, tree: dict) -> None:
@@ -251,3 +297,35 @@ def init_params_mnist(model, seed: int) -> dict:
     tree["logits"] = {"kernel": _lecun_normal(rng, width, model.num_classes),
                       "bias": np.zeros((model.num_classes,), np.float32)}
     return tree
+
+
+def init_params_resnet(model, seed: int) -> dict:
+    """Seeded flax variables ``{"params": ..., "batch_stats": ...}`` in
+    numpy f32 for a :class:`~dtf_tpu_torch.models.resnet.ResNet` with the
+    JAX package's init (``resnet.make_init``): every convolution kernel
+    [kh, kw, in, out] lecun-normal over fan-in kh·kw·in, the head's kernel
+    lecun-normal; BatchNorm scale 1 — 0 on each block's last BatchNorm
+    (``scale_init=zeros``) — and bias 0; running mean 0 and variance 1;
+    head bias 0. numpy's draws, in the modules' order: the distributions
+    match, not flax's PRNG bits."""
+    from dtf_tpu_torch.models.resnet import BatchNorm, Conv
+
+    rng = np.random.default_rng(seed)
+    params, stats = [], []
+    for name, mod in model.named_modules():
+        path = tuple(name.split("."))
+        if isinstance(mod, Conv):
+            o, i, kh, kw = mod.weight.shape
+            k = _lecun_normal(rng, kh * kw * i, o).reshape(kh, kw, i, o)
+            params.append((path + ("kernel",), k))
+        elif isinstance(mod, BatchNorm):
+            c = mod.weight.shape[0]
+            scale = np.full((c,), 0.0 if mod.zero_init else 1.0, np.float32)
+            params += [(path + ("scale",), scale),
+                       (path + ("bias",), np.zeros((c,), np.float32))]
+            stats += [(path + ("mean",), np.zeros((c,), np.float32)),
+                      (path + ("var",), np.ones((c,), np.float32))]
+    d_out, d_in = model.head.weight.shape
+    params += [(("head", "kernel"), _lecun_normal(rng, d_in, d_out)),
+               (("head", "bias"), np.zeros((d_out,), np.float32))]
+    return {"params": _unflatten(params), "batch_stats": _unflatten(stats)}

@@ -71,23 +71,39 @@ def all_gather(x: torch.Tensor, group, *, gather_dimension: int = 0
     return out.movedim(0, gather_dimension)
 
 
-def global_norm(shards, replicated, group) -> torch.Tensor:
-    """The L2 norm of a tree of which ``shards`` are this rank's ZeRO-1
-    shards over ``group`` and ``replicated`` the leaves every rank holds
-    whole: the shards' squared sums over the group (one ``all_reduce``),
-    plus the replicated leaves' once, in f32."""
-    shards, replicated = list(shards), list(replicated)
-    device = (shards or replicated)[0].device
+def global_norm(tensors: dict, mesh, zero1=(), model=()) -> torch.Tensor:
+    """The L2 norm, in f32, of a tree of which the leaves named in
+    ``zero1`` are this rank's ZeRO-1 blocks over the data group, those in
+    ``model`` this rank's blocks over the model group (a leaf may be in
+    both), and the rest whole on every rank: every element's square
+    counted once, as the reference's norm over global arrays counts it.
 
-    def sq(ts):
+    A split leaf's squared sum enters one sum over the mesh (ONE
+    ``all_reduce`` over the default group, which the mesh spans) from one
+    rank of each set of ranks that hold the same elements: a leaf split
+    over both axes from every rank, over data only from model index 0,
+    over the model axis only from data index 0. The whole leaves' squares
+    are added once, after. With no split leaf there is no collective."""
+    zero1, model = set(zero1), set(model)
+    device = next(iter(tensors.values())).device
+
+    def sq(names):
         total = torch.zeros((), dtype=torch.float32, device=device)
-        for n in torch._foreach_norm([t.float() for t in ts]) if ts else ():
+        ts = [tensors[n].float() for n in tensors if n in names]
+        for n in torch._foreach_norm(ts) if ts else ():
             total = total + n * n
         return total
 
-    total = sq(shards)
-    dist.all_reduce(total, group=group)
-    return torch.sqrt(total + sq(replicated))
+    whole = sq(set(tensors) - zero1 - model)
+    if not (zero1 or model):
+        return torch.sqrt(whole)
+    split = sq(zero1 & model)
+    if mesh.model_index == 0:
+        split = split + sq(zero1 - model)
+    if mesh.data_index == 0:
+        split = split + sq(model - zero1)
+    dist.all_reduce(split)
+    return torch.sqrt(split + whole)
 
 
 class GradBuckets:

@@ -13,9 +13,9 @@ ZeRO-1 (``_zero1_leaf_spec``): each parameter-shaped optimizer leaf, and
 the gradient and update that feed it, is sharded over ``data`` on the
 first free dim that the data size divides; a leaf with none stays
 replicated. The dim is counted on the flax layout, where a kernel is
-[in, out], and mapped onto the port's transposed [out, in] weight
-(:func:`dtf_tpu_torch.convert.is_kernel`), so a rank holds the same
-elements as its JAX counterpart.
+[in, out] (a convolution's [kh, kw, in, out]), and mapped onto the port's
+transposed weight (:func:`dtf_tpu_torch.convert.flax_dims`), so a rank
+holds the same elements as its JAX counterpart.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from dtf_tpu_torch.convert import is_kernel
+from dtf_tpu_torch.convert import flax_dims
 from dtf_tpu_torch.core.comms import all_gather
 
 Rule = tuple[str, tuple]
@@ -127,10 +127,9 @@ def make_layout(params: dict, mesh, rules: Sequence[Rule] = (), *,
         if not zero1:
             continue
         full_spec = list(spec) + [None] * (p.ndim - len(spec))
-        kernel = is_kernel(name, p.ndim)
-        if kernel:                       # flax [in, out] of torch [out, in]
-            shape, full_spec = shape[::-1], full_spec[::-1]
-        dim = zero1_leaf_dim(tuple(full_spec), tuple(shape), mesh.data_size)
+        order = flax_dims(name, p.ndim)  # e.g. flax [in, out] of [out, in]
+        dim = zero1_leaf_dim(tuple(full_spec[d] for d in order),
+                             tuple(shape[d] for d in order), mesh.data_size)
         if dim is not None:
-            zero1_dims[name] = p.ndim - 1 - dim if kernel else dim
+            zero1_dims[name] = order[dim]
     return Layout(model_dims=model_dims, zero1_dims=zero1_dims)

@@ -5,7 +5,11 @@ metrics)``: the loss and its gradients with ``torch.autograd.grad``,
 optional gradient accumulation as the weighted mean Σwᵢgᵢ/Σwᵢ in f32, the
 optimizer update (:mod:`dtf_tpu_torch.optim`, optax's semantics) and the
 metrics ``loss`` and ``grad_norm``. The parameters are updated IN PLACE:
-``state.params`` holds the module's own tensors.
+``state.params`` holds the module's own tensors. State that is not a
+parameter (BatchNorm's running statistics, the JAX package's mutable
+``batch_stats``) is the module's buffers, ``state.extra``: the forward
+updates them in place, under gradient accumulation once per microbatch,
+in order, as the reference threads ``extra`` through its scan.
 
 With a ``mesh`` (:mod:`dtf_tpu_torch.core.mesh`) each rank holds its
 rows of the global batch, and the weighted mean runs over the ranks of
@@ -16,7 +20,12 @@ Under ZeRO-1 (``state.layout.zero1_dims``, from
 reduce-scatter into this rank's blocks, the optimizer updates those
 blocks against the sharded optimizer state, and an all-gather over the
 data group makes the parameters whole again; without it, one all-reduce.
-A world of one runs the same collectives; only ``mesh=None`` skips them.
+The gradient's norm (the ``grad_norm`` metric and ``--clip_grad_norm``)
+counts every element once, whichever ranks hold it: ZeRO-1 blocks over
+the data group and row-sharded leaves (``layout.model_dims``) over the
+model group, in one collective a step (:class:`~dtf_tpu_torch.optim.
+ShardedTree`). A world of one runs the same collectives; only
+``mesh=None`` skips them.
 """
 
 from __future__ import annotations
@@ -40,8 +49,9 @@ class LossAux:
     ``metrics``, weight-averaged across microbatches, and this batch's
     ``weight`` under gradient accumulation (a count-normalized loss
     returns its valid count, so microbatch gradients combine to the
-    full-batch gradient). The JAX package's ``extra`` (mutable flax
-    collections) has no counterpart: the port's models keep none."""
+    full-batch gradient). The JAX package's ``extra`` (the updated
+    mutable flax collections) has no field here: a port model updates
+    its buffers in place during the forward (``TrainState.extra``)."""
 
     metrics: dict = dataclasses.field(default_factory=dict)
     weight: Any = 1.0
@@ -59,13 +69,17 @@ class TrainState:
     tensors, updated in place), ``opt_state`` (the optimizer's state) and
     ``rng`` (the seed every step's dropout seed is derived from);
     ``layout`` (how the parameters and the optimizer state are split over
-    a mesh, :class:`~dtf_tpu_torch.core.sharding.Layout`; None: whole)."""
+    a mesh, :class:`~dtf_tpu_torch.core.sharding.Layout`; None: whole);
+    ``extra`` (the module's persistent buffers by ``state_dict`` name —
+    the same tensors, which the forward updates in place: BatchNorm's
+    running statistics; identical on every rank of a mesh)."""
 
     step: int
     params: dict
     opt_state: Any
     rng: int
     layout: Any = None
+    extra: dict = dataclasses.field(default_factory=dict)
 
 
 def fold_in(seed: int, *data: int) -> int:
@@ -78,17 +92,19 @@ def fold_in(seed: int, *data: int) -> int:
 
 def create_train_state(model: torch.nn.Module, tx: optim.Transform,
                        seed: int, *, mesh=None, layout=None) -> TrainState:
-    """Step 0 over the module's parameters, a fresh optimizer state (of
-    this rank's ZeRO-1 blocks under ``layout``), and ``seed`` as the
-    dropout root."""
+    """Step 0 over the module's parameters and persistent buffers, a
+    fresh optimizer state (of this rank's ZeRO-1 blocks under ``layout``),
+    and ``seed`` as the dropout root."""
     params = dict(model.named_parameters())
+    extra = {n: t for n, t in model.state_dict(keep_vars=True).items()
+             if n not in params}
     if layout is not None and layout.zero1_dims:
         opt_params = {n: layout.shard_leaf(n, p, mesh)
                       for n, p in params.items()}
     else:
         opt_params = params
     return TrainState(step=0, params=params, opt_state=tx.init(opt_params),
-                      rng=int(seed), layout=layout)
+                      rng=int(seed), layout=layout, extra=extra)
 
 
 def _split(batch: dict, n: int) -> list[dict]:
@@ -109,7 +125,7 @@ def _weighted(v: torch.Tensor, w: torch.Tensor,
 
 def make_train_step(loss_fn: LossFn, tx: optim.Transform, *,
                     grad_accum: int = 1, log_grad_norm: bool = True,
-                    mesh=None, grad_shard: bool = False):
+                    mesh=None, grad_shard: bool = False, model=None):
     """The train step. ``loss_fn(params, batch, rng) -> (loss, LossAux)``
     computes the mean loss over its batch.
 
@@ -129,6 +145,10 @@ def make_train_step(loss_fn: LossFn, tx: optim.Transform, *,
     (with ZeRO-1 dims in ``state.layout``): each microbatch's weighted
     gradients are reduce-scattered into a shard-sized accumulator instead
     of summed whole on the rank and reduce-scattered once.
+
+    ``model``: the module ``loss_fn`` runs, put in train mode at every
+    step (BatchNorm on the batch's statistics, updating its running
+    ones); :func:`make_eval_step` puts it in eval mode and back.
     """
 
     def grads_of(params, batch, rng):
@@ -199,18 +219,23 @@ def make_train_step(loss_fn: LossFn, tx: optim.Transform, *,
             [a / stats[0] for a in acc]).items()}
         metrics = {k: stats[2 + i] / stats[0] for i, k in enumerate(names)}
         loss = stats[1] / stats[0]
+        # the row-sharded leaves: their norm runs over the model group too
+        split = (layout.model_dims if layout is not None
+                 and mesh.model_size > 1 else {})
+        grads = optim.ShardedTree(grads, mesh, zero1=dims, model=split)
         if not dims:
             updates, opt_state = tx.update(grads, state.opt_state, params)
             optim.apply_updates(params, updates)
             return opt_state, grads, loss, metrics
         blocks = {n: layout.shard_leaf(n, p, mesh) for n, p in params.items()}
-        grads = optim.ShardedTree(grads, dims, group)
         updates, opt_state = tx.update(grads, state.opt_state, blocks)
         optim.apply_updates(blocks, updates)       # into the views
         buckets.all_gather_into(params, blocks)
         return opt_state, grads, loss, metrics
 
     def step(state: TrainState, batch: dict):
+        if model is not None:
+            model.train()
         rng = fold_in(state.rng, state.step)
         opt_state, grads, loss, metrics = (
             local_step if mesh is None else mesh_step)(state, batch, rng)
@@ -223,21 +248,29 @@ def make_train_step(loss_fn: LossFn, tx: optim.Transform, *,
     return step
 
 
-def make_eval_step(eval_fn: Callable, mesh=None):
+def make_eval_step(eval_fn: Callable, mesh=None, model=None):
     """``eval_fn(params, batch) -> metrics dict``, under ``no_grad``; with
-    a ``mesh``, each metric's mean over the data group (one
-    all-reduce)."""
+    a ``mesh``, each metric's mean over the data group (one all-reduce).
+    ``model``: run in eval mode (BatchNorm on its running statistics,
+    which stay as they are), its mode restored after."""
 
     def step(state: TrainState, batch: dict):
-        with torch.no_grad():
-            metrics = eval_fn(state.params, batch)
-            if mesh is None:
-                return metrics
-            names = sorted(metrics)
-            mean = comms.pmean(torch.stack([
-                torch.as_tensor(metrics[k], dtype=torch.float32,
-                                device=mesh.device) for k in names]),
-                mesh.data_group)
-            return dict(zip(names, mean))
+        was_training = model is not None and model.training
+        if model is not None:
+            model.eval()
+        try:
+            with torch.no_grad():
+                metrics = eval_fn(state.params, batch)
+                if mesh is None:
+                    return metrics
+                names = sorted(metrics)
+                mean = comms.pmean(torch.stack([
+                    torch.as_tensor(metrics[k], dtype=torch.float32,
+                                    device=mesh.device) for k in names]),
+                    mesh.data_group)
+                return dict(zip(names, mean))
+        finally:
+            if model is not None:
+                model.train(was_training)
 
     return step

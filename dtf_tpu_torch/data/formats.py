@@ -1,5 +1,13 @@
-"""On-disk formats (the port's copy of ``dtf_tpu.data.formats``' token and
-Criteo paths).
+"""On-disk formats (the port's copy of ``dtf_tpu.data.formats``' image,
+token and Criteo paths).
+
+``NpyImageData`` reads an ``images.npy`` + ``labels.npy`` pair
+(memory-mapped; uint8 scaled to [0, 1)) and ``CifarBinData`` the
+canonical CIFAR-10 binary batches; :func:`detect_image_data` picks npy,
+then CIFAR, for the ResNet launcher, and raises "not yet ported" on a
+directory of TFRecord shards (the host plane's reader is not ported)
+rather than train on synthetic data in its place. The same files give
+the same batches in both packages.
 
 ``TokenBinData`` reads a flat little-endian uint16 token stream (uint32
 when ``vocab_size > 65535``), the nanoGPT/GPT-2 ``.bin`` convention, and
@@ -31,6 +39,131 @@ from dtf_tpu_torch.data.sharded import ShardedEpochs
 Batch = dict
 
 log = logging.getLogger("dtf_tpu_torch")
+
+
+class NpyImageData(ShardedEpochs):
+    """``images.npy`` + ``labels.npy`` ([N, H, W, C] uint8 or float32, and
+    [N]), memory-mapped; uint8 images are scaled to [0, 1) f32. ``split``
+    other than train reads ``<split>_images.npy``."""
+
+    def __init__(self, data_dir: str, batch_size: int, *,
+                 split: str = "train", seed: int = 0, host_index: int = 0,
+                 host_count: int = 1):
+        prefix = "" if split == "train" else f"{split}_"
+        self.images = np.load(os.path.join(data_dir, f"{prefix}images.npy"),
+                              mmap_mode="r")
+        self.labels = np.load(os.path.join(data_dir, f"{prefix}labels.npy"),
+                              mmap_mode="r")
+        if len(self.images) != len(self.labels):
+            raise ValueError(
+                f"images ({len(self.images)}) / labels ({len(self.labels)}) "
+                "row counts differ")
+        super().__init__(len(self.images), batch_size, seed=seed,
+                         host_index=host_index, host_count=host_count)
+
+    @staticmethod
+    def available(data_dir: str, split: str = "train") -> bool:
+        prefix = "" if split == "train" else f"{split}_"
+        return all(os.path.exists(os.path.join(data_dir, f"{prefix}{n}.npy"))
+                   for n in ("images", "labels"))
+
+    def __iter__(self) -> Iterator[Batch]:
+        for idx in self._indices():
+            idx = np.sort(idx)  # sorted fancy-index: sequential mmap reads
+            img = np.asarray(self.images[idx])
+            if img.dtype == np.uint8:
+                img = (img / 255.0).astype(np.float32)
+            yield {"image": img.astype(np.float32, copy=False),
+                   "label": np.asarray(self.labels[idx]).astype(np.int32)}
+
+
+class CifarBinData(ShardedEpochs):
+    """The CIFAR-10 binary batches (``data_batch_*.bin``, or
+    ``test_batch.bin`` for another split): records of 1 label byte and
+    the 32×32 R, G and B planes, read whole into memory (180 MB for the
+    real dataset) as [N, 32, 32, 3] f32 in [0, 1]."""
+
+    RECORD = 1 + 3 * 32 * 32
+
+    def __init__(self, data_dir: str, batch_size: int, *,
+                 split: str = "train", seed: int = 0, host_index: int = 0,
+                 host_count: int = 1):
+        files = (sorted(glob.glob(os.path.join(data_dir, "data_batch_*.bin")))
+                 if split == "train"
+                 else [os.path.join(data_dir, "test_batch.bin")])
+        if not files:
+            raise FileNotFoundError(f"no CIFAR .bin batches in {data_dir}")
+        raw = np.concatenate([np.fromfile(f, np.uint8) for f in files])
+        if raw.size % self.RECORD:
+            raise ValueError("truncated CIFAR binary batch")
+        rec = raw.reshape(-1, self.RECORD)
+        self.labels = rec[:, 0].astype(np.int32)
+        self.images = (rec[:, 1:].reshape(-1, 3, 32, 32)
+                       .transpose(0, 2, 3, 1) / 255.0).astype(np.float32)
+        super().__init__(len(self.labels), batch_size, seed=seed,
+                         host_index=host_index, host_count=host_count)
+
+    @staticmethod
+    def available(data_dir: str) -> bool:
+        return bool(glob.glob(os.path.join(data_dir, "data_batch_*.bin")))
+
+    def __iter__(self) -> Iterator[Batch]:
+        for idx in self._indices():
+            yield {"image": self.images[idx], "label": self.labels[idx]}
+
+
+def _tfrecord_train_pattern(data_dir: str) -> Optional[str]:
+    """The train split's TFRecord shards: ``train*`` ones, else any
+    ``*.tfrecord*`` when no shard names a split; None when there are
+    none."""
+    pat = os.path.join(data_dir, "train*.tfrecord*")
+    if glob.glob(pat):
+        return pat
+    files = glob.glob(os.path.join(data_dir, "*.tfrecord*"))
+    prefixed = any(os.path.basename(f).startswith(
+        ("test", "validation", "val", "eval")) for f in files)
+    return os.path.join(data_dir, "*.tfrecord*") \
+        if files and not prefixed else None
+
+
+def _refuse_tfrecord(pattern: str):
+    raise NotImplementedError(
+        f"TFRecord image shards ({pattern}): not yet ported (the host "
+        "plane's TFRecord reader); convert them to images.npy + "
+        "labels.npy")
+
+
+def detect_image_data(data_dir: str, batch_size: int, **kw):
+    """npy pair > CIFAR binary > None, for the ResNet launcher; TFRecord
+    shards and neither of the others raise "not yet ported"."""
+    if not data_dir:
+        return None
+    if NpyImageData.available(data_dir):
+        return NpyImageData(data_dir, batch_size, **kw)
+    if CifarBinData.available(data_dir):
+        return CifarBinData(data_dir, batch_size, **kw)
+    pat = _tfrecord_train_pattern(data_dir)
+    if pat:
+        _refuse_tfrecord(pat)
+    return None
+
+
+def detect_image_eval_data(data_dir: str, batch_size: int, **kw):
+    """The held-out split: ``test_images.npy``/``test_labels.npy`` or
+    CIFAR's ``test_batch.bin``; None when there is none (the caller then
+    drops eval rather than score on unrelated data). Held-out TFRecord
+    shards raise "not yet ported"."""
+    if not data_dir:
+        return None
+    if NpyImageData.available(data_dir, split="test"):
+        return NpyImageData(data_dir, batch_size, split="test", **kw)
+    if os.path.exists(os.path.join(data_dir, "test_batch.bin")):
+        return CifarBinData(data_dir, batch_size, split="test", **kw)
+    for split in ("test", "validation", "val", "eval"):
+        pat = os.path.join(data_dir, f"{split}*.tfrecord*")
+        if glob.glob(pat):
+            _refuse_tfrecord(pat)
+    return None
 
 
 class TokenBinData:

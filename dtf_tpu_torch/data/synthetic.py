@@ -2,9 +2,11 @@
 
 Deterministic per (seed, step, host) with the same numpy draws as the JAX
 package, so both packages see the same batches byte for byte. Ported: the
-``gpt`` kind (causal-LM next-token batches) and the ``widedeep`` kind
-(13 dense + ``num_sparse`` categorical Criteo-like features); the image
-and BERT kinds come with their slices.
+``mnist`` kind, the ``cifar`` (32×32×3, 10 classes learnable from the
+mean colour) and ``imagenet`` (224×224×3, 1000 random classes) image
+kinds (NHWC f32 in [0, 1)), the ``gpt`` kind (causal-LM next-token
+batches) and the ``widedeep`` kind (13 dense + ``num_sparse``
+categorical Criteo-like features); the BERT kind comes with its slice.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ Batch = dict
 #: the kinds of the JAX package, by slice of the port that brings them
 KINDS = ("mnist", "cifar", "imagenet", "bert", "gpt", "widedeep")
 #: the kinds this port draws
-PORTED = ("mnist", "gpt", "widedeep")
+PORTED = ("mnist", "cifar", "imagenet", "gpt", "widedeep")
 
 
 def _rng_for(seed: int, step: int, host: int) -> np.random.Generator:
@@ -60,6 +62,15 @@ class SyntheticData:
             x = r.random((n, 784), np.float32)
             w = _rng_for(self.seed, 0, 0).standard_normal((784, 10))
             y = (x @ w).argmax(-1).astype(np.int32)
+            return {"image": x, "label": y}
+        if self.kind == "cifar":
+            x = r.random((n, 32, 32, 3), np.float32)
+            y = (x.mean((1, 2)) @ _rng_for(self.seed, 0, 0)
+                 .standard_normal((3, 10))).argmax(-1).astype(np.int32)
+            return {"image": x, "label": y}
+        if self.kind == "imagenet":
+            x = r.random((n, 224, 224, 3), np.float32)
+            y = r.integers(0, 1000, (n,), np.int32)
             return {"image": x, "label": y}
         if self.kind == "widedeep":
             dense = r.standard_normal((n, 13)).astype(np.float32)

@@ -64,26 +64,32 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class ShardedTree(dict):
-    """Named tensors of which those named in ``sharded`` are this rank's
-    ZeRO-1 blocks over ``group``; the rest every rank holds whole. The
-    train step hands the gradients to the optimizer so, and
-    :func:`tree_norm` takes the norm of the whole tree from it."""
+    """Named tensors over a ``mesh`` of which those named in ``zero1`` are
+    this rank's ZeRO-1 blocks over the data group and those in ``model``
+    this rank's blocks over the model group; the rest every rank holds
+    whole. The train step hands the gradients to the optimizer so, and
+    :func:`tree_norm` takes the norm of the whole tree from it, once: the
+    clipping and the ``grad_norm`` metric read the same number, from one
+    collective a step."""
 
-    def __init__(self, tensors: dict, sharded, group):
+    def __init__(self, tensors: dict, mesh, *, zero1=(), model=()):
         super().__init__(tensors)
-        self.sharded = frozenset(sharded)
-        self.group = group
+        self.mesh = mesh
+        self.zero1 = frozenset(zero1)
+        self.model = frozenset(model)
+        self.norm = None
 
 
 def tree_norm(tree: dict) -> torch.Tensor:
     """The global L2 norm of a dict of tensors, whole or
-    :class:`ShardedTree` (the shards' squares summed over the group once,
-    the whole leaves' added once, not once a rank)."""
+    :class:`ShardedTree` (:func:`~dtf_tpu_torch.core.comms.global_norm`:
+    every element counted once, whichever ranks hold it; computed once a
+    tree)."""
     if isinstance(tree, ShardedTree):
-        return comms.global_norm(
-            [t for n, t in tree.items() if n in tree.sharded],
-            [t for n, t in tree.items() if n not in tree.sharded],
-            tree.group)
+        if tree.norm is None:
+            tree.norm = comms.global_norm(tree, tree.mesh, tree.zero1,
+                                          tree.model)
+        return tree.norm
     return global_norm(tree.values())
 
 

@@ -196,6 +196,153 @@ def widedeep_lookup_run(mesh, rank, world):
     return got
 
 
+#: the tiny ResNets of the CPU tests and check (f): stage sizes (1, 1),
+#: 4 filters, 5 classes, batch 4 (2 rows a rank)
+RN_STAGES, RN_FILTERS, RN_CLASSES, RN_BATCH = (1, 1), 4, 5, 4
+
+
+def resnet_tiny(stem, block, group=None):
+    from dtf_tpu_torch.models import resnet
+
+    return resnet.ResNet(RN_STAGES, getattr(resnet, block), RN_CLASSES,
+                         num_filters=RN_FILTERS, stem=stem,
+                         dtype=torch.float32, device="cpu", group=group)
+
+
+def resnet_vars(model, seed):
+    """The trainer's init with every BatchNorm scale, bias and running
+    statistic drawn away from its constant (no dead branch)."""
+    tree = convert.init_params_resnet(model, seed)
+    rng = np.random.default_rng(seed + 100)
+
+    def draw(path, v):
+        leaf = path[-1]
+        if leaf == "scale":
+            return (1.0 + 0.3 * rng.standard_normal(v.shape)).astype(v.dtype)
+        if leaf in ("bias", "mean") and path[0] != "head":
+            return (0.2 * rng.standard_normal(v.shape)).astype(v.dtype)
+        if leaf == "var":
+            return rng.uniform(0.5, 1.5, v.shape).astype(v.dtype)
+        return v
+
+    return {col: convert._unflatten((p, draw(p, v)) for p, v in
+                                    convert._flatten(tree[col]))
+            for col in tree}
+
+
+def load_resnet(model, tree):
+    model.load_state_dict({**convert.params_from_flax(tree["params"]),
+                           **convert.stats_from_flax(tree["batch_stats"])})
+
+
+#: check (f): the tiny ResNets with synchronised BatchNorm over the data
+#: axis, 16×16 images, the launcher's recipe with a loss-side L2
+RN_CASES = (("cifar", "BasicBlock"), ("imagenet", "BottleneckBlock"))
+RN_SIZE, RN_L2 = 16, 1e-2
+
+
+def resnet_batches():
+    rng = np.random.default_rng(21)
+    return [{"image": rng.standard_normal(
+                (RN_BATCH, RN_SIZE, RN_SIZE, 3)).astype(np.float32),
+             "label": rng.integers(0, RN_CLASSES, (RN_BATCH,)).astype(
+                 np.int32)} for _ in range(STEPS)]
+
+
+def resnet_run(stem, block, mesh=None):
+    """On this rank's rows (all of them without a mesh), BatchNorm over
+    the data group: the loss, the running statistics and the gradients
+    (averaged over the data group, as the step does) of one forward at
+    the initial variables; then STEPS train steps (nesterov SGD, ZeRO-1
+    over a mesh): losses, grad_norms, whole parameters and buffers."""
+    from dtf_tpu_torch.core import comms
+    from dtf_tpu_torch.models import resnet
+
+    group = mesh.data_group if mesh is not None else None
+    model = resnet_tiny(stem, block, group=group)
+    tree = resnet_vars(model, 5)
+    batches = resnet_batches()
+    if mesh is not None:
+        lo, hi = mesh.host_view.batch_rows(RN_BATCH)
+        batches = [{k: v[lo:hi] for k, v in b.items()} for b in batches]
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in batches]
+    load_resnet(model, tree)
+    params = dict(model.named_parameters())
+    loss_fn = resnet.make_loss(model, weight_decay=RN_L2)
+    loss, _ = loss_fn(params, batches[0], 0)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    if mesh is not None:
+        loss = comms.pmean(loss.detach(), group)
+        grads = [comms.pmean(g, group) for g in grads]
+    first = {"loss": float(loss.detach()), "grads": dict(zip(params, grads)),
+             "stats": {n: b.clone() for n, b in model.named_buffers()}}
+
+    load_resnet(model, tree)
+    layout = (make_layout(params, mesh, zero1=True) if mesh is not None
+              else None)
+    tx = optim.sgd(0.1, momentum=0.9, nesterov=True)
+    state = ttr.create_train_state(model, tx, 0, mesh=mesh, layout=layout)
+    step = ttr.make_train_step(loss_fn, tx, mesh=mesh, model=model)
+    losses, norms = [], []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"first": first, "losses": losses, "norms": norms,
+            "params": {n: p.detach().clone()
+                       for n, p in state.params.items()},
+            "extra": {n: t.clone() for n, t in state.extra.items()},
+            "zero1_dims": dict(layout.zero1_dims) if layout else {}}
+
+
+#: check (e): the tiny Wide&Deep trained with its tables over the model
+#: axis and global-norm clipping on (the clip far below the norm, so
+#: every step clips)
+WD_TRAIN_BATCH, WD_LR, WD_CLIP = 8, 1e-2, 0.05
+
+
+class WdArgs:
+    clip_grad_norm = WD_CLIP
+
+
+def widedeep_tree():
+    return convert.init_params_widedeep(widedeep_model(torch.float32), 13)
+
+
+def widedeep_batches():
+    data = SyntheticData("widedeep", WD_TRAIN_BATCH, seed=6,
+                         hash_buckets=WD_BUCKETS, num_sparse=WD_SPARSE)
+    return [data.batch(i) for i in range(STEPS)]
+
+
+def widedeep_train_run(mesh=None):
+    """STEPS Adam steps of the tiny f32 Wide&Deep, clipped at WD_CLIP,
+    every rank on the whole batch (the data axis is 1): losses,
+    grad_norms and the whole parameters (the tables gathered)."""
+    from dtf_tpu_torch.models import widedeep
+
+    model = widedeep_model(torch.float32, mesh)
+    full = convert.params_from_flax(widedeep_tree())
+    layout = (make_layout(dict(model.named_parameters()), mesh,
+                          widedeep.rules, zero1=True)
+              if mesh is not None else None)
+    model.load_state_dict(full if layout is None else {
+        n: layout.shard_param(n, t, mesh) for n, t in full.items()})
+    tx = optim.wrap_optimizer(optim.adam(WD_LR), WdArgs)
+    state = ttr.create_train_state(model, tx, 7, mesh=mesh, layout=layout)
+    step = ttr.make_train_step(widedeep.make_loss(model), tx, mesh=mesh)
+    losses, norms = [], []
+    for b in widedeep_batches():
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    whole = {n: (layout.gather_param(n, p.detach(), mesh) if layout
+                 else p.detach().clone()) for n, p in state.params.items()}
+    return {"losses": losses, "norms": norms, "params": whole,
+            "model_dims": dict(layout.model_dims) if layout else {}}
+
+
 def ce_inputs():
     """x [N, D], W [V, D], labels with ignored positions unequal per
     rank half."""
@@ -275,6 +422,13 @@ def main():
     dx, dw = torch.autograd.grad(mean, (xt, wt))
     dist.all_reduce(dw)
     out["ce"] = {"mean": mean.detach(), "n": n, "dx": dx, "dw": dw}
+
+    # (e) the row-sharded tables' train step with clipping on
+    out["widedeep_train"] = widedeep_train_run(model_mesh)
+
+    # (f) ResNet, its BatchNorm synchronised over the data axis
+    out["resnet"] = {f"{stem}-{block}": resnet_run(stem, block, data_mesh)
+                     for stem, block in RN_CASES}
 
     # the collectives over a group, on a dim other than the first
     from dtf_tpu_torch.core import comms

@@ -122,20 +122,29 @@ def _jax_zero1_dims(tree, rules, data):
         keys = [p.key for p in path]
         name = next(iter(convert.params_from_flax(
             convert._unflatten([(tuple(keys), np.zeros(shape))]))))
-        if dim is not None and convert.is_kernel(name, len(shape)):
-            dim = len(shape) - 1 - dim
+        if dim is not None:                     # flax dim → the port's
+            dim = convert.flax_dims(name, len(shape))[dim]
         out[name] = dim
     return out
 
 
 @pytest.mark.parametrize("model,data,model_size", [
     ("gpt", 2, 1), ("gpt", 4, 1), ("gpt", 3, 1), ("widedeep", 2, 1),
-    ("widedeep", 4, 1), ("widedeep", 2, 2), ("widedeep", 3, 1)])
+    ("widedeep", 4, 1), ("widedeep", 2, 2), ("widedeep", 3, 1),
+    ("resnet", 2, 1), ("resnet", 4, 1)])
 def test_zero1_leaf_rule_matches_jax(model, data, model_size):
-    """Data 3 divides no dim of either tree: all replicated."""
+    """Data 3 divides no dim of the GPT or Wide&Deep tree: all replicated.
+    ResNet-20's convolution kernels ([kh, kw, in, out] in flax, [out, in,
+    kh, kw] in the port) split where JAX splits them."""
     if model == "gpt":
         cfg = tgpt.GPTConfig.tiny(dtype=torch.float32)
         tree = convert.init_params_flax(cfg, 0)
+        rules_j, rules_t = (), ()
+    elif model == "resnet":
+        from dtf_tpu_torch.models import resnet as trn
+
+        tree = convert.init_params_resnet(trn.resnet20(device="cpu"),
+                                          0)["params"]
         rules_j, rules_t = (), ()
     else:
         small = twd.WideDeep(hash_buckets=64, embed_dim=8, mlp=(32, 16),

@@ -36,6 +36,18 @@ their stderr.
     forward with dropout equals the 1-rank forward row for row (within
     ``F32_TOL``: two rows against four in each product), and the masks
     themselves exactly.
+(e) A tiny f32 Wide&Deep, its tables row-sharded over the model axis,
+    3 Adam steps with ``--clip_grad_norm`` far below the norm: the losses,
+    ``grad_norm`` (every table row counted once, summed over the model
+    group) and every parameter against one rank and JAX's
+    ``make_train_step`` on a ``MeshConfig(model=2)`` mesh within
+    ``F32_TOL``; the replicated dense leaves bitwise equal on both model
+    ranks (clipped by one norm).
+(f) Tiny ResNets (both stems and blocks, 16×16 images, 2 rows a rank)
+    with BatchNorm synchronised over the data axis: the loss, every
+    gradient (the ranks' mean) and the running statistics of one forward,
+    then 3 train steps' losses, ``grad_norm``, parameters and statistics,
+    against one rank on the global batch within ``F32_TOL``.
 And ``core/comms``' psum, pmean, psum_scatter and all_gather over the
 group, exactly (small integers in f32).
 """
@@ -59,6 +71,7 @@ from dtf_tpu.core import train as jtr
 from dtf_tpu.core.mesh import MeshConfig, make_mesh
 from dtf_tpu.models import gpt as jgpt
 from dtf_tpu.models import mnist as jmnist
+from dtf_tpu.models import widedeep as jwd
 from dtf_tpu_torch import convert
 from dtf_tpu_torch.core.dist import free_port
 from dtf_tpu_torch.models import gpt as tgpt
@@ -162,6 +175,32 @@ def _jax_run(name):
                 jax.tree.map(np.asarray, state.params))}
 
 
+def _jax_widedeep_run():
+    """JAX's make_train_step on MeshConfig(model=2) for check (e)."""
+    mesh = make_mesh(MeshConfig(model=WORLD), devices=jax.devices()[:WORLD])
+    jmodel = jwd.WideDeep(num_sparse=worker.WD_SPARSE,
+                          hash_buckets=worker.WD_BUCKETS,
+                          embed_dim=worker.WD_EMBED, mlp=(8,),
+                          dtype=jnp.float32)
+    args = argparse.Namespace(clip_grad_norm=worker.WD_CLIP)
+    tx = jflags.wrap_optimizer(optax.adam(worker.WD_LR), args)
+    state, shardings = jtr.create_train_state(
+        jwd.make_init(jmodel), tx, jax.random.PRNGKey(0), mesh, jwd.rules)
+    params = jax.tree.map(jnp.asarray, worker.widedeep_tree())
+    state = jax.device_put(
+        state.replace(params=params, opt_state=tx.init(params)), shardings)
+    step = jtr.make_train_step(jwd.make_loss(jmodel), tx, mesh, shardings,
+                               donate=False)
+    losses, norms = [], []
+    for b in worker.widedeep_batches():
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "norms": norms,
+            "params": convert.params_from_flax(
+                jax.tree.map(np.asarray, state.params))}
+
+
 def _close(got, want, what):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                atol=F32_TOL, rtol=F32_TOL, err_msg=what)
@@ -216,6 +255,9 @@ def test_two_ranks_equal_one_rank_and_jax(tmp_path):
             wd_take[str(dtype)] = (outs, grads)
         cfg, tree, drop_ids = worker.dropout_inputs()
         dropped = worker.dropout_run(cfg, tree, drop_ids, 5)
+        wd_jax, wd_one = _jax_widedeep_run(), worker.widedeep_train_run()
+        rn_one = {f"{stem}-{block}": worker.resnet_run(stem, block)
+                  for stem, block in worker.RN_CASES}
     finally:
         join_ranks(procs)
     ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
@@ -277,6 +319,35 @@ def test_two_ranks_equal_one_rank_and_jax(tmp_path):
         rows = len(x) // WORLD
         _close(got["ce"]["dx"], ce_dx[r * rows:(r + 1) * rows], "ce dx")
         _close(got["ce"]["dw"], ce_dw, "ce dW summed over ranks")
+
+    # (e)
+    for r, got in enumerate(ranks):
+        run = got["widedeep_train"]
+        assert set(run["model_dims"]) == {"embed_tables_wide.weight",
+                                          "embed_tables_deep.weight"}
+        assert min(run["norms"]) > 10 * worker.WD_CLIP    # every step clips
+        _same_run(run, wd_one, f"rank {r} Wide&Deep (clipped) vs one rank")
+        _same_run(run, wd_jax, f"rank {r} Wide&Deep (clipped) vs JAX")
+    for k, v in ranks[0]["widedeep_train"]["params"].items():
+        assert torch.equal(ranks[1]["widedeep_train"]["params"][k], v), k
+
+    # (f)
+    for case, want in rn_one.items():
+        for r, got in enumerate(ranks):
+            run = got["resnet"][case]
+            what = f"rank {r} ResNet {case}"
+            _close(run["first"]["loss"], want["first"]["loss"],
+                   f"{what} first loss")
+            for kind in ("grads", "stats"):
+                assert set(run["first"][kind]) == set(want["first"][kind])
+                for k, v in want["first"][kind].items():
+                    _close(run["first"][kind][k], v, f"{what} {kind} {k}")
+            _same_run(run, want, f"{what} vs one rank")
+            for k, v in want["extra"].items():
+                _close(run["extra"][k], v, f"{what} statistic {k}")
+            assert run["zero1_dims"], what       # ZeRO-1 split something
+        for k, v in ranks[0]["resnet"][case]["extra"].items():
+            assert torch.equal(ranks[1]["resnet"][case]["extra"][k], v), k
 
     # the collectives over a group (exact: small integers in f32)
     xs = [worker.comms_input(r) for r in range(WORLD)]
