@@ -136,7 +136,30 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     momentum 0.9, 3 warm-up and 20 timed steps): step ms, images/s,
     analytic MFU, peak memory, device busy and idle share, launches and
     device ms by family (convolutions, BatchNorm, the rest).
-21. dist_nccl — a process group of ONE over NCCL, made by this script,
+21. bert_kernels — B1, B2 and B3 at BERT's shapes (bf16, 12 heads of
+    64, non-causal, a key-padding mask with rows of no padding, some, all
+    but one key and every key padded; batch 16 and 64, T 128 and 512)
+    against their plain versions at the kernels / kernels_bwd
+    tolerances, a fully padded row's output and gradients exactly 0; at
+    the path's [64, 12, 128, 64] and at [16, 12, 512, 64]: each kernel's
+    time, plain version, bound and SDPA with the same boolean mask (the
+    backend PyTorch's dispatch took, named).
+22. train_bert — ``train_bert`` in process: BERT-base at full width
+    (109,514,298 parameters), seq 128, batch 64, ``--grad_accum 4``, 10
+    steps — finite losses, every tensor on the card, B1, B2 and B3 each
+    12 × 4 a step (B1 12 more an eval batch) — and a relaunch that
+    resumes to 12; ``--mlm_gather 20``, ``--loss_chunk_vocab 8192``,
+    ``--optimizer lamb`` and ``--optimizer adafactor`` 3 steps each, finite;
+    30 AdamW steps on one fixed batch lower the loss by
+    ``BERT_FIXED_LOSS_DROP``; ``--mlm_gather 128`` gives the full path's
+    loss within ``BERT_GATHER_REL_TOL``.
+23. bert_bench — ``profile_bert``'s measurement (one fixed batch on the
+    card, AdamW, 3 warm-up, 20 timed and 5 profiled steps) at
+    ``grad_accum`` 1 and 4 with full logits, and 1 with ``--mlm_gather
+    20`` and with ``--loss_chunk_vocab 8192``: step ms, tokens/s,
+    analytic MFU, peak memory, flash launches a step, the head's ms and
+    share, device busy and idle share, launches and device ms by family.
+24. dist_nccl — a process group of ONE over NCCL, made by this script,
     with the entry points run inside it: ``python -m
     dtf_tpu_torch.distributed`` (MNIST softmax, 200 steps; its loss and
     held-out accuracy), and ``train_gpt --loss_pallas --mesh_data 1``
@@ -147,8 +170,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     1`` (ResNet-20, batch 256, 5 steps, every BatchNorm synchronised over
     the group) against the same run with no group: losses within
     ``DIST_LOSS_REL_TOL``, running statistics within ``DIST_RN_STAT_TOL``,
-    the step ms of both.
-22. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
+    the step ms of both; and ``train_bert --mesh_data 1`` (BERT-base,
+    batch 8, ``--grad_accum 2``, ZeRO-1, 4 steps) against the same run
+    with no group: losses within ``DIST_LOSS_REL_TOL``, exact flash
+    launch counts.
+25. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
     group made by this script's ``--dist-child`` ranks; the kernels
     built before the spawn; each rank's output in a file, the wait
     bounded by ``DIST_CHILD_TIMEOUT_S``): ``train_widedeep --mesh_model
@@ -161,8 +187,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     --config=cifar --mesh_data 2`` (128 rows a rank, BatchNorm over both
     ranks, 5 steps; losses within ``DIST_LOSS_REL_TOL`` and running
     statistics within ``DIST_RN_STAT_TOL`` of one rank on the same global
-    batch). Its times go through the host (gloo): a check that it runs,
-    not a speed.
+    batch), then ``train_bert --mesh_data 2 --grad_accum 2`` (BERT-base,
+    dropout on, ZeRO-1, 4 rows a rank, 4 steps; losses within
+    ``DIST_LOSS_REL_TOL`` of one rank on the same global batch, which
+    holds only with each microbatch cut from the global batch) and the
+    row exchange's time on each rank (a ResNet-50 b256 batch and BERT's
+    b64 batch). Its times go through the host (gloo): a check that it
+    runs, not a speed.
 
 Then one JSON line listing every kernel (launches on its main path, error
 against the plain version, times, bound; the 8 ported TPU kernels, the
@@ -292,7 +323,14 @@ WD_EVAL_ACCURACY_MIN = 0.55
 EMBED_GRAD_REL_TOL = 1e-6
 
 
+#: when the script started (main sets it): every phase line carries its
+#: seconds since then
+T_START = []
+
+
 def emit(obj):
+    if T_START:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -2311,6 +2349,396 @@ def phase_resnet_bench(torch, smi):
         torch.cuda.empty_cache()
 
 
+#: the BERT slice (BASELINE config 4): BERT-base at the launcher's seq 128
+#: and global batch 64, --grad_accum 4 (16 rows a microbatch), 10 steps
+#: and a relaunch that resumes to 12; 12 encoder layers (one B1, B2 and
+#: B3 each a layer and microbatch)
+BERT_SEQ, BERT_BATCH, BERT_ACCUM, BERT_LAYERS = 128, 64, 4, 12
+BERT_STEPS, BERT_RESUME_STEPS = 10, 12
+#: BERT-base's parameters (flax's count, ``tests/test_torch_bert.py``)
+BERT_BASE_PARAMS = 109_514_298
+#: steps of each other loss path / optimizer through the entry point
+BERT_VARIANT_STEPS = 3
+#: stated before the first run: 30 AdamW steps (lr 5e-4 constant, weight
+#: decay 0.01, dropout 0.1, --grad_accum 4) on ONE fixed synthetic batch
+#: of 64 × 128 (first loss ~ ln 30522 + 0.5 ≈ 10.8) bring the last loss
+#: at least this far below the first
+BERT_FIXED_STEPS, BERT_FIXED_LR, BERT_FIXED_LOSS_DROP = 30, 5e-4, 1.0
+#: --mlm_gather 128 keeps every masked position of a 128-token row: the
+#: same trunk (same inputs, masks and kernels), the head's f32 products
+#: at another shape and the CE mean in another order
+BERT_GATHER_REL_TOL = 1e-4
+#: B1-B3 at BERT's shapes: (batch, T), 12 heads of 64, non-causal, a
+#: key-padding mask; the path's shape is (64, 128) and (16, 512) the
+#: longest sequence BERT-base takes at a microbatch of 16
+BERT_KERNEL_SHAPES = ((16, 128), (64, 128), (16, 512), (64, 512))
+#: profile_bert's configurations: (grad_accum, loss_chunk_vocab,
+#: mlm_gather), full logits at 1 and 4, the gather and the vocab-chunked
+#: loss at 1; timed steps and profiled steps each
+BERT_BENCH = ((1, 0, 0), (4, 0, 0), (1, 0, 20), (1, 8192, 0))
+BERT_BENCH_STEPS, BERT_BENCH_PROFILED = 20, 5
+#: dist_nccl and dist_two_ranks_one_card: BERT-base at a global batch of
+#: 8 (4 rows a rank at 2 ranks), --grad_accum 2, ZeRO-1, dropout 0.1, 4
+#: steps
+DIST_BERT_BATCH, DIST_BERT_ACCUM, DIST_BERT_STEPS = 8, 2, 4
+
+
+def _bert_flags(logdir, *extra, steps=BERT_STEPS, batch=BERT_BATCH,
+                accum=BERT_ACCUM):
+    return [f"--batch_size={batch}", f"--seq_len={BERT_SEQ}",
+            f"--grad_accum={accum}", f"--train_steps={steps}",
+            "--log_every=1", f"--checkpoint_every={BERT_STEPS}",
+            f"--logdir={logdir}", *extra]
+
+
+def _bert_want(steps, accum=BERT_ACCUM, eval_batches=EVAL_BATCHES):
+    """B1, B2, B3: one each a layer and microbatch, plus the final eval's
+    forwards (one a layer and batch)."""
+    fwd = BERT_LAYERS * (steps * accum + eval_batches)
+    return {"flash_fwd": fwd, "flash_fwd_hfold": 0,
+            "flash_dq": BERT_LAYERS * steps * accum,
+            "flash_dkv": BERT_LAYERS * steps * accum}
+
+
+def _bert_mask(torch, b, t, gen):
+    """A key-padding mask [b, t]: row 0 no padding, row 1 some, row 2 all
+    but one key padded, row 3 every key padded, the rest random
+    lengths."""
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    lengths[:4] = torch.tensor([t, t // 2 + 3, 1, 0], device="cuda")
+    return torch.arange(t, device="cuda")[None, :] < lengths[:, None]
+
+
+def _sdpa_backend(torch, q, k, v, mask):
+    """The name of the backend PyTorch's dispatch picks for
+    ``scaled_dot_product_attention`` with this boolean mask."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, mask, 0.0, False)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError):
+        return "unknown"
+
+
+def phase_bert_kernels(torch, smi):
+    """B1, B2 and B3 at BERT's shapes (bf16, 12 heads of 64, non-causal,
+    a key-padding mask: rows with no padding, some, all but one key, every
+    key) against their plain versions at the kernels / kernels_bwd
+    tolerances; a fully padded row's output and gradients exactly 0. Then
+    at the path's shape [64, 12, 128, 64] and at [16, 12, 512, 64], with
+    the path's mask (no padding: the synthetic stream pads nothing): each
+    kernel's time, plain version, bound, and SDPA with the same boolean
+    mask (the backend it took named). Returns the rows."""
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    cases = []
+    for b, t in BERT_KERNEL_SHAPES:
+        q, k, v = (randn(b, HEADS, t, D_HEAD) for _ in range(3))
+        do = randn(b, t, HEADS, D_HEAD).transpose(1, 2)   # autograd's layout
+        mask = _bert_mask(torch, b, t, gen)
+        bias = fa._mask_bias(mask, b, t)
+        opts = dict(sm_scale=D_HEAD ** -0.5, causal=False, window=0)
+        out, lse = fa.flash_attention_cuda(q, k, v, bias, **opts)
+        got = fa.flash_attention_bwd_cuda(q, k, v, bias, out, lse, do, **opts)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, bias, **opts)
+        want = fa.flash_attention_bwd_reference(q, k, v, bias, out, lse, do,
+                                                **opts)
+        name = f"b{b}_T{t}"
+        d_out = (out.float() - ref_out.float()).abs().max().item()
+        dead = torch.isneginf(ref_lse)
+        require(torch.equal(torch.isneginf(lse), dead),
+                f"{name}: -inf lse rows differ")
+        d_lse = (lse - ref_lse).abs()[~dead].max().item()
+        require(d_out <= OUT_ATOL and d_lse <= LSE_ATOL,
+                f"{name}: B1 disagrees (out {d_out}, lse {d_lse})")
+        require(torch.count_nonzero(out.view(b, HEADS, t, D_HEAD)[3])
+                .item() == 0, f"{name}: the fully padded row is not 0")
+        row = {"case": name, "out_max_abs": d_out, "lse_max_abs": d_lse}
+        for gname, x, y in zip(("dq", "dk", "dv"), got, want):
+            diff = x.float() - y.float()
+            rel = (diff.norm() / y.float().norm().clamp_min(1e-30)).item()
+            mab = diff.abs().max().item()
+            scale = y.float().abs().max().item()
+            row[f"{gname}_rel"], row[f"{gname}_max_abs"] = rel, mab
+            require(torch.isfinite(x).all().item()
+                    and rel <= GRAD_REL_TOL
+                    and mab <= GRAD_MAX_ABS_TOL * scale,
+                    f"{name}: {gname} disagrees (rel {rel}, max-abs {mab} "
+                    f"of {scale})")
+            require(torch.count_nonzero(x[3]).item() == 0,
+                    f"{name}: {gname} of the fully padded row is not 0")
+        cases.append(row)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = []
+    for b, t in BERT_KERNEL_SHAPES[1:3]:
+        q, k, v = (randn(b, HEADS, t, D_HEAD) for _ in range(3))
+        do = randn(b, t, HEADS, D_HEAD).transpose(1, 2)
+        mask = torch.ones(b, t, dtype=torch.bool, device="cuda")
+        bias = fa._mask_bias(mask, b, t)
+        opts = dict(sm_scale=D_HEAD ** -0.5, causal=False)
+        out, lse = fa.flash_attention_cuda(q, k, v, bias, **opts)
+        delta = (do.float() * out.reshape(b, HEADS, t, D_HEAD).float()
+                 ).sum(dim=-1)
+        fwd_bound = attention_bound_ms(b, HEADS, t, t, D_HEAD, False, 0)
+        dq_bound, dkv_bound = attention_bwd_bounds_ms(b, HEADS, t, t, D_HEAD,
+                                                      False, 0)
+        sdpa_mask = mask[:, None, None, :]
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, attn_mask=sdpa_mask),
+                          20)
+        lib_fwd_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa(qg, kg, vg, attn_mask=sdpa_mask), (qg, kg, vg), do), 20)
+        plain_bwd = time_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            q, k, v, bias, out, lse, do, **opts), 3)
+        times.append({
+            "shape": [b, HEADS, t, D_HEAD], "causal": False,
+            "kv_mask": "all keys valid (the path's data)",
+            "sdpa_backend": _sdpa_backend(torch, q, k, v, sdpa_mask),
+            "flash_fwd": {
+                "ms": time_ms(torch, lambda: fa.flash_attention_cuda(
+                    q, k, v, bias, **opts), 20),
+                "plain_ms": time_ms(
+                    torch, lambda: fa.flash_attention_reference(
+                        q, k, v, bias, **opts), 3),
+                "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                "library_ms": lib_fwd},
+            "flash_dq": {
+                "ms": time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
+                    q, k, v, do, lse, delta, bias, **opts), 20),
+                "plain_ms": plain_bwd, "bound_ms": dq_bound[0],
+                "bound_by": dq_bound[1],
+                "library_ms": lib_fwd_bwd - lib_fwd},
+            "flash_dkv": {
+                "ms": time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
+                    q, k, v, do, lse, delta, bias, **opts), 20),
+                "plain_ms": plain_bwd, "bound_ms": dkv_bound[0],
+                "bound_by": dkv_bound[1],
+                "library_ms": lib_fwd_bwd - lib_fwd}})
+    fa.reset_launch_counts()
+    emit({"phase": "bert_kernels", "nvidia_smi": smi, "out_atol": OUT_ATOL,
+          "lse_atol": LSE_ATOL, "grad_rel_tol": GRAD_REL_TOL,
+          "grad_max_abs_tol_of_max": GRAD_MAX_ABS_TOL, "cases": cases,
+          "times": times,
+          "library": "scaled_dot_product_attention(attn_mask=the boolean "
+                     "key mask); B2 and B3's library_ms is SDPA's backward "
+                     "((forward + backward) - forward) for both"})
+    return times
+
+
+def _bert_fixed_batch(torch):
+    """BERT_FIXED_STEPS AdamW steps (BERT_FIXED_LR constant, weight decay
+    0.01, --grad_accum 4) of BERT-base on one fixed synthetic batch: the
+    losses. Then the full path's loss against --mlm_gather 128 on the
+    same weights, batch and seed."""
+    from dtf_tpu_torch import optim
+    from dtf_tpu_torch.convert import init_params_bert, params_from_flax
+    from dtf_tpu_torch.core import train as tr
+    from dtf_tpu_torch.data.synthetic import SyntheticData
+    from dtf_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    model = bert.BertMLM(cfg, device="cuda")
+    model.load_state_dict(params_from_flax(init_params_bert(model, 0)))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticData(
+        "bert", BERT_BATCH, seed=0, seq_len=BERT_SEQ,
+        vocab_size=cfg.vocab_size).batch(0).items()}
+    params = dict(model.named_parameters())
+    mb = {k: v[:BERT_BATCH // BERT_ACCUM] for k, v in batch.items()}
+    with torch.no_grad():
+        full, _ = bert.make_loss(model)(params, mb, 5)
+        gathered, aux = bert.make_loss(model, mlm_gather=BERT_SEQ)(
+            params, mb, 5)
+    full, gathered = full.item(), gathered.item()
+    tx = optim.adamw(BERT_FIXED_LR, weight_decay=0.01)
+    state = tr.create_train_state(model, tx, 0)
+    step = tr.make_train_step(bert.make_loss(model), tx,
+                              grad_accum=BERT_ACCUM)
+    fixed = []
+    for _ in range(BERT_FIXED_STEPS):
+        state, m = step(state, batch)
+        fixed.append(m["loss"].item())
+    del model, state, batch, params, mb
+    return fixed, full, gathered, float(aux.weight)
+
+
+def phase_train_bert(torch, smi):
+    """``train_bert`` in process: BERT-base at full width, seq 128, batch
+    64, --grad_accum 4, BERT_STEPS steps — finite losses, every tensor on
+    the card, B1, B2 and B3 each 12 × 4 a step (and B1 12 an eval batch)
+    — and a relaunch that resumes to BERT_RESUME_STEPS; --mlm_gather 20,
+    --loss_chunk_vocab 8192, --optimizer lamb and --optimizer adafactor a
+    few steps each at full width, finite; BERT_FIXED_STEPS steps on one
+    fixed batch lower the loss by BERT_FIXED_LOSS_DROP; --mlm_gather 128
+    gives the full path's loss within BERT_GATHER_REL_TOL. Returns the
+    main run's launches."""
+    import gc
+    import tempfile
+
+    from dtf_tpu_torch import train_bert
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_bert_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (state, writer), fused, flash, embed, wall = _counted(
+        torch, lambda: train_bert.run(_bert_flags(f"{logdir}/main")))
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_ms = _history(writer)
+    evals = [m for _, m in writer.history if "eval_mlm_loss" in m]
+    require(state.step == BERT_STEPS and len(losses) == BERT_STEPS
+            and all(math.isfinite(x) for x in losses), f"losses {losses}")
+    require(len(evals) == 1 and math.isfinite(evals[0]["eval_mlm_loss"]),
+            f"held-out eval {evals}")
+    _on_card(state)
+    want = _bert_want(BERT_STEPS)
+    require(flash == want, f"flash launches {flash}, want {want}")
+    require(not any(fused.values()) and embed == 0,
+            f"other hand kernels launched: {fused}, B8 {embed}")
+    n_params = sum(p.numel() for p in state.params.values())
+    require(n_params == BERT_BASE_PARAMS, f"{n_params} parameters")
+    del state, writer
+    gc.collect()
+    (state, writer), _, flash_resume, _, _ = _counted(
+        torch, lambda: train_bert.run(_bert_flags(
+            f"{logdir}/main", steps=BERT_RESUME_STEPS)))
+    resumed = [s for s, m in writer.history if "loss" in m]
+    require(state.step == BERT_RESUME_STEPS and resumed == list(
+        range(BERT_STEPS + 1, BERT_RESUME_STEPS + 1)),
+        f"relaunch ran steps {resumed} to {state.step}")
+    require(flash_resume == _bert_want(BERT_RESUME_STEPS - BERT_STEPS),
+            f"resumed launches {flash_resume}")
+    del state, writer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    variants = {}
+    for name, extra in (("mlm_gather_20", ["--mlm_gather=20"]),
+                        ("loss_chunk_vocab_8192", ["--loss_chunk_vocab=8192"]),
+                        ("lamb", ["--optimizer=lamb"]),
+                        ("adafactor", ["--optimizer=adafactor"])):
+        (state, writer), _, flash_v, _, wall_v = _counted(
+            torch, lambda: train_bert.run(_bert_flags(
+                f"{logdir}/{name}", *extra, steps=BERT_VARIANT_STEPS)))
+        v_losses, v_ms = _history(writer)
+        require(len(v_losses) == BERT_VARIANT_STEPS
+                and all(math.isfinite(x) for x in v_losses)
+                and flash_v == _bert_want(BERT_VARIANT_STEPS),
+                f"{name}: losses {v_losses}, launches {flash_v}")
+        _on_card(state)
+        variants[name] = {"losses": v_losses, "step_ms_median_after_1": v_ms,
+                          "run_wall_s": wall_v}
+        del state, writer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    fixed, full, gathered, positions = _bert_fixed_batch(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(all(math.isfinite(x) for x in fixed), f"fixed-batch {fixed}")
+    require(fixed[-1] <= fixed[0] - BERT_FIXED_LOSS_DROP,
+            f"fixed-batch loss fell from {fixed[0]} to {fixed[-1]}, less "
+            f"than {BERT_FIXED_LOSS_DROP}")
+    gather_rel = abs(gathered - full) / abs(full)
+    require(gather_rel <= BERT_GATHER_REL_TOL,
+            f"--mlm_gather {BERT_SEQ} loss {gathered} vs full {full}")
+    shutil.rmtree(logdir, ignore_errors=True)
+    emit({"phase": "train_bert", "nvidia_smi": smi, "model": "bert-base",
+          "params": n_params, "batch": BERT_BATCH, "seq": BERT_SEQ,
+          "grad_accum": BERT_ACCUM, "steps": BERT_STEPS, "losses": losses,
+          "eval": evals[0], "step_ms_median_after_1": step_ms,
+          "tokens_per_s": BERT_BATCH * BERT_SEQ * 1e3 / step_ms,
+          "run_wall_s": wall, "max_memory_allocated": peak,
+          "flash_launches": flash, "resumed_steps": resumed,
+          "variants": variants,
+          "fixed_batch": {"steps": BERT_FIXED_STEPS, "lr": BERT_FIXED_LR,
+                          "losses": fixed, "drop_min": BERT_FIXED_LOSS_DROP},
+          "mlm_gather_full_row": {"budget": BERT_SEQ, "loss_full": full,
+                                  "loss_gathered": gathered,
+                                  "masked_positions": positions,
+                                  "rel": gather_rel,
+                                  "rel_tol": BERT_GATHER_REL_TOL}})
+    return flash
+
+
+def phase_bert_bench(torch, smi):
+    """``profile_bert``'s measurement (BERT-base, seq 128, batch 64, one
+    fixed batch on the card, AdamW, 3 warm-up, 20 timed and 5 profiled
+    steps) at each BERT_BENCH configuration: step ms, tokens/s, analytic
+    MFU, peak memory, flash launches a step, the head's ms and share,
+    device busy and idle share, launches and device ms by family."""
+    import gc
+
+    from dtf_tpu_torch.profile_bert import measure
+
+    for accum, chunk, gather in BERT_BENCH:
+        with contextlib.redirect_stdout(io.StringIO()):   # the top kernels
+            out = measure(grad_accum=accum, steps=BERT_BENCH_STEPS,
+                          loss_chunk=chunk, mlm_gather=gather,
+                          profile_steps=BERT_BENCH_PROFILED)
+        want = {k: v / BERT_STEPS for k, v in _bert_want(
+            BERT_STEPS, accum=accum, eval_batches=0).items()}
+        require(math.isfinite(out["loss_last"]) and out["tokens_per_s"] > 0
+                and out["flash_launches_per_step"] == want,
+                f"bert_bench {accum}/{chunk}/{gather}: {out}")
+        emit({"phase": "bert_bench", "nvidia_smi": smi, **out})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _bert_global_batch_losses(torch):
+    """One rank on the 2 ranks' global batch: train_bert's recipe through
+    the library (--grad_accum 2, dropout on), each step's batch the rows
+    of synthetic host 0 then host 1 of 2 (what the ranks read)."""
+    import gc
+
+    import numpy as np
+
+    from dtf_tpu_torch import optim, train_bert
+    from dtf_tpu_torch.convert import init_params_bert, params_from_flax
+    from dtf_tpu_torch.core import train as tr
+    from dtf_tpu_torch.data.synthetic import SyntheticData
+    from dtf_tpu_torch.models import bert
+
+    args = train_bert.build_parser().parse_args(_bert_dist_flags("unused"))
+    cfg = bert.BertConfig.base()
+    model = bert.BertMLM(cfg, device="cuda")
+    model.load_state_dict(params_from_flax(init_params_bert(model,
+                                                            args.seed)))
+    tx = optim.make_optimizer(args, lambda s: optim.adamw(
+        s, weight_decay=0.01), recipe_uses_wd=True)
+    state = tr.create_train_state(model, tx, args.seed)
+    step = tr.make_train_step(bert.make_loss(model), tx,
+                              grad_accum=DIST_BERT_ACCUM)
+    hosts = [SyntheticData("bert", DIST_BERT_BATCH, seed=args.seed,
+                           seq_len=BERT_SEQ, vocab_size=cfg.vocab_size,
+                           host_index=k, host_count=2) for k in range(2)]
+    losses = []
+    for i in range(DIST_BERT_STEPS):
+        parts = [h.batch(i) for h in hosts]
+        batch = {k: torch.from_numpy(np.concatenate([p[k] for p in parts]))
+                 .cuda() for k in parts[0]}
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _bert_dist_flags(logdir, *extra):
+    return _bert_flags(logdir, *extra, steps=DIST_BERT_STEPS,
+                       batch=DIST_BERT_BATCH, accum=DIST_BERT_ACCUM)
+
+
 def _rn_dist_flags(logdir, *extra):
     return _rn_flags(logdir, *extra, config="cifar", steps=DIST_RN_STEPS)
 
@@ -2429,7 +2857,7 @@ def phase_dist_nccl(torch, smi):
     import torch.distributed as dist
 
     from dtf_tpu_torch import distributed as mnist_launcher
-    from dtf_tpu_torch import train_gpt, train_resnet
+    from dtf_tpu_torch import train_bert, train_gpt, train_resnet
     from dtf_tpu_torch.core.dist import free_port
 
     logdir = tempfile.mkdtemp(prefix="chip_smoke_dist_nccl_")
@@ -2437,6 +2865,11 @@ def phase_dist_nccl(torch, smi):
         torch, lambda: train_resnet.run(_rn_dist_flags(f"{logdir}/rn_ref")))
     rn_ref_losses, rn_ref_ms = _history(writer)
     rn_ref_stats = {n: t.tolist() for n, t in state.extra.items()}
+    del state, writer
+    gc.collect()
+    (state, writer), _, bert_flash_ref, _, bert_ref_wall = _counted(
+        torch, lambda: train_bert.run(_bert_dist_flags(f"{logdir}/bert_ref")))
+    bert_ref_losses, bert_ref_ms = _history(writer)
     del state, writer
     gc.collect()
     want_fused, want_flash = _gpt_dist_want()
@@ -2489,11 +2922,25 @@ def phase_dist_nccl(torch, smi):
         require(fused == want_fused and flash == want_flash,
                 f"launches in the group {fused} {flash}")
         del state, writer
+        gc.collect()
+        (state, writer), _, bert_flash, _, bert_wall = _counted(
+            torch, lambda: train_bert.run(_bert_dist_flags(
+                f"{logdir}/bert_nccl", "--mesh_data=1")))
+        require(state.layout is not None, "BERT in the group has no layout")
+        bert_losses, bert_ms = _history(writer)
+        del state, writer
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(logdir, ignore_errors=True)
+    bert_rel = _rel_losses(bert_losses, bert_ref_losses)
+    bert_want = _bert_want(DIST_BERT_STEPS, accum=DIST_BERT_ACCUM)
+    require(len(bert_losses) == DIST_BERT_STEPS
+            and max(bert_rel) <= DIST_LOSS_REL_TOL
+            and bert_flash == bert_flash_ref == bert_want,
+            f"BERT in the group {bert_losses} vs without {bert_ref_losses}"
+            f", launches {bert_flash} {bert_flash_ref}")
     rn_rel = _rel_losses(rn_losses, rn_ref_losses)
     rn_stat_rel = _rn_stats_rel(torch, rn_stats, rn_ref_stats)
     require(len(rn_losses) == DIST_RN_STEPS
@@ -2515,6 +2962,17 @@ def phase_dist_nccl(torch, smi):
                   "run_wall_s_in_group": wall, "run_wall_s_no_group":
                       wall_ref, "fused_launches": fused,
                   "flash_launches": flash},
+          "bert": {"model": "bert-base", "batch": DIST_BERT_BATCH,
+                   "seq": BERT_SEQ, "grad_accum": DIST_BERT_ACCUM,
+                   "steps": DIST_BERT_STEPS, "zero1": True,
+                   "losses_in_group": bert_losses,
+                   "losses_no_group": bert_ref_losses, "loss_rel": bert_rel,
+                   "loss_rel_tol": DIST_LOSS_REL_TOL,
+                   "step_ms_median_after_1_in_group": bert_ms,
+                   "step_ms_median_after_1_no_group": bert_ref_ms,
+                   "run_wall_s_in_group": bert_wall,
+                   "run_wall_s_no_group": bert_ref_wall,
+                   "flash_launches": bert_flash},
           "resnet20": {"batch": RN_BATCH, "steps": DIST_RN_STEPS,
                        "zero1": True, "batchnorm": "synchronised over the "
                        "data group (2 NCCL all-reduces a layer)",
@@ -2569,6 +3027,49 @@ def _gpt_global_batch_losses(torch):
     return losses
 
 
+#: the row exchange before the microbatches (--grad_accum 2 over 2
+#: ranks): a ResNet-50 b256 batch (154 MB of f32 images, 128 rows a rank,
+#: half of them sent) and BERT's b64 × 128 batch; timed repeats each
+EXCHANGE_REPEATS = 5
+
+
+def _exchange_ms(torch, world):
+    """The device-to-device time of ``core.train``'s row exchange on this
+    rank (host clock around synchronised calls; over gloo it goes through
+    host memory): the median of EXCHANGE_REPEATS calls for each batch."""
+    import statistics
+
+    from dtf_tpu_torch.core import train as tr
+    from dtf_tpu_torch.core.mesh import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(data=world), torch.device("cuda", 0))
+    gen = torch.Generator(device="cuda").manual_seed(mesh.data_index)
+    batches = {
+        "resnet50_b256": {
+            "image": torch.rand((256 // world, 224, 224, 3), device="cuda",
+                                generator=gen),
+            "label": torch.zeros(256 // world, dtype=torch.int32,
+                                 device="cuda")},
+        "bert_b64": {k: torch.zeros((BERT_BATCH // world, BERT_SEQ),
+                                    dtype=torch.int32, device="cuda")
+                     for k in ("input_ids", "segment_ids", "attention_mask",
+                               "mlm_labels")}}
+    out = {}
+    for name, batch in batches.items():
+        times = []
+        for _ in range(EXCHANGE_REPEATS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr._exchange_rows(batch, 2, mesh)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"bytes_a_rank": sum(v.numel() * v.element_size()
+                                         for v in batch.values()),
+                     "ms_median": statistics.median(times[1:]),
+                     "ms_first": times[0]}
+    return out
+
+
 def dist_child(rank, world, store, logdir):
     """One rank of dist_two_ranks_one_card: joins the gloo group through
     ``file://store`` on cuda:0, runs ``train_widedeep --mesh_model 2`` and
@@ -2579,7 +3080,8 @@ def dist_child(rank, world, store, logdir):
     import torch
     import torch.distributed as dist
 
-    from dtf_tpu_torch import train_gpt, train_resnet, train_widedeep
+    from dtf_tpu_torch import train_bert, train_gpt, train_resnet, \
+        train_widedeep
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2620,6 +3122,19 @@ def dist_child(rank, world, store, logdir):
         "losses": losses, "step_ms_median_after_1": step_ms,
         "run_wall_s": wall,
         "stats": {n: t.tolist() for n, t in state.extra.items()}}
+    del state, writer
+    gc.collect()
+    torch.cuda.empty_cache()
+    (state, writer), _, flash, _, wall = _counted(torch, lambda: (
+        train_bert.run(_bert_dist_flags(f"{logdir}/bert", "--mesh_data=2"))))
+    losses, step_ms = _history(writer)
+    out["bert"] = {"losses": losses, "step_ms_median_after_1": step_ms,
+                   "run_wall_s": wall, "flash_launches": flash,
+                   "zero1_leaves": len(state.layout.zero1_dims)}
+    del state, writer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["row_exchange"] = _exchange_ms(torch, world)
     with open(os.path.join(logdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -2657,6 +3172,7 @@ def phase_dist_two_ranks_one_card(torch, smi):
     gc.collect()
     gpt_ref = _gpt_global_batch_losses(torch)
     rn_ref, rn_ref_stats = _rn_global_batch_run(torch)
+    bert_ref = _bert_global_batch_losses(torch)
     torch.cuda.empty_cache()
     store = os.path.join(logdir, "store")
     # the ranks' output goes to files: a full pipe would stall a rank
@@ -2733,6 +3249,15 @@ def phase_dist_two_ranks_one_card(torch, smi):
             DIST_LOSS_REL_TOL and max(rn_stat_rel) <= DIST_RN_STAT_TOL,
             f"ResNet-20 over 2 ranks {rn_losses} vs one rank {rn_ref}, "
             f"statistics {rn_stat_rel}")
+    bert_losses = ranks[0]["bert"]["losses"]
+    bert_rel = _rel_losses(bert_losses, bert_ref)
+    bert_want = _bert_want(DIST_BERT_STEPS, accum=DIST_BERT_ACCUM)
+    require(len(bert_losses) == DIST_BERT_STEPS
+            and max(bert_rel) <= DIST_LOSS_REL_TOL
+            and all(g["bert"]["flash_launches"] == bert_want
+                    for g in ranks),
+            f"BERT over 2 ranks {bert_losses} vs one rank {bert_ref}, "
+            f"launches {[g['bert']['flash_launches'] for g in ranks]}")
     shutil.rmtree(logdir, ignore_errors=True)
     emit({"phase": "dist_two_ranks_one_card", "world_size": 2,
           "backend": "gloo", "device": "cuda:0 (both ranks)",
@@ -2759,7 +3284,15 @@ def phase_dist_two_ranks_one_card(torch, smi):
                        "loss_rel": rn_rel, "stats_rel": rn_stat_rel,
                        "stats_rel_tol": DIST_RN_STAT_TOL,
                        "ranks": [{k: v for k, v in g["resnet20"].items()
-                                  if k != "stats"} for g in ranks]}})
+                                  if k != "stats"} for g in ranks]},
+          "bert": {"mesh_data": 2, "steps": DIST_BERT_STEPS,
+                   "rows_a_rank": DIST_BERT_BATCH // 2,
+                   "grad_accum": DIST_BERT_ACCUM, "dropout": 0.1,
+                   "zero1": True, "losses_2_ranks": bert_losses,
+                   "losses_1_rank_global_batch": bert_ref,
+                   "loss_rel": bert_rel, "loss_rel_tol": DIST_LOSS_REL_TOL,
+                   "ranks": [g["bert"] for g in ranks]},
+          "row_exchange": [g["row_exchange"] for g in ranks]})
     return {"embed_gather": ranks[0]["widedeep"]["embed_gather_launches"],
             "fused": ranks[0]["gpt"]["fused_launches"]}
 
@@ -2770,7 +3303,8 @@ PHASES = ("device", "build", "kernels", "generate", "generate_variants",
           "kernels_ce", "kernel_times_ce", "train_grads_ce", "train_ce",
           "kernels_embed", "kernel_times_embed", "widedeep_lookup",
           "train_widedeep", "resnet_batchnorm", "train_resnet",
-          "resnet_bench", "dist_nccl", "dist_two_ranks_one_card")
+          "resnet_bench", "bert_kernels", "train_bert", "bert_bench",
+          "dist_nccl", "dist_two_ranks_one_card")
 
 
 def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
@@ -2870,6 +3404,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    T_START.append(t_start)
     device, smi = phase_device(torch)
     got = {}
     if "build" in phases:
@@ -2910,6 +3445,12 @@ def main(argv=None):
         phase_train_resnet(torch, smi)
     if "resnet_bench" in phases:
         phase_resnet_bench(torch, smi)
+    if "bert_kernels" in phases:
+        phase_bert_kernels(torch, smi)
+    if "train_bert" in phases:
+        phase_train_bert(torch, smi)
+    if "bert_bench" in phases:
+        phase_bert_bench(torch, smi)
     if "dist_nccl" in phases:
         phase_dist_nccl(torch, smi)
     if "dist_two_ranks_one_card" in phases:

@@ -26,24 +26,27 @@ or anything of ``dtf_tpu``. The module layout mirrors the JAX package:
   group and ``tp_dense`` / ``TpDense`` (unsharded);
   ``core/sharding.py``: the placement rules and ZeRO-1's;
 - ``core/train.py``: ``TrainState``, ``make_train_step`` (data
-  parallelism, ZeRO-1), ``make_eval_step``;
-- ``optim.py``: optax-semantics optimizers and LR schedules;
+  parallelism, ZeRO-1, microbatches of the global batch),
+  ``make_eval_step``;
+- ``optim.py``: optax-semantics optimizers (sgd, momentum, adam, adamw,
+  lamb, adafactor) and LR schedules;
 - ``models/gpt.py``: ``GPTConfig``, ``GPT``, the KV cache, ``generate``,
-  ``make_loss``, ``make_eval``; ``models/widedeep.py``: ``WideDeep``,
-  ``make_loss``, ``make_eval``; ``models/mnist.py``:
+  ``make_loss``, ``make_eval``; ``models/bert.py``: ``BertConfig``,
+  ``BertMLM``, ``make_loss``, ``make_eval``; ``models/resnet.py``:
+  ``ResNet``, ``make_loss``, ``make_eval``; ``models/widedeep.py``:
+  ``WideDeep``, ``make_loss``, ``make_eval``; ``models/mnist.py``:
   ``SoftmaxRegression``, ``MLP``, ``make_loss``, ``make_eval``;
-- ``data/``: the synthetic (``mnist``, ``gpt``, ``widedeep``), MNIST
-  IDX, token-file and Criteo loaders;
+- ``data/``: the synthetic (every kind of the JAX package's), MNIST
+  IDX, image, token-file (causal and masked LM) and Criteo loaders;
 - ``loop.py``, ``hooks.py``, ``metrics.py``, ``checkpoint.py``: the
   training loop, its hooks, the metric writer, checkpoints and the
   model-config manifest;
 - ``convert.py``: the flax param tree <-> the port's ``state_dict``;
 - ``cli/``: the launchers' flags and setup;
 - ``train_gpt.py``, ``generate_gpt.py``, ``train_widedeep.py``,
-  ``distributed.py`` (MNIST, the reference's launcher):
-  ``python -m dtf_tpu_torch.<name>``; ``profile_train.py``,
-  ``profile_generate.py``, ``profile_widedeep.py``: their profilers on
-  the GPU.
+  ``train_resnet.py``, ``train_bert.py``, ``distributed.py`` (MNIST, the
+  reference's launcher): ``python -m dtf_tpu_torch.<name>``;
+  ``profile_*.py``: their profilers on the GPU.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

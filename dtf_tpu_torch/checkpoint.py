@@ -81,6 +81,15 @@ def _map_param_leaves(tree, names: frozenset, fn):
     return tree
 
 
+def _split_like(t, like, dim) -> bool:
+    """Whether the optimizer leaf ``t`` is split along ``dim`` as the
+    parameter's tensor ``like`` is: ``like``'s rank and extent there.
+    adafactor's statistics keep a dim they reduce as 1, and its unused
+    slots are 0-d: those are the same on every rank."""
+    return (dim is not None and t.ndim == like.ndim
+            and t.shape[dim] == like.shape[dim])
+
+
 def _to_device(tree, device):
     if torch.is_tensor(tree):
         return tree.to(device)
@@ -152,9 +161,17 @@ class Checkpointer:
         params = {n: p.detach() for n, p in state.params.items()}
         if layout is None or mesh is None:
             return params, state.opt_state
-        opt_state = _map_param_leaves(
-            state.opt_state, frozenset(params), lambda n, t: (
-                layout.gather_param(n, layout.gather_leaf(n, t, mesh), mesh)))
+
+        def whole(n, t):
+            if _split_like(t, layout.shard_leaf(n, params[n], mesh),
+                           layout.zero1_dims.get(n)):
+                t = layout.gather_leaf(n, t, mesh)
+            if _split_like(t, params[n], layout.model_dims.get(n)):
+                t = layout.gather_param(n, t, mesh)
+            return t
+
+        opt_state = _map_param_leaves(state.opt_state, frozenset(params),
+                                      whole)
         return ({n: layout.gather_param(n, p, mesh)
                  for n, p in params.items()}, opt_state)
 
@@ -215,11 +232,18 @@ class Checkpointer:
         layout, mesh = target.layout, self.mesh
         if layout is not None and mesh is not None:
             # this rank's blocks of the whole tensors
+            whole = params
             params = {n: layout.shard_param(n, p, mesh)
-                      for n, p in params.items()}
-            opt_state = _map_param_leaves(
-                opt_state, frozenset(params), lambda n, t: layout.shard_leaf(
-                    n, layout.shard_param(n, t, mesh), mesh).contiguous())
+                      for n, p in whole.items()}
+
+            def mine(n, t):
+                if _split_like(t, whole[n], layout.model_dims.get(n)):
+                    t = layout.shard_param(n, t, mesh)
+                if _split_like(t, params[n], layout.zero1_dims.get(n)):
+                    t = layout.shard_leaf(n, t, mesh)
+                return t.contiguous()
+
+            opt_state = _map_param_leaves(opt_state, frozenset(params), mine)
         opt_state = _to_device(opt_state, some.device)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)

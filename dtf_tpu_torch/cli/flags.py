@@ -147,10 +147,11 @@ def define_train_flags(p: argparse.ArgumentParser, batch_size=64,
                    help="linear warmup steps; -1 = auto")
     p.add_argument("--lr_min_ratio", type=float, default=0.0)
     p.add_argument("--optimizer", default="",
-                   help="sgd | momentum | adam | adamw (lamb | adafactor "
-                        "are not yet ported); empty = the recipe's")
+                   help="sgd | momentum | adam | adamw | lamb | "
+                        "adafactor; empty = the recipe's")
     p.add_argument("--weight_decay", type=float, default=-1.0,
-                   help="weight decay for adamw (-1 = default)")
+                   help="weight decay for adamw / lamb, adafactor's "
+                        "weight_decay_rate (-1 = default)")
     p.add_argument("--seed", type=int, default=0, help="init, data and "
                    "dropout seed")
     p.add_argument("--prefetch_depth", type=int, default=2,

@@ -100,3 +100,38 @@ def own_process_group():
     finally:
         if not existed and tdist.is_initialized():
             tdist.destroy_process_group()
+
+
+def lm_eval_hook(args, device, eval_fn, writer, mesh, *, kind: str,
+                 mode: str, vocab_size: int):
+    """The held-out eval of the LM launchers (the one copy of its policy):
+    ``<data_dir>/val.bin`` when present; a synthetic ``kind`` stream at
+    seed+1 only when training itself is synthetic; none (with a warning)
+    for real tokens without a val split. 4 batches a sweep, each rank its
+    rows, the metrics reduced over the data group."""
+    from dtf_tpu_torch.core import train as tr
+    from dtf_tpu_torch.data.formats import TokenBinData, detect_token_data
+    from dtf_tpu_torch.data.synthetic import SyntheticData
+    from dtf_tpu_torch.hooks import EvalHook
+    from dtf_tpu_torch.loop import place_batch
+
+    eval_data = host_batches(mesh, lambda **host: detect_token_data(
+        args.data_dir, args.batch_size, args.seq_len, mode=mode,
+        vocab_size=vocab_size, seed=args.seed, split="val", **host))
+    if eval_data is not None:
+        def batches():
+            return (eval_data.batch(i) for i in range(4))
+    elif args.data_dir and TokenBinData.available(args.data_dir):
+        log.warning("no val.bin in %s; skipping held-out eval rather than "
+                    "scoring on synthetic data", args.data_dir)
+        return None
+    else:
+        held_out = host_batches(mesh, lambda **host: SyntheticData(
+            kind, args.batch_size, seed=args.seed + 1, seq_len=args.seq_len,
+            vocab_size=vocab_size, **host))
+
+        def batches():
+            return (held_out.batch(10_000_000 + i) for i in range(4))
+    return EvalHook(tr.make_eval_step(eval_fn, mesh), batches, writer,
+                    args.eval_every or args.train_steps,
+                    place_batch=lambda b: place_batch(b, device))

@@ -21,7 +21,11 @@ distributions (the trainer's); :func:`init_params_widedeep` the same for
 Wide&Deep (``embed_tables_{wide,deep}/embedding``, ``wide_dense``,
 ``mlp_{i}``, ``deep_out``); :func:`init_params_mnist` for the MNIST
 models (``hidden_{i}``, ``logits``); :func:`init_params_resnet` the
-ResNets' variables (``params`` and ``batch_stats``).
+ResNets' variables (``params`` and ``batch_stats``); :func:`init_params_bert`
+BERT's tree (the tied ``token_embed/embedding`` once, ``pos_embed``,
+``seg_embed``, ``layer_{i}/{attention,ln_attn,mlp_in,mlp_out,ln_mlp}``,
+``mlm_dense``, ``ln_mlm`` and the top-level leaf ``mlm_bias``, which is the
+model's own parameter of that name).
 """
 
 from __future__ import annotations
@@ -70,6 +74,8 @@ def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
             name = "weight"
         elif leaf == "bias":
             name = "bias"
+        elif not mods:
+            name = leaf            # a leaf of the model itself: mlm_bias
         else:
             raise KeyError(f"unknown flax param leaf {'/'.join(path)}")
         out[".".join(mods + [name])] = torch.from_numpy(
@@ -79,9 +85,11 @@ def params_from_flax(tree) -> "OrderedDict[str, torch.Tensor]":
 
 def _is_embedding(module: str) -> bool:
     """A module whose 2-D ``weight`` is a flax ``embedding``, not a
-    transposed ``kernel``: GPT's ``token_embed`` and Wide&Deep's
-    ``embed_tables_*`` (``RowShardedEmbed``)."""
-    return module == "token_embed" or module.startswith("embed_tables")
+    transposed ``kernel``: GPT's and BERT's ``token_embed``, BERT's
+    ``pos_embed`` and ``seg_embed``, and Wide&Deep's ``embed_tables_*``
+    (``RowShardedEmbed``)."""
+    return (module in ("token_embed", "pos_embed", "seg_embed")
+            or module.startswith("embed_tables"))
 
 
 #: flax kernel [in, out] / [kh, kw, in, out] → torch weight: the flax
@@ -96,7 +104,7 @@ def is_kernel(name: str, ndim: int) -> bool:
     stored transposed: a 2-D ``weight`` that is not an embedding, or a
     4-D (convolution) ``weight``."""
     *mods, leaf = name.split(".")
-    return leaf == "weight" and (ndim == 4 or (
+    return bool(mods) and leaf == "weight" and (ndim == 4 or (
         ndim == 2 and not _is_embedding(mods[-1])))
 
 
@@ -115,7 +123,9 @@ def params_to_flax(state_dict) -> dict:
     for key, val in state_dict.items():
         arr = val.detach().cpu().numpy()
         *mods, name = key.split(".")
-        if name == "bias":
+        if not mods:
+            leaf = name                          # BERT's mlm_bias
+        elif name == "bias":
             leaf = "bias"
         elif name != "weight":
             raise KeyError(f"unknown state_dict entry {key}")
@@ -329,3 +339,42 @@ def init_params_resnet(model, seed: int) -> dict:
     params += [(("head", "kernel"), _lecun_normal(rng, d_in, d_out)),
                (("head", "bias"), np.zeros((d_out,), np.float32))]
     return {"params": _unflatten(params), "batch_stats": _unflatten(stats)}
+
+
+def init_params_bert(model, seed: int) -> dict:
+    """A seeded flax tree in numpy f32 for a
+    :class:`~dtf_tpu_torch.models.bert.BertMLM` with the JAX package's
+    init (``bert.make_init``): the three ``nn.Embed`` tables normal at std
+    1/sqrt(hidden) (flax's ``variance_scaling(1, fan_in, normal,
+    out_axis=0)``), every ``Dense`` kernel lecun-normal, zero biases,
+    LayerNorm scale 1 and bias 0, ``mlm_bias`` 0. numpy's draws, not
+    flax's PRNG bits: the distributions match."""
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    h = cfg.hidden
+
+    def embed(rows):
+        x = rng.standard_normal((rows, h), dtype=np.float32)
+        return {"embedding": x * np.float32(h ** -0.5)}
+
+    def dense(d_in, d_out):
+        return {"kernel": _lecun_normal(rng, d_in, d_out),
+                "bias": np.zeros((d_out,), np.float32)}
+
+    def norm():
+        return {"scale": np.ones((h,), np.float32),
+                "bias": np.zeros((h,), np.float32)}
+
+    tree = {"token_embed": embed(cfg.vocab_size),
+            "pos_embed": embed(cfg.max_positions),
+            "seg_embed": embed(cfg.type_vocab), "ln_embed": norm()}
+    for i in range(cfg.layers):
+        tree[f"layer_{i}"] = {
+            "attention": {n: dense(h, h) for n in
+                          ("query", "key", "value", "attn_out")},
+            "ln_attn": norm(), "mlp_in": dense(h, cfg.intermediate),
+            "mlp_out": dense(cfg.intermediate, h), "ln_mlp": norm()}
+    tree["mlm_dense"] = dense(h, h)
+    tree["ln_mlm"] = norm()
+    tree["mlm_bias"] = np.zeros((cfg.vocab_size,), np.float32)
+    return tree

@@ -15,6 +15,12 @@ With a ``mesh`` (:mod:`dtf_tpu_torch.core.mesh`) each rank holds its
 rows of the global batch, and the weighted mean runs over the ranks of
 the data group as it runs over microbatches, so the gradient is the
 global batch's also when ranks hold different numbers of valid labels.
+Under gradient accumulation over more than one rank the ranks first
+exchange rows (one all-to-all a batch leaf), so that microbatch i is
+global rows [i·m, (i+1)·m) (m = batch / grad_accum), each rank its
+block of them, as the reference's ``to_micro`` cuts the global batch:
+what a microbatch draws or reduces (the dropout masks, BERT's gather
+key, BatchNorm's statistics) is the global microbatch's.
 Under ZeRO-1 (``state.layout.zero1_dims``, from
 :func:`dtf_tpu_torch.core.sharding.make_layout`) the sum over ranks is a
 reduce-scatter into this rank's blocks, the optimizer updates those
@@ -35,6 +41,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dtf_tpu_torch import optim
 from dtf_tpu_torch.core import comms
@@ -99,8 +106,9 @@ def create_train_state(model: torch.nn.Module, tx: optim.Transform,
     extra = {n: t for n, t in model.state_dict(keep_vars=True).items()
              if n not in params}
     if layout is not None and layout.zero1_dims:
-        opt_params = {n: layout.shard_leaf(n, p, mesh)
-                      for n, p in params.items()}
+        opt_params = optim.ShardedTree(
+            {n: layout.shard_leaf(n, p, mesh) for n, p in params.items()},
+            mesh, zero1=layout.zero1_dims)
     else:
         opt_params = params
     return TrainState(step=0, params=params, opt_state=tx.init(opt_params),
@@ -114,6 +122,55 @@ def _split(batch: dict, n: int) -> list[dict]:
                          f"into grad_accum={n} equal microbatches")
     parts = {k: torch.chunk(v, n) for k, v in batch.items()}
     return [{k: parts[k][i] for k in batch} for i in range(n)]
+
+
+def _micro_rows(rows: int, grad_accum: int, data_size: int):
+    """Where each row goes when ``data_size`` ranks of ``rows`` rows each
+    (rank q holds global rows [q·rows, (q+1)·rows)) regroup for
+    ``grad_accum`` microbatches as the reference's ``to_micro`` cuts
+    them: microbatch i is global rows [i·m, (i+1)·m), m = rows·data_size
+    / grad_accum, and rank q holds rows [i·m + q·m/D, i·m + (q+1)·m/D)
+    of it. Returns ``need``: [data_size, rows] global row indices, row q
+    rank q's rows afterwards in microbatch order (ascending)."""
+    total = rows * data_size
+    if total % grad_accum or (total // grad_accum) % data_size:
+        raise ValueError(
+            f"global batch {total} with grad_accum={grad_accum} gives "
+            f"microbatch {total // grad_accum}, which must be divisible by "
+            f"the data axis ({data_size} shards)")
+    m = total // grad_accum
+    part = m // data_size
+    i = np.arange(grad_accum)[None, :, None] * m
+    q = np.arange(data_size)[:, None, None] * part
+    return (i + q + np.arange(part)[None, None, :]).reshape(data_size, rows)
+
+
+def _exchange_rows(batch: dict, grad_accum: int, mesh) -> dict:
+    """This rank's rows of the batch regrouped over the data group so
+    that its i-th chunk of ``grad_accum`` is its part of the GLOBAL
+    microbatch i (:func:`_micro_rows`): one ``all_to_all_single`` a leaf.
+    Each peer's rows arrive in global order, and the peers hold
+    ascending blocks, so what arrives is in microbatch order. gloo
+    exchanges through host memory."""
+    rows = next(iter(batch.values())).shape[0]
+    need = _micro_rows(rows, grad_accum, mesh.data_size)
+    me = mesh.data_index
+    send = [need[q][need[q] // rows == me] - me * rows
+            for q in range(mesh.data_size)]
+    recv = [int((need[me] // rows == s).sum())
+            for s in range(mesh.data_size)]
+    order = torch.from_numpy(np.concatenate(send))
+    host = dist.get_backend(mesh.data_group) == "gloo"
+    out = {}
+    for k, v in batch.items():
+        src = v[order.to(v.device)]
+        if host:
+            src = src.cpu()
+        dst = src.new_empty((rows,) + tuple(v.shape[1:]))
+        dist.all_to_all_single(dst, src, recv, [len(s) for s in send],
+                               group=mesh.data_group)
+        out[k] = dst.to(v.device)
+    return out
 
 
 def _weighted(v: torch.Tensor, w: torch.Tensor,
@@ -201,6 +258,8 @@ def make_train_step(loss_fn: LossFn, tx: optim.Transform, *,
         dims = layout.zero1_dims if layout is not None else {}
         buckets = comms.GradBuckets(params, group, dims)
         per_mb = grad_shard and bool(dims)
+        if grad_accum > 1 and mesh.data_size > 1:
+            batch = _exchange_rows(batch, grad_accum, mesh)
         acc, w_sum, loss, msum, global_mean = accumulate(
             params, batch, rng, buckets.flatten,
             buckets.grad_reduce_scatter if per_mb else None)
@@ -215,10 +274,13 @@ def make_train_step(loss_fn: LossFn, tx: optim.Transform, *,
                                                        for k in names]])
         if not global_mean:
             stats = comms.psum(stats, group)
+        # Σw at least 1, the count-normalized losses' clamp: a step in
+        # which no rank scores anything gives 0, not 0/0
+        w_total = stats[0].clamp_min(1.0)
         grads = {n: g.to(params[n].dtype) for n, g in buckets.split(
-            [a / stats[0] for a in acc]).items()}
-        metrics = {k: stats[2 + i] / stats[0] for i, k in enumerate(names)}
-        loss = stats[1] / stats[0]
+            [a / w_total for a in acc]).items()}
+        metrics = {k: stats[2 + i] / w_total for i, k in enumerate(names)}
+        loss = stats[1] / w_total
         # the row-sharded leaves: their norm runs over the model group too
         split = (layout.model_dims if layout is not None
                  and mesh.model_size > 1 else {})

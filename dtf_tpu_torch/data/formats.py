@@ -11,10 +11,11 @@ the same batches in both packages.
 
 ``TokenBinData`` reads a flat little-endian uint16 token stream (uint32
 when ``vocab_size > 65535``), the nanoGPT/GPT-2 ``.bin`` convention, and
-windows it into causal-LM batches (``mode="clm"``). Batches are
-deterministic per (seed, step, host) with the JAX package's numpy draws:
-the same file gives the same batches in both packages. The BERT
-``mode="mlm"`` (dynamic masking) comes with the BERT slice.
+windows it into causal-LM batches (``mode="clm"``) or BERT's MLM batches
+(``mode="mlm"``: dynamic masking with the 80/10/10 recipe). Batches are
+deterministic per (seed, step, host), and single examples per (seed,
+global index), with the JAX package's numpy draws: the same file gives
+the same batches in both packages.
 
 ``CriteoCsvData`` reads a Criteo click-log TSV/CSV into Wide&Deep batches
 through a memory-mapped column cache built once next to the source, with
@@ -169,10 +170,19 @@ def detect_image_eval_data(data_dir: str, batch_size: int, **kw):
 class TokenBinData:
     """Flat binary token stream → LM batches: random ``seq_len + 1``
     windows. ``path`` is a ``.bin`` file or a dir holding
-    ``<split>.bin``."""
+    ``<split>.bin``. ``mode="clm"`` yields {input_ids, labels}
+    (next-token); ``mode="mlm"`` masks 15% of the positions (of those, 80%
+    → ``mask_token``, 10% → a random token, 10% unchanged; all predicted)
+    and yields BERT's {input_ids, segment_ids, attention_mask,
+    mlm_labels}."""
+
+    #: the SeedSequence salt of the per-example stream (:meth:`example`),
+    #: apart from the per-batch one
+    EXAMPLE_SALT = 0x5EED_0001
 
     def __init__(self, path: str, batch_size: int, seq_len: int, *,
-                 mode: str = "clm", vocab_size: int = 0, seed: int = 0,
+                 mode: str = "clm", vocab_size: int = 0,
+                 mask_token: int = 103, seed: int = 0,
                  split: str = "train", host_index: int = 0,
                  host_count: int = 1):
         if os.path.isdir(path):
@@ -201,13 +211,15 @@ class TokenBinData:
         if batch_size % host_count:
             raise ValueError(f"global batch {batch_size} not divisible by "
                              f"{host_count} hosts")
-        if mode == "mlm":
-            raise NotImplementedError(
-                "TokenBinData mode='mlm' is not yet ported (BERT slice)")
-        if mode != "clm":
+        if mode not in ("clm", "mlm"):
             raise ValueError(f"mode must be clm|mlm, got {mode!r}")
         self.local_batch = batch_size // host_count
         self.seq_len = seq_len
+        self.mode = mode
+        self.mask_token = mask_token
+        #: the vocab of the MLM's random-token draw: the sample's range
+        #: when no vocab_size is given
+        self.vocab_for_random = vocab_size or int(sample.max()) + 1
         self.seed = seed
         self.host = host_index
 
@@ -218,6 +230,33 @@ class TokenBinData:
                 and path.endswith(".bin")) or \
             os.path.exists(os.path.join(path, f"{split}.bin"))
 
+    def example(self, index: int) -> Batch:
+        """One example ([seq_len] arrays) by GLOBAL example index, keyed
+        (seed, ``EXAMPLE_SALT``, index): the same bytes whichever host
+        draws it."""
+        r = np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.EXAMPLE_SALT,
+                                    int(index)]))
+        s = int(r.integers(0, len(self.tokens) - self.seq_len - 1))
+        win = np.asarray(self.tokens[s:s + self.seq_len + 1]).astype(np.int32)
+        if self.mode == "clm":
+            return {"input_ids": win[:-1], "labels": win[1:]}
+        return self._mlm_mask(r, win[:-1])
+
+    def _mlm_mask(self, r: np.random.Generator, ids: np.ndarray) -> Batch:
+        """The 80/10/10 dynamic masking of ``ids`` ([B, T] or [T]), drawn
+        from ``r`` after the windows."""
+        mask_pos = r.random(ids.shape) < 0.15
+        labels = np.where(mask_pos, ids, -100).astype(np.int32)
+        u = r.random(ids.shape)
+        rand_tok = r.integers(0, self.vocab_for_random, ids.shape)
+        masked = np.where(mask_pos & (u < 0.8), self.mask_token,
+                          np.where(mask_pos & (u < 0.9), rand_tok, ids))
+        return {"input_ids": masked.astype(np.int32),
+                "segment_ids": np.zeros_like(ids),
+                "attention_mask": np.ones_like(ids),
+                "mlm_labels": labels}
+
     def batch(self, step: int) -> Batch:
         r = np.random.default_rng(
             np.random.SeedSequence([self.seed, step, self.host]))
@@ -226,7 +265,9 @@ class TokenBinData:
         win = np.stack([
             np.asarray(self.tokens[s:s + self.seq_len + 1]) for s in starts
         ]).astype(np.int32)
-        return {"input_ids": win[:, :-1], "labels": win[:, 1:]}
+        if self.mode == "clm":
+            return {"input_ids": win[:, :-1], "labels": win[:, 1:]}
+        return self._mlm_mask(r, win[:, :-1])
 
     def __iter__(self) -> Iterator[Batch]:
         step = 0

@@ -4,9 +4,11 @@ Deterministic per (seed, step, host) with the same numpy draws as the JAX
 package, so both packages see the same batches byte for byte. Ported: the
 ``mnist`` kind, the ``cifar`` (32×32×3, 10 classes learnable from the
 mean colour) and ``imagenet`` (224×224×3, 1000 random classes) image
-kinds (NHWC f32 in [0, 1)), the ``gpt`` kind (causal-LM next-token
-batches) and the ``widedeep`` kind (13 dense + ``num_sparse``
-categorical Criteo-like features); the BERT kind comes with its slice.
+kinds (NHWC f32 in [0, 1)), the ``bert`` kind (MLM batches: 15% of
+random tokens masked to [MASK] = 103, labels -100 elsewhere, one
+segment, no padding), the ``gpt`` kind (causal-LM next-token batches)
+and the ``widedeep`` kind (13 dense + ``num_sparse`` categorical
+Criteo-like features).
 """
 
 from __future__ import annotations
@@ -17,10 +19,8 @@ import numpy as np
 
 Batch = dict
 
-#: the kinds of the JAX package, by slice of the port that brings them
+#: the kinds of the JAX package, all drawn by the port
 KINDS = ("mnist", "cifar", "imagenet", "bert", "gpt", "widedeep")
-#: the kinds this port draws
-PORTED = ("mnist", "cifar", "imagenet", "gpt", "widedeep")
 
 
 def _rng_for(seed: int, step: int, host: int) -> np.random.Generator:
@@ -41,10 +41,6 @@ class SyntheticData:
                 "hosts")
         if kind not in KINDS:
             raise ValueError(f"unknown synthetic dataset kind: {kind!r}")
-        if kind not in PORTED:
-            raise NotImplementedError(
-                f"synthetic kind {kind!r} is not yet ported (the port has "
-                f"{PORTED})")
         self.kind = kind
         self.global_batch = batch_size
         self.local_batch = batch_size // host_count
@@ -72,6 +68,15 @@ class SyntheticData:
             x = r.random((n, 224, 224, 3), np.float32)
             y = r.integers(0, 1000, (n,), np.int32)
             return {"image": x, "label": y}
+        if self.kind == "bert":
+            ids = r.integers(0, self.vocab, (n, self.seq_len), np.int32)
+            mask_pos = r.random((n, self.seq_len)) < 0.15
+            labels = np.where(mask_pos, ids, -100).astype(np.int32)
+            masked = np.where(mask_pos, 103, ids).astype(np.int32)  # [MASK]
+            return {"input_ids": masked,
+                    "segment_ids": np.zeros((n, self.seq_len), np.int32),
+                    "attention_mask": np.ones((n, self.seq_len), np.int32),
+                    "mlm_labels": labels}
         if self.kind == "widedeep":
             dense = r.standard_normal((n, 13)).astype(np.float32)
             sparse = r.integers(0, self.hash_buckets,

@@ -49,7 +49,8 @@ from dtf_tpu_torch.ops.flash_attention import flash_attention
 from dtf_tpu_torch.ops.fused_ce import fused_lm_cross_entropy
 from dtf_tpu_torch.ops.losses import (chunked_lm_cross_entropy,
                                       softmax_cross_entropy,
-                                      token_chunked_lm_cross_entropy)
+                                      token_chunked_lm_cross_entropy,
+                                      valid_count)
 
 _NEG_INF = float("-inf")
 
@@ -738,9 +739,13 @@ def make_loss(model: GPT, *, loss_chunk: int = 0,
         else:
             loss, n = softmax_cross_entropy(y, batch["labels"],
                                             ignore_index=-100)
+        global_mean = bool(loss_pallas and mesh is not None)
+        if mesh is not None and not global_mean:
+            # this rank's part of the count, 0 when it has no label: the
+            # reference clamps the count at 1 over the global microbatch
+            n = valid_count(batch["labels"], -100)
         return loss, LossAux(metrics={"lm_tokens": n}, weight=n,
-                             global_mean=bool(loss_pallas
-                                              and mesh is not None))
+                             global_mean=global_mean)
 
     return loss_fn
 

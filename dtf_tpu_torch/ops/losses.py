@@ -41,6 +41,13 @@ def _masked_mean(ce: torch.Tensor, labels: torch.Tensor,
     return ce.sum() / n, n
 
 
+def valid_count(labels: torch.Tensor, ignore_index: int) -> torch.Tensor:
+    """The labels that are not ``ignore_index``, as an f32 scalar, NOT
+    clamped: a rank's part of a data group's count (the clamp at 1 of
+    :func:`_masked_mean` belongs to the whole group's batch)."""
+    return (labels != ignore_index).sum().float()
+
+
 def _acc_dtype(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
     """The working type of a head product: f32, or f64 for f64 inputs."""
     return torch.promote_types(torch.promote_types(x.dtype, w.dtype),

@@ -43,13 +43,20 @@ def _lists(*trees, names):
 
 
 def chain(*transforms: Transform) -> Transform:
+    """optax's ``chain``. Over a :class:`ShardedTree` each transform's
+    output is one again (its norm not yet taken), so a later transform
+    still knows which leaves are blocks."""
     def init(params):
         return [t.init(params) for t in transforms]
 
     def update(updates, state, params=None):
         new_state = []
         for t, s in zip(transforms, state):
-            updates, s = t.update(updates, s, params)
+            out, s = t.update(updates, s, params)
+            if isinstance(updates, ShardedTree):
+                out = ShardedTree(out, updates.mesh, zero1=updates.zero1,
+                                  model=updates.model)
+            updates = out
             new_state.append(s)
         return updates, new_state
 
@@ -64,20 +71,59 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class ShardedTree(dict):
-    """Named tensors over a ``mesh`` of which those named in ``zero1`` are
-    this rank's ZeRO-1 blocks over the data group and those in ``model``
-    this rank's blocks over the model group; the rest every rank holds
-    whole. The train step hands the gradients to the optimizer so, and
-    :func:`tree_norm` takes the norm of the whole tree from it, once: the
-    clipping and the ``grad_norm`` metric read the same number, from one
-    collective a step."""
+    """Named tensors over a ``mesh`` of which those named in ``zero1``
+    (name → dim) are this rank's ZeRO-1 blocks of that dim over the data
+    group and those in ``model`` (name → dim) this rank's blocks over the
+    model group; the rest every rank holds whole. The train step hands
+    the gradients to the optimizer so (and ``create_train_state`` the
+    blocks to ``init``), and :func:`tree_norm` takes the norm of the whole
+    tree from it, once: the clipping and the ``grad_norm`` metric read the
+    same number, from one collective a step. The per-leaf statistics of
+    lamb and adafactor sum their blocks' parts over the data group, one
+    collective a transform (:func:`_sum_over_data`)."""
 
-    def __init__(self, tensors: dict, mesh, *, zero1=(), model=()):
+    def __init__(self, tensors: dict, mesh, *, zero1=None, model=None):
         super().__init__(tensors)
         self.mesh = mesh
-        self.zero1 = frozenset(zero1)
-        self.model = frozenset(model)
+        self.zero1 = dict(zero1 or {})
+        self.model = dict(model or {})
         self.norm = None
+
+
+def _block_dims(tree) -> dict:
+    """name → the dim ZeRO-1 splits over the data group, for the leaves of
+    ``tree`` that are blocks; leaves split over a model axis refuse (their
+    per-leaf statistics would need the model group too)."""
+    if not isinstance(tree, ShardedTree):
+        return {}
+    if tree.model:
+        raise NotImplementedError(
+            "lamb / adafactor over a model axis (row-sharded leaves): not "
+            "yet ported")
+    return {n: d for n, d in tree.zero1.items() if n in tree}
+
+
+def _whole_shape(tree, name: str) -> tuple:
+    """The shape of leaf ``name`` whole: its ZeRO-1 dim times the data
+    size."""
+    shape = list(tree[name].shape)
+    d = _block_dims(tree).get(name)
+    if d is not None:
+        shape[d] *= tree.mesh.data_size
+    return tuple(shape)
+
+
+def _sum_over_data(tree, parts: dict) -> dict:
+    """Each of ``parts`` (key → this rank's partial sum) summed over the
+    data group of ``tree``'s mesh: ONE all-reduce of their f32
+    concatenation; none when there is no part."""
+    if not parts:
+        return parts
+    keys = list(parts)
+    flat = comms.psum(torch.cat([parts[k].float().reshape(-1)
+                                 for k in keys]), tree.mesh.data_group)
+    return {k: piece.view(parts[k].shape) for k, piece in zip(
+        keys, flat.split([parts[k].numel() for k in keys]))}
 
 
 def tree_norm(tree: dict) -> torch.Tensor:
@@ -159,21 +205,220 @@ def trace(decay: float, nesterov: bool = False) -> Transform:
     return Transform(init, update)
 
 
-def scale_by_learning_rate(learning_rate: Schedule) -> Transform:
-    """Multiply by ``-lr``; a schedule is read at the count before the
-    increment (optax's ``scale_by_schedule``)."""
+def scale_by_learning_rate(learning_rate: Schedule,
+                           flip_sign: bool = True) -> Transform:
+    """Multiply by ``-lr`` (``lr`` without ``flip_sign``); a schedule is
+    read at the count before the increment (optax's
+    ``scale_by_schedule``)."""
     def init(params):
         return {"count": 0}
 
     def update(updates, state, params=None):
         lr = (learning_rate(state["count"]) if callable(learning_rate)
               else learning_rate)
-        step = -float(np.float32(lr))
+        step = float(np.float32(lr)) * (-1.0 if flip_sign else 1.0)
         names = list(updates)
         out = torch._foreach_mul([updates[n] for n in names], step)
         return dict(zip(names, out)), {"count": state["count"] + 1}
 
     return Transform(init, update)
+
+
+def scale(factor: float) -> Transform:
+    def update(updates, state, params=None):
+        names = list(updates)
+        return dict(zip(names, torch._foreach_mul(
+            [updates[n] for n in names], factor))), state
+
+    return Transform(lambda params: {}, update)
+
+
+def scale_by_trust_ratio() -> Transform:
+    """optax's ``scale_by_trust_ratio`` (min_norm 0, coefficient 1, eps
+    0): each leaf times ‖param‖ / ‖update‖, or 1 where either norm is 0.
+    The norms are the whole leaf's: a ZeRO-1 block's squares are summed
+    over the data group, every leaf's in one all-reduce."""
+    def update(updates, state, params=None):
+        names = list(updates)
+        blocks = _block_dims(updates)
+        sq = {n: torch.stack(torch._foreach_norm(
+            [params[n].float(), updates[n].float()])) ** 2 for n in names}
+        sq.update(_sum_over_data(updates, {n: sq[n] for n in names
+                                           if n in blocks}))
+        out = {}
+        for n in names:
+            p_norm, u_norm = torch.sqrt(sq[n]).unbind()
+            ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones_like(p_norm), p_norm / u_norm)
+            out[n] = updates[n] * ratio.to(updates[n].dtype)
+        return out, state
+
+    return Transform(lambda params: {}, update)
+
+
+def _sq_sums(tree, names, blocks) -> dict:
+    """Σx² of each leaf of ``tree`` whole, in f32 (blocks' parts summed
+    over the data group in one all-reduce)."""
+    sq = {n: torch._foreach_norm([tree[n].float()])[0] ** 2 for n in names}
+    sq.update(_sum_over_data(tree, {n: sq[n] for n in names
+                                    if n in blocks}))
+    return sq
+
+
+def clip_by_block_rms(threshold: float) -> Transform:
+    """optax's ``clip_by_block_rms``: each leaf divided by max(1, its
+    RMS / threshold), the RMS of the whole leaf."""
+    def update(updates, state, params=None):
+        names = list(updates)
+        blocks = _block_dims(updates)
+        sq = _sq_sums(updates, names, blocks)
+        out = {}
+        for n in names:
+            rms = torch.sqrt(sq[n] / math.prod(_whole_shape(updates, n)))
+            out[n] = updates[n] / torch.clamp_min(rms / threshold, 1.0)
+        return out, state
+
+    return Transform(lambda params: {}, update)
+
+
+def scale_by_param_block_rms(min_scale: float = 1e-3) -> Transform:
+    """optax's ``scale_by_param_block_rms``: each leaf times the RMS of
+    its parameter (whole), or ``min_scale`` where that RMS is at most
+    ``min_scale``."""
+    def update(updates, state, params=None):
+        names = list(updates)
+        blocks = _block_dims(updates)
+        p = ShardedTree({n: params[n] for n in names}, getattr(
+            updates, "mesh", None), zero1=blocks)
+        sq = _sq_sums(p, names, blocks)
+        out = {}
+        for n in names:
+            rms = torch.sqrt(sq[n] / math.prod(_whole_shape(updates, n)))
+            out[n] = updates[n] * torch.where(
+                rms <= min_scale, torch.full_like(rms, min_scale), rms)
+        return out, state
+
+    return Transform(lambda params: {}, update)
+
+
+def factored_dims(shape: tuple, min_dim_size_to_factor: int = 128):
+    """(d1, d0): the second-largest and the largest dim of ``shape``, when
+    the second-largest is at least ``min_dim_size_to_factor`` (optax's
+    ``_factored_dims``: numpy's argsort of the shape); else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def scale_by_factored_rms(decay_rate: float = 0.8,
+                          min_dim_size_to_factor: int = 128,
+                          epsilon: float = 1e-30) -> Transform:
+    """optax's ``scale_by_factored_rms`` (Adafactor's second moment). A
+    leaf whose whole shape factors (:func:`factored_dims`: d1, d0) keeps
+    ``v_row`` (the mean of g² + ε over d0) and ``v_col`` (over d1), each
+    with the reduced dim kept as 1; another keeps ``v`` (g² + ε) whole;
+    the unused two are 0-d zeros. Decay 1 − (count + 1)^−0.8. The update
+    is g · (v_row / mean_d1(v_row))^−½ · v_col^−½, or g · v^−½.
+
+    A ZeRO-1 block (dim s): a mean over s, and ``v_row``'s mean over d1
+    when s = d1, sum this rank's part, and one all-reduce a step sums them
+    all; ``v_row`` / ``v_col`` are then this rank's block of s, or whole
+    where s is the dim they reduce."""
+    def init(params):
+        state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+        for n, p in params.items():
+            dims = factored_dims(_whole_shape(params, n),
+                                 min_dim_size_to_factor)
+            zero = torch.zeros((), dtype=p.dtype, device=p.device)
+            if dims is None:
+                state["v"][n] = torch.zeros_like(p)
+                state["v_row"][n], state["v_col"][n] = zero, zero.clone()
+                continue
+            d1, d0 = dims
+            row, col = list(p.shape), list(p.shape)
+            row[d0], col[d1] = 1, 1
+            state["v_row"][n] = p.new_zeros(row)
+            state["v_col"][n] = p.new_zeros(col)
+            state["v"][n] = zero.clone()
+        return state
+
+    def update(updates, state, params=None):
+        names = list(updates)
+        blocks = _block_dims(updates)
+        t = np.float32(state["count"] + 1)
+        decay = float(np.float32(1) - t ** np.float32(-decay_rate))
+
+        def ema(old, total, count):           # the decayed mean of g² + ε
+            return decay * old + (1 - decay) * (total / count)
+
+        v_row, v_col = dict(state["v_row"]), dict(state["v_col"])
+        v, out, factored, parts = dict(state["v"]), {}, {}, {}
+        for n in names:
+            g = updates[n]
+            shape = _whole_shape(updates, n)
+            dims = factored_dims(shape, min_dim_size_to_factor)
+            gsq = g * g + epsilon
+            if dims is None:
+                v[n] = ema(state["v"][n], gsq, 1)
+                out[n] = g * v[n] ** -0.5
+                continue
+            d1, d0 = factored[n] = dims
+            row, col = gsq.sum(d0, keepdim=True), gsq.sum(d1, keepdim=True)
+            s = blocks.get(n)
+            if s == d0:                      # row's sum runs over ranks
+                parts[n, "row"] = row
+            else:
+                v_row[n] = ema(state["v_row"][n], row, shape[d0])
+            if s == d1:                      # so do col's and v_row's mean
+                parts[n, "col"] = col
+                parts[n, "row_mean"] = v_row[n].sum(d1, keepdim=True)
+            else:
+                v_col[n] = ema(state["v_col"][n], col, shape[d1])
+        parts = _sum_over_data(updates, parts)
+        for n, (d1, d0) in factored.items():
+            shape = _whole_shape(updates, n)
+            if (n, "row") in parts:
+                v_row[n] = ema(state["v_row"][n], parts[n, "row"], shape[d0])
+            if (n, "col") in parts:
+                v_col[n] = ema(state["v_col"][n], parts[n, "col"], shape[d1])
+            row_mean = (parts[n, "row_mean"] / shape[d1]
+                        if (n, "row_mean") in parts
+                        else v_row[n].mean(d1, keepdim=True))
+            out[n] = (updates[n] * (v_row[n] / row_mean) ** -0.5
+                      * v_col[n] ** -0.5)
+        return ({n: out[n] for n in names},
+                {"count": state["count"] + 1, "v_row": v_row,
+                 "v_col": v_col, "v": v})
+
+    return Transform(init, update)
+
+
+def lamb(learning_rate: Schedule, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-6, weight_decay: float = 0.0) -> Transform:
+    """optax's ``lamb``: Adam's direction (eps 1e-6), plus
+    ``weight_decay`` · param, scaled per leaf by the trust ratio, then by
+    −lr."""
+    return chain(scale_by_adam(b1, b2, eps),
+                 add_decayed_weights(weight_decay),
+                 scale_by_trust_ratio(),
+                 scale_by_learning_rate(learning_rate))
+
+
+def adafactor(learning_rate: Schedule, weight_decay_rate=None) -> Transform:
+    """optax's ``adafactor`` at its defaults: the factored second moment
+    (decay 0.8, ε 1e-30, factored where the second-largest dim of the
+    whole leaf is >= 128), block-RMS clipping at 1, the learning rate,
+    the parameter's block RMS (at least 1e-3), ``weight_decay_rate`` ·
+    param when given, and the sign flip last."""
+    tx = [scale_by_factored_rms(), clip_by_block_rms(1.0),
+          scale_by_learning_rate(learning_rate, flip_sign=False),
+          scale_by_param_block_rms()]
+    if weight_decay_rate is not None:
+        tx.append(add_decayed_weights(weight_decay_rate))
+    return chain(*tx, scale(-1.0))
 
 
 def sgd(learning_rate: Schedule, momentum=None,
@@ -307,10 +552,12 @@ def make_optimizer(args, recipe, recipe_uses_wd: bool = False) -> Transform:
         tx = adam(sched)
     elif name == "adamw":
         tx = adamw(sched, weight_decay=wd if wd >= 0.0 else 1e-4)
-    elif name in ("lamb", "adafactor"):
-        raise NotImplementedError(
-            f"--optimizer={name} is not yet ported (the port has sgd, "
-            "momentum, adam and adamw)")
+    elif name == "lamb":
+        tx = lamb(sched, weight_decay=wd if wd >= 0.0 else 0.0)
+    elif name == "adafactor":
+        # the schedule is adafactor's learning rate; --weight_decay its
+        # weight_decay_rate
+        tx = adafactor(sched, weight_decay_rate=wd if wd >= 0.0 else None)
     else:
         raise ValueError(
             f"unknown --optimizer={name!r} "

@@ -104,41 +104,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _eval_hook(args, device, eval_fn, writer, vocab_size, mesh):
-    """The held-out eval (``lm_eval_hook``): ``<data_dir>/val.bin`` when
-    present; a synthetic stream at seed+1 only when training itself is
-    synthetic; none (with a warning) for real tokens without a val split.
-    4 batches a sweep, each rank its rows, the metrics reduced over the
-    data group."""
-    from dtf_tpu_torch.cli.launch import host_batches
-    from dtf_tpu_torch.core import train as tr
-    from dtf_tpu_torch.data.formats import TokenBinData, detect_token_data
-    from dtf_tpu_torch.data.synthetic import SyntheticData
-    from dtf_tpu_torch.hooks import EvalHook
-    from dtf_tpu_torch.loop import place_batch
-
-    eval_data = host_batches(mesh, lambda **host: detect_token_data(
-        args.data_dir, args.batch_size, args.seq_len, mode="clm",
-        vocab_size=vocab_size, seed=args.seed, split="val", **host))
-    if eval_data is not None:
-        def batches():
-            return (eval_data.batch(i) for i in range(4))
-    elif args.data_dir and TokenBinData.available(args.data_dir):
-        log.warning("no val.bin in %s; skipping held-out eval rather than "
-                    "scoring on synthetic data", args.data_dir)
-        return None
-    else:
-        held_out = host_batches(mesh, lambda **host: SyntheticData(
-            "gpt", args.batch_size, seed=args.seed + 1, seq_len=args.seq_len,
-            vocab_size=vocab_size, **host))
-
-        def batches():
-            return (held_out.batch(10_000_000 + i) for i in range(4))
-    return EvalHook(tr.make_eval_step(eval_fn, mesh), batches, writer,
-                    args.eval_every or args.train_steps,
-                    place_batch=lambda b: place_batch(b, device))
-
-
 def run(argv=None):
     """Parse, train, and return ``(state, writer)``; ``main`` prints the
     final step."""
@@ -158,7 +123,7 @@ def run(argv=None):
     from dtf_tpu_torch import optim
     from dtf_tpu_torch.checkpoint import Checkpointer, save_model_config
     from dtf_tpu_torch.cli import flags as dflags
-    from dtf_tpu_torch.cli.launch import host_batches, setup
+    from dtf_tpu_torch.cli.launch import host_batches, lm_eval_hook, setup
     from dtf_tpu_torch.convert import init_params_flax, params_from_flax
     from dtf_tpu_torch.core import train as tr
     from dtf_tpu_torch.core.sharding import make_layout
@@ -244,8 +209,9 @@ def run(argv=None):
             "moe_every": args.moe_every, "vocab_size": cfg.vocab_size,
             "d_model": cfg.d_model, "layers": cfg.layers, "heads": cfg.heads,
             "d_ff": cfg.d_ff, "kv_cache_dtype": ""})
-    eval_hook = _eval_hook(args, device, eval_fn, writer, cfg.vocab_size,
-                           mesh)
+    eval_hook = lm_eval_hook(args, device, eval_fn, writer, mesh,
+                             kind="gpt", mode="clm",
+                             vocab_size=cfg.vocab_size)
     # mfu is a device metric against the H100's peak: on the card only
     hooks = [LoggingHook(writer, args.log_every, lr_schedule=sched,
                          tokens_per_step=tokens_per_step,

@@ -42,6 +42,8 @@ CASES = {
     "gpt_nozero1": ("gpt", 1, False, False, 0.0),
     "gpt_accum2_grad_shard": ("gpt", 2, True, True, 0.0),
     "gpt_dropout": ("gpt", 1, False, True, 0.1),
+    # (g) each microbatch the global batch's rows: the dropout masks
+    "gpt_accum2_dropout": ("gpt", 2, False, True, 0.1),
     "mlp": ("mlp", 1, False, True, 0.0),
     "mlp_nozero1": ("mlp", 1, False, False, 0.0),
     "mlp_accum2_grad_shard": ("mlp", 2, True, True, 0.0),
@@ -249,12 +251,13 @@ def resnet_batches():
                  np.int32)} for _ in range(STEPS)]
 
 
-def resnet_run(stem, block, mesh=None):
+def resnet_run(stem, block, mesh=None, accum=1):
     """On this rank's rows (all of them without a mesh), BatchNorm over
     the data group: the loss, the running statistics and the gradients
     (averaged over the data group, as the step does) of one forward at
     the initial variables; then STEPS train steps (nesterov SGD, ZeRO-1
-    over a mesh): losses, grad_norms, whole parameters and buffers."""
+    over a mesh, ``accum`` microbatches): losses, grad_norms, whole
+    parameters and buffers."""
     from dtf_tpu_torch.core import comms
     from dtf_tpu_torch.models import resnet
 
@@ -283,7 +286,8 @@ def resnet_run(stem, block, mesh=None):
               else None)
     tx = optim.sgd(0.1, momentum=0.9, nesterov=True)
     state = ttr.create_train_state(model, tx, 0, mesh=mesh, layout=layout)
-    step = ttr.make_train_step(loss_fn, tx, mesh=mesh, model=model)
+    step = ttr.make_train_step(loss_fn, tx, grad_accum=accum, mesh=mesh,
+                               model=model)
     losses, norms = [], []
     for b in batches:
         state, m = step(state, b)
@@ -294,6 +298,97 @@ def resnet_run(stem, block, mesh=None):
                        for n, p in state.params.items()},
             "extra": {n: t.clone() for n, t in state.extra.items()},
             "zero1_dims": dict(layout.zero1_dims) if layout else {}}
+
+
+#: check (i): BERT (BASELINE config 4 in small: ZeRO-1, --grad_accum 2),
+#: wide enough that adafactor factors (hidden 128, vocab 256: the
+#: 256 × 128 table, 128 × 128, 256 × 128 and 128 × 256 kernels; the
+#: 32 × 128 position table does not), dropout 0, f32, 4 rows of 16 tokens
+#: (1 a rank a microbatch), one row's tail padded; each optimizer from
+#: the launcher's flags
+BERT_KW = dict(vocab_size=256, hidden=128, layers=2, heads=4,
+               intermediate=256, max_positions=32, dropout=0.0)
+BERT_BATCH, BERT_SEQ, BERT_ACCUM = 4, 16, 2
+BERT_OPTIMIZERS = ("adamw", "lamb", "adafactor")
+
+
+def bert_args(optimizer):
+    return argparse.Namespace(
+        learning_rate=1e-2, lr_schedule="cosine", warmup_steps=-1,
+        lr_min_ratio=0.1, train_steps=10, optimizer=optimizer,
+        weight_decay=0.01, clip_grad_norm=0.0)
+
+
+def bert_tree():
+    from dtf_tpu_torch.models import bert
+
+    return convert.init_params_bert(bert.BertMLM(bert.BertConfig(
+        dtype=torch.float32, **BERT_KW), device="cpu"), 8)
+
+
+def bert_batches():
+    data = SyntheticData("bert", BERT_BATCH, seed=9, seq_len=BERT_SEQ,
+                         vocab_size=BERT_KW["vocab_size"])
+    out = []
+    for i in range(STEPS):
+        b = data.batch(i)
+        b["attention_mask"][1, 11:] = 0
+        out.append(b)
+    return out
+
+
+def _flat_tensors(tree, prefix=""):
+    if torch.is_tensor(tree):
+        return {prefix: tree}
+    items = (tree.items() if isinstance(tree, dict) else enumerate(tree)
+             if isinstance(tree, (list, tuple)) else ())
+    out = {}
+    for k, v in items:
+        out.update(_flat_tensors(v, f"{prefix}/{k}"))
+    return out
+
+
+def bert_run(optimizer, mesh=None, ckpt_dir=None):
+    """STEPS steps of the tiny BERT with ``optimizer``, ZeRO-1 over a
+    mesh, on this rank's rows: losses, grad_norms, whole parameters,
+    the ZeRO-1 dims and the optimizer state. ``ckpt_dir``: the state is
+    then saved there and restored into a fresh one, whose optimizer
+    state must equal this rank's bit for bit (``restored_equal``)."""
+    from dtf_tpu_torch.models import bert
+
+    model = bert.BertMLM(bert.BertConfig(dtype=torch.float32, **BERT_KW),
+                         device="cpu")
+    model.load_state_dict(convert.params_from_flax(bert_tree()))
+    tx = optim.make_optimizer(bert_args(optimizer), recipe=None)
+    layout = (make_layout(dict(model.named_parameters()), mesh, zero1=True)
+              if mesh is not None else None)
+    state = ttr.create_train_state(model, tx, 7, mesh=mesh, layout=layout)
+    step = ttr.make_train_step(bert.make_loss(model, mesh=mesh), tx,
+                               grad_accum=BERT_ACCUM, mesh=mesh)
+    losses, norms = [], []
+    for b in bert_batches():
+        if mesh is not None:
+            lo, hi = mesh.host_view.batch_rows(BERT_BATCH)
+            b = {k: v[lo:hi] for k, v in b.items()}
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    out = {"losses": losses, "norms": norms,
+           "params": {k: v.detach().clone()
+                      for k, v in model.state_dict().items()},
+           "zero1_dims": dict(layout.zero1_dims) if layout else {},
+           "opt_state": state.opt_state}
+    if ckpt_dir is not None:
+        from dtf_tpu_torch.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(ckpt_dir, mesh=mesh)
+        ckpt.save(STEPS, state, force=True)
+        fresh = ttr.create_train_state(model, tx, 7, mesh=mesh, layout=layout)
+        back = _flat_tensors(ckpt.restore(fresh, STEPS).opt_state)
+        mine = _flat_tensors(state.opt_state)
+        out["restored_equal"] = set(back) == set(mine) and all(
+            torch.equal(back[k], v) for k, v in mine.items())
+    return out
 
 
 #: check (e): the tiny Wide&Deep trained with its tables over the model
@@ -429,6 +524,14 @@ def main():
     # (f) ResNet, its BatchNorm synchronised over the data axis
     out["resnet"] = {f"{stem}-{block}": resnet_run(stem, block, data_mesh)
                      for stem, block in RN_CASES}
+    # (h) each microbatch the global batch's rows: BatchNorm's statistics
+    out["resnet_accum2"] = {f"{stem}-{block}": resnet_run(
+        stem, block, data_mesh, accum=2) for stem, block in RN_CASES}
+    # (i) BERT under ZeRO-1 and grad_accum 2, three optimizers
+    out["bert"] = {name: bert_run(
+        name, data_mesh, ckpt_dir=os.path.join(os.path.dirname(a.store),
+                                               f"ckpt_{name}"))
+        for name in BERT_OPTIMIZERS}
 
     # the collectives over a group, on a dim other than the first
     from dtf_tpu_torch.core import comms

@@ -48,6 +48,25 @@ their stderr.
     gradient (the ranks' mean) and the running statistics of one forward,
     then 3 train steps' losses, ``grad_norm``, parameters and statistics,
     against one rank on the global batch within ``F32_TOL``.
+(g) GPT with dropout 0.1, ZeRO-1 and ``grad_accum`` 2: each microbatch
+    is the global batch's rows (the ranks exchange rows first), so each
+    rank's rows of the global masks meet the rows they meet in one
+    process: against one rank on the global batch within ``F32_TOL``
+    (a case of (a)).
+(h) The tiny ResNets of (f) at ``grad_accum`` 2 (1 row a rank a
+    microbatch): BatchNorm's statistics are each global microbatch's.
+    Losses, ``grad_norm``, every parameter and running statistic against
+    JAX's ``make_train_step`` on a ``MeshConfig(data=2)`` mesh at
+    ``grad_accum`` 2 within ``F32_TOL``.
+(i) A tiny BERT (hidden 128, vocab 256: adafactor factors its tables and
+    kernels), ZeRO-1, ``grad_accum`` 2, one row padded, under ``adamw``,
+    ``lamb`` and ``adafactor`` from the launcher's flags: losses,
+    ``grad_norm`` and every parameter against JAX's ``MeshConfig(data=2)``
+    step within ``F32_TOL`` (the per-leaf norms and row / column means
+    summed over the ranks' blocks), the ranks' parameters bitwise equal,
+    adafactor's statistics of a factored leaf this rank's block, or
+    whole where they reduce the split dim, and each optimizer's state
+    saved by the collective checkpoint and restored bit for bit.
 And ``core/comms``' psum, pmean, psum_scatter and all_gather over the
 group, exactly (small integers in f32).
 """
@@ -69,17 +88,32 @@ import _torch_multirank_worker as worker
 from dtf_tpu.cli import flags as jflags
 from dtf_tpu.core import train as jtr
 from dtf_tpu.core.mesh import MeshConfig, make_mesh
+from dtf_tpu.models import bert as jbert
 from dtf_tpu.models import gpt as jgpt
 from dtf_tpu.models import mnist as jmnist
+from dtf_tpu.models import resnet as jresnet
 from dtf_tpu.models import widedeep as jwd
 from dtf_tpu_torch import convert
 from dtf_tpu_torch.core.dist import free_port
 from dtf_tpu_torch.models import gpt as tgpt
 from dtf_tpu_torch.ops.fused_ce import fused_lm_cross_entropy
+from test_torch_resnet import jax_model as jax_resnet
 
 F32_TOL = 1e-5
 #: a bf16 table's gradient against JAX's, relative to its largest element
 BF16_GRAD_TOL = 2.0 ** -6
+#: check (i): the reference step's ``grad_norm`` metric (a ``jnp.vdot`` a
+#: leaf under XLA:CPU) is itself 1.2e-4 off the norm of its own
+#: ``jax.value_and_grad`` gradient on the tiny BERT's first batch, and
+#: moves by 4e-5 between its one- and two-device meshes; the port's is
+#: within 1e-7 of that exact norm. BERT's grad_norm is held at this,
+#: relative
+BERT_NORM_TOL = 2e-4
+#: the key projection's bias: its analytic gradient is 0 (the softmax
+#: ignores a per-query shift), so its gradient is rounding noise, which
+#: adamw, lamb and adafactor scale into steps of about the learning rate
+#: in the noise's direction; it moves nothing else. Not compared
+NOISE_LEAF = "attention.key.bias"
 #: the bound on every wait for the ranks
 WAIT_S = 60
 WORLD = 2
@@ -201,6 +235,65 @@ def _jax_widedeep_run():
                 jax.tree.map(np.asarray, state.params))}
 
 
+def _jax_steps(step, state, batches):
+    losses, norms = [], []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return state, losses, norms
+
+
+def _jax_resnet_run(stem, block):
+    """JAX's make_train_step on MeshConfig(data=2) at grad_accum 2 for
+    check (h)."""
+    mesh = make_mesh(MeshConfig(data=WORLD), devices=jax.devices()[:WORLD])
+    jmodel = jax_resnet(stem, block)
+    tx = optax.sgd(0.1, momentum=0.9, nesterov=True)
+    size = worker.RN_SIZE
+    state, shardings = jtr.create_train_state(
+        jresnet.make_init(jmodel, (size, size, 3)), tx,
+        jax.random.PRNGKey(0), mesh)
+    tree = worker.resnet_vars(worker.resnet_tiny(stem, block), 5)
+    params = jax.tree.map(jnp.asarray, tree["params"])
+    state = jax.device_put(state.replace(
+        params=params, opt_state=tx.init(params),
+        extra={"batch_stats": jax.tree.map(jnp.asarray,
+                                           tree["batch_stats"])}),
+        shardings)
+    step = jtr.make_train_step(
+        jresnet.make_loss(jmodel, weight_decay=worker.RN_L2), tx, mesh,
+        shardings, grad_accum=2, donate=False)
+    state, losses, norms = _jax_steps(step, state, worker.resnet_batches())
+    return {"losses": losses, "norms": norms,
+            "params": convert.params_from_flax(
+                jax.tree.map(np.asarray, state.params)),
+            "extra": convert.stats_from_flax(jax.tree.map(
+                np.asarray, state.extra["batch_stats"]))}
+
+
+def _jax_bert_run(optimizer):
+    """JAX's make_train_step on MeshConfig(data=2), ZeRO-1, grad_accum 2
+    for check (i)."""
+    mesh = make_mesh(MeshConfig(data=WORLD), devices=jax.devices()[:WORLD])
+    model, init_fn = jbert.make_init(
+        jbert.BertConfig(dtype=jnp.float32, **worker.BERT_KW),
+        seq_len=worker.BERT_SEQ)
+    tx = jflags.make_optimizer(worker.bert_args(optimizer), recipe=None)
+    state, shardings = jtr.create_train_state(
+        init_fn, tx, jax.random.PRNGKey(0), mesh,
+        param_rules=jbert.tp_rules, zero1=True)
+    params = jax.tree.map(jnp.asarray, worker.bert_tree())
+    state = jax.device_put(
+        state.replace(params=params, opt_state=tx.init(params)), shardings)
+    step = jtr.make_train_step(jbert.make_loss(model), tx, mesh, shardings,
+                               grad_accum=worker.BERT_ACCUM, donate=False)
+    state, losses, norms = _jax_steps(step, state, worker.bert_batches())
+    return {"losses": losses, "norms": norms,
+            "params": convert.params_from_flax(
+                jax.tree.map(np.asarray, state.params))}
+
+
 def _close(got, want, what):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                atol=F32_TOL, rtol=F32_TOL, err_msg=what)
@@ -258,6 +351,10 @@ def test_two_ranks_equal_one_rank_and_jax(tmp_path):
         wd_jax, wd_one = _jax_widedeep_run(), worker.widedeep_train_run()
         rn_one = {f"{stem}-{block}": worker.resnet_run(stem, block)
                   for stem, block in worker.RN_CASES}
+        rn_jax = {f"{stem}-{block}": _jax_resnet_run(stem, block)
+                  for stem, block in worker.RN_CASES}
+        bert_jax = {name: _jax_bert_run(name)
+                    for name in worker.BERT_OPTIMIZERS}
     finally:
         join_ranks(procs)
     ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
@@ -348,6 +445,42 @@ def test_two_ranks_equal_one_rank_and_jax(tmp_path):
             assert run["zero1_dims"], what       # ZeRO-1 split something
         for k, v in ranks[0]["resnet"][case]["extra"].items():
             assert torch.equal(ranks[1]["resnet"][case]["extra"][k], v), k
+
+    # (h)
+    for case, want in rn_jax.items():
+        for r, got in enumerate(ranks):
+            run = got["resnet_accum2"][case]
+            what = f"rank {r} ResNet {case} grad_accum 2 vs JAX"
+            _same_run(run, want, what)
+            assert set(run["extra"]) == set(want["extra"])
+            for k, v in want["extra"].items():
+                _close(run["extra"][k], v, f"{what} statistic {k}")
+
+    # (i)
+    for name, want in bert_jax.items():
+        for r, got in enumerate(ranks):
+            run = got["bert"][name]
+            what = f"rank {r} BERT {name} vs JAX"
+            _close(run["losses"], want["losses"], f"{what} losses")
+            np.testing.assert_allclose(run["norms"], want["norms"],
+                                       rtol=BERT_NORM_TOL,
+                                       err_msg=f"{what} grad_norm")
+            assert set(run["params"]) == set(want["params"])
+            for k, v in want["params"].items():
+                if not k.endswith(NOISE_LEAF):
+                    _close(run["params"][k], v, f"{what} {k}")
+            assert run["zero1_dims"], name
+            assert run["restored_equal"], f"{name}: checkpoint round trip"
+            for k, v in run["params"].items():
+                assert torch.equal(ranks[0]["bert"][name]["params"][k], v)
+    fac = ranks[1]["bert"]["adafactor"]
+    state, dims = fac["opt_state"][0], fac["zero1_dims"]
+    full = fac["params"]["layer_0.mlp_in.weight"]           # [256, 128]
+    assert dims["layer_0.mlp_in.weight"] == 1                # split: d1
+    assert tuple(state["v_row"]["layer_0.mlp_in.weight"].shape) == (
+        1, full.shape[1] // WORLD)
+    assert tuple(state["v_col"]["layer_0.mlp_in.weight"].shape) == (
+        full.shape[0], 1)
 
     # the collectives over a group (exact: small integers in f32)
     xs = [worker.comms_input(r) for r in range(WORLD)]

@@ -135,5 +135,60 @@ def test_recipe_and_weight_decay_rules():
 
 @pytest.mark.parametrize("name", ["lamb", "adafactor"])
 def test_unported_optimizers_raise(name):
+    """lamb and adafactor are ported; over a model axis (row-sharded
+    leaves, whose per-leaf statistics need the model group) they are
+    not, and say so at the first update."""
+    tx = optim.make_optimizer(_args(name, "constant"), recipe=None)
+    p = {k: torch.from_numpy(v) for k, v in _params().items()}
+    g = optim.ShardedTree({k: torch.ones_like(v) for k, v in p.items()},
+                          None, model={"w": 0})
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        optim.make_optimizer(_args(name, "constant"), recipe=None)
+        tx.update(g, tx.init(p), p)
+
+
+#: lamb's and adafactor's tree: a leaf that factors (both dims >= 128,
+#: the second-largest 128), a 2-D one that does not, a 1-D one, a scalar
+SHAPES_LA = {"big": (128, 160), "w": (4, 130), "b": (7,), "s": ()}
+#: f32 ulps of O(1) parameters: the per-leaf norms and means sum in other
+#: orders than XLA's
+RTOL_LA, ATOL_LA = 1e-5, 1e-6
+
+
+@pytest.mark.parametrize("case", ["constant", "cosine_wd", "cosine_clip",
+                                  "constant_wd_clip"])
+@pytest.mark.parametrize("name", ["lamb", "adafactor"])
+def test_lamb_and_adafactor_match_optax(name, case):
+    """Five updates from the launcher's flags, one at a time, against
+    optax 0.2's ``lamb`` / ``adafactor`` on the same seeded gradients:
+    parameters within RTOL_LA after each update; under a decaying
+    schedule (the first update's lr is 0), with and without weight decay
+    and global-norm clipping."""
+    sched = "constant" if case.startswith("constant") else "cosine"
+    args = _args(name, sched, weight_decay=0.05 if "wd" in case else -1.0,
+                 clip_grad_norm=0.5 if "clip" in case else 0.0)
+    jtx = jflags.make_optimizer(args, recipe=None)
+    ttx = optim.make_optimizer(args, recipe=None)
+    rng = np.random.default_rng(3)
+    p0 = {k: np.asarray(rng.standard_normal(s), np.float32)
+          for k, s in SHAPES_LA.items()}
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    jst, tst = jtx.init(jp), ttx.init(tp)
+    for step in range(5):
+        g = {k: np.asarray(rng.standard_normal(s) * (1 + step), np.float32)
+             for k, s in SHAPES_LA.items()}
+        ju, jst = jtx.update({k: jnp.asarray(v) for k, v in g.items()},
+                             jst, jp)
+        jp = optax.apply_updates(jp, ju)
+        tu, tst = ttx.update({k: torch.from_numpy(v) for k, v in g.items()},
+                             tst, tp)
+        optim.apply_updates(tp, tu)
+        for k in SHAPES_LA:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       rtol=RTOL_LA, atol=ATOL_LA,
+                                       err_msg=f"{k} after update {step}")
+    if name == "adafactor":        # the factored leaf keeps row/col only
+        fac = tst[-1][0] if "clip" in case else tst[0]
+        assert fac["v_row"]["big"].shape == (128, 1)
+        assert fac["v_col"]["big"].shape == (1, 160)
+        assert fac["v"]["w"].shape == (4, 130) and fac["v"]["big"].ndim == 0

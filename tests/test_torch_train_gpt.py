@@ -158,8 +158,14 @@ def test_token_bin_batches_equal_the_jax_package(tmp_path, host_index,
     assert tformats.detect_token_data(str(tmp_path), 4, 128, split="val",
                                       **kw) is None
     assert tformats.detect_token_data("", 4, 32, **kw) is None
-    with pytest.raises(NotImplementedError, match="mlm"):
-        tformats.TokenBinData(str(tmp_path), 4, 32, mode="mlm")
+    # BERT's dynamic masking (ported): the same batches as the reference
+    kw["mode"] = "mlm"
+    j = jformats.TokenBinData(str(tmp_path), 4, 32, **kw)
+    t = tformats.TokenBinData(str(tmp_path), 4, 32, **kw)
+    want, got = j.batch(2), t.batch(2)
+    assert set(want) == set(got)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
 
 
 def test_init_distributions_match_make_init():
@@ -199,7 +205,13 @@ def test_init_distributions_match_make_init():
 def test_unported_flags_raise(tmp_path, flag):
     """More than one worker and ``--mesh_data`` are ported (data
     parallelism, ``tests/test_torch_multirank.py``); a data axis > 1 in
-    one process is a usage error (``tests/test_torch_dist.py``)."""
+    one process is a usage error (``tests/test_torch_dist.py``). lamb and
+    adafactor are ported since (``tests/test_torch_optim.py`` holds them
+    against optax): those two flags now train a step."""
+    if flag.startswith("--optimizer="):
+        state, _ = _run(tmp_path, 1, flag)
+        assert state.step == 1
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _run(tmp_path, 1, flag)
 
