@@ -35,25 +35,48 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (kv_heads 4), a 256 window with every 2nd layer global, an int8 KV
    cache and ``flash_block_h=2`` (B4); one greedy run, one seeded sampled
    run (temperature 0.8, top_p 0.9) twice.
-6. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
+6. serve_engine — the serving engine (``dtf_tpu_torch.serve``) at GPT-2
+   small's full width and depth, JAX-init weights, bf16, 8 slots of 1024
+   positions, prefill chunks of 128: twelve requests (prompts 17 to 880
+   tokens, ragged chunk counts; greedy, seeded sampled with top-k/top-p,
+   one stopped by an eos) under churn through the scheduler. Each greedy
+   request's tokens equal batch-1 ``generate``'s (same chunk width) up to
+   its first top-2 margin under ``LOGITS_REL_TOL`` of the largest logit;
+   teacher-forced on ``generate``'s tokens, the logits of every slot and
+   step lie within that tolerance; a sampled and a greedy request alone
+   and under churn in the same slot give bit-equal tokens; both steps,
+   minus their one readback, run under
+   ``torch.cuda.set_sync_debug_mode("error")``; ``trace_counts`` stays
+   {prefill: 1, decode: 1}; the sampler draws the same tokens on the CPU
+   and the card; no hand kernel launches.
+7. serve_bench — ``python -m dtf_tpu_torch.serve_gpt --logdir`` in process
+   on the train phase's checkpoint (so it runs right after train; alone
+   it trains 2 steps of its own first): Poisson mode, 16 slots, max_len
+   1024, chunk 128, 64 requests, prompts 128–768, 32–256 new tokens, at
+   1000 requests/s (the slots full) and at 2/s: tokens/s, TTFT and
+   per-token p50/p99, occupancy, KV-cache MiB, peak GB; then the decode
+   step with every slot active (``profile_serve.measure_decode``): wall
+   ms, device-busy ms and launches a step, idle share; beside it offline
+   ``generate``'s decode ms/token at 16 rows of 512.
+8. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
    the plain backward on the card, bf16, dO as a transposed view: the
    training shape, ragged T, a window, a fully masked ``kv_mask`` row
    (gradient exactly 0), t_q != t_k, D 128, T 5, T 65 and 129 (one row
    past a tile), t_q 1 against t_k 1024, D 128 ragged with a window,
    B·H 65,552 at T 2; then two launches of each kernel at the training
    shape, bitwise equal.
-7. kernel_times_bwd — B2, B3 and B1 at the training shape
+9. kernel_times_bwd — B2, B3 and B1 at the training shape
    [8, 12, 1024, 64]: kernel, plain version, the library yardstick
    (SDPA's backward) and the bound.
-8. train_grads — GPT-2 small at full width, the trainer's init, one
+10. train_grads — GPT-2 small at full width, the trainer's init, one
    8 x 1024 batch: loss and every gradient on the flash path against the
    dense path; exactly 12 B1/B2/B3 launches per step (24 B1 under remat).
-9. train — ``train_gpt``'s main path in process: b8 s1024, AdamW, 30
+11. train — ``train_gpt``'s main path in process: b8 s1024, AdamW, 30
    steps, with the launch counts of that run; a relaunch that resumes
    from the checkpoint; ``generate_gpt --logdir`` on it; 30 steps on one
    fixed batch, whose loss must fall by ``FIXED_BATCH_LOSS_DROP``.
    Prints step ms, tokens/s, analytic MFU and peak memory.
-10. kernels_ce — the fused LM head + CE kernels (the split pass, B5 and
+12. kernels_ce — the fused LM head + CE kernels (the split pass, B5 and
     the merge of its vocab parts, B6 dX, B7 dW) against their plain
     versions on the card, f32, TF32 off: the training shape with ignored
     labels, the same with larger logits (W std 0.2), ragged N and V
@@ -62,22 +85,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     and the merge each against their own plain version, two B5 launches
     bitwise equal in every case; then two launches of B5, B6 and B7 at
     the training shape, bitwise equal.
-11. kernel_times_ce — B5, the merge, the split pass, B6, B7 at N 8192, D
+13. kernel_times_ce — B5, the merge, the split pass, B6, B7 at N 8192, D
     768, V 50304: kernel, plain version, the monolithic composite they
     replace (cuBLAS f32 head GEMM + logsumexp/gather, and its backward; a
     yardstick only) and the bound (3xTF32 on the tensor cores); B5's CTAs
     and B6's and B7's clusters against what the card holds at once.
-12. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
+14. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
     the token- and vocab-chunked losses against the monolithic loss (loss,
     the head's gradient, every other gradient); exactly 1/1/1/1/1
     split/B5/merge/B6/B7 launches per step on the fused path, none on the
     chunked ones.
-13. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
+15. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
     steps: the split pass, B5 and the merge 34 each (one per step and per
     final-eval batch), B6 30, B7 30 launches; the first 5 losses against
     the ``train`` run's. Prints step ms, tokens/s, analytic MFU and peak
     memory beside ``train``'s.
-14. kernels_embed — the embedding-row gather (B8) against its plain
+16. kernels_embed — the embedding-row gather (B8) against its plain
     version on the card, exactly (a gather copies): Wide&Deep's deep
     table [2,600,000, 16] in f32 and bf16 and its wide table [2,600,000,
     1] with synthetic batch 0's 512 x 26 ids, rank-2 ids, 4,096 copies of
@@ -90,7 +113,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     deep f32 -> bf16) on shard 1 and 0 of 2, one table with and without
     the cast, a bf16 table, D 3 bf16 with D 17 cast, D 768 cast with a
     1-wide f32 table, strided tables, ids outside the table, empty ids.
-15. kernel_times_embed — B8 at the deep table with 512 x 26 ids (the
+17. kernel_times_embed — B8 at the deep table with 512 x 26 ids (the
     launcher's batch) and 8,192 x 26 (``scripts/bench_lm.py``'s), f32 and
     bf16, and at the wide table: kernel, plain version, the library
     yardstick (``torch.nn.functional.embedding``) and the bound, each
@@ -101,7 +124,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     forward and backward,
     device ms and device ops, the bound, and the outputs and gradients
     of both bit for bit.
-16. widedeep_lookup — Wide&Deep at full width (hash_buckets 100,000,
+18. widedeep_lookup — Wide&Deep at full width (hash_buckets 100,000,
     embed_dim 16, mlp 256/128/64, bf16), the trainer's init, 4 synthetic
     batches of 512: the model's two lookups again through
     ``masked_lookup_grouped`` (the row-sharded forward's lookup) on its
@@ -110,19 +133,19 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     today's per-table composite bit for bit (deterministic index_add_),
     and the ``index_select`` path's within 1e-6 (the deep table's at f32
     rows).
-17. train_widedeep — ``train_widedeep`` in process at its defaults
+19. train_widedeep — ``train_widedeep`` in process at its defaults
     (batch 512, Adam 1e-3, 300 steps, the final 4-batch eval), then a
     relaunch that resumes to step 310: the loss falls, ``eval_accuracy``
     > 0.55, and no B8 launch (the launcher looks its tables up as the
     JAX one does, with ``take``). Prints step ms, examples/s and peak
     memory.
-18. resnet_batchnorm — train-mode BatchNorm as the model runs it on
+20. resnet_batchnorm — train-mode BatchNorm as the model runs it on
     the card (PyTorch's fused batch-norm kernels) against the port's
     plain f32 ops (what the CPU tests hold against flax) on the same
     bf16 channels-last inputs at ResNet-50's stem, first-stage and
     last-stage shapes at b256: y, mean, variance, dx, dscale, dbias
     within ``BN_BF16_TOL`` / ``BN_F32_TOL``; the device ms of both.
-19. train_resnet — ``train_resnet`` in process: ``--config=imagenet``
+21. train_resnet — ``train_resnet`` in process: ``--config=imagenet``
     (ResNet-50 v1.5 at full width, 25,557,032 parameters, batch 256, the
     synthetic ImageNet stream) for 10 steps — finite losses, every
     BatchNorm running statistic moved, every tensor on the card — and a
@@ -131,12 +154,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     of 128, whose loss must fall by ``RN_FIXED_LOSS_DROP``. No hand
     kernel launches on this path (cuDNN convolutions, as the JAX
     package's are XLA's).
-20. resnet_bench — ``profile_resnet``'s measurement at bench.py's batch
+22. resnet_bench — ``profile_resnet``'s measurement at bench.py's batch
     128 and the launcher's 256 (one fixed batch on the card, SGD 0.1
     momentum 0.9, 3 warm-up and 20 timed steps): step ms, images/s,
     analytic MFU, peak memory, device busy and idle share, launches and
     device ms by family (convolutions, BatchNorm, the rest).
-21. bert_kernels — B1, B2 and B3 at BERT's shapes (bf16, 12 heads of
+23. bert_kernels — B1, B2 and B3 at BERT's shapes (bf16, 12 heads of
     64, non-causal, a key-padding mask with rows of no padding, some, all
     but one key and every key padded; batch 16 and 64, T 128 and 512)
     against their plain versions at the kernels / kernels_bwd
@@ -144,7 +167,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     the path's [64, 12, 128, 64] and at [16, 12, 512, 64]: each kernel's
     time, plain version, bound and SDPA with the same boolean mask (the
     backend PyTorch's dispatch took, named).
-22. train_bert — ``train_bert`` in process: BERT-base at full width
+24. train_bert — ``train_bert`` in process: BERT-base at full width
     (109,514,298 parameters), seq 128, batch 64, ``--grad_accum 4``, 10
     steps — finite losses, every tensor on the card, B1, B2 and B3 each
     12 × 4 a step (B1 12 more an eval batch) — and a relaunch that
@@ -153,13 +176,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     30 AdamW steps on one fixed batch lower the loss by
     ``BERT_FIXED_LOSS_DROP``; ``--mlm_gather 128`` gives the full path's
     loss within ``BERT_GATHER_REL_TOL``.
-23. bert_bench — ``profile_bert``'s measurement (one fixed batch on the
+25. bert_bench — ``profile_bert``'s measurement (one fixed batch on the
     card, AdamW, 3 warm-up, 20 timed and 5 profiled steps) at
     ``grad_accum`` 1 and 4 with full logits, and 1 with ``--mlm_gather
     20`` and with ``--loss_chunk_vocab 8192``: step ms, tokens/s,
     analytic MFU, peak memory, flash launches a step, the head's ms and
     share, device busy and idle share, launches and device ms by family.
-24. dist_nccl — a process group of ONE over NCCL, made by this script,
+26. dist_nccl — a process group of ONE over NCCL, made by this script,
     with the entry points run inside it: ``python -m
     dtf_tpu_torch.distributed`` (MNIST softmax, 200 steps; its loss and
     held-out accuracy), and ``train_gpt --loss_pallas --mesh_data 1``
@@ -174,7 +197,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     batch 8, ``--grad_accum 2``, ZeRO-1, 4 steps) against the same run
     with no group: losses within ``DIST_LOSS_REL_TOL``, exact flash
     launch counts.
-25. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
+27. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
     group made by this script's ``--dist-child`` ranks; the kernels
     built before the spawn; each rank's output in a file, the wait
     bounded by ``DIST_CHILD_TIMEOUT_S``): ``train_widedeep --mesh_model
@@ -975,8 +998,7 @@ def phase_variants(torch):
             f"variant launches {launches}")
 
     def sampled(seed):
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        return gpt.generate(model, prompt, 32, generator=g, temperature=0.8,
+        return gpt.generate(model, prompt, 32, seed=seed, temperature=0.8,
                             top_p=0.9)
 
     a, b = sampled(7), sampled(7)
@@ -991,6 +1013,315 @@ def phase_variants(torch):
           "flash_launches": launches, "sampled_repeats": True,
           "sampled_differs_from_greedy": not torch.equal(a, greedy)})
     return launches
+
+
+#: the serving engine's shape on the card: GPT-2 small, 8 slots of 1024
+#: positions, prefill chunks of 128; twelve requests of ragged chunk
+#: counts (prompt, max_new, sampling), greedy ones held against generate
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK = 8, 1024, 128
+SERVE_SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
+SERVE_REQUESTS = (
+    (17, 64, {}), (880, 40, {}), (129, 48, SERVE_SAMPLED),
+    (256, 32, {}), (300, 64, SERVE_SAMPLED), (511, 24, {}),
+    (640, 56, {"temperature": 1.0}), (128, 64, {}), (700, 8, {}),
+    (45, 40, {"eos": 2}), (390, 16, SERVE_SAMPLED), (233, 64, {}))
+#: serve_bench: serve_gpt's Poisson mode on the train phase's checkpoint
+#: at a rate that keeps the 16 slots full and at 2 requests a second
+SERVE_BENCH_FLAGS = ("--n_slots=16", "--max_len=1024", "--prefill_chunk=128",
+                     "--n_requests=64", "--prompt_min=128",
+                     "--prompt_max=768", "--new_min=32", "--new_max=256",
+                     "--seed=0")
+SERVE_BENCH_RATES = (1000.0, 2.0)
+#: the decode-step profile: every slot active at this prompt length
+SERVE_PROFILE_PROMPT = 512
+
+
+def _reference_stream(torch, model, prompt, n_new, chunk):
+    """Batch-1 greedy decode on the offline path (``generate``'s chunked
+    prefill of the same width, then its decode steps): the tokens and
+    every step's logits [n_new, V]."""
+    from dtf_tpu_torch.models import gpt
+
+    with torch.no_grad():
+        cache = model.init_cache(1)
+        logits = gpt._prefill(model, cache, prompt[None], chunk)[:, -1]
+        rows = []
+        for i in range(n_new):
+            rows.append(logits[0])
+            if i + 1 < n_new:
+                logits = model(logits.argmax(-1)[:, None], cache)[:, 0]
+    rows = torch.stack(rows)
+    return rows.argmax(-1).tolist(), rows
+
+
+def _slot_stream(engine, slot, prompt, n_new, sampling, churn, rng):
+    """A request's tokens in ``slot`` of ``engine``: alone (every other
+    slot inactive) or under churn (the other slots busy, one mid-prefill,
+    and a slot re-admitted every 5 steps)."""
+    engine.state["active"].zero_()
+    others = [s for s in range(engine.n_slots) if s != slot]
+    vocab = engine.cfg.vocab_size
+
+    def admit(s, n, seed):
+        engine.prefill(s, rng.integers(0, vocab, n).tolist(), seed=seed,
+                       **SERVE_SAMPLED)
+
+    if churn:
+        for i, s in enumerate(others[:-1]):
+            admit(s, 100 + 37 * i, seed=i)
+        engine.prefill_chunk_into(
+            others[-1], rng.integers(0, vocab, 600).tolist(), 0)
+    tok, _ = engine.prefill(slot, prompt, **sampling)
+    toks = [tok]
+    for i in range(1, n_new):
+        if churn and i % 5 == 0:
+            admit(others[i // 5 % len(others)], 20 + 37 * i % 500, seed=i)
+        got, _ = engine.decode()
+        toks.append(int(got[slot]))
+    return toks
+
+
+def _sampler_cpu_vs_cuda(torch):
+    """The sampler's noise and tokens on the same logits, CPU against
+    CUDA: the hash bits are integer arithmetic (equal), -log(-log(u)) is
+    f64 on both."""
+    from dtf_tpu_torch.models import gpt
+
+    n, v = 8, VOCAB
+    gen = torch.Generator().manual_seed(12)
+    logits = torch.randn(n, v, generator=gen) * 4
+    kw = {"temperature": torch.tensor([0.8, 1.0] * 4),
+          "top_k": torch.tensor([50, 0] * 4),
+          "top_p": torch.tensor([0.9, 1.0] * 4),
+          "key": gpt.sampler_key(torch.arange(n) * 1000 + 7,
+                                 torch.zeros(n, dtype=torch.long)),
+          "draw": torch.arange(n) * 3}
+    noise = gpt.gumbel_noise(kw["key"], kw["draw"], v)
+    noise_cuda = gpt.gumbel_noise(kw["key"].cuda(), kw["draw"].cuda(), v)
+    toks = gpt.sample_tokens(logits, **kw)
+    toks_cuda = gpt.sample_tokens(
+        logits.cuda(), **{k: t.cuda() for k, t in kw.items()})
+    out = {"noise_max_abs_diff": (noise - noise_cuda.cpu()).abs().max()
+           .item(), "tokens_equal": torch.equal(toks, toks_cuda.cpu())}
+    require(out["tokens_equal"], f"sampler tokens differ CPU vs CUDA: {out}")
+    return out
+
+
+def phase_serve_engine(torch, smi):
+    """The serving engine at GPT-2 small's full width and depth (JAX-init
+    weights, bf16) on the card: twelve requests under churn through the
+    scheduler; greedy tokens and teacher-forced logits against batch-1
+    ``generate`` of the same chunk width; a request alone and under churn
+    in the same slot bit for bit; both steps sync-free; no hand kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from dtf_tpu_torch.convert import init_params_flax, params_from_flax
+    from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.serve import DecodeEngine, ServeClient
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    params = params_from_flax(init_params_flax(cfg, 4))
+    engine = DecodeEngine(cfg, params, n_slots=SERVE_SLOTS,
+                          max_len=SERVE_MAX_LEN, prefill_chunk=SERVE_CHUNK)
+    ref_model = gpt.GPT(dataclasses.replace(cfg, decode_len=SERVE_MAX_LEN,
+                                            attn_impl="dense"),
+                        device="cuda")
+    ref_model.load_state_dict(params)
+    ref_model.eval()
+    del params
+    rng = np.random.default_rng(5)
+    reqs, refs = [], {}
+    for i, (t_p, n_new, kw) in enumerate(SERVE_REQUESTS):
+        prompt = rng.integers(0, VOCAB_REAL, t_p).tolist()
+        req = {"prompt": prompt, "max_new": n_new, "seed": 40 + i,
+               **{k: v for k, v in kw.items() if k != "eos"}}
+        if "temperature" not in kw:
+            refs[i] = _reference_stream(
+                torch, ref_model, torch.tensor(prompt, device="cuda"),
+                n_new, SERVE_CHUNK)
+            if "eos" in kw:
+                req["eos_id"] = refs[i][0][kw["eos"]]
+        reqs.append(req)
+
+    def serve():
+        client = ServeClient(engine)
+        rids = [client.submit(**r) for r in reqs]
+        client.drain()
+        return [client.result(rid) for rid in rids], client.stats()
+
+    (got, stats), wall = _no_hand_kernels(torch, serve)
+    require(engine.trace_counts == {"prefill": 1, "decode": 1},
+            f"trace_counts {engine.trace_counts}")
+    scale = max(r[1].abs().max().item() for r in refs.values())
+    tol = LOGITS_REL_TOL * scale
+    compared = 0
+    for i, (toks, rows) in refs.items():
+        top2 = rows.topk(2, dim=-1).values
+        close = ((top2[:, 0] - top2[:, 1]) < tol).nonzero()
+        upto = int(close[0]) if len(close) else len(toks)
+        if "eos_id" in reqs[i]:
+            stop = toks.index(reqs[i]["eos_id"]) + 1
+            require(len(got[i]) == stop and got[i] == toks[:stop],
+                    f"request {i}: eos stop {got[i]} vs {toks[:stop]}")
+            upto = min(upto, stop)
+        require(got[i][:upto] == toks[:upto],
+                f"request {i}: engine and generate greedy tokens differ "
+                f"before step {upto} (the first top-2 margin under {tol})")
+        compared += upto
+    for i, r in enumerate(reqs):
+        require(len(got[i]) == r["max_new"] or "eos_id" in r,
+                f"request {i}: {len(got[i])} tokens of {r['max_new']}")
+        require(all(0 <= t < cfg.vocab_size for t in got[i]),
+                f"request {i}: token out of range")
+
+    # teacher-forced: the greedy requests in slots 0.., every active slot
+    # fed its reference token each step; each slot's logits against its
+    # batch-1 reference of the same step
+    greedy = sorted(refs)[:SERVE_SLOTS]
+    st = engine.state
+    st["active"].zero_()
+    for s, i in enumerate(greedy):
+        engine.prefill(s, reqs[i]["prompt"])
+    worst, steps = 0.0, 0
+    with torch.no_grad():
+        for j in range(1, max(len(refs[i][0]) for i in greedy)):
+            live = [s for s, i in enumerate(greedy) if j < len(refs[i][0])]
+            st["active"].zero_()
+            for s in live:
+                st["active"][s] = True
+                st["tok"][s] = refs[greedy[s]][0][j - 1]
+            logits = engine._model(st["tok"][:, None], st["cache"],
+                                   decode_active=st["active"])[:, 0]
+            for s in live:
+                d = (logits[s] - refs[greedy[s]][1][j]).abs().max().item()
+                require(math.isfinite(d), f"slot {s} step {j}: non-finite")
+                worst = max(worst, d)
+                steps += 1
+    require(worst <= tol, f"teacher-forced engine logits differ from "
+                          f"generate by {worst} (> {LOGITS_REL_TOL} x "
+                          f"{scale}) over {steps} slot-steps")
+
+    # a request alone and under churn, in the same slot: bit-equal tokens
+    bitwise = {}
+    for i in (4, 7):                               # sampled, greedy
+        r = reqs[i]
+        sampling = {k: r[k] for k in ("temperature", "top_k", "top_p",
+                                      "seed") if k in r}
+        alone, churned = (_slot_stream(engine, 3, r["prompt"],
+                                       r["max_new"], sampling, churn,
+                                       np.random.default_rng(6))
+                          for churn in (False, True))
+        require(alone == churned, f"request {i}: alone {alone} != under "
+                                  f"churn {churned}")
+        bitwise[i] = len(alone)
+
+    # both steps, minus their one readback, make no device-to-host sync
+    prompt = reqs[1]["prompt"][:SERVE_CHUNK + 5]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c in range(2):
+            engine.prefill_into_slot(0, prompt, c, seed=3, **SERVE_SAMPLED)
+        for _ in range(3):
+            engine.decode_all()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sampler = _sampler_cpu_vs_cuda(torch)
+    emit({"phase": "serve_engine", "model": "gpt2-small", "nvidia_smi": smi,
+          "n_slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+          "prefill_chunk": SERVE_CHUNK, "requests": len(reqs),
+          "tokens_generated": sum(map(len, got)),
+          "greedy_tokens_compared_with_generate": compared,
+          "teacher_forced": {"slot_steps": steps, "max_abs_diff": worst,
+                             "max_abs_logit": scale,
+                             "rel_tol": LOGITS_REL_TOL},
+          "alone_vs_churn_bitwise_tokens": bitwise,
+          "sync_free": ["prefill_into_slot", "decode_all"],
+          "sampler_cpu_vs_cuda": sampler,
+          "trace_counts": engine.trace_counts, "hand_kernel_launches": 0,
+          "serve_wall_s": wall, "ticks": stats["serve_ticks"],
+          "cache_mib": engine.cache_bytes() / 2 ** 20})
+    del engine, ref_model
+    torch.cuda.empty_cache()
+
+
+def phase_serve_bench(torch, smi, logdir):
+    """``python -m dtf_tpu_torch.serve_gpt --logdir`` in process on a
+    train_gpt checkpoint (the train phase's; alone, 2 steps of its own),
+    Poisson mode at SERVE_BENCH_RATES; then the engine's decode step with
+    every slot active (wall, device-busy, launches, idle share) beside
+    offline generate's decode step at the same rows and context."""
+    import gc
+    import tempfile
+
+    from dtf_tpu_torch import serve_gpt, train_gpt
+    from dtf_tpu_torch.profile_serve import measure_decode
+
+    own = logdir is None
+    if own:
+        logdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_gpt.run(["--size=small", f"--batch_size={TRAIN_BATCH}",
+                           f"--seq_len={TRAIN_SEQ}", "--train_steps=2",
+                           f"--logdir={logdir}"])
+        gc.collect()
+    runs = []
+    engine = None
+    for rate in SERVE_BENCH_RATES:
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (out, _, engine), wall = _no_hand_kernels(torch, lambda: serve_gpt.run(
+            [f"--logdir={logdir}", f"--poisson_rate={rate}",
+             *SERVE_BENCH_FLAGS]))
+        require(out["request_statuses"] == {"done": 64},
+                f"rate {rate}: statuses {out['request_statuses']}")
+        runs.append({
+            "poisson_rate": rate, "step": out["step"],
+            "wall_s": out["wall_s"], "generated_tokens":
+            out["generated_tokens"], "tokens_per_sec": out["tokens_per_sec"],
+            **{k: out[k] for k in (
+                "serve_ttft_p50_s", "serve_ttft_p99_s",
+                "serve_tok_latency_p50_s", "serve_tok_latency_p99_s",
+                "serve_occupancy_mean", "serve_queue_peak",
+                "serve_decode_steps", "serve_prefill_chunks", "cache_mib")},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "in_process_wall_s": wall})
+    step = measure_decode(engine, prompt_len=SERVE_PROFILE_PROMPT)
+    require(step["launches_per_step"] > 0, f"profile saw no kernel: {step}")
+
+    # offline generate's decode step at the same rows and context
+    import dataclasses
+
+    from dtf_tpu_torch.models import gpt
+
+    n_new = 33
+    model = gpt.GPT(dataclasses.replace(
+        engine.cfg, decode_len=SERVE_PROFILE_PROMPT + n_new), device="cuda")
+    model.load_state_dict(engine._model.state_dict())
+    model.eval()
+    del engine
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    prompt = torch.randint(0, VOCAB_REAL, (16, SERVE_PROFILE_PROMPT),
+                           generator=gen, device="cuda")
+    gpt.generate(model, prompt, 2)                      # warm-up
+    _, full_s = timed(torch, lambda: gpt.generate(model, prompt, n_new))
+    _, one_s = timed(torch, lambda: gpt.generate(model, prompt, 1))
+    emit({"phase": "serve_bench", "model": "gpt2-small", "nvidia_smi": smi,
+          "flags": list(SERVE_BENCH_FLAGS), "runs": runs,
+          "decode_step": step,
+          "generate_decode_ms_per_token": (full_s - one_s) * 1e3
+          / (n_new - 1), "generate_rows": 16,
+          "generate_prompt": SERVE_PROFILE_PROMPT})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if own:
+        shutil.rmtree(logdir, ignore_errors=True)
 
 
 def _train_batch(torch, cfg, step=0):
@@ -1068,7 +1399,8 @@ def phase_train(torch, smi):
     AdamW, 30 steps, then a relaunch that resumes from the checkpoint,
     ``generate_gpt --logdir`` on it, and 30 steps on one fixed batch.
     Returns the flash launches of the 30-step run, its losses, its median
-    step ms and its peak memory."""
+    step ms, its peak memory and its logdir (which serve_bench serves;
+    main removes it)."""
     import gc
     import statistics
     import tempfile
@@ -1150,7 +1482,6 @@ def phase_train(torch, smi):
     del model, st
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(logdir, ignore_errors=True)
 
     emit({"phase": "train", "model": "gpt2-small", "batch": TRAIN_BATCH,
           "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "nvidia_smi": smi,
@@ -1162,7 +1493,7 @@ def phase_train(torch, smi):
           "fixed_batch_drop_min": FIXED_BATCH_LOSS_DROP})
     fa.reset_launch_counts()
     return {"launches": launches, "losses": losses, "step_ms": step_ms,
-            "peak": peak}
+            "peak": peak, "logdir": logdir}
 
 
 def ce_bounds_ms(n, d, v):
@@ -3297,9 +3628,11 @@ def phase_dist_two_ranks_one_card(torch, smi):
             "fused": ranks[0]["gpt"]["fused_launches"]}
 
 
-#: every phase, in the order a full run takes them
+#: every phase, in the order a full run takes them — but serve_bench,
+#: which serves the train phase's checkpoint, runs right after train
 PHASES = ("device", "build", "kernels", "generate", "generate_variants",
-          "kernels_bwd", "kernel_times_bwd", "train_grads", "train",
+          "serve_engine", "serve_bench", "kernels_bwd", "kernel_times_bwd",
+          "train_grads", "train",
           "kernels_ce", "kernel_times_ce", "train_grads_ce", "train_ce",
           "kernels_embed", "kernel_times_embed", "widedeep_lookup",
           "train_widedeep", "resnet_batchnorm", "train_resnet",
@@ -3415,6 +3748,8 @@ def main(argv=None):
         got["generate"] = phase_generate(torch)
     if "generate_variants" in phases:
         got["generate_variants"] = phase_variants(torch)
+    if "serve_engine" in phases:
+        phase_serve_engine(torch, smi)
     if "kernels_bwd" in phases:
         got["kernels_bwd"] = phase_kernels_bwd(torch)
     if "kernel_times_bwd" in phases:
@@ -3423,6 +3758,10 @@ def main(argv=None):
         phase_train_grads(torch)
     if "train" in phases:
         got["train"] = phase_train(torch, smi)
+    if "serve_bench" in phases:
+        phase_serve_bench(torch, smi, got.get("train", {}).get("logdir"))
+    if "train" in phases:
+        shutil.rmtree(got["train"]["logdir"], ignore_errors=True)
     if "kernels_ce" in phases:
         got["kernels_ce"] = phase_kernels_ce(torch)
     if "kernel_times_ce" in phases:

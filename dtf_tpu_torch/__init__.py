@@ -30,7 +30,8 @@ or anything of ``dtf_tpu``. The module layout mirrors the JAX package:
   ``make_eval_step``;
 - ``optim.py``: optax-semantics optimizers (sgd, momentum, adam, adamw,
   lamb, adafactor) and LR schedules;
-- ``models/gpt.py``: ``GPTConfig``, ``GPT``, the KV cache, ``generate``,
+- ``models/gpt.py``: ``GPTConfig``, ``GPT``, the KV cache (a position
+  a row under ``slot_decode``), ``generate`` and its per-row sampler,
   ``make_loss``, ``make_eval``; ``models/bert.py``: ``BertConfig``,
   ``BertMLM``, ``make_loss``, ``make_eval``; ``models/resnet.py``:
   ``ResNet``, ``make_loss``, ``make_eval``; ``models/widedeep.py``:
@@ -41,9 +42,13 @@ or anything of ``dtf_tpu``. The module layout mirrors the JAX package:
 - ``loop.py``, ``hooks.py``, ``metrics.py``, ``checkpoint.py``: the
   training loop, its hooks, the metric writer, checkpoints and the
   model-config manifest;
+- ``serve/``: online serving — ``DecodeEngine`` (slot-pooled
+  continuous batching), ``Scheduler``, ``ServeClient``, ``replay``,
+  ``PoissonLoadGen``, ``Heartbeat``;
 - ``convert.py``: the flax param tree <-> the port's ``state_dict``;
 - ``cli/``: the launchers' flags and setup;
-- ``train_gpt.py``, ``generate_gpt.py``, ``train_widedeep.py``,
+- ``train_gpt.py``, ``generate_gpt.py``, ``serve_gpt.py``,
+  ``train_widedeep.py``,
   ``train_resnet.py``, ``train_bert.py``, ``distributed.py`` (MNIST, the
   reference's launcher): ``python -m dtf_tpu_torch.<name>``;
   ``profile_*.py``: their profilers on the GPU.

@@ -74,6 +74,15 @@ def _validate_kv_cache_dtype(dtype: str, manifest) -> None:
 
 # -- the training launchers' flag surface (dtf_tpu.cli.flags, argparse) ----
 
+def present_flags(parser: argparse.ArgumentParser, argv) -> frozenset:
+    """The dests of the flags given on the command line: ``parser`` (a
+    fresh one — its defaults are suppressed here) parses again, so only
+    given flags appear."""
+    for act in parser._actions:
+        act.default = argparse.SUPPRESS
+    return frozenset(vars(parser.parse_args(argv)))
+
+
 def parse_bool(s: str) -> bool:
     if s.lower() in ("1", "true", "yes"):
         return True

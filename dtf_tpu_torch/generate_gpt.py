@@ -61,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top_k", type=int, default=0)
     p.add_argument("--top_p", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0,
-                   help="sampling generator seed")
+                   help="sampling seed (row r of the batch draws stream "
+                        "(seed, r))")
     p.add_argument("--eos_id", type=int, default=-1,
                    help="stop token (-1 = none); later tokens are --pad_id")
     p.add_argument("--pad_id", type=int, default=0)
@@ -82,12 +83,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _present(argv) -> frozenset:
-    """The dests of the flags given on the command line: parse again with
-    every default suppressed, so only given flags appear."""
-    probe = build_parser()
-    for act in probe._actions:
-        act.default = argparse.SUPPRESS
-    return frozenset(vars(probe.parse_args(argv)))
+    """The dests of the flags given on the command line."""
+    from dtf_tpu_torch.cli.flags import present_flags
+
+    return present_flags(build_parser(), argv)
 
 
 def main(argv=None) -> int:
@@ -160,8 +159,7 @@ def main(argv=None) -> int:
 
     prompt = torch.tensor(prompt_ids, dtype=torch.long).expand(
         args.batch, len(prompt_ids))
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    out = gpt.generate(model, prompt, args.n_new, generator=generator,
+    out = gpt.generate(model, prompt, args.n_new, seed=args.seed,
                        temperature=args.temperature, top_k=args.top_k,
                        top_p=args.top_p,
                        eos_id=args.eos_id if args.eos_id >= 0 else None,

@@ -1,5 +1,6 @@
 """Metrics (counterpart of ``dtf_tpu.metrics`` and of the analytic MFU
-count in ``dtf_tpu.telemetry.accounting``).
+count in ``dtf_tpu.telemetry.accounting``): :func:`quantile`, the one
+nearest-rank convention of every reported percentile.
 
 :class:`MetricWriter` prints scalars to stdout and keeps them in
 ``history``; TensorBoard summaries wait for a later slice.
@@ -13,6 +14,17 @@ from typing import Mapping
 #: NVIDIA H100 SXM dense bf16 tensor-core peak (data sheet), the MFU
 #: denominator of the port (never the TPU's)
 H100_PEAK_BF16_FLOPS = 989e12
+
+
+def quantile(xs, q):
+    """Nearest-rank quantile of a small sample (None when empty) — the
+    serve scheduler's TTFT and per-token p50/p99 convention, the JAX
+    package's ``dtf_tpu.metrics.quantile``."""
+    if not xs:
+        return None
+    xs = sorted(xs)
+    i = min(len(xs) - 1, max(0, round(q * (len(xs) - 1))))
+    return xs[i]
 
 
 def param_count(params) -> int:

@@ -5,18 +5,21 @@ Pre-LN blocks, interleaved RoPE, optional grouped-query attention
 bf16 compute over f32 params — the JAX model's math, in PyTorch idiom:
 ``nn.Module``s, an explicit device, the KV cache as explicit state that
 the model writes IN PLACE (one dict per layer, from
-:meth:`GPT.init_cache`), a Python loop where JAX used ``lax.scan``, and
-``torch.Generator`` sampling.
+:meth:`GPT.init_cache`), a Python loop where JAX used ``lax.scan``, and a
+counter-based sampler (:func:`sample_tokens`) where JAX split keys.
 
 Ported: the full-sequence forward (with the one-shot prefill cache
-write), the single-token decode step, chunked prefill, the int8 cache,
-``filter_logits`` and ``generate``; for training, the backward through
+write), the single-token decode step, chunked prefill (with the serving
+engine's right-padded ``prefill_len`` chunk), the int8 cache, the serving
+engine's ``slot_decode`` step (a position counter per batch row, rows
+masked by ``decode_active``), ``filter_logits``, ``filter_logits_dynamic``
+and ``generate``; for training, the backward through
 the flash kernels, remat per block (``torch.utils.checkpoint``), dropout
 from explicit per-step seeds, and the LM loss (:func:`make_loss`,
 :func:`make_eval`): monolithic logits, or the head fused with the CE —
 vocab- or token-chunked, or the fused kernels (B5–B7). Not yet: the
-serving engine's ``slot_decode`` and verify steps, beam search, MoE
-layers, tensor and sequence parallelism.
+slot verify step of speculative decoding, beam search, MoE layers,
+tensor and sequence parallelism.
 
 Dropout runs only when the caller passes ``dropout_seed`` (the training
 loss does; serving never does). Each mask is drawn from a fresh
@@ -85,7 +88,8 @@ class GPTConfig:
     kv_cache_dtype: str = ""
     #: multi-token calls CONTINUE an advanced cache (chunked prefill).
     chunked_prefill: bool = False
-    #: per-row cache indices (the serving engine) — not ported.
+    #: per-row cache indices (the serving engine): ``cache_index`` is a
+    #: [B] tensor and every row decodes at its own position.
     slot_decode: bool = False
     #: "" / "bf16" only; the quantized tiers are not ported.
     matmul_precision: str = ""
@@ -125,9 +129,6 @@ class GPTConfig:
             raise ValueError(
                 "slot_decode and chunked_prefill are different models of "
                 "the same cache")
-        if self.slot_decode:
-            raise NotImplementedError(
-                "slot_decode (the online serving engine) is not ported yet")
         if self.moe_every:
             raise NotImplementedError(
                 f"moe_every={self.moe_every}: Switch-MoE layers are not "
@@ -223,16 +224,48 @@ def _cache_read(cfg: GPTConfig, cvar: torch.Tensor,
 
 
 def _cache_put_at(cfg: GPTConfig, cvar, svar, slots: torch.Tensor,
-                  a: torch.Tensor) -> None:
-    """Write a [B,H,len(slots),D] at ``slots`` of the L axis, IN PLACE —
-    one definition with :func:`_cache_put_dyn` of how quantization
-    happens."""
+                  a: torch.Tensor, valid: Optional[torch.Tensor] = None
+                  ) -> None:
+    """Write a [B,H,len(slots),D] at the distinct ``slots`` of the L axis,
+    IN PLACE — one definition with :func:`_cache_put_dyn` and
+    :func:`_cache_put_rows` of how quantization happens. ``valid``
+    [len(slots)] bool keeps a slot's old contents where False (the pad
+    tail of a right-padded chunk)."""
+    def put(var, upd):
+        if valid is not None:
+            upd = torch.where(valid[None, None, :, None], upd,
+                              var.index_select(2, slots))
+        var.index_copy_(2, slots, upd)
+
     if svar is None:
-        cvar[:, :, slots, :] = a.to(cfg.dtype)
+        put(cvar, a.to(cfg.dtype))
     else:
         q, s = _kv_quant(a)
-        cvar[:, :, slots, :] = q
-        svar[:, :, slots, :] = s
+        put(cvar, q)
+        put(svar, s)
+
+
+def _cache_put_rows(cfg: GPTConfig, cvar, svar, slots: torch.Tensor,
+                    a: torch.Tensor,
+                    active: Optional[torch.Tensor] = None) -> None:
+    """Per-row single-slot write (the ``slot_decode`` step), IN PLACE: row
+    b writes ``a[b, :, 0, :]`` at its own slot ``slots[b]``. ``active``
+    [B] bool masks the write per row (an inactive row scatters its
+    current contents back, so a slot mid-prefill rides the fixed-shape
+    step untouched)."""
+    def put(var, upd):                                      # upd [B,H,1,X]
+        index = slots.view(-1, 1, 1, 1).expand(upd.shape)
+        if active is not None:
+            upd = torch.where(active.view(-1, 1, 1, 1), upd,
+                              var.gather(2, index))
+        var.scatter_(2, index, upd)
+
+    if svar is None:
+        put(cvar, a.to(cfg.dtype))
+    else:
+        q, s = _kv_quant(a)
+        put(cvar, q)
+        put(svar, s)
 
 
 def _cache_put_dyn(cfg: GPTConfig, cvar, svar, slot: int,
@@ -312,16 +345,22 @@ class CausalSelfAttention(nn.Module):
     def init_cache(self, batch: int, device) -> dict:
         """This layer's cache: [B, kv_heads, L, D] keys and values (int8
         with [B, kv_heads, L, 1] f32 scales under ``kv_cache_dtype="int8"``)
-        and the shared position counter ``cache_index`` (a Python int)."""
+        and the position counter ``cache_index``: a Python int shared by
+        the rows, or under ``slot_decode`` a [B] int64 tensor, one a row.
+        Every key must be in ``_BATCH_LED_CACHE_KEYS`` or
+        ``_NON_BATCH_CACHE_KEYS``."""
         cfg = self.cfg
         shape = (batch, cfg.kv_heads_resolved, self.cache_len,
                  cfg.d_model // cfg.heads)
         quant = cfg.kv_cache_dtype == "int8"
         store = torch.int8 if quant else cfg.dtype
+        index = (torch.zeros(batch, dtype=torch.long, device=device)
+                 if cfg.slot_decode else 0)
         cache = {"cached_key": torch.zeros(shape, dtype=store, device=device),
                  "cached_value": torch.zeros(shape, dtype=store,
                                              device=device),
-                 "key_scale": None, "value_scale": None, "cache_index": 0}
+                 "key_scale": None, "value_scale": None,
+                 "cache_index": index}
         if quant:
             for name in ("key_scale", "value_scale"):
                 cache[name] = torch.zeros(shape[:3] + (1,),
@@ -329,12 +368,26 @@ class CausalSelfAttention(nn.Module):
         return cache
 
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
-                chunked: bool = False, dropout_seed=None) -> torch.Tensor:
+                chunked: bool = False, dropout_seed=None, prefill_len=None,
+                decode_active=None) -> torch.Tensor:
         cfg = self.cfg
         d_head = cfg.d_model // cfg.heads
         kv_heads = cfg.kv_heads_resolved
         group = cfg.heads // kv_heads
         b, t = x.shape[0], x.shape[1]
+        if prefill_len is not None and not (
+                cache is not None and t != 1 and chunked):
+            raise ValueError(
+                "prefill_len only applies to the chunked-prefill path "
+                "(decode_len > 0, chunked_prefill=True, multi-token chunk)")
+        if decode_active is not None and not cfg.slot_decode:
+            raise ValueError(
+                "decode_active only applies to the slot_decode/verify "
+                "steps (per-row cache indices)")
+        if cfg.slot_decode and cache is not None and t != 1 and not chunked:
+            raise NotImplementedError(
+                "the slot verify step (slot_decode with a multi-token call, "
+                "speculative decoding) is not yet ported")
 
         def split(y, nh):
             return y.reshape(b, t, nh, d_head).transpose(1, 2)
@@ -343,7 +396,9 @@ class CausalSelfAttention(nn.Module):
         k = split(self.key(x), kv_heads)
         v = split(self.value(x), kv_heads)
         if cache is not None and t != 1 and chunked:
-            return self._chunked_prefill(q, k, v, cache)
+            return self._chunked_prefill(q, k, v, cache, prefill_len)
+        if cache is not None and t == 1 and cfg.slot_decode:
+            return self._slot_decode_step(q, k, v, cache, decode_active)
         if cache is not None and t == 1:
             return self._decode_step(q, k, v, cache)
 
@@ -389,29 +444,59 @@ class CausalSelfAttention(nn.Module):
                         ATTN_SITE)
 
     def _decode_step(self, q, k, v, cache: dict) -> torch.Tensor:
-        """One token against every cached position <= idx: the grouped
-        einsum reads the UN-expanded cache (query head kv*group + g reads
-        shared head kv)."""
+        """One token a row at the shared position ``cache_index`` against
+        every cached position <= it (:meth:`_attend_cache`)."""
+        cfg = self.cfg
+        idx = cache["cache_index"]
+        pos = torch.arange(idx, idx + 1, device=q.device)
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+        slot = idx % self.cache_len
+        _cache_put_dyn(cfg, cache["cached_key"], cache["key_scale"], slot, k)
+        _cache_put_dyn(cfg, cache["cached_value"], cache["value_scale"],
+                       slot, v)
+        cache["cache_index"] = idx + 1
+        return self._attend_cache(q, cache, idx)
+
+    def _slot_decode_step(self, q, k, v, cache: dict,
+                          active: Optional[torch.Tensor]) -> torch.Tensor:
+        """:meth:`_decode_step` with a position counter per row
+        (``slot_decode``): rope positions, cache writes and the validity
+        bias go row by row. ``active`` [B] bool: an inactive row neither
+        writes its cache nor advances its counter (a slot mid-prefill in
+        the serving engine). The counter is advanced IN PLACE, after the
+        bias has read it."""
+        cfg = self.cfg
+        idx = cache["cache_index"]                                   # [B]
+        q = rope(q, idx[:, None], cfg.rope_theta)
+        k = rope(k, idx[:, None], cfg.rope_theta)
+        slot = torch.remainder(idx, self.cache_len)
+        _cache_put_rows(cfg, cache["cached_key"], cache["key_scale"], slot,
+                        k, active)
+        _cache_put_rows(cfg, cache["cached_value"], cache["value_scale"],
+                        slot, v, active)
+        out = self._attend_cache(q, cache, idx[:, None])
+        idx.add_(1 if active is None else active.long())
+        return out
+
+    def _attend_cache(self, q, cache: dict, idx) -> torch.Tensor:
+        """One query token a row against every cached position <= idx
+        (an int, or [B, 1] per row): the grouped einsum reads the
+        UN-expanded cache (query head kv*group + g reads shared head kv).
+        Slot s holds position p_s = idx - ((idx - s) mod L), the newest
+        position <= idx congruent to s; valid iff p_s >= 0 — which also
+        makes a reused slot's stale contents invisible."""
         cfg = self.cfg
         b, _, _, d_head = q.shape
         kv_heads = cfg.kv_heads_resolved
         group = cfg.heads // kv_heads
         cache_len = self.cache_len
-        idx = cache["cache_index"]
-        pos = torch.arange(idx, idx + 1, device=q.device)
-        q = rope(q, pos, cfg.rope_theta)
-        k = rope(k, pos, cfg.rope_theta)
-        slot = idx % cache_len
-        _cache_put_dyn(cfg, cache["cached_key"], cache["key_scale"], slot, k)
-        _cache_put_dyn(cfg, cache["cached_value"], cache["value_scale"],
-                       slot, v)
-        cache["cache_index"] = idx + 1
-        # slot s holds position p_s = idx - ((idx - s) mod L), the newest
-        # position <= idx congruent to s; valid iff p_s >= 0
         slots = torch.arange(cache_len, device=q.device)
-        p_s = idx - torch.remainder(idx - slots, cache_len)
-        bias = torch.zeros(cache_len, device=q.device).masked_fill(
+        p_s = idx - torch.remainder(idx - slots, cache_len)       # [L]|[B,L]
+        bias = torch.zeros(p_s.shape, device=q.device).masked_fill(
             p_s < 0, _NEG_INF)
+        if bias.ndim == 2:
+            bias = bias[:, None, None, :]
         keys = _cache_read(cfg, cache["cached_key"], cache["key_scale"])
         vals = _cache_read(cfg, cache["cached_value"], cache["value_scale"])
         qg = q[:, :, 0, :].reshape(b, kv_heads, group, d_head)
@@ -423,11 +508,20 @@ class CausalSelfAttention(nn.Module):
         out = out.to(cfg.dtype).reshape(b, 1, cfg.heads * d_head)
         return self.attn_out(out)
 
-    def _chunked_prefill(self, q, k, v, cache: dict) -> torch.Tensor:
+    def _chunked_prefill(self, q, k, v, cache: dict,
+                         prefill_len=None) -> torch.Tensor:
         """Continue a (possibly advanced) cache with a t-token chunk: rope
         positions and slots offset by cache_index; the chunk attends the
         PRE-write cache snapshot plus its own K/V, so a rolling buffer that
-        wraps inside the chunk cannot evict keys an earlier query sees."""
+        wraps inside the chunk cannot evict keys an earlier query sees.
+
+        ``prefill_len`` (an int or a 0-d tensor): the chunk is
+        RIGHT-PADDED and only its first ``prefill_len`` tokens are real
+        (the serving engine's fixed-width prefill). The causal mask hides
+        the pad from every real query; the pad's K/V is not written (a
+        slot it would land on keeps its contents, which may be a live
+        position of a rolling buffer) and the index advances by the valid
+        count only."""
         cfg = self.cfg
         b, _, t, d_head = q.shape
         kv_heads = cfg.kv_heads_resolved
@@ -445,11 +539,14 @@ class CausalSelfAttention(nn.Module):
             k_old, v_old = k_old.clone(), v_old.clone()
         keep = min(cache_len, t)
         wslots = torch.remainder(qpos[t - keep:], cache_len)
+        valid = (None if prefill_len is None else
+                 torch.arange(t - keep, t, device=q.device) < prefill_len)
         _cache_put_at(cfg, cache["cached_key"], cache["key_scale"], wslots,
-                      k[:, :, t - keep:, :])
+                      k[:, :, t - keep:, :], valid)
         _cache_put_at(cfg, cache["cached_value"], cache["value_scale"],
-                      wslots, v[:, :, t - keep:, :])
-        cache["cache_index"] = start + t
+                      wslots, v[:, :, t - keep:, :], valid)
+        cache["cache_index"] = start + (t if prefill_len is None
+                                        else prefill_len)
         # cache slots as of idx_old = start - 1 (all older than the chunk)
         slots = torch.arange(cache_len, device=q.device)
         idx_old = start - 1
@@ -494,9 +591,11 @@ class Block(nn.Module):
         self.mlp_out = TpDense(cfg.d_ff, cfg.d_model, parallel="row",
                                dtype=cfg.dtype, device=device)
 
-    def forward(self, x, cache=None, chunked=False, dropout_seed=None):
+    def forward(self, x, cache=None, chunked=False, dropout_seed=None,
+                prefill_len=None, decode_active=None):
         h = self.ln1(x.float())
-        x = x + self.attention(h, cache, chunked, dropout_seed)
+        x = x + self.attention(h, cache, chunked, dropout_seed, prefill_len,
+                               decode_active)
         h = self.ln2(x.float())
         y = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
         return x + _dropout(y, self.cfg.dropout, dropout_seed,
@@ -542,11 +641,18 @@ class GPT(nn.Module):
     def forward(self, input_ids: torch.Tensor, cache: Optional[list] = None,
                 *, chunked_prefill: Optional[bool] = None,
                 return_hidden: bool = False,
-                dropout_seed=None) -> torch.Tensor:
+                dropout_seed=None, prefill_len=None,
+                decode_active=None) -> torch.Tensor:
         """``dropout_seed``: this step's seed (an int, or a
         :class:`DropoutKey` under data parallelism); None (serving) runs
         no dropout. Under ``cfg.remat`` each block's activations are
-        recomputed in the backward (training calls only: no cache)."""
+        recomputed in the backward (training calls only: no cache).
+
+        ``chunked_prefill`` overrides ``cfg.chunked_prefill`` for this
+        call (the serving engine runs its prefill chunks through the
+        ``slot_decode`` model on one row's plain cache). ``prefill_len``:
+        the valid count of a right-padded chunk; ``decode_active`` [B]
+        bool: the rows a ``slot_decode`` step advances."""
         cfg = self.cfg
         if (cfg.decode_len > 0) != (cache is not None):
             raise ValueError(
@@ -565,7 +671,7 @@ class GPT(nn.Module):
                                use_reentrant=False)
             else:
                 x = blk(x, None if cache is None else cache[i], chunked,
-                        dropout_seed)
+                        dropout_seed, prefill_len, decode_active)
         x = self.ln_f(x.float())
         if return_hidden:
             return x
@@ -599,9 +705,101 @@ def filter_logits(logits: torch.Tensor, *, top_k: int = 0,
     return logits
 
 
+def filter_logits_dynamic(logits: torch.Tensor, *, top_k: torch.Tensor,
+                          top_p: torch.Tensor) -> torch.Tensor:
+    """:func:`filter_logits` with a ``top_k`` [B] and a ``top_p`` [B] a
+    row (the serving engine's slots each carry their own). Same semantics,
+    no-op gates included: the k-filter applies only where ``top_k > 0``
+    and the nucleus only where ``top_p < 1``, so a row at (0, 1.0) keeps
+    its logits bit for bit. Fixed work whatever the values: no host
+    sync, one shape."""
+    vocab = logits.shape[-1]
+    cols = torch.arange(vocab, device=logits.device)
+    desc = torch.sort(logits, dim=-1, descending=True).values
+    k = top_k.clamp(1, vocab)[:, None]            # only read where top_k > 0
+    order = torch.argsort(-logits, dim=-1, stable=True)
+    ranks = torch.empty_like(order).scatter_(     # 0 = largest logit
+        -1, order, cols.expand_as(order))
+    use_k = (top_k > 0)[:, None]
+    logits = logits.masked_fill(use_k & (ranks >= k), _NEG_INF)
+    desc = desc.masked_fill(use_k & (cols >= k), _NEG_INF)
+    probs = torch.softmax(desc, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < top_p[:, None]
+    thresh = torch.where(keep, desc, torch.full_like(desc, float("inf"))
+                         ).amin(dim=-1, keepdim=True)
+    return logits.masked_fill((top_p < 1.0)[:, None] & (logits < thresh),
+                              _NEG_INF)
+
+
+_M32 = 0xFFFFFFFF
+#: odd 32-bit constants: the golden-ratio Weyl step for the draw counter
+#: and murmur3's for the vocabulary index
+_WEYL_DRAW, _WEYL_COL = 0x9E3779B9, 0x85EBCA6B
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2**32`` for x in [0, 2**32) in int64 lanes, with c
+    split in 16-bit halves so that no partial product leaves int64 (a
+    wrapped int64 product is not defined alike on every device)."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (lowbias32): a bijection of [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def sampler_key(seed: torch.Tensor, stream: torch.Tensor) -> torch.Tensor:
+    """A row's 32-bit sampler key from its int64 ``seed`` and its
+    ``stream`` (the row of a ``generate`` batch; 0 for an engine slot, so
+    a request's tokens equal batch-1 ``generate``'s)."""
+    key = _mix32((seed >> 32) & _M32)
+    key = _mix32(key ^ (seed & _M32))
+    return _mix32(key ^ (stream & _M32))
+
+
+def gumbel_noise(key: torch.Tensor, draw: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """[B, vocab] f64 standard Gumbel noise of each row's ``draw``-th
+    token: a counter-based hash of (key, draw, vocab index) gives 32
+    uniform bits, the same on every device; -log(-log(u)) is taken in
+    f64."""
+    step = _mix32((key + draw * _WEYL_DRAW) & _M32)
+    cols = (torch.arange(vocab, device=key.device) * _WEYL_COL) & _M32
+    bits = _mix32(step[:, None] ^ cols[None, :])
+    u = (bits.double() + 0.5) * 2.0 ** -32
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(logits: torch.Tensor, *, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor,
+                  key: torch.Tensor, draw: torch.Tensor) -> torch.Tensor:
+    """One token a row from f32 logits [B, V], every argument a [B]
+    tensor: greedy (``argmax``, the lowest index of a tie) where
+    ``temperature`` is 0, else Gumbel-max over the tempered, filtered
+    logits (:func:`filter_logits_dynamic`) with the noise of
+    (``key``, ``draw``). A row's stream depends on its key and on how
+    many tokens it has drawn, never on the other rows; no host sync.
+    The stream is not ``jax.random.categorical``'s; its distribution is
+    the filtered softmax's."""
+    greedy = torch.argmax(logits, dim=-1)
+    safe_t = torch.where(temperature > 0, temperature,
+                         torch.ones_like(temperature))
+    filt = filter_logits_dynamic(logits / safe_t[:, None], top_k=top_k,
+                                 top_p=top_p)
+    score = filt.double() + gumbel_noise(key, draw, logits.shape[-1])
+    return torch.where(temperature > 0, torch.argmax(score, dim=-1), greedy)
+
+
 def generate(model: GPT, prompt: torch.Tensor, n_new: int, *,
-             generator: Optional[torch.Generator] = None,
-             temperature: float = 0.0,
+             seed: int = 0, temperature: float = 0.0,
              top_k: int = 0, top_p: float = 1.0,
              eos_id: Optional[int] = None, pad_id: int = 0,
              prefill_chunk: int = 0,
@@ -610,11 +808,11 @@ def generate(model: GPT, prompt: torch.Tensor, n_new: int, *,
     per step against the KV cache. ``prompt`` [B, T_p] ints; returns
     [B, T_p + n_new] int64 on the model's device.
 
-    Greedy at ``temperature == 0``; else the logits are tempered FIRST,
-    then filtered (:func:`filter_logits`), then sampled with
-    ``torch.multinomial`` on ``generator`` (a fresh generator seeded 0 on
-    the model's device when None). The stream is not
-    ``jax.random.categorical``'s.
+    Greedy at ``temperature == 0``; else :func:`sample_tokens` (tempered
+    FIRST, then filtered, then drawn) with row r's stream keyed by
+    (``seed``, r) — as the reference's ``rng`` key, ``seed`` fixes the
+    whole output, and row 0's tokens are those the serving engine draws
+    for a request with that seed.
 
     ``eos_id``: once a sequence emits it, every later token is ``pad_id``
     (``done`` flips after the EOS token itself is kept).
@@ -634,32 +832,70 @@ def generate(model: GPT, prompt: torch.Tensor, n_new: int, *,
             f"decode_len={cfg.decode_len} < prompt+new={total}")
     device = model.device
     prompt = prompt.to(device=device, dtype=torch.long)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
 
-    def pick(nxt_logits):
+    def row(value, dtype):
+        return torch.full((b,), value, dtype=dtype, device=device)
+
+    if temperature > 0.0:
+        sampling = {"temperature": row(temperature, torch.float32),
+                    "top_k": row(top_k, torch.long),
+                    "top_p": row(top_p, torch.float32),
+                    "key": sampler_key(row(seed, torch.long),
+                                       torch.arange(b, device=device))}
+
+    def pick(nxt_logits, draw):
         if temperature > 0.0:
-            filtered = filter_logits(nxt_logits / temperature, top_k=top_k,
-                                     top_p=top_p)
-            probs = torch.softmax(filtered, dim=-1)
-            return torch.multinomial(probs, 1, generator=generator)[:, 0]
+            return sample_tokens(nxt_logits, draw=row(draw, torch.long),
+                                 **sampling)
         return torch.argmax(nxt_logits, dim=-1)
 
     with torch.no_grad():
         cache = model.init_cache(b)
         logits = _prefill(model, cache, prompt, prefill_chunk)
-        tok = pick(logits[:, -1])
+        tok = pick(logits[:, -1], 0)
         done = (tok == eos_id) if eos_id is not None else None
         toks = [tok]
-        for _ in range(n_new - 1):
+        for draw in range(1, n_new):
             logits = model(tok[:, None], cache)
-            nxt = pick(logits[:, 0])
+            nxt = pick(logits[:, 0], draw)
             if eos_id is not None:
                 nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
                 done = done | (nxt == eos_id)
             toks.append(nxt)
             tok = nxt
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+
+#: cache keys whose tensors lead with the batch (the serving engine slices
+#: a slot's rows out of exactly these); every other key must be in
+#: _NON_BATCH_CACHE_KEYS, so an unknown key fails loudly instead of riding
+#: a slot unsliced
+_BATCH_LED_CACHE_KEYS = frozenset(
+    {"cached_key", "cached_value", "key_scale", "value_scale"})
+_NON_BATCH_CACHE_KEYS = frozenset({"cache_index"})
+
+
+def batch_led_cache_key(name: str) -> bool:
+    """True for a batch-led cache key, False for the index; loud
+    otherwise — the completeness contract of ``_BATCH_LED_CACHE_KEYS``."""
+    if name in _NON_BATCH_CACHE_KEYS:
+        return False
+    if name not in _BATCH_LED_CACHE_KEYS:
+        raise ValueError(
+            f"unknown cache leaf {name!r}: add it to _BATCH_LED_CACHE_KEYS "
+            "or _NON_BATCH_CACHE_KEYS so the serving engine knows whether "
+            "to slice it per slot")
+    return True
+
+
+def cache_index_of(cache: list):
+    """The cache's position counter — the first layer's ``cache_index``.
+    Every layer's counter advances in lockstep (each call touches all
+    layers equally), so one is the whole cache's position."""
+    for layer in cache:
+        if "cache_index" in layer:
+            return layer["cache_index"]
+    raise ValueError("cache has no cache_index leaf")
 
 
 def _prefill(model: GPT, cache: list, prompt: torch.Tensor,

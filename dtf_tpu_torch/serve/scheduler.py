@@ -1,0 +1,433 @@
+"""Request scheduling over a :class:`~dtf_tpu_torch.serve.engine.DecodeEngine`
+(the port of ``dtf_tpu.serve.scheduler``).
+
+FIFO admission with prefill/decode interleave: each :meth:`Scheduler.tick`
+runs at most ``prefill_chunks_per_tick`` prompt chunks (admitting queued
+requests into free slots as the chunk budget allows — a long prompt
+spreads its prefill over several ticks instead of stalling everyone's
+decode), then one ``decode_all`` step for every occupied slot. Slots are
+evicted on EOS, on ``max_new``, or when the slot's ``max_len`` budget
+fills; the freed slot is reusable the next tick — the continuous-batching
+loop.
+
+Requests can end in a terminal status other than ``done``:
+
+- ``shed`` — bounded-queue admission control (``max_queue``): an
+  over-full queue rejects at submit with a ``retry_after_s`` hint;
+- ``timeout`` — per-request deadlines (``Request.ttft_deadline_s`` /
+  ``deadline_s``, measured from submit on the scheduler clock) evict at
+  the next tick, whether the request is queued, mid-prefill or decoding;
+- ``error`` — an engine exception during ADMISSION fails the admitting
+  request only; decode-path exceptions have no single owner and
+  propagate.
+
+``poll`` reports the terminal status (and its hint or cause);
+:class:`RequestFailed` is what ``ServeClient.result`` raises on one.
+``stats()`` gives TTFT and per-token latency p50/p99, occupancy, queue
+peak and the TTFT SLO fraction — host clock arithmetic only, no device
+readback. Not yet ported: the telemetry spans and request traces, the
+serve-log sink, the prefix-page admission and the speculative tick, and
+the router's requeue drain; the first two raise when passed.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import logging
+import time
+from typing import Optional, Sequence
+
+from dtf_tpu_torch.metrics import quantile as _quantile
+
+log = logging.getLogger("dtf_tpu_torch")
+
+#: terminal statuses that are NOT success — ``result()`` raises
+#: :class:`RequestFailed` on sight instead of pumping to tick exhaustion.
+FAILED_STATUSES = ("shed", "timeout", "error")
+
+
+class RequestFailed(RuntimeError):
+    """A request ended in a terminal non-success status (``shed`` /
+    ``timeout`` / ``error``). Carries the ``poll()`` payload so callers
+    can honor ``retry_after_s`` without a second lookup."""
+
+    def __init__(self, rid: int, info: dict):
+        self.rid = rid
+        self.status = info.get("status", "?")
+        self.info = dict(info)
+        hint = ""
+        if "retry_after_s" in info:
+            hint = f" (retry after {info['retry_after_s']}s)"
+        elif info.get("timeout_kind"):
+            hint = f" ({info['timeout_kind']} deadline)"
+        elif info.get("error"):
+            hint = f" ({info['error']})"
+        super().__init__(f"request {rid} terminally {self.status}{hint}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One decode request. Sampling fields mirror ``gpt.generate``;
+    the deadline fields are client promises measured from submit on the
+    scheduler's clock (0 = none): ``ttft_deadline_s`` bounds the wait for
+    the FIRST token, ``deadline_s`` the whole request."""
+
+    prompt: Sequence[int]
+    max_new: int = 32
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    eos_id: Optional[int] = None
+    pad_id: int = 0
+    seed: int = 0
+    ttft_deadline_s: float = 0.0
+    deadline_s: float = 0.0
+
+
+@dataclasses.dataclass
+class _Rec:
+    rid: int
+    req: Request
+    #: queued | prefill | running | done | shed | timeout | error
+    status: str = "queued"
+    slot: int = -1
+    chunks_done: int = 0
+    tokens: list = dataclasses.field(default_factory=list)
+    submit_t: float = 0.0
+    #: None until the first token lands — NOT 0.0: an injected test clock
+    #: legitimately stamps first tokens at t == 0.0
+    first_token_t: Optional[float] = None
+    finish_t: float = 0.0
+    retry_after_s: float = 0.0        # shed hint (poll surfaces it)
+    timeout_kind: str = ""            # "ttft" | "total" on timeout
+    error: str = ""                   # admission-failure cause on error
+    #: the engine's param version at completion
+    version: Optional[int] = None
+
+
+class Scheduler:
+    """FIFO continuous-batching scheduler (see module docstring).
+
+    ``prefill_chunks_per_tick`` bounds how much prefill work may delay the
+    next decode step (0 = admit greedily, the whole queue's worth a tick).
+    ``clock`` is injectable for deterministic tests.
+    """
+
+    def __init__(self, engine, writer=None, *, log_every: int = 0,
+                 prefill_chunks_per_tick: int = 4, clock=time.monotonic,
+                 completed_cap: int = 100_000, telemetry=None,
+                 ttft_slo_s: float = 0.0, max_queue: int = 0,
+                 shed_retry_after_s: float = 0.25, log_sink=None):
+        if telemetry is not None:
+            raise NotImplementedError(
+                "telemetry (engine-call spans, request traces) is not yet "
+                "ported")
+        if log_sink is not None:
+            raise NotImplementedError("log_sink (the serve-log sink) is not "
+                                      "yet ported")
+        if getattr(engine, "spec_k", 0):
+            raise NotImplementedError(
+                "a speculative engine's tick (spec_k > 0) is not yet ported")
+        if getattr(engine, "page_store", None) is not None:
+            raise NotImplementedError(
+                "prefix-page admission (an engine with prefix_pages) is not "
+                "yet ported")
+        self.engine = engine
+        self.writer = writer
+        self.log_every = log_every
+        #: TTFT service-level objective (0 = untracked): ``stats()`` then
+        #: reports the fraction of completed first tokens inside it
+        self.ttft_slo_s = ttft_slo_s
+        if prefill_chunks_per_tick < 0:
+            raise ValueError(
+                f"prefill_chunks_per_tick={prefill_chunks_per_tick} must "
+                "be >= 0 (0 = admit greedily)")
+        self.prefill_chunks_per_tick = prefill_chunks_per_tick
+        self.clock = clock
+        if max_queue < 0:
+            raise ValueError(f"max_queue={max_queue} must be >= 0 "
+                             "(0 = unbounded)")
+        self.max_queue = max_queue
+        self.shed_retry_after_s = shed_retry_after_s
+        #: completed records (and latency samples) retained for poll();
+        #: beyond the cap the OLDEST finished request is forgotten, so a
+        #: long-running server does not grow host memory per request
+        self.completed_cap = completed_cap
+        self._free = list(range(engine.n_slots))
+        self._queue: collections.deque[_Rec] = collections.deque()
+        self._admitting: Optional[_Rec] = None
+        self._running: dict[int, _Rec] = {}
+        self._recs: dict[int, _Rec] = {}
+        self._done_order: collections.deque[int] = collections.deque()
+        self._next_id = 0
+        self._tick = 0
+        self._ttfts: collections.deque[float] = collections.deque(
+            maxlen=completed_cap)
+        self._tok_lats: collections.deque[float] = collections.deque(
+            maxlen=completed_cap)
+        self._completed = 0
+        self._occupancy_sum = 0.0
+        self._queue_peak = 0
+        self._shed = 0
+        self._timeouts = 0
+        self._timeouts_ttft = 0
+        self._request_errors = 0
+        # deadline sweeps only run once a deadlined request has been seen
+        self._any_deadlines = False
+
+    # ----------------------------------------------------------- submit/poll
+
+    def submit(self, req: Request) -> int:
+        """Accept a request; returns its id."""
+        if not 1 <= len(req.prompt) <= self.engine.max_len - 1:
+            raise ValueError(
+                f"prompt length {len(req.prompt)} must be in "
+                f"[1, {self.engine.max_len - 1}]")
+        if req.max_new < 1:
+            raise ValueError(f"max_new={req.max_new} must be >= 1")
+        rid = self._next_id
+        self._next_id += 1
+        rec = _Rec(rid, req, submit_t=self.clock())
+        self._recs[rid] = rec
+        if req.ttft_deadline_s > 0 or req.deadline_s > 0:
+            self._any_deadlines = True
+        if self.max_queue and len(self._queue) >= self.max_queue:
+            # admission control: shed NOW with an honest hint instead of
+            # joining a line that already guarantees a deadline miss
+            rec.status = "shed"
+            rec.retry_after_s = round(
+                self.shed_retry_after_s
+                * (1 + len(self._queue) / self.max_queue), 6)
+            self._shed += 1
+            self._remember_done(rec)
+            return rid
+        self._queue.append(rec)
+        self._queue_peak = max(self._queue_peak, len(self._queue))
+        return rid
+
+    def poll(self, rid: int) -> dict:
+        rec = self._recs[rid]
+        out = {"status": rec.status, "tokens": list(rec.tokens)}
+        if rec.version is not None:
+            out["version"] = rec.version
+        if rec.status == "shed":
+            out["retry_after_s"] = rec.retry_after_s
+        elif rec.status == "timeout":
+            out["timeout_kind"] = rec.timeout_kind
+        elif rec.status == "error":
+            out["error"] = rec.error
+        return out
+
+    @property
+    def pending(self) -> int:
+        """Requests not yet finished (queued + prefilling + running)."""
+        return (len(self._queue) + (self._admitting is not None)
+                + len(self._running))
+
+    # ------------------------------------------------------------------ tick
+
+    def tick(self) -> None:
+        """One scheduling round: deadline sweep, bounded prefill, then one
+        decode step."""
+        self._tick += 1
+        if self._any_deadlines:
+            self._sweep_deadlines()
+        budget = self.prefill_chunks_per_tick or 10 ** 9
+        while budget > 0:
+            if self._admitting is None:
+                if not (self._queue and self._free):
+                    break
+                rec = self._queue.popleft()
+                rec.slot = self._free.pop(0)
+                rec.status = "prefill"
+                self._admitting = rec
+            rec = self._admitting
+            r = rec.req
+            try:
+                out = self.engine.prefill_chunk_into(
+                    rec.slot, r.prompt, rec.chunks_done,
+                    temperature=r.temperature, top_k=r.top_k, top_p=r.top_p,
+                    eos_id=r.eos_id, pad_id=r.pad_id, seed=r.seed)
+            except Exception as e:  # noqa: BLE001 — an ADMISSION failure
+                # has exactly one owner: fail that request terminally and
+                # keep serving. Decode-path exceptions below have no
+                # single owner and propagate.
+                self._fail(rec, e)
+                budget -= 1
+                continue
+            rec.chunks_done += 1
+            budget -= 1
+            if out is not None:                      # last chunk: tok0
+                tok, done = out
+                rec.first_token_t = self.clock()
+                rec.tokens.append(tok)
+                self._admitting = None
+                self._ttfts.append(rec.first_token_t - rec.submit_t)
+                if done or self._budget_spent(rec):
+                    self._finish(rec)
+                else:
+                    rec.status = "running"
+                    self._running[rec.slot] = rec
+
+        if self._running:
+            toks, dones = self.engine.decode()
+            now = self.clock()
+            for slot, rec in list(self._running.items()):
+                rec.tokens.append(int(toks[slot]))
+                if bool(dones[slot]) or self._budget_spent(rec):
+                    rec.finish_t = now
+                    self._finish(rec)
+        self._occupancy_sum += self._occupancy()
+
+        if (self.writer is not None and self.log_every
+                and self._tick % self.log_every == 0):
+            self.writer.write_scalars(self._tick, self.stats(brief=True))
+
+    def run_until_idle(self, max_ticks: int = 100000, *,
+                       on_tick=None) -> None:
+        """Drain the queue. ``on_tick`` (zero-arg, optional) fires after
+        every tick — the heartbeat hook point, shared with replay()."""
+        for _ in range(max_ticks):
+            if not self.pending:
+                return
+            self.tick()
+            if on_tick is not None:
+                on_tick()
+        raise RuntimeError(f"requests still pending after {max_ticks} ticks")
+
+    def release(self, rid: int) -> None:
+        """Drop a completed request's record (tokens included) — call after
+        consuming the result to keep a long-running server's host memory
+        flat without relying on the completed_cap backstop."""
+        rec = self._recs.get(rid)
+        if rec is not None and rec.status == "done":
+            self._recs.pop(rid, None)
+
+    # ------------------------------------------------------------- internals
+
+    def _budget_spent(self, rec: _Rec) -> bool:
+        used = len(rec.req.prompt) + len(rec.tokens)
+        return (len(rec.tokens) >= rec.req.max_new
+                or used >= self.engine.max_len)
+
+    def _occupancy(self) -> float:
+        return 1.0 - len(self._free) / self.engine.n_slots
+
+    def _finish(self, rec: _Rec) -> None:
+        rec.finish_t = rec.finish_t or self.clock()
+        if len(rec.tokens) > 1:
+            self._tok_lats.append((rec.finish_t - rec.first_token_t)
+                                  / (len(rec.tokens) - 1))
+        self._completed += 1
+        self._retire(rec, "done")
+
+    def _retire(self, rec: _Rec, status: str,
+                now: Optional[float] = None) -> None:
+        """Shared terminal bookkeeping for done/shed/timeout/error: stamp
+        the status, free the slot (if the request held one) and enter the
+        bounded retention window."""
+        rec.status = status
+        rec.finish_t = rec.finish_t or (self.clock() if now is None else now)
+        if status == "done":
+            rec.version = getattr(self.engine, "param_version", None)
+        if rec.slot >= 0:
+            self._running.pop(rec.slot, None)
+            self._free.append(rec.slot)
+            self._free.sort()
+            rec.slot = -1
+        self._remember_done(rec)
+
+    def _remember_done(self, rec: _Rec) -> None:
+        self._done_order.append(rec.rid)
+        while len(self._done_order) > self.completed_cap:
+            self._recs.pop(self._done_order.popleft(), None)
+
+    def _fail(self, rec: _Rec, e: BaseException) -> None:
+        """An admission-path engine failure owned by ``rec``: fail it
+        terminally (status ``error``) and keep serving. The device slot
+        needs no cleanup: a half-prefilled slot is stale state the next
+        admission fully resets."""
+        self._request_errors += 1
+        rec.error = repr(e)[:200]
+        log.warning("request %d failed in admission: %s",
+                    rec.rid, rec.error)
+        if self._admitting is rec:
+            self._admitting = None
+        self._retire(rec, "error")
+
+    def _timeout(self, rec: _Rec, kind: str, now: float) -> None:
+        self._timeouts += 1
+        if kind == "ttft":
+            self._timeouts_ttft += 1
+        rec.timeout_kind = kind
+        self._retire(rec, "timeout", now)
+
+    def _deadline_kind(self, rec: _Rec, now: float) -> Optional[str]:
+        r = rec.req
+        waited = now - rec.submit_t
+        if (r.ttft_deadline_s > 0 and rec.first_token_t is None
+                and waited >= r.ttft_deadline_s):
+            return "ttft"
+        if r.deadline_s > 0 and waited >= r.deadline_s:
+            return "total"
+        return None
+
+    def _sweep_deadlines(self) -> None:
+        """Evict every request past its deadline — queued, mid-prefill or
+        decoding alike (the freed slot is reusable this same tick)."""
+        now = self.clock()
+        for rec in [rec for rec in self._queue
+                    if self._deadline_kind(rec, now)]:
+            self._queue.remove(rec)
+            self._timeout(rec, self._deadline_kind(rec, now), now)
+        rec = self._admitting
+        if rec is not None:
+            kind = self._deadline_kind(rec, now)
+            if kind:
+                self._admitting = None
+                self._timeout(rec, kind, now)
+        for rec in list(self._running.values()):
+            kind = self._deadline_kind(rec, now)
+            if kind:
+                self._timeout(rec, kind, now)
+
+    # --------------------------------------------------------------- metrics
+
+    def stats(self, brief: bool = False) -> dict:
+        """Aggregate serving metrics (floats, MetricWriter-compatible)."""
+        out = {
+            "serve_queue_depth": float(len(self._queue)
+                                       + (self._admitting is not None)),
+            "serve_occupancy": self._occupancy(),
+            "serve_completed": float(self._completed),
+        }
+        if brief:
+            if self._ttfts:
+                out["serve_ttft_last_s"] = self._ttfts[-1]
+            return out
+        out.update({
+            "serve_ticks": float(self._tick),
+            "serve_shed": float(self._shed),
+            "serve_timeouts": float(self._timeouts),
+            "serve_timeouts_ttft": float(self._timeouts_ttft),
+            "serve_request_errors": float(self._request_errors),
+            # the router's quarantine requeue is not yet ported: none
+            "serve_requeued_out": 0.0,
+            "serve_requeued_in": 0.0,
+            "serve_queue_peak": float(self._queue_peak),
+            "serve_occupancy_mean": (self._occupancy_sum / self._tick
+                                     if self._tick else 0.0),
+            "serve_ttft_p50_s": _quantile(self._ttfts, 0.5),
+            "serve_ttft_p99_s": _quantile(self._ttfts, 0.99),
+            "serve_tok_latency_p50_s": _quantile(self._tok_lats, 0.5),
+            "serve_tok_latency_p99_s": _quantile(self._tok_lats, 0.99),
+        })
+        if self.ttft_slo_s > 0.0:
+            out["serve_ttft_slo_ok_frac"] = (
+                sum(1 for t in self._ttfts if t <= self.ttft_slo_s)
+                / len(self._ttfts) if self._ttfts else 1.0)
+        counters = getattr(self.engine, "counters", None)
+        if counters is not None:
+            out.update({f"serve_{k}": float(v) for k, v in counters.items()})
+        return out

@@ -1,0 +1,344 @@
+"""GPT online serving: continuous-batching decode (the port of
+``scripts/serve_gpt.py``).
+
+    # explicit requests (semicolon-separated prompts)
+    python -m dtf_tpu_torch.serve_gpt --logdir=/tmp/run \\
+        --requests="12,7,99;5,6,7,8" --n_new=32 --emit_tokens
+
+    # seeded Poisson load (benching)
+    python -m dtf_tpu_torch.serve_gpt --logdir=/tmp/run \\
+        --poisson_rate=4 --n_requests=32 --max_len=256
+
+The online half of the GPT loop (``generate_gpt`` is the offline half):
+parameters come from the newest checkpoint that ``train_gpt`` wrote under
+``--logdir`` (its ``model_config.json`` manifest sets the architecture;
+hand-given flags that contradict it raise), from ``--params_npz`` (a
+flax-style tree) or from ``--init_seed``. Builds a
+:class:`dtf_tpu_torch.serve.DecodeEngine` (``--n_slots`` concurrent
+requests, ``--max_len`` a slot) and pumps a FIFO scheduler with
+prefill/decode interleave. Prints ONE JSON line of serving metrics:
+tokens/s, TTFT and per-token latency p50/p99, occupancy, queue depth.
+``--emit_tokens`` first prints one ``rid:tok,tok,...`` row a request.
+Runs on ``cuda`` unless ``--device=cpu`` (or ``--backend=cpu``).
+
+Not yet ported, and raising when asked for: more than one replica
+(``--replicas``, ``--prefill_replicas``), speculative decoding
+(``--spec_k``, ``--draft_*``), the prefix page pool (``--prefix_pages``,
+``--kv_page_size``), published weights and hot-swap (``--publish_dir``,
+``--publish_version``, ``--swap_poll_ticks``, ``--draft_publish_dir``),
+``--telemetry``, ``--trace_out``, ``--log_sink_dir``, ``--event_log_dir``,
+and a mesh axis > 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from dtf_tpu_torch.cli import flags as dflags
+
+    p = argparse.ArgumentParser(
+        prog="python -m dtf_tpu_torch.serve_gpt",
+        description="GPT continuous-batching serving on the H100 port.")
+    dflags.define_cluster_flags(p)
+    dflags.define_mesh_flags(p)
+    p.add_argument("--logdir", default="",
+                   help="training logdir: its ckpt/model_config.json "
+                        "manifest sets the architecture, and its newest "
+                        "checkpoint gives the parameters unless "
+                        "--params_npz/--init_seed is passed")
+    p.add_argument("--size", default="small",
+                   help="small | medium | draft | tiny (manifest wins)")
+    p.add_argument("--kv_heads", type=int, default=0,
+                   help="grouped-query heads (manifest wins)")
+    p.add_argument("--attn_window", type=int, default=0,
+                   help="sliding window (manifest wins)")
+    p.add_argument("--attn_global_every", type=int, default=0,
+                   help="global-layer cadence (manifest wins)")
+    p.add_argument("--kv_cache_dtype", default="",
+                   help="'' or 'int8' (serving-side choice; halves the "
+                        "cache bytes)")
+    p.add_argument("--n_slots", type=int, default=8,
+                   help="concurrent request slots (the KV cache batch)")
+    p.add_argument("--max_len", type=int, default=256,
+                   help="per-slot token budget (prompt + generated)")
+    p.add_argument("--prefill_chunk", type=int, default=16,
+                   help="fixed width of the prefill step (>= 2); long "
+                        "prompts stream through it")
+    p.add_argument("--prefill_chunks_per_tick", type=int, default=4,
+                   help="at most this many prompt chunks between decode "
+                        "steps (0 = admit greedily)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="engine replicas behind a router; > 1 is not yet "
+                        "ported")
+    p.add_argument("--prefill_replicas", type=int, default=0,
+                   help="prefill/decode disaggregation; not yet ported")
+    p.add_argument("--spec_k", type=int, default=0,
+                   help="speculative decoding; not yet ported")
+    p.add_argument("--draft_ckpt", default="",
+                   help="speculative draft checkpoint; not yet ported")
+    p.add_argument("--draft_layers", type=int, default=0,
+                   help="early-exit speculative draft; not yet ported")
+    p.add_argument("--draft_precision", default="",
+                   help="the draft's matmul precision; not yet ported")
+    p.add_argument("--kv_page_size", type=int, default=0,
+                   help="prefix page width; not yet ported")
+    p.add_argument("--prefix_pages", type=int, default=0,
+                   help="prefix KV page pool; not yet ported")
+    p.add_argument("--ttft_slo", type=float, default=0.0,
+                   help="TTFT objective in seconds (0 = untracked): the "
+                        "JSON line reports the compliance fraction")
+    p.add_argument("--max_queue", type=int, default=0,
+                   help="bounded queue: a submit against a full queue is "
+                        "SHED with a retry_after_s hint (0 = unbounded)")
+    p.add_argument("--ttft_deadline", type=float, default=0.0,
+                   help="per-request TTFT deadline in seconds (0 = none)")
+    p.add_argument("--deadline", type=float, default=0.0,
+                   help="per-request TOTAL deadline in seconds (0 = none)")
+    p.add_argument("--publish_dir", default="",
+                   help="serve published weights; not yet ported")
+    p.add_argument("--publish_version", type=int, default=0,
+                   help="with --publish_dir; not yet ported")
+    p.add_argument("--swap_poll_ticks", type=int, default=0,
+                   help="rolling weight swap; not yet ported")
+    p.add_argument("--requests", default="",
+                   help="semicolon-separated comma-lists of token ids; "
+                        "empty = Poisson load")
+    p.add_argument("--n_new", type=int, default=32,
+                   help="max new tokens per explicit request")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="0 = greedy, else sampling")
+    p.add_argument("--top_k", type=int, default=0, help="0 = off")
+    p.add_argument("--top_p", type=float, default=1.0, help="1.0 = off")
+    p.add_argument("--eos_id", type=int, default=-1,
+                   help="stop token (-1 = none)")
+    p.add_argument("--pad_id", type=int, default=0, help="pad after eos")
+    p.add_argument("--seed", type=int, default=0,
+                   help="sampling / load-gen seed (request i: seed + i)")
+    p.add_argument("--poisson_rate", type=float, default=2.0,
+                   help="requests per second of the open-loop load")
+    p.add_argument("--n_requests", type=int, default=16)
+    p.add_argument("--prompt_min", type=int, default=4)
+    p.add_argument("--prompt_max", type=int, default=64)
+    p.add_argument("--new_min", type=int, default=8)
+    p.add_argument("--new_max", type=int, default=64)
+    dflags.add_bool(p, "emit_tokens", False, "print rid:tok,... per request")
+    dflags.add_bool(p, "telemetry", False, "engine-call spans; not yet "
+                    "ported")
+    p.add_argument("--stats_every", type=int, default=0,
+                   help="every N ticks, one JSON stats snapshot line to "
+                        "stderr (0 = off)")
+    p.add_argument("--ttft_slo_frac", type=float, default=0.0,
+                   help="with --stats_every and --ttft_slo: WARN when the "
+                        "SLO-ok fraction drops below this floor")
+    p.add_argument("--trace_out", default="",
+                   help="per-request chrome trace; not yet ported")
+    p.add_argument("--log_sink_dir", default="",
+                   help="serve-traffic log sink; not yet ported")
+    p.add_argument("--event_log_dir", default="",
+                   help="fleet event log; not yet ported")
+    p.add_argument("--draft_publish_dir", default="",
+                   help="distilled-draft swaps; not yet ported")
+    # the port's own
+    p.add_argument("--device", default=None, help="cuda (default) | cpu")
+    p.add_argument("--params_npz", default="",
+                   help="flax-style parameter tree saved by "
+                        "dtf_tpu_torch.convert.save_npz")
+    p.add_argument("--init_seed", type=int, default=None,
+                   help="seeded GPT-2-style random parameters")
+    return p
+
+
+#: flags of features not yet ported: (dest, what), raising when given a
+#: value other than their default
+_UNPORTED = (("replicas", "--replicas > 1 (a router of engine replicas)"),
+             ("prefill_replicas", "--prefill_replicas (disaggregation)"),
+             ("spec_k", "--spec_k (speculative decoding)"),
+             ("draft_ckpt", "--draft_ckpt (speculative decoding)"),
+             ("draft_layers", "--draft_layers (speculative decoding)"),
+             ("draft_precision", "--draft_precision (speculative "
+                                 "decoding)"),
+             ("prefix_pages", "--prefix_pages (the prefix page pool)"),
+             ("kv_page_size", "--kv_page_size (the prefix page pool)"),
+             ("publish_dir", "--publish_dir (published weights)"),
+             ("publish_version", "--publish_version (published weights)"),
+             ("swap_poll_ticks", "--swap_poll_ticks (weight hot-swap)"),
+             ("draft_publish_dir", "--draft_publish_dir (draft swaps)"),
+             ("telemetry", "--telemetry"),
+             ("trace_out", "--trace_out (request traces)"),
+             ("log_sink_dir", "--log_sink_dir (the serve-log sink)"),
+             ("event_log_dir", "--event_log_dir (the fleet event log)"))
+
+
+def run(argv=None):
+    """Serve as the command line says, in process. Returns ``(out, rows,
+    engine)``: the JSON line's dict, the ``--emit_tokens`` rows (none
+    without the flag) and the engine, for a caller that measures it
+    further."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    defaults = build_parser().parse_args([])
+    for dest, what in _UNPORTED:
+        if getattr(args, dest) != getattr(defaults, dest):
+            raise NotImplementedError(f"{what} is not yet ported")
+    if any(getattr(args, f"mesh_{a}") > 1
+           for a in ("data", "seq", "model", "pipe", "expert")):
+        raise NotImplementedError(
+            "sharded serving (a mesh axis > 1) is not yet ported")
+
+    import torch
+
+    from dtf_tpu_torch.checkpoint import Checkpointer, load_model_config
+    from dtf_tpu_torch.cli.flags import present_flags, resolve_decode_config
+    from dtf_tpu_torch.convert import init_params, load_npz, params_from_flax
+    from dtf_tpu_torch.core.device import resolve_device
+    from dtf_tpu_torch.metrics import MetricWriter
+    from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.serve import (DecodeEngine, Heartbeat, PoissonLoadGen,
+                                     Request, Scheduler, replay)
+
+    device = resolve_device(args.device or
+                            ("cpu" if args.backend == "cpu" else "cuda"))
+    ckpt_dir = os.path.join(args.logdir, "ckpt") if args.logdir else ""
+    manifest = load_model_config(ckpt_dir) if ckpt_dir else None
+    try:
+        decode_cfg = resolve_decode_config(
+            args, manifest, present_flags(build_parser(), argv))
+        base = gpt.GPTConfig.by_name(decode_cfg["size"])
+    except ValueError as e:
+        parser.error(str(e))
+    except KeyError as e:
+        parser.error(f"--size: {e.args[0]}")
+    cfg = dataclasses.replace(
+        base, kv_heads=decode_cfg["kv_heads"] or None,
+        attn_window=decode_cfg["attn_window"],
+        attn_global_every=decode_cfg["attn_global_every"],
+        kv_cache_dtype=decode_cfg["kv_cache_dtype"])
+
+    step = None
+    if args.params_npz:
+        params = params_from_flax(load_npz(args.params_npz))
+    elif args.init_seed is not None:
+        params = params_from_flax(init_params(cfg, args.init_seed))
+    elif ckpt_dir:
+        ckpt = Checkpointer(ckpt_dir)
+        if ckpt.latest_step() is None:
+            parser.error(f"no checkpoint under {ckpt_dir}")
+        params = ckpt.restore_params()
+        step = ckpt.last_restored_step
+        print(f"restored params of step {step} from {ckpt_dir}",
+              file=sys.stderr)
+    else:
+        parser.error("no parameters: pass --params_npz, --init_seed or the "
+                     "--logdir of a training run")
+    try:
+        engine = DecodeEngine(cfg, params, n_slots=args.n_slots,
+                              max_len=args.max_len,
+                              prefill_chunk=args.prefill_chunk,
+                              device=device)
+        sched = Scheduler(engine, MetricWriter(echo=False), log_every=0,
+                          prefill_chunks_per_tick=args.prefill_chunks_per_tick,
+                          ttft_slo_s=args.ttft_slo,
+                          max_queue=args.max_queue)
+    except ValueError as e:     # n_slots / max_len / prefill_chunk
+        parser.error(str(e))
+    del params
+    heartbeat = None
+    if args.stats_every:
+        heartbeat = Heartbeat(sched, every_ticks=args.stats_every,
+                              slo_floor=args.ttft_slo_frac)
+    on_tick = heartbeat.maybe_emit if heartbeat is not None else None
+
+    eos = args.eos_id if args.eos_id >= 0 else None
+    t0 = time.perf_counter()
+    if args.requests:
+        n = 0
+        for i, row in enumerate(r for r in args.requests.split(";") if r):
+            prompt = [int(t) for t in row.split(",") if t.strip()]
+            if not prompt or not all(
+                    0 <= t < cfg.vocab_size for t in prompt):
+                parser.error(f"request {i}: token ids must be in "
+                             f"[0, {cfg.vocab_size})")
+            try:
+                sched.submit(Request(
+                    prompt=prompt, max_new=args.n_new,
+                    temperature=args.temperature, top_k=args.top_k,
+                    top_p=args.top_p, eos_id=eos, pad_id=args.pad_id,
+                    seed=args.seed + i, ttft_deadline_s=args.ttft_deadline,
+                    deadline_s=args.deadline))
+            except ValueError as e:   # over-long prompt / bad n_new
+                parser.error(f"request {i}: {e}")
+            n += 1
+        sched.run_until_idle(on_tick=on_tick)
+    else:
+        prompt_cap = min(args.prompt_max, args.max_len - args.new_min)
+        if prompt_cap < args.prompt_min:
+            parser.error(
+                f"--max_len={args.max_len} leaves no room for prompts in "
+                f"[{args.prompt_min}, ..] plus --new_min={args.new_min}; "
+                "raise --max_len or lower --prompt_min/--new_min")
+        try:
+            gen = PoissonLoadGen(
+                rate=args.poisson_rate, n_requests=args.n_requests,
+                vocab_size=cfg.vocab_size, prompt_min=args.prompt_min,
+                prompt_max=prompt_cap, new_min=args.new_min,
+                new_max=args.new_max, temperature=args.temperature,
+                top_k=args.top_k, top_p=args.top_p, eos_id=eos,
+                seed=args.seed)
+        except ValueError as e:  # rate / prompt / new bound flag errors
+            parser.error(str(e))
+        arrivals = gen.arrivals()
+        if args.ttft_deadline > 0 or args.deadline > 0:
+            arrivals = ((t, dataclasses.replace(
+                req, ttft_deadline_s=args.ttft_deadline,
+                deadline_s=args.deadline)) for t, req in arrivals)
+        replay(sched, arrivals, on_tick=on_tick)
+        n = args.n_requests
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    rids = range(n)                      # submit order = id order
+    polls = [sched.poll(r) for r in rids]
+    rows = ([f"{rid}:" + ",".join(str(t) for t in p["tokens"])
+             for rid, p in zip(rids, polls)] if args.emit_tokens else [])
+    statuses: dict = {}
+    for p in polls:
+        statuses[p["status"]] = statuses.get(p["status"], 0) + 1
+    n_tokens = sum(len(p["tokens"]) for p in polls)
+    out = {"mode": "requests" if args.requests else "poisson",
+           "backend": device.type,
+           "device": (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else "cpu"),
+           "step": step, "served_version": 0,
+           "final_version": engine.param_version, "replicas": 1,
+           "request_statuses": statuses, "n_slots": args.n_slots,
+           "max_len": args.max_len, "prefill_chunk": args.prefill_chunk,
+           "requests": n, "generated_tokens": n_tokens,
+           "wall_s": round(wall, 4),
+           "tokens_per_sec": round(n_tokens / max(wall, 1e-9), 1),
+           "cache_mib": round(engine.cache_bytes() / 2 ** 20, 2)}
+    out.update({k: (round(v, 6) if isinstance(v, float) else v)
+                for k, v in sched.stats().items()})
+    if heartbeat is not None:
+        out.update(heartbeat.stats())
+    return out, rows, engine
+
+
+def main(argv=None) -> int:
+    out, rows, _ = run(argv)
+    for row in rows:
+        print(row)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -166,8 +166,7 @@ def test_sampled_generate_is_deterministic_per_generator_seed():
     prompt = torch.tensor([[1, 2, 3, 4]])
 
     def run(seed):
-        gen = torch.Generator().manual_seed(seed)
-        return tgpt.generate(model, prompt, 12, generator=gen,
+        return tgpt.generate(model, prompt, 12, seed=seed,
                              temperature=0.8, top_k=20, top_p=0.9)
 
     a, b = run(11), run(11)

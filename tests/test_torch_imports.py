@@ -3,8 +3,8 @@
 Dynamic: a child process whose ``jax``, ``jaxlib``, ``flax`` and
 ``dtf_tpu`` imports are POISONED imports every module of the port and runs
 its generate and train entries (the latter also through the fused LM
-loss), the Wide&Deep trainer and the MNIST ``distributed`` launcher on
-``--device=cpu`` at a tiny size.
+loss), the serving launcher, the Wide&Deep trainer and the MNIST
+``distributed`` launcher on ``--device=cpu`` at a tiny size.
 Static: no file
 of ``dtf_tpu_torch/``, and not ``chip_smoke.py``, has an import of them.
 """
@@ -166,3 +166,19 @@ def test_distributed_entry_as_a_module_with_jax_poisoned(poisoned_env,
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1].startswith(
         "done: step=3 eval_accuracy=")
+
+
+def test_serve_entry_as_a_module_with_jax_poisoned(poisoned_env):
+    """``python -m dtf_tpu_torch.serve_gpt`` (the serving engine, its
+    scheduler and client) serves on the CPU with nothing of JAX
+    importable."""
+    env, cwd = poisoned_env
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.serve_gpt", "--size=tiny",
+         "--init_seed=0", "--device=cpu", "--requests=12,7,99;5,6,7,8",
+         "--n_new=4", "--emit_tokens", "--kv_cache_dtype=int8"], env=env,
+        cwd=cwd, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert [r.split(":")[0] for r in lines[:-1]] == ["0", "1"]
+    assert '"request_statuses": {"done": 2}' in lines[-1]
