@@ -50,33 +50,63 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    {prefill: 1, decode: 1}; the sampler draws the same tokens on the CPU
    and the card; no hand kernel launches.
 7. serve_bench — ``python -m dtf_tpu_torch.serve_gpt --logdir`` in process
-   on the train phase's checkpoint (so it runs right after train; alone
-   it trains 2 steps of its own first): Poisson mode, 16 slots, max_len
+   on the train phase's checkpoint (so it runs right after train, as do
+   serve_spec and serve_pages; without train, 2 steps of ``train_gpt``
+   make the checkpoint they serve): Poisson mode, 16 slots, max_len
    1024, chunk 128, 64 requests, prompts 128–768, 32–256 new tokens, at
    1000 requests/s (the slots full) and at 2/s: tokens/s, TTFT and
    per-token p50/p99, occupancy, KV-cache MiB, peak GB; then the decode
    step with every slot active (``profile_serve.measure_decode``): wall
    ms, device-busy ms and launches a step, idle share; beside it offline
    ``generate``'s decode ms/token at 16 rows of 512.
-8. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
+8. serve_spec — speculative decoding (``spec_k`` 4) on the train phase's
+   checkpoint at full width and depth, 16 slots of 1024, chunk 128, with
+   a self-draft and with the early-exit draft of 3 layers: serve_engine's
+   twelve requests (greedy and sampled) equal a batch-1 reference stream
+   (the same sampler, draw by draw) up to their first top-2 margin under
+   ``LOGITS_REL_TOL`` of the largest logit (for a sampled token, of the
+   Gumbel scores times the temperature); teacher-forced, the verify
+   step's logits of every slot and position lie within that tolerance
+   of sequential decode's; the self-draft's greedy rows accept at least
+   ``SPEC_SELF_ACCEPT_MIN`` of the proposals; the draft and verify steps
+   (and a prefill with its draft chunk) run under
+   ``torch.cuda.set_sync_debug_mode("error")``; four step functions;
+   no hand kernel. Then serve_bench's 2 requests/s traffic through
+   ``serve_gpt --spec_k 4`` with each draft (``--draft_ckpt`` of the
+   checkpoint itself, ``--draft_layers 3``) beside serve_bench's own
+   ``--spec_k 0`` run: tokens/s, TTFT and per-token p50/p99, accept
+   rate, tokens a tick; and ``measure_decode`` of each engine: the tick,
+   the draft step and the verify step (wall, busy, launches, idle); KV
+   MiB of the target, the draft and the pool.
+9. serve_pages — the prefix page pool: a ``--requests`` file made from a
+   seed (64 requests sharing a 512-token stem, tails of 32–256 tokens,
+   32–128 new) through ``serve_gpt`` with ``--prefix_pages 256
+   --kv_page_size 16`` and with the pool off: TTFT p50/p99, prefill
+   chunks, hit and miss tokens, pages saved and loaded, ``pinned`` back
+   at 0; greedy streams equal the pool-off run's (a difference only
+   where the pool-off stream's top-2 margin is under tolerance); a
+   slot's first 512 positions after a load equal, bit for bit, the pool
+   pages and a fresh prefill's; both page steps sync-free; no hand
+   kernel.
+10. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
    the plain backward on the card, bf16, dO as a transposed view: the
    training shape, ragged T, a window, a fully masked ``kv_mask`` row
    (gradient exactly 0), t_q != t_k, D 128, T 5, T 65 and 129 (one row
    past a tile), t_q 1 against t_k 1024, D 128 ragged with a window,
    B·H 65,552 at T 2; then two launches of each kernel at the training
    shape, bitwise equal.
-9. kernel_times_bwd — B2, B3 and B1 at the training shape
+11. kernel_times_bwd — B2, B3 and B1 at the training shape
    [8, 12, 1024, 64]: kernel, plain version, the library yardstick
    (SDPA's backward) and the bound.
-10. train_grads — GPT-2 small at full width, the trainer's init, one
+12. train_grads — GPT-2 small at full width, the trainer's init, one
    8 x 1024 batch: loss and every gradient on the flash path against the
    dense path; exactly 12 B1/B2/B3 launches per step (24 B1 under remat).
-11. train — ``train_gpt``'s main path in process: b8 s1024, AdamW, 30
+13. train — ``train_gpt``'s main path in process: b8 s1024, AdamW, 30
    steps, with the launch counts of that run; a relaunch that resumes
    from the checkpoint; ``generate_gpt --logdir`` on it; 30 steps on one
    fixed batch, whose loss must fall by ``FIXED_BATCH_LOSS_DROP``.
    Prints step ms, tokens/s, analytic MFU and peak memory.
-12. kernels_ce — the fused LM head + CE kernels (the split pass, B5 and
+14. kernels_ce — the fused LM head + CE kernels (the split pass, B5 and
     the merge of its vocab parts, B6 dX, B7 dW) against their plain
     versions on the card, f32, TF32 off: the training shape with ignored
     labels, the same with larger logits (W std 0.2), ragged N and V
@@ -85,22 +115,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     and the merge each against their own plain version, two B5 launches
     bitwise equal in every case; then two launches of B5, B6 and B7 at
     the training shape, bitwise equal.
-13. kernel_times_ce — B5, the merge, the split pass, B6, B7 at N 8192, D
+15. kernel_times_ce — B5, the merge, the split pass, B6, B7 at N 8192, D
     768, V 50304: kernel, plain version, the monolithic composite they
     replace (cuBLAS f32 head GEMM + logsumexp/gather, and its backward; a
     yardstick only) and the bound (3xTF32 on the tensor cores); B5's CTAs
     and B6's and B7's clusters against what the card holds at once.
-14. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
+16. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
     the token- and vocab-chunked losses against the monolithic loss (loss,
     the head's gradient, every other gradient); exactly 1/1/1/1/1
     split/B5/merge/B6/B7 launches per step on the fused path, none on the
     chunked ones.
-15. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
+17. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
     steps: the split pass, B5 and the merge 34 each (one per step and per
     final-eval batch), B6 30, B7 30 launches; the first 5 losses against
     the ``train`` run's. Prints step ms, tokens/s, analytic MFU and peak
     memory beside ``train``'s.
-16. kernels_embed — the embedding-row gather (B8) against its plain
+18. kernels_embed — the embedding-row gather (B8) against its plain
     version on the card, exactly (a gather copies): Wide&Deep's deep
     table [2,600,000, 16] in f32 and bf16 and its wide table [2,600,000,
     1] with synthetic batch 0's 512 x 26 ids, rank-2 ids, 4,096 copies of
@@ -113,7 +143,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     deep f32 -> bf16) on shard 1 and 0 of 2, one table with and without
     the cast, a bf16 table, D 3 bf16 with D 17 cast, D 768 cast with a
     1-wide f32 table, strided tables, ids outside the table, empty ids.
-17. kernel_times_embed — B8 at the deep table with 512 x 26 ids (the
+19. kernel_times_embed — B8 at the deep table with 512 x 26 ids (the
     launcher's batch) and 8,192 x 26 (``scripts/bench_lm.py``'s), f32 and
     bf16, and at the wide table: kernel, plain version, the library
     yardstick (``torch.nn.functional.embedding``) and the bound, each
@@ -124,7 +154,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     forward and backward,
     device ms and device ops, the bound, and the outputs and gradients
     of both bit for bit.
-18. widedeep_lookup — Wide&Deep at full width (hash_buckets 100,000,
+20. widedeep_lookup — Wide&Deep at full width (hash_buckets 100,000,
     embed_dim 16, mlp 256/128/64, bf16), the trainer's init, 4 synthetic
     batches of 512: the model's two lookups again through
     ``masked_lookup_grouped`` (the row-sharded forward's lookup) on its
@@ -133,19 +163,19 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     today's per-table composite bit for bit (deterministic index_add_),
     and the ``index_select`` path's within 1e-6 (the deep table's at f32
     rows).
-19. train_widedeep — ``train_widedeep`` in process at its defaults
+21. train_widedeep — ``train_widedeep`` in process at its defaults
     (batch 512, Adam 1e-3, 300 steps, the final 4-batch eval), then a
     relaunch that resumes to step 310: the loss falls, ``eval_accuracy``
     > 0.55, and no B8 launch (the launcher looks its tables up as the
     JAX one does, with ``take``). Prints step ms, examples/s and peak
     memory.
-20. resnet_batchnorm — train-mode BatchNorm as the model runs it on
+22. resnet_batchnorm — train-mode BatchNorm as the model runs it on
     the card (PyTorch's fused batch-norm kernels) against the port's
     plain f32 ops (what the CPU tests hold against flax) on the same
     bf16 channels-last inputs at ResNet-50's stem, first-stage and
     last-stage shapes at b256: y, mean, variance, dx, dscale, dbias
     within ``BN_BF16_TOL`` / ``BN_F32_TOL``; the device ms of both.
-21. train_resnet — ``train_resnet`` in process: ``--config=imagenet``
+23. train_resnet — ``train_resnet`` in process: ``--config=imagenet``
     (ResNet-50 v1.5 at full width, 25,557,032 parameters, batch 256, the
     synthetic ImageNet stream) for 10 steps — finite losses, every
     BatchNorm running statistic moved, every tensor on the card — and a
@@ -154,12 +184,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     of 128, whose loss must fall by ``RN_FIXED_LOSS_DROP``. No hand
     kernel launches on this path (cuDNN convolutions, as the JAX
     package's are XLA's).
-22. resnet_bench — ``profile_resnet``'s measurement at bench.py's batch
+24. resnet_bench — ``profile_resnet``'s measurement at bench.py's batch
     128 and the launcher's 256 (one fixed batch on the card, SGD 0.1
     momentum 0.9, 3 warm-up and 20 timed steps): step ms, images/s,
     analytic MFU, peak memory, device busy and idle share, launches and
     device ms by family (convolutions, BatchNorm, the rest).
-23. bert_kernels — B1, B2 and B3 at BERT's shapes (bf16, 12 heads of
+25. bert_kernels — B1, B2 and B3 at BERT's shapes (bf16, 12 heads of
     64, non-causal, a key-padding mask with rows of no padding, some, all
     but one key and every key padded; batch 16 and 64, T 128 and 512)
     against their plain versions at the kernels / kernels_bwd
@@ -167,7 +197,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     the path's [64, 12, 128, 64] and at [16, 12, 512, 64]: each kernel's
     time, plain version, bound and SDPA with the same boolean mask (the
     backend PyTorch's dispatch took, named).
-24. train_bert — ``train_bert`` in process: BERT-base at full width
+26. train_bert — ``train_bert`` in process: BERT-base at full width
     (109,514,298 parameters), seq 128, batch 64, ``--grad_accum 4``, 10
     steps — finite losses, every tensor on the card, B1, B2 and B3 each
     12 × 4 a step (B1 12 more an eval batch) — and a relaunch that
@@ -176,13 +206,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     30 AdamW steps on one fixed batch lower the loss by
     ``BERT_FIXED_LOSS_DROP``; ``--mlm_gather 128`` gives the full path's
     loss within ``BERT_GATHER_REL_TOL``.
-25. bert_bench — ``profile_bert``'s measurement (one fixed batch on the
+27. bert_bench — ``profile_bert``'s measurement (one fixed batch on the
     card, AdamW, 3 warm-up, 20 timed and 5 profiled steps) at
     ``grad_accum`` 1 and 4 with full logits, and 1 with ``--mlm_gather
     20`` and with ``--loss_chunk_vocab 8192``: step ms, tokens/s,
     analytic MFU, peak memory, flash launches a step, the head's ms and
     share, device busy and idle share, launches and device ms by family.
-26. dist_nccl — a process group of ONE over NCCL, made by this script,
+28. dist_nccl — a process group of ONE over NCCL, made by this script,
     with the entry points run inside it: ``python -m
     dtf_tpu_torch.distributed`` (MNIST softmax, 200 steps; its loss and
     held-out accuracy), and ``train_gpt --loss_pallas --mesh_data 1``
@@ -197,7 +227,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     batch 8, ``--grad_accum 2``, ZeRO-1, 4 steps) against the same run
     with no group: losses within ``DIST_LOSS_REL_TOL``, exact flash
     launch counts.
-27. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
+29. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
     group made by this script's ``--dist-child`` ranks; the kernels
     built before the spawn; each rank's output in a file, the wait
     bounded by ``DIST_CHILD_TIMEOUT_S``): ``train_widedeep --mesh_model
@@ -1248,26 +1278,49 @@ def phase_serve_engine(torch, smi):
     torch.cuda.empty_cache()
 
 
-def phase_serve_bench(torch, smi, logdir):
-    """``python -m dtf_tpu_torch.serve_gpt --logdir`` in process on a
-    train_gpt checkpoint (the train phase's; alone, 2 steps of its own),
-    Poisson mode at SERVE_BENCH_RATES; then the engine's decode step with
-    every slot active (wall, device-busy, launches, idle share) beside
-    offline generate's decode step at the same rows and context."""
+def _serve_logdir():
+    """A train_gpt logdir of GPT-2 small (2 steps) for the serving phases
+    when the train phase did not run; the caller removes it."""
     import gc
     import tempfile
 
-    from dtf_tpu_torch import serve_gpt, train_gpt
+    from dtf_tpu_torch import train_gpt
+
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_gpt.run(["--size=small", f"--batch_size={TRAIN_BATCH}",
+                       f"--seq_len={TRAIN_SEQ}", "--train_steps=2",
+                       f"--logdir={logdir}"])
+    gc.collect()
+    return logdir
+
+
+def _serve_run(torch, out, wall):
+    """One serve_gpt run's numbers as the serving phases print them."""
+    keys = ("serve_ttft_p50_s", "serve_ttft_p99_s", "serve_tok_latency_p50_s",
+            "serve_tok_latency_p99_s", "serve_occupancy_mean",
+            "serve_queue_peak", "serve_decode_steps", "serve_prefill_chunks",
+            "cache_mib")
+    return {"step": out["step"], "wall_s": out["wall_s"],
+            "generated_tokens": out["generated_tokens"],
+            "tokens_per_sec": out["tokens_per_sec"],
+            **{k: out[k] for k in keys},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "in_process_wall_s": wall}
+
+
+def phase_serve_bench(torch, smi, logdir):
+    """``python -m dtf_tpu_torch.serve_gpt --logdir`` in process on a
+    train_gpt checkpoint, Poisson mode at SERVE_BENCH_RATES; then the
+    engine's decode step with every slot active (wall, device-busy,
+    launches, idle share) beside offline generate's decode step at the
+    same rows and context. Returns the last rate's run (serve_spec's
+    ``--spec_k 0`` side)."""
+    import gc
+
+    from dtf_tpu_torch import serve_gpt
     from dtf_tpu_torch.profile_serve import measure_decode
 
-    own = logdir is None
-    if own:
-        logdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
-        with contextlib.redirect_stdout(io.StringIO()):
-            train_gpt.run(["--size=small", f"--batch_size={TRAIN_BATCH}",
-                           f"--seq_len={TRAIN_SEQ}", "--train_steps=2",
-                           f"--logdir={logdir}"])
-        gc.collect()
     runs = []
     engine = None
     for rate in SERVE_BENCH_RATES:
@@ -1280,17 +1333,7 @@ def phase_serve_bench(torch, smi, logdir):
              *SERVE_BENCH_FLAGS]))
         require(out["request_statuses"] == {"done": 64},
                 f"rate {rate}: statuses {out['request_statuses']}")
-        runs.append({
-            "poisson_rate": rate, "step": out["step"],
-            "wall_s": out["wall_s"], "generated_tokens":
-            out["generated_tokens"], "tokens_per_sec": out["tokens_per_sec"],
-            **{k: out[k] for k in (
-                "serve_ttft_p50_s", "serve_ttft_p99_s",
-                "serve_tok_latency_p50_s", "serve_tok_latency_p99_s",
-                "serve_occupancy_mean", "serve_queue_peak",
-                "serve_decode_steps", "serve_prefill_chunks", "cache_mib")},
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "in_process_wall_s": wall})
+        runs.append({"poisson_rate": rate, **_serve_run(torch, out, wall)})
     step = measure_decode(engine, prompt_len=SERVE_PROFILE_PROMPT)
     require(step["launches_per_step"] > 0, f"profile saw no kernel: {step}")
 
@@ -1320,8 +1363,434 @@ def phase_serve_bench(torch, smi, logdir):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    if own:
-        shutil.rmtree(logdir, ignore_errors=True)
+    return runs[-1]
+
+
+#: serve_spec: k proposals a tick, the early-exit draft's depth, and the
+#: share of its proposals the self-draft must get accepted on greedy rows
+#: (the draft is the verifier's model: a proposal is rejected only where
+#: the single-token step and the (k+1)-token verify pass round a near-tie
+#: apart in bf16)
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 3
+SPEC_SELF_ACCEPT_MIN = 0.9
+#: measure_decode's timed and profiled calls of a spec engine's tick, draft
+#: step and verify step (the profiler's post-processing of a 7,500-launch
+#: tick is what costs)
+SPEC_PROFILE_STEPS, SPEC_PROFILED = 5, 2
+#: serve_pages: 64 requests on one stem of 512 tokens (32 pages of 16),
+#: unique tails of 32–256 tokens, 32–128 new; a 256-page pool
+PAGES_REQUESTS, PAGES_STEM = 64, 512
+PAGES_TAIL, PAGES_NEW = (32, 256), (32, 128)
+PAGES_FLAGS = ("--prefix_pages=256", "--kv_page_size=16")
+PAGES_SERVE_FLAGS = ("--n_slots=16", "--max_len=1024", "--prefill_chunk=128",
+                     "--emit_tokens")
+
+
+def _stream_with_margins(torch, model, prompt, n_new, chunk, sampling=None,
+                         seed=0):
+    """A batch-1 request on the offline path (``generate``'s chunked
+    prefill of the same width, then single-token decode steps), greedy or
+    drawn with the engine's sampler at draw i for token i: its tokens,
+    every step's logits [n_new, V], and every step's margin in logit
+    units — the top-2 gap of the logits (greedy), or of the Gumbel scores
+    times the temperature (sampled)."""
+    from dtf_tpu_torch.models import gpt
+
+    dev = prompt.device
+    one = {}
+    if sampling:
+        one = {"temperature": torch.tensor([sampling["temperature"]],
+                                           device=dev),
+               "top_k": torch.tensor([sampling.get("top_k", 0)], device=dev),
+               "top_p": torch.tensor([sampling.get("top_p", 1.0)],
+                                     device=dev),
+               "key": gpt.sampler_key(torch.tensor([seed], device=dev),
+                                      torch.zeros(1, dtype=torch.long,
+                                                  device=dev))}
+    toks, rows, margins = [], [], []
+    with torch.no_grad():
+        cache = model.init_cache(1)
+        logits = gpt._prefill(model, cache, prompt[None], chunk)[:, -1]
+        for i in range(n_new):
+            rows.append(logits[0])
+            if sampling:
+                draw = torch.tensor([i], device=dev)
+                t = one["temperature"]
+                score = gpt.filter_logits_dynamic(
+                    logits / t[:, None], top_k=one["top_k"],
+                    top_p=one["top_p"]).double() + gpt.gumbel_noise(
+                        one["key"], draw, logits.shape[-1])
+                top2 = score.topk(2, dim=-1).values[0] * t.double()
+                tok = torch.argmax(score, dim=-1)
+            else:
+                top2 = logits.topk(2, dim=-1).values[0]
+                tok = torch.argmax(logits, dim=-1)
+            margins.append(float(top2[0] - top2[1]))
+            toks.append(int(tok))
+            if i + 1 < n_new:
+                logits = model(tok[:, None], cache)[:, 0]
+    return toks, torch.stack(rows), margins
+
+
+def _upto_margin(margins, tol):
+    """Tokens before the first step whose margin is under ``tol``."""
+    return next((i for i, m in enumerate(margins) if m < tol), len(margins))
+
+
+def _kv_mib(layers):
+    return sum(x.numel() * x.element_size() for layer in layers
+               for x in layer.values() if x is not None) / 2 ** 20
+
+
+def _engine_kv(engine):
+    """KV MiB of the target's slot cache, the draft's and the page pool."""
+    return {"target": _kv_mib(engine.state["cache"]),
+            "draft": (_kv_mib(engine.draft_state["cache"])
+                      if engine.spec_k else 0.0),
+            "pool": (_kv_mib(engine.page_store.pool)
+                     if engine.page_store is not None else 0.0)}
+
+
+def _sync_free(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def phase_serve_spec(torch, smi, logdir, plain_run):
+    """Speculative decoding on the train phase's GPT-2 small checkpoint at
+    full width and depth (bf16), with each draft: serve_gpt's 2
+    requests/s traffic beside ``--spec_k 0`` (serve_bench's run of the
+    same traffic, ``plain_run``, or one made here) and the engine's tick,
+    draft step and verify step measured; then, on the same engine, the
+    twelve requests against batch-1 reference streams, the verify step
+    teacher-forced (self-draft) and the steps sync-free."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from dtf_tpu_torch import serve_gpt
+    from dtf_tpu_torch.checkpoint import Checkpointer, load_model_config
+    from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.profile_serve import measure_decode
+    from dtf_tpu_torch.serve import ServeClient
+
+    seconds = {}
+    t0 = time.perf_counter()
+    ckpt = os.path.join(logdir, "ckpt")
+    size = load_model_config(ckpt)["size"]
+    cfg = gpt.GPTConfig.by_name(size)
+    ref_model = gpt.GPT(dataclasses.replace(cfg, decode_len=SERVE_MAX_LEN,
+                                            attn_impl="dense"),
+                        device="cuda")
+    ref_model.load_state_dict(Checkpointer(ckpt).restore_params())
+    ref_model.eval()
+    rng = np.random.default_rng(5)
+    reqs, refs = [], []
+    for i, (t_p, n_new, kw) in enumerate(SERVE_REQUESTS):
+        prompt = rng.integers(0, VOCAB_REAL, t_p).tolist()
+        sampling = {k: v for k, v in kw.items() if k != "eos"}
+        req = {"prompt": prompt, "max_new": n_new, "seed": 40 + i,
+               **sampling}
+        refs.append(_stream_with_margins(
+            torch, ref_model, torch.tensor(prompt, device="cuda"), n_new,
+            SERVE_CHUNK, sampling, seed=40 + i))
+        if "eos" in kw:
+            req["eos_id"] = refs[-1][0][kw["eos"]]
+        reqs.append(req)
+    del ref_model
+    scale = max(r[1].abs().max().item() for r in refs)
+    tol = LOGITS_REL_TOL * scale
+    seconds["references"] = time.perf_counter() - t0
+
+    flags = [f"--logdir={logdir}", "--poisson_rate=2", *SERVE_BENCH_FLAGS]
+    runs, checks, streams = {}, {}, None
+    if plain_run is None:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        (out, _, engine), wall = _no_hand_kernels(
+            torch, lambda: serve_gpt.run(flags))
+        plain_run = _serve_run(torch, out, wall)
+        del engine
+        seconds["spec_k 0"] = time.perf_counter() - t0
+    runs["spec_k 0"] = plain_run
+    for name, draft_flag in (("self", f"--draft_ckpt={logdir}"),
+                             (f"layers:{SPEC_DRAFT_LAYERS}",
+                              f"--draft_layers={SPEC_DRAFT_LAYERS}")):
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # serve_bench's traffic at 2 requests/s through a spec engine
+        (out, _, engine), wall = _no_hand_kernels(torch, lambda: serve_gpt.run(
+            flags + [f"--spec_k={SPEC_K}", draft_flag]))
+        require(out["request_statuses"] == {"done": 64},
+                f"{name}: statuses {out['request_statuses']}")
+        require(engine.trace_counts == {"prefill": 1, "decode": 1,
+                                        "draft_prefill": 1, "draft": 1},
+                f"{name}: trace_counts {engine.trace_counts}")
+        run = _serve_run(torch, out, wall)
+        run.update({
+            "accept_rate": out["serve_spec_accept_rate"],
+            "draft_fallbacks": out["serve_draft_fallbacks"],
+            "tokens_per_tick": (out["generated_tokens"] - out["requests"])
+            / out["serve_decode_steps"],
+            "tokens_per_slot_tick": 1 + SPEC_K
+            * out["serve_spec_accept_rate"],
+            "kv_mib": _engine_kv(engine)})
+        run["decode_step"], _ = _no_hand_kernels(torch, lambda: measure_decode(
+            engine, prompt_len=SERVE_PROFILE_PROMPT, steps=SPEC_PROFILE_STEPS,
+            profiled=SPEC_PROFILED))
+        runs[f"spec_k {SPEC_K} {name}"] = run
+        seconds[f"traffic {name}"] = time.perf_counter() - t0
+
+        # the twelve requests on the same engine: each stream equals its
+        # reference up to the first margin under the tolerance
+        t0 = time.perf_counter()
+
+        def serve():
+            client = ServeClient(engine)
+            rids = [client.submit(**r) for r in reqs]
+            client.drain()
+            return ([client.result(rid) for rid in rids],
+                    [client.scheduler._recs[rid] for rid in rids])
+
+        (got, recs), wall = _no_hand_kernels(torch, serve)
+        compared = 0
+        for i, (toks, _, margins) in enumerate(refs):
+            upto = _upto_margin(margins, tol)
+            if "eos_id" in reqs[i]:
+                stop = toks.index(reqs[i]["eos_id"]) + 1
+                require(got[i] == toks[:stop], f"{name} request {i}: eos "
+                        f"stop {got[i]} vs {toks[:stop]}")
+                upto = min(upto, stop)
+            else:
+                require(len(got[i]) == reqs[i]["max_new"],
+                        f"{name} request {i}: {len(got[i])} tokens")
+            require(got[i][:upto] == toks[:upto],
+                    f"{name} request {i}: spec and reference tokens differ "
+                    f"before step {upto} (the first margin under {tol})")
+            compared += upto
+        if streams is None:
+            streams = got
+        else:                 # one verifier: the drafts move no token
+            checks["streams_equal_across_drafts"] = sum(
+                a == b for a, b in zip(streams, got))
+        greedy = [r for r, q in zip(recs, reqs) if "temperature" not in q]
+        prop = sum(r.proposed for r in greedy)
+        acc = sum(r.accepted for r in greedy)
+        checks[name] = {"tokens_compared": compared,
+                        "greedy_proposed": prop, "greedy_accepted": acc,
+                        "greedy_accept_rate": acc / prop,
+                        "accept_rate": sum(r.accepted for r in recs)
+                        / sum(r.proposed for r in recs),
+                        "draft_fallbacks": engine.counters["draft_fallbacks"],
+                        "serve_wall_s": wall}
+        if name == "self":
+            require(acc / prop >= SPEC_SELF_ACCEPT_MIN,
+                    f"self-draft greedy acceptance {acc}/{prop} under "
+                    f"{SPEC_SELF_ACCEPT_MIN}: the draft and the verifier "
+                    "disagree on the same model")
+            checks[name]["teacher_forced"] = _verify_teacher_forced(
+                torch, engine, reqs, refs, tol)
+        prompt = reqs[1]["prompt"][:SERVE_CHUNK + 5]
+
+        def steps():
+            for c in range(2):
+                engine.prefill_into_slot(0, prompt, c, seed=3,
+                                         **SERVE_SAMPLED)
+            for _ in range(2):
+                engine.decode_all()
+            engine.verify_all(engine.draft_propose())
+
+        _sync_free(torch, steps)
+        seconds[f"checks {name}"] = time.perf_counter() - t0
+        del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_spec", "model": f"gpt2-{size}", "nvidia_smi": smi,
+          "spec_k": SPEC_K, "requests": len(reqs),
+          "rel_tol": LOGITS_REL_TOL, "max_abs_logit": scale,
+          "checks": checks, "sync_free": ["prefill_into_slot (with its "
+                                          "draft chunk)", "draft_propose",
+                                          "verify_all"],
+          "hand_kernel_launches": 0, "traffic": list(SERVE_BENCH_FLAGS)
+          + ["--poisson_rate=2"], "runs": runs, "seconds": seconds})
+
+
+def _verify_teacher_forced(torch, engine, reqs, refs, tol):
+    """The greedy requests' reference tokens fed through the model's slot
+    VERIFY step, k + 1 a call, each row at its own position: every
+    position's logits against sequential decode's (the reference rows)."""
+    greedy = [i for i, r in enumerate(reqs) if "temperature" not in r]
+    st, k = engine.state, engine.spec_k
+    st["active"].zero_()
+    for s, i in enumerate(greedy):
+        engine.prefill(s, reqs[i]["prompt"])
+    worst, compared, j = 0.0, 0, 1
+    with torch.no_grad():
+        while True:
+            live = [s for s, i in enumerate(greedy) if j < len(refs[i][0])]
+            if not live:
+                break
+            inputs = torch.zeros(engine.n_slots, k + 1, dtype=torch.long)
+            st["active"].zero_()
+            for s in live:
+                seq = refs[greedy[s]][0][j - 1:j + k]
+                inputs[s, :len(seq)] = torch.tensor(seq)
+                st["active"][s] = True
+            logits = engine._model(inputs.cuda(), st["cache"],
+                                   decode_active=st["active"])
+            for s in live:
+                toks, rows, _ = refs[greedy[s]]
+                n = min(k + 1, len(toks) - j)
+                d = (logits[s, :n] - rows[j:j + n]).abs().max().item()
+                require(math.isfinite(d), f"slot {s} at {j}: non-finite")
+                worst = max(worst, d)
+                compared += n
+            j += k + 1
+    require(worst <= tol, f"teacher-forced verify logits differ from "
+                          f"sequential decode by {worst} (> {tol}) over "
+                          f"{compared} positions")
+    return {"positions": compared, "max_abs_diff": worst, "tol": tol}
+
+
+def _pages_requests(path):
+    """PAGES_REQUESTS rows made from a seed: one stem of PAGES_STEM
+    tokens, each request its own tail and budget (``toks/N``); written to
+    ``path``. Returns the prompts and budgets."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    stem = rng.integers(0, VOCAB_REAL, PAGES_STEM).tolist()
+    reqs = []
+    for _ in range(PAGES_REQUESTS):
+        tail = rng.integers(0, VOCAB_REAL, int(rng.integers(
+            PAGES_TAIL[0], PAGES_TAIL[1] + 1))).tolist()
+        reqs.append((stem + tail, int(rng.integers(PAGES_NEW[0],
+                                                   PAGES_NEW[1] + 1))))
+    with open(path, "w") as f:
+        f.write("\n".join(",".join(map(str, p)) + f"/{n}" for p, n in reqs))
+    return reqs
+
+
+def phase_serve_pages(torch, smi, logdir):
+    """The prefix page pool on the train phase's checkpoint: a seeded
+    requests file on one 512-token stem through serve_gpt with the pool
+    on and off; streams, counters, the drained pins; then a load's bitwise
+    check and both page steps sync-free."""
+    import dataclasses
+    import gc
+
+    from dtf_tpu_torch import serve_gpt
+    from dtf_tpu_torch.models import gpt
+
+    path = os.path.join(logdir, "pages_requests.txt")
+    reqs = _pages_requests(path)
+    flags = [f"--logdir={logdir}", f"--requests=@{path}", *PAGES_SERVE_FLAGS]
+    runs, rows = {}, {}
+    engine = None
+    for name, extra in (("pages_off", ()), ("pages_on", PAGES_FLAGS)):
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (out, rows[name], engine), wall = _no_hand_kernels(
+            torch, lambda: serve_gpt.run(flags + list(extra)))
+        require(out["request_statuses"] == {"done": PAGES_REQUESTS},
+                f"{name}: statuses {out['request_statuses']}")
+        runs[name] = {**_serve_run(torch, out, wall),
+                      "kv_mib": _engine_kv(engine),
+                      **{k: out.get(k, 0.0) for k in (
+                          "serve_prefix_hit_tokens",
+                          "serve_prefix_miss_tokens", "serve_pages_saved",
+                          "serve_pages_loaded", "serve_prefix_hits",
+                          "serve_prefix_misses", "serve_prefix_pinned",
+                          "serve_prefix_pages")}}
+    on = runs["pages_on"]
+    saved0 = engine.counters["pages_saved"]
+    require(on["serve_prefix_pinned"] == 0.0, f"pins left: {on}")
+    require(on["serve_pages_loaded"] >= (PAGES_REQUESTS - 2)
+            * PAGES_STEM // 16, f"too few pages loaded: {on}")
+
+    # greedy streams: pool on == pool off, but where the pool-off stream
+    # sits on a near-tie (teacher-forced margin under the tolerance)
+    cfg = engine.cfg
+    ref_model = gpt.GPT(dataclasses.replace(cfg, attn_impl="dense"),
+                        device="cuda")
+    ref_model.load_state_dict(engine._model.state_dict())
+    ref_model.eval()
+    differ = []
+    for i, (a, b) in enumerate(zip(rows["pages_off"], rows["pages_on"])):
+        if a == b:
+            continue
+        ta = [int(t) for t in a.split(":")[1].split(",")]
+        tb = [int(t) for t in b.split(":")[1].split(",")]
+        p = next(j for j, (x, y) in enumerate(zip(ta, tb)) if x != y)
+        with torch.no_grad():
+            cache = ref_model.init_cache(1)
+            seq = torch.tensor(reqs[i][0] + ta[:p], device="cuda")
+            logits = gpt._prefill(ref_model, cache, seq[None],
+                                  SERVE_CHUNK)[0, -1]
+        top2 = logits.topk(2).values
+        scale = logits.abs().max().item()
+        margin = (top2[0] - top2[1]).item()
+        require(margin < LOGITS_REL_TOL * scale,
+                f"request {i}: pool on and off differ at token {p} where "
+                f"the margin {margin} is over {LOGITS_REL_TOL} x {scale}")
+        differ.append({"request": i, "token": p, "margin": margin})
+    del ref_model
+
+    # a load is a bitwise copy of the pool and of a fresh prefill; a
+    # prompt seen twice saves its two new pages
+    store = engine.page_store
+    engine.state["active"].zero_()
+    stem = reqs[0][0][:PAGES_STEM]
+    fresh_prompt = stem + list(range(60, 100))
+    engine.prefill(0, fresh_prompt)
+    _sync_free(torch, lambda: [engine.save_prefix_pages(0, fresh_prompt)
+                               for _ in range(2)])
+    require(engine.counters["pages_saved"] == saved0 + 2,
+            f"{engine.counters['pages_saved'] - saved0} pages saved of 2")
+    handle = engine.prefix_match(stem + [10, 11])
+    require(handle is not None and handle.n_tokens == PAGES_STEM,
+            f"no full-stem hit: {handle}")
+    _sync_free(torch, lambda: engine.load_prefix(1, handle))
+    ids = torch.tensor([e.page_id for e in handle.entries], device="cuda")
+    bitwise = True
+    for layer, pages in zip(engine.state["cache"], store.pool):
+        for name, x in layer.items():
+            if x is None or name == "cache_index":
+                continue
+            got = x[1, :, :PAGES_STEM]
+            fresh = x[0, :, :PAGES_STEM]
+            pooled = pages[name].index_select(0, ids).transpose(0, 1)
+            bitwise &= bool(torch.equal(got, fresh)) and bool(torch.equal(
+                got, pooled.reshape(got.shape)))
+    require(bitwise, "a loaded slot differs from the pool pages or from a "
+                     "fresh prefill of the same stem")
+    engine.release_prefix(handle)
+    require(engine.prefix_stats()["pinned"] == 0, "pins left after the "
+                                                  "checks")
+    emit({"phase": "serve_pages", "model": "gpt2-small", "nvidia_smi": smi,
+          "requests": PAGES_REQUESTS, "stem": PAGES_STEM,
+          "tail": list(PAGES_TAIL), "new": list(PAGES_NEW),
+          "flags": list(PAGES_SERVE_FLAGS) + list(PAGES_FLAGS),
+          "runs": runs, "streams_equal": PAGES_REQUESTS - len(differ),
+          "streams_differ_at_near_ties": differ,
+          "load_bitwise": bitwise, "sync_free": ["load_prefix",
+                                                  "save_prefix_pages"],
+          "page_trace_counts": engine.page_trace_counts,
+          "hand_kernel_launches": 0})
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _train_batch(torch, cfg, step=0):
@@ -3629,9 +4098,11 @@ def phase_dist_two_ranks_one_card(torch, smi):
 
 
 #: every phase, in the order a full run takes them — but serve_bench,
-#: which serves the train phase's checkpoint, runs right after train
+#: serve_spec and serve_pages, which serve the train phase's checkpoint,
+#: run right after train
 PHASES = ("device", "build", "kernels", "generate", "generate_variants",
-          "serve_engine", "serve_bench", "kernels_bwd", "kernel_times_bwd",
+          "serve_engine", "serve_bench", "serve_spec", "serve_pages",
+          "kernels_bwd", "kernel_times_bwd",
           "train_grads", "train",
           "kernels_ce", "kernel_times_ce", "train_grads_ce", "train_ce",
           "kernels_embed", "kernel_times_embed", "widedeep_lookup",
@@ -3758,8 +4229,20 @@ def main(argv=None):
         phase_train_grads(torch)
     if "train" in phases:
         got["train"] = phase_train(torch, smi)
-    if "serve_bench" in phases:
-        phase_serve_bench(torch, smi, got.get("train", {}).get("logdir"))
+    serving = [p for p in ("serve_bench", "serve_spec", "serve_pages")
+               if p in phases]
+    if serving:
+        logdir = (got["train"]["logdir"] if "train" in got
+                  else _serve_logdir())
+        plain_run = None
+        if "serve_bench" in phases:
+            plain_run = phase_serve_bench(torch, smi, logdir)
+        if "serve_spec" in phases:
+            phase_serve_spec(torch, smi, logdir, plain_run)
+        if "serve_pages" in phases:
+            phase_serve_pages(torch, smi, logdir)
+        if "train" not in got:
+            shutil.rmtree(logdir, ignore_errors=True)
     if "train" in phases:
         shutil.rmtree(got["train"]["logdir"], ignore_errors=True)
     if "kernels_ce" in phases:

@@ -12,14 +12,16 @@ Ported: the full-sequence forward (with the one-shot prefill cache
 write), the single-token decode step, chunked prefill (with the serving
 engine's right-padded ``prefill_len`` chunk), the int8 cache, the serving
 engine's ``slot_decode`` step (a position counter per batch row, rows
-masked by ``decode_active``), ``filter_logits``, ``filter_logits_dynamic``
+masked by ``decode_active``) and its multi-token slot VERIFY step
+(speculative decoding) with :func:`cache_rollback`, :func:`draft_truncate`
+and the prefix-page copies (:func:`cache_load_pages`,
+:func:`cache_save_pages`), ``filter_logits``, ``filter_logits_dynamic``
 and ``generate``; for training, the backward through
 the flash kernels, remat per block (``torch.utils.checkpoint``), dropout
 from explicit per-step seeds, and the LM loss (:func:`make_loss`,
 :func:`make_eval`): monolithic logits, or the head fused with the CE —
-vocab- or token-chunked, or the fused kernels (B5–B7). Not yet: the
-slot verify step of speculative decoding, beam search, MoE layers,
-tensor and sequence parallelism.
+vocab- or token-chunked, or the fused kernels (B5–B7). Not yet: beam
+search, MoE layers, tensor and sequence parallelism.
 
 Dropout runs only when the caller passes ``dropout_seed`` (the training
 loss does; serving never does). Each mask is drawn from a fresh
@@ -268,6 +270,42 @@ def _cache_put_rows(cfg: GPTConfig, cvar, svar, slots: torch.Tensor,
         put(svar, s)
 
 
+def _cache_put_span(cfg: GPTConfig, cvar, svar, positions: torch.Tensor,
+                    a: torch.Tensor, active: Optional[torch.Tensor],
+                    cache_len: int) -> None:
+    """Per-row multi-position write (the slot VERIFY step), IN PLACE: row
+    b writes ``a[b, :, j, :]`` at its own position ``positions[b, j]``
+    (slot = position: the full-cache layout). Positions at or past the
+    cache end, and every position of an inactive row, are DROPPED: they
+    keep their old contents, never wrap onto a live early position.
+
+    A drop is a write of the old contents, so no index ever leaves the
+    cache (on CUDA an out-of-range scatter is a device assert) and no two
+    writes of a row share a slot (a scatter with duplicate indices keeps
+    one of them at random): each row writes the t distinct slots
+    ``[w0, w0 + t)``, w0 = min(idx, L - t), its valid positions at their
+    own slots and its dropped ones on the slots of the window below idx,
+    rotated as ``w0 + (p - w0) mod t``."""
+    t = positions.shape[1]
+    w0 = torch.clamp(positions[:, :1], max=cache_len - t)        # [B, 1]
+    slots = w0 + torch.remainder(positions - w0, t)              # [B, t]
+    keep = positions < cache_len
+    if active is not None:
+        keep = keep & active[:, None]
+
+    def put(var, upd):                                      # upd [B,H,t,X]
+        index = slots[:, None, :, None].expand(upd.shape)
+        upd = torch.where(keep[:, None, :, None], upd, var.gather(2, index))
+        var.scatter_(2, index, upd)
+
+    if svar is None:
+        put(cvar, a.to(cfg.dtype))
+    else:
+        q, s = _kv_quant(a)
+        put(cvar, q)
+        put(svar, s)
+
+
 def _cache_put_dyn(cfg: GPTConfig, cvar, svar, slot: int,
                    a: torch.Tensor) -> None:
     """Write the single position a [B,H,1,D] at ``slot``, IN PLACE (the
@@ -384,10 +422,14 @@ class CausalSelfAttention(nn.Module):
             raise ValueError(
                 "decode_active only applies to the slot_decode/verify "
                 "steps (per-row cache indices)")
-        if cfg.slot_decode and cache is not None and t != 1 and not chunked:
-            raise NotImplementedError(
-                "the slot verify step (slot_decode with a multi-token call, "
-                "speculative decoding) is not yet ported")
+        verify = (cfg.slot_decode and cache is not None and t != 1
+                  and not chunked)
+        if verify and self.window:
+            raise ValueError(
+                "the slot VERIFY step (slot_decode, multi-token call) needs "
+                f"the full windowless cache layout; attn_window={self.window}"
+                " rolls the buffer, so a rejected speculative tail would "
+                "clobber live positions it cannot roll back")
 
         def split(y, nh):
             return y.reshape(b, t, nh, d_head).transpose(1, 2)
@@ -397,6 +439,8 @@ class CausalSelfAttention(nn.Module):
         v = split(self.value(x), kv_heads)
         if cache is not None and t != 1 and chunked:
             return self._chunked_prefill(q, k, v, cache, prefill_len)
+        if verify:
+            return self._slot_verify_step(q, k, v, cache, decode_active)
         if cache is not None and t == 1 and cfg.slot_decode:
             return self._slot_decode_step(q, k, v, cache, decode_active)
         if cache is not None and t == 1:
@@ -479,34 +523,63 @@ class CausalSelfAttention(nn.Module):
         idx.add_(1 if active is None else active.long())
         return out
 
+    def _slot_verify_step(self, q, k, v, cache: dict,
+                          active: Optional[torch.Tensor]) -> torch.Tensor:
+        """The slot VERIFY step of speculative decoding: t tokens a row
+        (the pending token and the draft's proposals), each row at its own
+        position. Query j computes what the j-th of t sequential
+        :meth:`_slot_decode_step` calls would: all t K/V land first
+        (:func:`_cache_put_span`; writes past the cache end drop), every
+        query reads the post-write cache, and query j's validity bias is
+        the one-token formula at position idx + j. Active rows advance by
+        t, IN PLACE; the caller rolls the index back to the accepted
+        boundary (:func:`cache_rollback`) — rejected K/V needs no
+        clearing, validity derives from the index."""
+        cfg = self.cfg
+        t = q.shape[2]
+        idx = cache["cache_index"]                                   # [B]
+        qpos = idx[:, None] + torch.arange(t, device=q.device)       # [B,t]
+        q = rope(q, qpos, cfg.rope_theta)
+        k = rope(k, qpos, cfg.rope_theta)
+        _cache_put_span(cfg, cache["cached_key"], cache["key_scale"], qpos,
+                        k, active, self.cache_len)
+        _cache_put_span(cfg, cache["cached_value"], cache["value_scale"],
+                        qpos, v, active, self.cache_len)
+        out = self._attend_cache(q, cache, qpos)
+        idx.add_(t if active is None else t * active.long())
+        return out
+
     def _attend_cache(self, q, cache: dict, idx) -> torch.Tensor:
-        """One query token a row against every cached position <= idx
-        (an int, or [B, 1] per row): the grouped einsum reads the
+        """t query tokens a row ([B,H,t,D]) against every cached position
+        <= its own: ``idx`` is the queries' position — an int (t = 1),
+        or per row and query [B, t]. The grouped einsum reads the
         UN-expanded cache (query head kv*group + g reads shared head kv).
         Slot s holds position p_s = idx - ((idx - s) mod L), the newest
         position <= idx congruent to s; valid iff p_s >= 0 — which also
         makes a reused slot's stale contents invisible."""
         cfg = self.cfg
-        b, _, _, d_head = q.shape
+        b, _, t, d_head = q.shape
         kv_heads = cfg.kv_heads_resolved
         group = cfg.heads // kv_heads
         cache_len = self.cache_len
         slots = torch.arange(cache_len, device=q.device)
-        p_s = idx - torch.remainder(idx - slots, cache_len)       # [L]|[B,L]
+        if not isinstance(idx, int):
+            idx = idx[..., None]                                 # [B,t,1]
+        p_s = idx - torch.remainder(idx - slots, cache_len)     # [L]|[B,t,L]
         bias = torch.zeros(p_s.shape, device=q.device).masked_fill(
             p_s < 0, _NEG_INF)
-        if bias.ndim == 2:
-            bias = bias[:, None, None, :]
+        if bias.ndim == 3:
+            bias = bias[:, None, None]
         keys = _cache_read(cfg, cache["cached_key"], cache["key_scale"])
         vals = _cache_read(cfg, cache["cached_value"], cache["value_scale"])
-        qg = q[:, :, 0, :].reshape(b, kv_heads, group, d_head)
-        s = torch.einsum("bkgd,bkld->bkgl", qg.float(), keys.float())
+        qg = q.reshape(b, kv_heads, group, t, d_head)
+        s = torch.einsum("bkgtd,bkld->bkgtl", qg.float(), keys.float())
         s = s * d_head ** -0.5 + bias
         p = torch.softmax(s, dim=-1)      # >= 1 valid key: no dead rows
-        out = torch.einsum("bkgl,bkld->bkgd", p.to(vals.dtype).float(),
+        out = torch.einsum("bkgtl,bkld->bkgtd", p.to(vals.dtype).float(),
                            vals.float())
-        out = out.to(cfg.dtype).reshape(b, 1, cfg.heads * d_head)
-        return self.attn_out(out)
+        out = out.to(cfg.dtype).permute(0, 3, 1, 2, 4)
+        return self.attn_out(out.reshape(b, t, cfg.heads * d_head))
 
     def _chunked_prefill(self, q, k, v, cache: dict,
                          prefill_len=None) -> torch.Tensor:
@@ -896,6 +969,110 @@ def cache_index_of(cache: list):
         if "cache_index" in layer:
             return layer["cache_index"]
     raise ValueError("cache has no cache_index leaf")
+
+
+def cache_rollback(cache: list, new_index: torch.Tensor,
+                   active: Optional[torch.Tensor] = None) -> list:
+    """Set every layer's ``cache_index`` to ``new_index``, IN PLACE — the
+    speculative-decode ROLLBACK: after a verify step wrote k + 1 candidate
+    positions, the accepted boundary is a per-row index assignment and
+    nothing else (rejected K/V stays as stale bytes the validity bias
+    hides). ``active`` [S] bool keeps the other rows' counters (a slot
+    mid-prefill must not take its neighbours' boundary). Returns
+    ``cache``."""
+    for layer in cache:
+        ci = layer["cache_index"]
+        new = torch.as_tensor(new_index, dtype=ci.dtype,
+                              device=ci.device).expand(ci.shape)
+        ci.copy_(new if active is None else torch.where(active, new, ci))
+    return cache
+
+
+def draft_truncate(cfg: GPTConfig, params: dict, n_layers: int
+                   ) -> tuple[GPTConfig, dict]:
+    """An EARLY-EXIT draft from a trained state dict: the first
+    ``n_layers`` blocks with the embedding, final LayerNorm and head,
+    reused as the speculative draft — a draft without a second
+    checkpoint. The verifier samples every delivered token, so proposal
+    quality moves only the acceptance rate. The returned dict holds the
+    SAME tensors as ``params`` (no copy)."""
+    if not 1 <= n_layers < cfg.layers:
+        raise ValueError(
+            f"draft n_layers={n_layers} must be in [1, {cfg.layers}) — "
+            "a draft at full depth proposes at full cost")
+    if cfg.moe_every:
+        raise ValueError("draft_truncate does not support MoE configs "
+                         "(the decode stack has no MoE path)")
+    keep = ("token_embed.", "ln_f.", "lm_head.") + tuple(
+        f"layer_{i}." for i in range(n_layers))
+    missing = [p for p in keep if not any(n.startswith(p) for n in params)]
+    if missing:
+        raise ValueError(f"params are missing {missing} — not a GPT state "
+                         "dict?")
+    return (dataclasses.replace(cfg, layers=n_layers),
+            {n: x for n, x in params.items() if n.startswith(keep)})
+
+
+def _paged(cache: list, pool: list) -> tuple[list, int, int, int]:
+    """(cache tensor, pool tensor) of every batch-led leaf of every layer
+    — the leaves the page pool holds (int8 caches bring their scales),
+    with the pool's page count P, the page width p and the pages a slot
+    holds m, shared by every leaf."""
+    pairs = [(x, player[name]) for layer, player in zip(cache, pool)
+             for name, x in layer.items()
+             if batch_led_cache_key(name) and x is not None]
+    leaf, pleaf = pairs[0]
+    n_pages, page = pleaf.shape[0], pleaf.shape[2]
+    return pairs, n_pages, page, leaf.shape[2] // page
+
+
+def cache_load_pages(cache: list, pool: list, slot: torch.Tensor,
+                     page_ids: torch.Tensor, n_valid: torch.Tensor) -> None:
+    """The paged READ, IN PLACE: pool pages ``page_ids[:n_valid]`` land in
+    the leading positions of slot ``slot`` ([1] int64) of every batch-led
+    leaf, one fixed-shape gather a leaf whatever the chain's length.
+    Cache leaves are [S, H, L, D], pool leaves [P, H, p, D] with L =
+    len(page_ids) * p; positions past ``n_valid`` pages keep their
+    contents. Ids past ``n_valid`` may be anything: they are clamped into
+    the pool before the gather and their rows masked back. Copies are
+    bitwise."""
+    pairs, n_pages, p, m = _paged(cache, pool)
+    ids = page_ids.clamp(0, n_pages - 1)
+    mask = (torch.arange(m * p, device=ids.device)
+            < n_valid * p)[None, :, None]
+    for leaf, pleaf in pairs:
+        flat = pleaf.index_select(0, ids).transpose(0, 1).reshape(
+            leaf.shape[1], m * p, leaf.shape[3])
+        cur = leaf.index_select(0, slot)[0]
+        leaf.index_copy_(0, slot, torch.where(mask, flat, cur)[None])
+
+
+def cache_save_pages(cache: list, pool: list, slot: torch.Tensor,
+                     page_ids: torch.Tensor) -> None:
+    """The paged WRITE, IN PLACE: slot ``slot``'s cache row, split into
+    pages, goes to pool entries ``page_ids`` — page j to ``page_ids[j]`` —
+    one fixed-shape scatter a leaf. An id outside [0, P) DROPS its page,
+    the fixed-shape spelling of "save only the new pages".
+
+    No index leaves the pool (on CUDA that is a device assert): a dropped
+    page writes the first kept page's value to the first kept page's id
+    again, so duplicate indices carry one value and the scatter is
+    deterministic; with none kept, one pool page is written back onto
+    itself."""
+    pairs, n_pages, p, m = _paged(cache, pool)
+    keep = (page_ids >= 0) & (page_ids < n_pages)
+    first = torch.argmax(keep.to(torch.int32))           # 0 when none kept
+    src = torch.where(keep, torch.arange(m, device=keep.device), first)
+    dst = torch.where(keep, page_ids,
+                      page_ids.index_select(0, first.reshape(1))).clamp(
+        0, n_pages - 1)
+    any_kept = keep.any()
+    for leaf, pleaf in pairs:
+        pages = leaf.index_select(0, slot)[0].reshape(
+            leaf.shape[1], m, p, leaf.shape[3]).transpose(0, 1)
+        upd = torch.where(any_kept, pages.index_select(0, src),
+                          pleaf.index_select(0, dst))
+        pleaf.index_copy_(0, dst, upd)
 
 
 def _prefill(model: GPT, cache: list, prompt: torch.Tensor,

@@ -3,8 +3,14 @@
 
 - :mod:`dtf_tpu_torch.serve.engine` — ``DecodeEngine``: the KV cache and
   each slot's position, sampler state and sampling parameters as device
-  state, with exactly two fixed-shape step functions
-  (``prefill_into_slot``, ``decode_all``).
+  state, with two fixed-shape step functions (``prefill_into_slot``,
+  ``decode_all``), four with a speculative draft (the draft's prefill
+  and step; the decode step becomes the verify step) and two more with
+  the prefix page pool (page load and save).
+- :mod:`dtf_tpu_torch.serve.pages` — ``PrefixIndex`` (the host index of
+  the page pool: whole-prefix hashes, pins, LRU eviction, save on the
+  second sighting) and ``PageStore`` (a pool and its index, mountable by
+  several engines).
 - :mod:`dtf_tpu_torch.serve.scheduler` — request queue, FIFO admission
   with prefill/decode interleave, slot allocation, EOS / max-len eviction,
   deadlines, load shedding, and TTFT / per-token latency / queue depth /
@@ -12,16 +18,18 @@
 - :mod:`dtf_tpu_torch.serve.client` — the in-process submit/poll API, the
   open-loop replay pump, a seeded Poisson load generator and a heartbeat.
 
-``python -m dtf_tpu_torch.serve_gpt`` is the launcher. Not yet ported: the
-prefix page pool, speculative decoding, beam search, the router with its
-health, hot-swap and log-sink tier, and sharded serving.
+``python -m dtf_tpu_torch.serve_gpt`` is the launcher. Not yet ported:
+beam search, the router with its health, hot-swap and log-sink tier, and
+sharded serving.
 """
 
 from dtf_tpu_torch.serve.client import (Heartbeat, PoissonLoadGen,
                                         ServeClient, replay)
 from dtf_tpu_torch.serve.engine import DecodeEngine
+from dtf_tpu_torch.serve.pages import PageStore, PrefixHandle, PrefixIndex
 from dtf_tpu_torch.serve.scheduler import (FAILED_STATUSES, Request,
                                            RequestFailed, Scheduler)
 
-__all__ = ["DecodeEngine", "FAILED_STATUSES", "Heartbeat", "PoissonLoadGen",
-           "Request", "RequestFailed", "Scheduler", "ServeClient", "replay"]
+__all__ = ["DecodeEngine", "FAILED_STATUSES", "Heartbeat", "PageStore",
+           "PoissonLoadGen", "PrefixHandle", "PrefixIndex", "Request",
+           "RequestFailed", "Scheduler", "ServeClient", "replay"]

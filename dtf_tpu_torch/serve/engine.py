@@ -8,8 +8,8 @@ independent request at its own position (``GPTConfig.slot_decode`` — the
 ``cache_index`` is a [n_slots] tensor), so requests stream in and out of
 rows while the shapes never change.
 
-Exactly two step functions exist, built once at construction
-(``trace_counts`` stays ``{"prefill": 1, "decode": 1}``):
+Without a draft model exactly two step functions exist, built once at
+construction (``trace_counts`` stays ``{"prefill": 1, "decode": 1}``):
 
 - ``prefill_into_slot`` — one ``prefill_chunk``-wide, right-padded prompt
   chunk into one slot. The slot's rows are gathered into a batch-1 plain
@@ -17,7 +17,8 @@ Exactly two step functions exist, built once at construction
   that offline ``generate(prefill_chunk=...)`` uses (``prefill_len``
   masks the pad: its K/V never lands, the index advances by the valid
   count) and scattered back. On the last chunk it samples the request's
-  first token and marks the slot active.
+  first token and marks the slot active. ``start`` > 0 continues prefix
+  pages already loaded into the slot.
 - ``decode_all`` — one masked token step over all slots, each slot with
   its own temperature / top-k / top-p / eos through
   :func:`dtf_tpu_torch.models.gpt.sample_tokens`, whose stream a request
@@ -26,25 +27,53 @@ Exactly two step functions exist, built once at construction
   between prefill chunks) write nothing and keep their token, sampler
   state and ``done`` bit for bit.
 
-The state lives on the engine's device and both steps write it IN PLACE.
-Every operand of a step is a device tensor of a shape fixed at
-construction (a prefill chunk's scalars and token ids arrive through one
-host-to-device copy into a fixed buffer), and a step makes no
-device-to-host sync: the host reads back only ``(tokens, done)`` after a
-decode step and the first token after a last chunk — what a CUDA graph
-of a step needs (none is captured yet). The engine is dense, like the
-reference: its prefill is the chunked-prefill einsum and its decode the
-grouped decode einsum, so it launches none of the hand kernels.
+**Speculative decoding** (``draft_cfg``/``draft_params``, ``spec_k`` =
+k > 0): FOUR step functions, never more (``trace_counts`` {prefill,
+decode, draft_prefill, draft}). The draft keeps its own slot state and
+cache; ``draft_prefill`` (the prefill step of the draft model) rides
+along each target chunk, and the decode step becomes a tick of two: the
+draft step proposes k greedy tokens a slot (k + 1 single-token steps,
+after rolling the draft's index to the verifier's accepted boundary),
+and the VERIFY step (still counted as ``decode``) scores the pending
+token and the k proposals in one masked (k+1)-token pass of the target,
+samples its OWN token at each position j with draw ``draws + j`` (eos →
+pad freezing per position), accepts the longest prefix of proposals
+that matches, and advances ``draws``, ``tok``, ``done`` and the index by
+``n_emit`` = 1 + matches. A speculative engine's streams are therefore
+the plain engine's, greedy and sampled alike; proposals only decide how
+many positions a tick keeps. A draft that raises falls back to null
+proposals for that tick (``draft_fallbacks``): the verify step is right
+for any proposals. The draft's sync operands (the pending token, the
+accepted index) are the target's own device state: no host mirror.
 
-Not yet ported: speculative decoding (``draft_cfg``/``spec_k``), the
-prefix page pool (``prefix_pages``/``kv_page_size``/``shared_pages``),
-sharded serving (``mesh``), weight hot-swap (``swap_params``) and trace
-annotations (``annotate_traces``); each raises when asked for.
+**Prefix pages** (``prefix_pages`` > 0, ``kv_page_size``): a device page
+pool (:mod:`dtf_tpu_torch.serve.pages`) and two more step functions with
+their own ``page_trace_counts`` {save: 1, load: 1}: ``page_load``
+gathers a pinned chain into a slot's leading positions (and deactivates
+the slot), ``page_save`` scatters a slot's new full prompt pages out.
+Under self-speculation (the draft is the target's architecture) a load
+lands in the draft's cache too and the draft's prefill covers only the
+tail.
+
+The state lives on the engine's device and every step writes it IN
+PLACE. Every operand of a step is a device tensor of a shape fixed at
+construction (host values arrive through one host-to-device copy into a
+fixed buffer), and a step makes no device-to-host sync: the host reads
+back only the decode output and the first token after a last chunk —
+what a CUDA graph of a step needs (none is captured yet). The engine is
+dense, like the reference: its prefill is the chunked-prefill einsum and
+its decode the grouped decode einsum, so it launches none of the hand
+kernels.
+
+Not yet ported: the tuner's ``spec_k = 0`` with a draft, sharded serving
+(``mesh``), weight hot-swap (``swap_params``) and trace annotations
+(``annotate_traces``); each raises when asked for.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Optional, Sequence
 
@@ -52,6 +81,9 @@ import torch
 
 from dtf_tpu_torch.core.device import resolve_device
 from dtf_tpu_torch.models import gpt
+from dtf_tpu_torch.serve import pages as pages_lib
+
+log = logging.getLogger("dtf_tpu_torch")
 
 #: per-slot state next to the cache (leading dim n_slots): name, dtype,
 #: initial value. One registry so the state allocation and the steps cannot
@@ -76,6 +108,9 @@ _PREFILL_INTS = ("slot", "start", "n_valid", "reset", "is_last", "top_k",
                  "eos", "pad", "seed")
 #: and its float32 operand row
 _PREFILL_FLOATS = ("temp", "top_p")
+#: the page steps' int64 operand row: these scalars, then the page ids
+#: (load: ``a`` = pages to load; save: the window [a, b) of new pages)
+_PAGE_INTS = ("slot", "a", "b")
 
 
 def _row_cache(cache: list, slot: torch.Tensor) -> list:
@@ -110,8 +145,9 @@ def _build_prefill_fn(model: gpt.GPT):
     """prefill_into_slot: one fixed-width chunk into one slot; on the last
     chunk, sample the request's first token (draw 0 of its stream).
     ``start`` is where a fresh request's index lands (``reset`` on its
-    first chunk); stale slot contents past it need no clearing — validity
-    derives from the index."""
+    first chunk): 0, or the tokens its loaded prefix pages cover; stale
+    slot contents past it need no clearing — validity derives from the
+    index."""
     def prefill_fn(state: dict, ints: torch.Tensor,
                    floats: torch.Tensor) -> torch.Tensor:
         op = {name: ints[i] for i, name in enumerate(_PREFILL_INTS)}
@@ -172,6 +208,147 @@ def _build_decode_fn(model: gpt.GPT):
     return decode_fn
 
 
+def _build_draft_fn(model: gpt.GPT, k: int):
+    """draft_all: k GREEDY proposals a slot — k + 1 single-token
+    ``slot_decode`` steps of the draft model on its own cache. Greedy on
+    purpose: the verifier prefix-matches them against its own samples, so
+    they need no sampler. ``sync_index`` (the verifier's accepted
+    boundary) first rolls every active row of the draft cache back, so
+    last tick's rejected proposals are forgotten by index assignment,
+    never by clearing. The LAST step ingests the k-th proposal (its
+    output unused): on a clean sweep the verifier advances k + 1
+    positions, and without it the draft cache would keep a never-written
+    hole at idx + k behind its rolled-forward index."""
+    def draft_fn(state: dict, tok: torch.Tensor,
+                 sync_index: torch.Tensor) -> torch.Tensor:
+        active = state["active"]
+        gpt.cache_rollback(state["cache"], sync_index, active)
+        cur, props = tok, []
+        for _ in range(k + 1):
+            logits = model(cur[:, None], state["cache"],
+                           decode_active=active)[:, 0]
+            cur = torch.argmax(logits, dim=-1)
+            props.append(cur)
+        return torch.stack(props[:k], dim=1)                   # [S, k]
+
+    return draft_fn
+
+
+def _build_verify_fn(model: gpt.GPT, k: int):
+    """decode/verify: ONE (k+1)-token masked step across all slots, the
+    speculative replacement of :func:`_build_decode_fn`. Inputs a row:
+    the pending token and the k proposals. Position j's token is sampled
+    with the row's stream at draw ``draws + j`` — what the j-th of n
+    sequential decode steps would draw — and frozen to pad after eos as
+    they would. Acceptance is a per-row prefix match of the proposals
+    against those tokens: ``n_emit`` = 1 + the matching prefix (position
+    j + 1's logits are only right when inputs 1..j were the emitted
+    stream, which the prefix rule ensures; the + 1 is the verifier's own
+    token: the correction on a mismatch, the bonus on a clean sweep).
+    ``draws``, ``tok``, ``done`` and the cache index then stand where
+    ``n_emit`` plain steps would have left them. Inactive rows emit 0 and
+    keep everything. Returns [S, 2(k+1) + 1]: the k + 1 tokens, their
+    done bits and ``n_emit``."""
+    def verify_fn(state: dict, proposals: torch.Tensor) -> torch.Tensor:
+        active = state["active"]
+        n = active.shape[0]
+        idx0 = gpt.cache_index_of(state["cache"]).clone()        # [S]
+        inputs = torch.cat([state["tok"][:, None], proposals], dim=1)
+        logits = model(inputs, state["cache"], decode_active=active)
+
+        def rows(x):                    # [S] -> [S * (k+1)], row-major
+            return x[:, None].expand(n, k + 1).reshape(-1)
+
+        draws = state["draws"][:, None] + torch.arange(k + 1,
+                                                       device=active.device)
+        sampled = gpt.sample_tokens(
+            logits.reshape(n * (k + 1), -1), temperature=rows(state["temp"]),
+            top_k=rows(state["top_k"]), top_p=rows(state["top_p"]),
+            key=rows(state["key"]), draw=draws.reshape(-1)).view(n, k + 1)
+        done = state["done"]
+        toks, dones = [], []
+        for j in range(k + 1):
+            tkn = torch.where(done, state["pad"], sampled[:, j])
+            done = done | ((state["eos"] >= 0) & (tkn == state["eos"]))
+            toks.append(tkn)
+            dones.append(done)
+        toks, dones = torch.stack(toks, dim=1), torch.stack(dones, dim=1)
+        match = torch.cumprod((toks[:, :k] == proposals).long(), dim=1)
+        n_emit = torch.where(active, 1 + match.sum(dim=1),
+                             torch.zeros_like(idx0))
+        last = (n_emit.clamp_min(1) - 1)[:, None]
+        gpt.cache_rollback(state["cache"], idx0 + n_emit, active)
+        state["draws"].add_(n_emit)
+        state["tok"].copy_(torch.where(active, toks.gather(1, last)[:, 0],
+                                       state["tok"]))
+        state["done"].copy_(torch.where(active, dones.gather(1, last)[:, 0],
+                                        state["done"]))
+        return torch.cat([toks, dones.long(), n_emit[:, None]], dim=1)
+
+    return verify_fn
+
+
+def _build_page_save_fn(n_pages: int):
+    """page_save: one slot's NEW prompt pages — page j in [a, b) — to pool
+    entries ``ids[j]``, in one step; pages outside the window are pointed
+    at the id ``n_pages``, which :func:`gpt.cache_save_pages` drops."""
+    def save_fn(state: dict, pool: list, ints: torch.Tensor) -> None:
+        slot, lo, hi = ints[0:1], ints[1], ints[2]
+        ids = ints[len(_PAGE_INTS):]
+        j = torch.arange(ids.shape[0], device=ids.device)
+        ids = torch.where((j >= lo) & (j < hi), ids,
+                          torch.full_like(ids, n_pages))
+        gpt.cache_save_pages(state["cache"], pool, slot, ids)
+
+    return save_fn
+
+
+def _build_page_load_fn():
+    """page_load: a pinned chain (``ids[:a]``) into the leading positions
+    of one slot — and DEACTIVATE the slot: a just-admitted slot still
+    holds its previous occupant's ``active`` row, and a decode step before
+    its first live chunk would write that request's K/V over the pages
+    just landed."""
+    def load_fn(state: dict, pool: list, ints: torch.Tensor) -> None:
+        slot, n_valid = ints[0:1], ints[1]
+        gpt.cache_load_pages(state["cache"], pool, slot,
+                             ints[len(_PAGE_INTS):], n_valid)
+        state["active"].index_fill_(0, slot, False)
+        state["done"].index_fill_(0, slot, False)
+
+    return load_fn
+
+
+def _new_state(model: gpt.GPT, n_slots: int) -> dict:
+    """A slot pool's device state: the model's cache at n_slots rows and
+    the per-slot arrays of ``_SLOT_ARRAYS`` at their initial values."""
+    state = {"cache": model.init_cache(n_slots)}
+    for name, dtype, init in _SLOT_ARRAYS:
+        state[name] = torch.full((n_slots,), init, dtype=dtype,
+                                 device=model.device)
+    return state
+
+
+def _load_model(cfg: gpt.GPTConfig, params: dict, device,
+                share=None) -> gpt.GPT:
+    """``cfg``'s model on ``device`` with ``params``. ``share`` (a target
+    model and the state dict it was loaded from): every tensor of
+    ``params`` that IS the target's input tensor becomes the target
+    model's own parameter, not a copy — a self-draft or an early-exit
+    draft (:func:`gpt.draft_truncate`) costs no second set of weights."""
+    with torch.no_grad():
+        model = gpt.GPT(cfg, device=device)
+        model.load_state_dict(params)
+        if share is not None:
+            target, target_params = share
+            own = dict(target.named_parameters())
+            same = {n: own[n] for n, x in params.items()
+                    if n in own and target_params.get(n) is x}
+            if same:
+                model.load_state_dict(same, strict=False, assign=True)
+    return model.eval()
+
+
 class DecodeEngine:
     """Slot-pooled online decode over a GPT's parameters.
 
@@ -181,15 +358,22 @@ class DecodeEngine:
     slot's KV cache (prompt + generated tokens of a request must fit),
     ``n_slots`` the pool of concurrent requests, ``prefill_chunk`` the
     fixed width of the prefill step (>= 2: a 1-token call is a decode
-    step). ``device``: ``cuda`` unless asked for the CPU; without a GPU
-    asking for ``cuda`` raises.
+    step). ``prefix_pages`` / ``kv_page_size`` / ``page_save_after``
+    size the prefix page pool (``shared_pages``: another engine's
+    ``page_store`` to mount instead); ``draft_cfg`` / ``draft_params`` /
+    ``spec_k`` turn on speculative decoding. ``device``: ``cuda`` unless
+    asked for the CPU; without a GPU asking for ``cuda`` raises.
     """
 
     def __init__(self, cfg: gpt.GPTConfig, params, *, n_slots: int,
                  max_len: int, prefill_chunk: int = 16, device="cuda",
                  mesh=None, kv_page_size: int = 0, prefix_pages: int = 0,
+                 page_save_after: int = 2,
                  draft_cfg: Optional[gpt.GPTConfig] = None,
                  draft_params=None, spec_k: int = 0, shared_pages=None):
+        if mesh is not None:
+            raise NotImplementedError("mesh (sharded serving) is not yet "
+                                      "ported")
         if n_slots < 1:
             raise ValueError(f"n_slots={n_slots} must be >= 1")
         if max_len < 2:
@@ -200,16 +384,21 @@ class DecodeEngine:
                 f"prefill_chunk={prefill_chunk} must be >= 2: a 1-token "
                 "apply routes to the single-token decode branch, not the "
                 "chunked-prefill path")
-        unported = {"prefix_pages / kv_page_size / shared_pages (the "
-                    "prefix page pool)": prefix_pages or kv_page_size
-                    or shared_pages is not None,
-                    "draft_cfg / draft_params / spec_k (speculative "
-                    "decoding)": draft_cfg is not None
-                    or draft_params is not None or spec_k,
-                    "mesh (sharded serving)": mesh is not None}
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"{what} is not yet ported")
+        if prefix_pages:
+            if kv_page_size < 1:
+                raise ValueError(
+                    f"prefix_pages={prefix_pages} needs kv_page_size >= 1 "
+                    f"(got {kv_page_size})")
+            if max_len % kv_page_size:
+                raise ValueError(
+                    f"kv_page_size={kv_page_size} does not divide the "
+                    f"cache length max_len={max_len}: a page window "
+                    "crossing the cache end cannot be copied fixed-shape")
+            if cfg.attn_window:
+                raise ValueError(
+                    f"the prefix page cache needs the plain slot=position "
+                    f"cache layout; attn_window={cfg.attn_window} rolls "
+                    "the buffer so page windows alias arbitrary positions")
         base = dataclasses.replace(cfg, decode_len=max_len,
                                    slot_decode=False, chunked_prefill=False)
         # the chunk may not be wider than ANY layer's cache: the rolling-
@@ -225,32 +414,67 @@ class DecodeEngine:
                 f"per-layer cache length {min_cache} (max_len={max_len}, "
                 f"attn_window={base.attn_window}); a right-padded chunk "
                 "wider than the cache drops valid prompt K/V")
+        if spec_k < 0:
+            raise ValueError(f"spec_k={spec_k} must be >= 0")
+        if spec_k and draft_cfg is None:
+            raise ValueError(
+                f"spec_k={spec_k} needs a draft model: pass draft_cfg + "
+                "draft_params (speculation verifies a second model's "
+                "proposals — there is nothing to verify without one)")
+        dbase = None
+        if draft_cfg is not None:
+            if draft_params is None:
+                raise ValueError("draft_cfg without draft_params")
+            if base.attn_window or draft_cfg.attn_window:
+                raise ValueError(
+                    "speculative decoding needs the full windowless cache "
+                    "layout on BOTH models (rolled buffers cannot roll a "
+                    f"rejected tail back); got attn_window="
+                    f"{base.attn_window}/{draft_cfg.attn_window}")
+            if draft_cfg.vocab_size != base.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                    f"{base.vocab_size}: a draft must propose in the "
+                    "verifier's token space")
+            if spec_k == 0:
+                raise NotImplementedError(
+                    "spec_k=0 with a draft (the kernel tuner picks the "
+                    "draft width) is not yet ported (tune/); pass spec_k "
+                    ">= 1")
+            if spec_k + 1 >= max_len:
+                raise ValueError(
+                    f"spec_k={spec_k} leaves no room in the "
+                    f"max_len={max_len} cache for a verify window")
+            dbase = dataclasses.replace(draft_cfg, decode_len=max_len,
+                                        slot_decode=False,
+                                        chunked_prefill=False)
+        if shared_pages is not None and not prefix_pages:
+            raise ValueError(
+                "shared_pages needs prefix_pages > 0 on the mounting "
+                "engine too (the pool shapes come from its own config)")
         self.cfg = base
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
-        self.spec_k = 0
+        self.page_size = kv_page_size if prefix_pages else 0
+        self.n_pages = prefix_pages
+        self.spec_k = spec_k if dbase is not None else 0
+        self.draft_cfg = dbase
         self.device = resolve_device(device)
         #: host-side call counters (plain ints, no device readback); the
-        #: page, prefix and swap counters stay 0 until those are ported
+        #: probe and swap counters stay 0 until those are ported
         self.counters = {"prefill_chunks": 0, "decode_steps": 0,
                          "pages_loaded": 0, "pages_saved": 0,
                          "prefix_hit_tokens": 0, "prefix_miss_tokens": 0,
                          "probe_decodes": 0, "param_swaps": 0}
         #: the version of the weights served: 0, as constructed (the
-        #: scheduler stamps it into every completed record)
+        #: scheduler stamps it into every completed record; prefix pages
+        #: are keyed by it)
         self.param_version = 0
 
-        with torch.no_grad():
-            model = gpt.GPT(dataclasses.replace(base, slot_decode=True),
-                            device=self.device)
-            model.load_state_dict(params)
-        self._model = model.eval()
-        state = {"cache": model.init_cache(n_slots)}
-        for name, dtype, init in _SLOT_ARRAYS:
-            state[name] = torch.full((n_slots,), init, dtype=dtype,
-                                     device=self.device)
-        self._state = state
+        self._model = _load_model(dataclasses.replace(base, slot_decode=True),
+                                  params, self.device)
+        self._state = _new_state(self._model, n_slots)
         # the prefill step's operand buffers: the host fills them with one
         # copy a chunk, the step reads only these
         self._ints = torch.zeros(len(_PREFILL_INTS) + prefill_chunk,
@@ -262,8 +486,74 @@ class DecodeEngine:
         self.trace_counts = {"prefill": 0, "decode": 0}
         self._prefill_fn = _build_prefill_fn(self._model)
         self.trace_counts["prefill"] += 1
-        self._decode_fn = _build_decode_fn(self._model)
+        if self.spec_k:
+            self._decode_fn = _build_verify_fn(self._model, self.spec_k)
+        else:
+            self._decode_fn = _build_decode_fn(self._model)
         self.trace_counts["decode"] += 1
+
+        if self.spec_k:
+            self.counters.update({"draft_steps": 0,
+                                  "draft_prefill_chunks": 0,
+                                  "draft_fallbacks": 0,
+                                  "spec_proposed": 0, "spec_accepted": 0})
+            self._draft_model = _load_model(
+                dataclasses.replace(dbase, slot_decode=True), draft_params,
+                self.device, share=(self._model, params))
+            self._draft_state = _new_state(self._draft_model, n_slots)
+            self.trace_counts.update({"draft_prefill": 0, "draft": 0})
+            self._draft_prefill_fn = _build_prefill_fn(self._draft_model)
+            self.trace_counts["draft_prefill"] += 1
+            self._draft_fn = _build_draft_fn(self._draft_model, self.spec_k)
+            self.trace_counts["draft"] += 1
+            #: the proposals of a tick whose draft step raised
+            self._null_props = torch.zeros(n_slots, self.spec_k,
+                                           dtype=torch.long,
+                                           device=self.device)
+            #: host bookkeeping of each slot's draft prefill: chunks run,
+            #: the position it starts at, and a page load's staged start
+            self._draft_chunks = [0] * n_slots
+            self._draft_start = [0] * n_slots
+            self._draft_pending = [0] * n_slots
+            #: SELF-speculation (the draft is the target's architecture):
+            #: the draft cache has the target's layout, so a prefix-page
+            #: load lands there too and the draft prefills only the tail
+            self._draft_self = dbase == base
+            if self._draft_self:
+                self.counters["draft_pages_loaded"] = 0
+
+        self._page_store = None
+        self._owns_pages = False
+        self.page_trace_counts = {}
+        if prefix_pages:
+            pool_abs = pages_lib.pool_abstract(self._state["cache"],
+                                               prefix_pages, kv_page_size)
+            if shared_pages is not None:
+                pages_lib.check_pool_compatible(shared_pages.pool, pool_abs)
+                if (shared_pages.index.n_pages != prefix_pages
+                        or shared_pages.index.page_size != kv_page_size):
+                    raise ValueError(
+                        f"shared page store is {shared_pages.index.n_pages}"
+                        f"x{shared_pages.index.page_size}-token pages; "
+                        f"this engine asked for {prefix_pages}"
+                        f"x{kv_page_size}")
+                self._page_store = shared_pages
+            else:
+                pool = [{n: torch.zeros(x.shape, dtype=x.dtype,
+                                        device=self.device)
+                         for n, x in layer.items()} for layer in pool_abs]
+                self._page_store = pages_lib.PageStore(
+                    pool, pages_lib.PrefixIndex(prefix_pages, kv_page_size,
+                                                save_after=page_save_after))
+                self._owns_pages = True
+            self._page_ints = torch.zeros(
+                len(_PAGE_INTS) + max_len // kv_page_size, dtype=torch.long,
+                device=self.device)
+            self.page_trace_counts = {"save": 0, "load": 0}
+            self._page_save_fn = _build_page_save_fn(prefix_pages)
+            self.page_trace_counts["save"] += 1
+            self._page_load_fn = _build_page_load_fn()
+            self.page_trace_counts["load"] += 1
 
     # ------------------------------------------------------------- host API
 
@@ -289,6 +579,22 @@ class DecodeEngine:
         rows), for inspection; the steps write it in place."""
         return self._state
 
+    @property
+    def draft_state(self) -> Optional[dict]:
+        """The draft model's slot state (None without a draft)."""
+        return self._draft_state if self.spec_k else None
+
+    @property
+    def page_store(self) -> Optional[pages_lib.PageStore]:
+        """The engine's mountable prefix-page state (None with the pool
+        off): pass it as ``shared_pages=`` to further engines to share one
+        pool and index."""
+        return self._page_store
+
+    @property
+    def _prefix(self) -> Optional[pages_lib.PrefixIndex]:
+        return None if self._page_store is None else self._page_store.index
+
     def n_chunks(self, prompt_len: int) -> int:
         return math.ceil(prompt_len / self.prefill_chunk)
 
@@ -300,41 +606,80 @@ class DecodeEngine:
                            pin_memory=dst.is_cuda)
         dst.copy_(src, non_blocking=True)
 
+    def _run_prefill(self, fn, state: dict, slot: int, tail: list,
+                     chunk_i: int, start: int, is_last: bool,
+                     sampling: tuple) -> torch.Tensor:
+        """One chunk of ``tail`` (the prompt past ``start``) through the
+        prefill step ``fn`` on ``state``."""
+        c = self.prefill_chunk
+        seg = tail[chunk_i * c:(chunk_i + 1) * c]
+        temperature, top_k, top_p, eos_id, pad_id, seed = sampling
+        ints = [slot, start, len(seg), int(chunk_i == 0), int(is_last),
+                top_k, -1 if eos_id is None else eos_id, pad_id, seed]
+        self._stage(self._ints, ints + seg + [0] * (c - len(seg)))
+        self._stage(self._floats, [temperature, top_p])
+        with torch.no_grad():
+            return fn(state, self._ints, self._floats)
+
     def prefill_into_slot(self, slot: int, prompt: Sequence[int],
                           chunk_i: int, *, start: int = 0,
                           temperature: float = 0.0, top_k: int = 0,
                           top_p: float = 1.0, eos_id: Optional[int] = None,
                           pad_id: int = 0, seed: int = 0) -> torch.Tensor:
-        """Run prompt chunk ``chunk_i`` into ``slot`` and return the step's
-        device output ``[token, done]`` (meaningful on the last chunk) —
-        no device-to-host sync. :meth:`prefill_chunk_into` is the host
-        API around it."""
+        """Run chunk ``chunk_i`` of ``prompt[start:]`` into ``slot`` (the
+        first ``start`` tokens are in the slot's cache already: loaded
+        prefix pages) and return the step's device output ``[token,
+        done]`` (meaningful on the last chunk) — no device-to-host sync.
+        With a draft, the draft's prefill rides along: one draft chunk
+        with each target chunk, the rest with the last one, so both
+        models' slots turn active in the same call.
+        :meth:`prefill_chunk_into` is the host API around it."""
         prompt = [int(t) for t in prompt]
         if not 1 <= len(prompt) <= self.max_len - 1:
             raise ValueError(
                 f"prompt length {len(prompt)} must be in [1, "
                 f"{self.max_len - 1}] (max_len={self.max_len} covers "
                 "prompt + generated tokens)")
-        if start:
-            raise NotImplementedError(
-                f"start={start}: prefix pages loaded into a slot (the "
-                "prefix page pool) are not yet ported")
+        if not 0 <= start < len(prompt):
+            raise ValueError(
+                f"start={start} must be in [0, {len(prompt)}) — at least "
+                "one prompt token must prefill live (the request's first "
+                "sampled token comes from the last position's logits)")
         if not 0 <= slot < self.n_slots:
             raise ValueError(f"slot {slot} out of range [0, {self.n_slots})")
-        c = self.prefill_chunk
-        n = self.n_chunks(len(prompt))
+        n = self.n_chunks(len(prompt) - start)
         if not 0 <= chunk_i < n:
             raise ValueError(f"chunk {chunk_i} out of range [0, {n})")
-        seg = prompt[chunk_i * c:(chunk_i + 1) * c]
-        ints = [slot, start, len(seg), int(chunk_i == 0),
-                int(chunk_i == n - 1), top_k,
-                -1 if eos_id is None else eos_id, pad_id, seed]
-        self._stage(self._ints, ints + seg + [0] * (c - len(seg)))
-        self._stage(self._floats, [temperature, top_p])
-        with torch.no_grad():
-            out = self._prefill_fn(self._state, self._ints, self._floats)
+        last = chunk_i == n - 1
+        out = self._run_prefill(
+            self._prefill_fn, self._state, slot, prompt[start:], chunk_i,
+            start, last, (temperature, top_k, top_p, eos_id, pad_id, seed))
         self.counters["prefill_chunks"] += 1
+        if self.spec_k:
+            if chunk_i == 0:
+                self._draft_chunks[slot] = 0
+                # a page load just before this admission shortcuts the
+                # draft too (self-speculation; load_prefix staged it)
+                self._draft_start[slot] = self._draft_pending[slot]
+                self._draft_pending[slot] = 0
+            dstart = self._draft_start[slot]
+            n_d = self.n_chunks(len(prompt) - dstart)
+            todo = n_d if last else min(n_d, self._draft_chunks[slot] + 1)
+            while self._draft_chunks[slot] < todo:
+                self._draft_prefill_chunk(slot, prompt, dstart, n_d)
         return out
+
+    def _draft_prefill_chunk(self, slot: int, prompt: list, start: int,
+                             n_d: int) -> None:
+        """The next chunk of the DRAFT's prefill of ``prompt[start:]``
+        into ``slot``, greedy (the sampled first token is discarded: the
+        request's stream belongs to the verifier alone)."""
+        i = self._draft_chunks[slot]
+        self._run_prefill(self._draft_prefill_fn, self._draft_state, slot,
+                          prompt[start:], i, start, i == n_d - 1,
+                          (0.0, 0, 1.0, None, 0, 0))
+        self.counters["draft_prefill_chunks"] += 1
+        self._draft_chunks[slot] = i + 1
 
     def prefill_chunk_into(self, slot: int, prompt: Sequence[int],
                            chunk_i: int, *, start: int = 0,
@@ -345,46 +690,94 @@ class DecodeEngine:
         """Run prompt chunk ``chunk_i`` of a request into ``slot`` — the
         scheduler's prefill/decode interleave granularity (decode_all may
         run between chunks; the slot stays a masked spectator until its
-        last chunk lands). Returns ``(first_token, done)`` on the last
-        chunk (the one readback), None before."""
+        last chunk lands). Chunks cover ``prompt[start:]``. Returns
+        ``(first_token, done)`` on the last chunk (the one readback), None
+        before."""
         out = self.prefill_into_slot(
             slot, prompt, chunk_i, start=start, temperature=temperature,
             top_k=top_k, top_p=top_p, eos_id=eos_id, pad_id=pad_id,
             seed=seed)
-        if chunk_i != self.n_chunks(len(prompt)) - 1:
+        if chunk_i != self.n_chunks(len(prompt) - start) - 1:
             return None
         tok, done = out.tolist()
         return int(tok), bool(done)
 
     def prefill(self, slot: int, prompt: Sequence[int], *, start: int = 0,
                 **sampling) -> tuple[int, bool]:
-        """Admit a request into ``slot``: stream its whole prompt through
-        the chunk step and sample the first token. Returns
-        ``(first_token, done)``."""
+        """Admit a request into ``slot``: stream its whole prompt (less
+        ``start`` page-loaded tokens) through the chunk step and sample
+        the first token. Returns ``(first_token, done)``."""
         n = self.n_chunks(len(prompt) - start)
-        if n == 0:
+        if n <= 0:
             raise ValueError(
-                f"prompt length 0 must be in [1, {self.max_len - 1}]")
+                f"prompt length {len(prompt)} must be in [1, "
+                f"{self.max_len - 1}] with start={start} below it")
         out = None
         for i in range(n):
             out = self.prefill_chunk_into(slot, prompt, i, start=start,
                                           **sampling)
         return out
 
-    def decode_all(self) -> torch.Tensor:
-        """One masked token step across all slots; returns the device
-        output [2, n_slots] (tokens, done) — no device-to-host sync."""
+    def draft_propose(self) -> torch.Tensor:
+        """One draft step: k greedy proposals a slot [S, k] off the draft
+        model's cache, rolled first to the verifier's accepted boundary
+        (the target's index, read on the device). Split out of
+        :meth:`decode_all` so a caller can wrap it: a failing draft falls
+        back to null proposals, it does not fail requests."""
         with torch.no_grad():
-            out = self._decode_fn(self._state)
+            props = self._draft_fn(self._draft_state, self._state["tok"],
+                                   gpt.cache_index_of(self._state["cache"]))
+        self.counters["draft_steps"] += 1
+        return props
+
+    def decode_all(self) -> torch.Tensor:
+        """One masked step across all slots; returns its device output —
+        no device-to-host sync. Without a draft: [2, n_slots] (tokens,
+        done). With ``spec_k`` = k: the draft step, then the verify step:
+        [n_slots, 2(k+1) + 1] (k + 1 tokens, their done bits, n_emit)."""
+        props = None
+        if self.spec_k:
+            try:
+                props = self.draft_propose()
+            except Exception as e:  # noqa: BLE001 — the verify step is
+                # right for any proposals (at worst it emits one token,
+                # plain decode): a draft failure must not fail requests
+                log.warning("draft step failed (%r); null proposals this "
+                            "tick", e, exc_info=True)
+                self.counters["draft_fallbacks"] += 1
+                props = self._null_props
+        if props is None:
+            with torch.no_grad():
+                out = self._decode_fn(self._state)
+            self.counters["decode_steps"] += 1
+            return out
+        return self.verify_all(props)
+
+    def verify_all(self, proposals: torch.Tensor) -> torch.Tensor:
+        """The verify step alone (``spec_k`` > 0) on device proposals [S,
+        k]: [n_slots, 2(k+1) + 1] — k + 1 tokens, their done bits, n_emit;
+        no device-to-host sync."""
+        with torch.no_grad():
+            out = self._decode_fn(self._state, proposals)
         self.counters["decode_steps"] += 1
         return out
 
     def decode(self):
-        """One masked token step across all slots: ``(tokens [n_slots],
-        done [n_slots])`` as host arrays — the one device-to-host sync a
-        generated token (eos and delivery decisions live on the host)."""
+        """One masked step across all slots as host arrays — the one
+        device-to-host sync a tick (eos and delivery decisions live on
+        the host). Without a draft: ``(tokens [n_slots], done
+        [n_slots])``. With ``spec_k`` = k: ``(tokens [n_slots, k+1], done
+        [n_slots, k+1], n_emit [n_slots])``; the scheduler delivers
+        ``tokens[s, :n_emit[s]]``."""
         out = self.decode_all().cpu().numpy()
-        return out[0], out[1].astype(bool)
+        if not self.spec_k:
+            return out[0], out[1].astype(bool)
+        k1 = self.spec_k + 1
+        toks, dones, n_emit = out[:, :k1], out[:, k1:2 * k1], out[:, -1]
+        live = n_emit > 0
+        self.counters["spec_proposed"] += int(self.spec_k * live.sum())
+        self.counters["spec_accepted"] += int((n_emit[live] - 1).sum())
+        return toks, dones.astype(bool), n_emit
 
     def probe(self) -> None:
         """One decode step with the outputs discarded (the router's health
@@ -393,8 +786,111 @@ class DecodeEngine:
         self.decode()
         self.counters["probe_decodes"] += 1
 
+    # ----------------------------------------------------- prefix page API
+
+    def prefix_match(self, prompt: Sequence[int]):
+        """The admission lookup: the longest cached page chain matching a
+        prefix of ``prompt`` at this engine's param version, PINNED until
+        :meth:`release_prefix`. None on a miss or with the pool off."""
+        if self._prefix is None:
+            return None
+        prompt = tuple(int(t) for t in prompt)
+        h = self._prefix.acquire(prompt, epoch=self.param_version)
+        if h is None:
+            self.counters["prefix_miss_tokens"] += len(prompt)
+        else:
+            self.counters["prefix_hit_tokens"] += h.n_tokens
+            self.counters["prefix_miss_tokens"] += len(prompt) - h.n_tokens
+        return h
+
+    def _run_page(self, fn, state: dict, slot: int, a: int, b: int,
+                  ids: Sequence[int]) -> None:
+        m = self.max_len // self.page_size
+        self._stage(self._page_ints,
+                    [slot, a, b] + list(ids) + [0] * (m - len(ids)))
+        with torch.no_grad():
+            fn(state, self._page_store.pool, self._page_ints)
+
+    def load_prefix(self, slot: int, handle) -> None:
+        """Gather a pinned chain's pages into ``slot``'s leading positions
+        — one page-load step for the whole chain, in place of
+        ``n_tokens / prefill_chunk`` prefill chunks."""
+        ids = [e.page_id for e in handle.entries]
+        self._run_page(self._page_load_fn, self._state, slot, len(ids), 0,
+                       ids)
+        self.counters["pages_loaded"] += len(ids)
+        if self.spec_k and self._draft_self:
+            # self-speculation: the draft's cache has the target's layout,
+            # so the same step lands the chain there and the draft's
+            # prefill covers only the uncached tail, as the target's
+            self._run_page(self._page_load_fn, self._draft_state, slot,
+                           len(ids), 0, ids)
+            self._draft_pending[slot] = handle.n_tokens
+            self.counters["draft_pages_loaded"] += len(ids)
+
+    def save_prefix_pages(self, slot: int, prompt: Sequence[int]) -> None:
+        """After a request's LAST prefill chunk: register every full page
+        of its prompt that is not yet in the pool and has passed the
+        save-admission filter, and copy them out of the slot — one step
+        however many pages are new. Stops quietly when the pool is all
+        pinned or parented: saving never blocks."""
+        if self._prefix is None:
+            return
+        prompt = tuple(int(t) for t in prompt)
+        epoch = self.param_version
+        full = len(prompt) // self.page_size
+        have, parent = self._prefix.longest(prompt, cap=full, epoch=epoch)
+        full = have + self._prefix.save_eligible(prompt, have, full,
+                                                 epoch=epoch)
+        ids = []
+        for i in range(have, full):
+            ent = self._prefix.reserve(prompt[:(i + 1) * self.page_size],
+                                       parent, epoch=epoch)
+            if ent is None:
+                break
+            ids.append(ent.page_id)
+            parent = ent
+        if not ids:
+            return
+        self._run_page(self._page_save_fn, self._state, slot, have,
+                       have + len(ids), [0] * have + ids)
+        self.counters["pages_saved"] += len(ids)
+
+    def release_prefix(self, handle) -> None:
+        """Unpin an admission chain (exactly once, on slot evict)."""
+        if handle is not None:
+            self._prefix.release(handle)
+
+    def warm_page_programs(self) -> None:
+        """Run both page steps once with no-op operands (a 0-page load into
+        slot 0, an empty save window), so their first-call costs land
+        outside a timed window; call it before traffic. No cache row or
+        pool page changes (the load deactivates slot 0, as every load
+        does its slot). No-op with the pool off."""
+        if self._prefix is None:
+            return
+        self._run_page(self._page_load_fn, self._state, 0, 0, 0, [])
+        self._run_page(self._page_save_fn, self._state, 0, 0, 0, [])
+
+    def prefix_stats(self) -> dict:
+        """The page pool's aggregates (an empty dict with the pool off);
+        ``pinned`` drains to 0 once every admitted request released its
+        chain."""
+        if self._prefix is None:
+            return {}
+        return {**self._prefix.stats,
+                "pages": self.n_pages - self._prefix.n_free,
+                "pages_free": self._prefix.n_free,
+                "pinned": self._prefix.pinned()}
+
     def cache_bytes(self) -> int:
-        """Resident KV footprint: the slot cache, all layers."""
-        return sum(x.numel() * x.element_size()
-                   for layer in self._state["cache"]
+        """Resident KV footprint: the slot cache, the page pool when this
+        engine owns it (a mounted pool counts on its owner only) and the
+        draft's slot cache, all layers."""
+        layers = list(self._state["cache"])
+        if self._owns_pages:
+            layers += self._page_store.pool
+        if self.spec_k:
+            layers += self._draft_state["cache"]
+        return sum(x.numel() * x.element_size() for layer in layers
                    for x in layer.values() if x is not None)

@@ -21,12 +21,22 @@ Requests can end in a terminal status other than ``done``:
   request only; decode-path exceptions have no single owner and
   propagate.
 
+With a prefix page pool (``engine.prefix_match``) admission first looks
+the prompt up: a hit pins a page chain, loads it into the slot for one
+unit of the chunk budget and prefills only the rest; after the last
+chunk the request's new full pages are saved, and the chain is released
+when the slot is (done, timeout or error alike). With a speculative
+engine (``spec_k`` > 0) a decode tick delivers ``tokens[s, :n_emit[s]]``
+to each running slot in order, until its eos or budget — the tokens
+``n_emit`` plain ticks would have delivered — and counts the proposals
+made and accepted, per request and per param version.
+
 ``poll`` reports the terminal status (and its hint or cause);
 :class:`RequestFailed` is what ``ServeClient.result`` raises on one.
 ``stats()`` gives TTFT and per-token latency p50/p99, occupancy, queue
-peak and the TTFT SLO fraction — host clock arithmetic only, no device
-readback. Not yet ported: the telemetry spans and request traces, the
-serve-log sink, the prefix-page admission and the speculative tick, and
+peak, the TTFT SLO fraction, the speculative accept rate and the page
+pool's aggregates — host arithmetic only, no device readback. Not yet
+ported: the telemetry spans and request traces, the serve-log sink and
 the router's requeue drain; the first two raise when passed.
 """
 
@@ -104,6 +114,14 @@ class _Rec:
     error: str = ""                   # admission-failure cause on error
     #: the engine's param version at completion
     version: Optional[int] = None
+    #: the pinned prefix-page chain (engine.prefix_match) and the pages
+    #: loaded from it; released when the slot is
+    handle: object = None
+    pages_loaded: int = 0
+    #: speculative accounting: proposals made for this request and how
+    #: many the verifier accepted
+    proposed: int = 0
+    accepted: int = 0
 
 
 class Scheduler:
@@ -126,13 +144,6 @@ class Scheduler:
         if log_sink is not None:
             raise NotImplementedError("log_sink (the serve-log sink) is not "
                                       "yet ported")
-        if getattr(engine, "spec_k", 0):
-            raise NotImplementedError(
-                "a speculative engine's tick (spec_k > 0) is not yet ported")
-        if getattr(engine, "page_store", None) is not None:
-            raise NotImplementedError(
-                "prefix-page admission (an engine with prefix_pages) is not "
-                "yet ported")
         self.engine = engine
         self.writer = writer
         self.log_every = log_every
@@ -175,6 +186,11 @@ class Scheduler:
         self._request_errors = 0
         # deadline sweeps only run once a deadlined request has been seen
         self._any_deadlines = False
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        #: speculative counts by the param version that served them:
+        #: {version: [proposed, accepted]}
+        self._accept_by_version: dict[int, list] = {}
 
     # ----------------------------------------------------------- submit/poll
 
@@ -242,11 +258,25 @@ class Scheduler:
                 rec.slot = self._free.pop(0)
                 rec.status = "prefill"
                 self._admitting = rec
+                # the prefix-page lookup (None with the pool off): the
+                # pinned chain loads below, on the same budget
+                pm = getattr(self.engine, "prefix_match", None)
+                if pm is not None:
+                    rec.handle = pm(rec.req.prompt)
             rec = self._admitting
             r = rec.req
             try:
+                if rec.handle is not None and not rec.pages_loaded:
+                    # the whole chain in ONE page-load step, for one unit
+                    # of budget (so admission cannot starve decode); the
+                    # load deactivates the slot first
+                    self.engine.load_prefix(rec.slot, rec.handle)
+                    rec.pages_loaded = len(rec.handle.entries)
+                    budget -= 1
+                    continue
+                start = rec.handle.n_tokens if rec.handle is not None else 0
                 out = self.engine.prefill_chunk_into(
-                    rec.slot, r.prompt, rec.chunks_done,
+                    rec.slot, r.prompt, rec.chunks_done, start=start,
                     temperature=r.temperature, top_k=r.top_k, top_p=r.top_p,
                     eos_id=r.eos_id, pad_id=r.pad_id, seed=r.seed)
             except Exception as e:  # noqa: BLE001 — an ADMISSION failure
@@ -260,6 +290,13 @@ class Scheduler:
             budget -= 1
             if out is not None:                      # last chunk: tok0
                 tok, done = out
+                save = getattr(self.engine, "save_prefix_pages", None)
+                if save is not None:
+                    try:
+                        save(rec.slot, r.prompt)
+                    except Exception as e:  # noqa: BLE001 — same owner
+                        self._fail(rec, e)
+                        continue
                 rec.first_token_t = self.clock()
                 rec.tokens.append(tok)
                 self._admitting = None
@@ -271,13 +308,36 @@ class Scheduler:
                     self._running[rec.slot] = rec
 
         if self._running:
-            toks, dones = self.engine.decode()
+            out = self.engine.decode()
             now = self.clock()
-            for slot, rec in list(self._running.items()):
-                rec.tokens.append(int(toks[slot]))
-                if bool(dones[slot]) or self._budget_spent(rec):
-                    rec.finish_t = now
-                    self._finish(rec)
+            spec_k = getattr(self.engine, "spec_k", 0)
+            if spec_k:
+                # up to k + 1 tokens a slot, delivered in order until the
+                # row's eos or budget: what n_emit plain ticks deliver
+                toks, dones, n_emit = out
+                ver = int(getattr(self.engine, "param_version", 0) or 0)
+                bucket = self._accept_by_version.setdefault(ver, [0, 0])
+                for slot, rec in list(self._running.items()):
+                    n = int(n_emit[slot])
+                    self._spec_proposed += spec_k
+                    self._spec_accepted += n - 1
+                    rec.proposed += spec_k
+                    rec.accepted += n - 1
+                    bucket[0] += spec_k
+                    bucket[1] += n - 1
+                    for j in range(n):
+                        rec.tokens.append(int(toks[slot, j]))
+                        if bool(dones[slot, j]) or self._budget_spent(rec):
+                            rec.finish_t = now
+                            self._finish(rec)
+                            break
+            else:
+                toks, dones = out
+                for slot, rec in list(self._running.items()):
+                    rec.tokens.append(int(toks[slot]))
+                    if bool(dones[slot]) or self._budget_spent(rec):
+                        rec.finish_t = now
+                        self._finish(rec)
         self._occupancy_sum += self._occupancy()
 
         if (self.writer is not None and self.log_every
@@ -331,6 +391,9 @@ class Scheduler:
         rec.finish_t = rec.finish_t or (self.clock() if now is None else now)
         if status == "done":
             rec.version = getattr(self.engine, "param_version", None)
+        if rec.handle is not None:       # the chain's pin goes with the slot
+            self.engine.release_prefix(rec.handle)
+            rec.handle = None
         if rec.slot >= 0:
             self._running.pop(rec.slot, None)
             self._free.append(rec.slot)
@@ -394,6 +457,13 @@ class Scheduler:
 
     # --------------------------------------------------------------- metrics
 
+    def accept_by_version(self) -> dict:
+        """Speculative counts by param version, ``{version: (proposed,
+        accepted)}`` — raw ints a fleet can sum (the rates are in
+        :meth:`stats`)."""
+        return {v: (b[0], b[1])
+                for v, b in sorted(self._accept_by_version.items())}
+
     def stats(self, brief: bool = False) -> dict:
         """Aggregate serving metrics (floats, MetricWriter-compatible)."""
         out = {
@@ -423,6 +493,12 @@ class Scheduler:
             "serve_tok_latency_p50_s": _quantile(self._tok_lats, 0.5),
             "serve_tok_latency_p99_s": _quantile(self._tok_lats, 0.99),
         })
+        if self._spec_proposed:
+            out["serve_spec_accept_rate"] = (self._spec_accepted
+                                             / self._spec_proposed)
+        for v, (prop, acc) in sorted(self._accept_by_version.items()):
+            if prop:
+                out[f"serve_spec_accept_rate_v{v}"] = acc / prop
         if self.ttft_slo_s > 0.0:
             out["serve_ttft_slo_ok_frac"] = (
                 sum(1 for t in self._ttfts if t <= self.ttft_slo_s)
@@ -430,4 +506,8 @@ class Scheduler:
         counters = getattr(self.engine, "counters", None)
         if counters is not None:
             out.update({f"serve_{k}": float(v) for k, v in counters.items()})
+        prefix = getattr(self.engine, "prefix_stats", None)
+        if prefix is not None:
+            out.update({f"serve_prefix_{k}": float(v)
+                        for k, v in prefix().items()})
         return out

@@ -9,6 +9,11 @@
     python -m dtf_tpu_torch.serve_gpt --logdir=/tmp/run \\
         --poisson_rate=4 --n_requests=32 --max_len=256
 
+    # speculative decoding with an early-exit draft, and prefix pages
+    python -m dtf_tpu_torch.serve_gpt --logdir=/tmp/run --spec_k=4 \\
+        --draft_layers=3 --prefix_pages=256 --kv_page_size=16 \\
+        --requests=@/tmp/requests.txt
+
 The online half of the GPT loop (``generate_gpt`` is the offline half):
 parameters come from the newest checkpoint that ``train_gpt`` wrote under
 ``--logdir`` (its ``model_config.json`` manifest sets the architecture;
@@ -16,18 +21,22 @@ hand-given flags that contradict it raise), from ``--params_npz`` (a
 flax-style tree) or from ``--init_seed``. Builds a
 :class:`dtf_tpu_torch.serve.DecodeEngine` (``--n_slots`` concurrent
 requests, ``--max_len`` a slot) and pumps a FIFO scheduler with
-prefill/decode interleave. Prints ONE JSON line of serving metrics:
-tokens/s, TTFT and per-token latency p50/p99, occupancy, queue depth.
+prefill/decode interleave. ``--spec_k`` with a draft (``--draft_ckpt``:
+another train_gpt logdir, or ``--draft_layers``: the served model's first
+layers) decodes speculatively; ``--prefix_pages`` / ``--kv_page_size``
+keep a prefix page pool. Prints ONE JSON line of serving metrics:
+tokens/s, TTFT and per-token latency p50/p99, occupancy, queue depth,
+the speculative counters and accept rate, the page pool's aggregates.
 ``--emit_tokens`` first prints one ``rid:tok,tok,...`` row a request.
 Runs on ``cuda`` unless ``--device=cpu`` (or ``--backend=cpu``).
 
 Not yet ported, and raising when asked for: more than one replica
-(``--replicas``, ``--prefill_replicas``), speculative decoding
-(``--spec_k``, ``--draft_*``), the prefix page pool (``--prefix_pages``,
-``--kv_page_size``), published weights and hot-swap (``--publish_dir``,
-``--publish_version``, ``--swap_poll_ticks``, ``--draft_publish_dir``),
-``--telemetry``, ``--trace_out``, ``--log_sink_dir``, ``--event_log_dir``,
-and a mesh axis > 1.
+(``--replicas``, ``--prefill_replicas``), ``--draft_precision``,
+``--spec_k=0`` with a draft (the kernel tuner's width), published weights
+and hot-swap (``--publish_dir``, ``--publish_version``,
+``--swap_poll_ticks``, ``--draft_publish_dir``), ``--telemetry``,
+``--trace_out``, ``--log_sink_dir``, ``--event_log_dir``, and a mesh axis
+> 1.
 """
 
 from __future__ import annotations
@@ -80,17 +89,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefill_replicas", type=int, default=0,
                    help="prefill/decode disaggregation; not yet ported")
     p.add_argument("--spec_k", type=int, default=0,
-                   help="speculative decoding; not yet ported")
+                   help="speculative decoding: draft proposals a tick (needs "
+                        "--draft_ckpt or --draft_layers)")
     p.add_argument("--draft_ckpt", default="",
-                   help="speculative draft checkpoint; not yet ported")
+                   help="the draft's train_gpt logdir (its ckpt/ manifest "
+                        "and checkpoint; size 'draft' unless the manifest "
+                        "says otherwise)")
     p.add_argument("--draft_layers", type=int, default=0,
-                   help="early-exit speculative draft; not yet ported")
+                   help="early-exit draft: the served model's first N "
+                        "layers")
     p.add_argument("--draft_precision", default="",
                    help="the draft's matmul precision; not yet ported")
     p.add_argument("--kv_page_size", type=int, default=0,
-                   help="prefix page width; not yet ported")
+                   help="prefix page width in tokens (with --prefix_pages)")
     p.add_argument("--prefix_pages", type=int, default=0,
-                   help="prefix KV page pool; not yet ported")
+                   help="pages of the prefix KV page pool (0 = off)")
     p.add_argument("--ttft_slo", type=float, default=0.0,
                    help="TTFT objective in seconds (0 = untracked): the "
                         "JSON line reports the compliance fraction")
@@ -108,8 +121,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--swap_poll_ticks", type=int, default=0,
                    help="rolling weight swap; not yet ported")
     p.add_argument("--requests", default="",
-                   help="semicolon-separated comma-lists of token ids; "
-                        "empty = Poisson load")
+                   help="semicolon-separated comma-lists of token ids, a "
+                        "row optionally ending in /N (its own --n_new), or "
+                        "@FILE holding such rows; empty = Poisson load")
     p.add_argument("--n_new", type=int, default=32,
                    help="max new tokens per explicit request")
     p.add_argument("--temperature", type=float, default=0.0,
@@ -159,13 +173,8 @@ def build_parser() -> argparse.ArgumentParser:
 #: value other than their default
 _UNPORTED = (("replicas", "--replicas > 1 (a router of engine replicas)"),
              ("prefill_replicas", "--prefill_replicas (disaggregation)"),
-             ("spec_k", "--spec_k (speculative decoding)"),
-             ("draft_ckpt", "--draft_ckpt (speculative decoding)"),
-             ("draft_layers", "--draft_layers (speculative decoding)"),
-             ("draft_precision", "--draft_precision (speculative "
-                                 "decoding)"),
-             ("prefix_pages", "--prefix_pages (the prefix page pool)"),
-             ("kv_page_size", "--kv_page_size (the prefix page pool)"),
+             ("draft_precision", "--draft_precision (a low-precision "
+                                 "draft)"),
              ("publish_dir", "--publish_dir (published weights)"),
              ("publish_version", "--publish_version (published weights)"),
              ("swap_poll_ticks", "--swap_poll_ticks (weight hot-swap)"),
@@ -192,6 +201,20 @@ def run(argv=None):
            for a in ("data", "seq", "model", "pipe", "expert")):
         raise NotImplementedError(
             "sharded serving (a mesh axis > 1) is not yet ported")
+    if args.draft_ckpt and args.draft_layers:
+        parser.error("--draft_ckpt and --draft_layers are two ways to get "
+                     "ONE draft model; pass exactly one")
+    if args.spec_k and not (args.draft_ckpt or args.draft_layers):
+        parser.error(f"--spec_k={args.spec_k} needs a draft model: pass "
+                     "--draft_ckpt or --draft_layers")
+    if (args.draft_ckpt or args.draft_layers) and not args.spec_k:
+        raise NotImplementedError(
+            "--spec_k=0 with a draft (the kernel tuner picks the draft "
+            "width) is not yet ported (tune/); pass --spec_k >= 1")
+    if args.kv_page_size and not args.prefix_pages:
+        parser.error(f"--kv_page_size={args.kv_page_size} has no effect "
+                     "without --prefix_pages > 0 (the prefix page cache "
+                     "stays off); set both or neither")
 
     import torch
 
@@ -238,18 +261,56 @@ def run(argv=None):
     else:
         parser.error("no parameters: pass --params_npz, --init_seed or the "
                      "--logdir of a training run")
+    # the speculative draft: its own checkpoint and manifest, or the
+    # served model's first layers; the verifier samples every delivered
+    # token, so the draft moves throughput, never the streams
+    draft_cfg = draft_params = None
+    if args.draft_ckpt:
+        dckpt_dir = os.path.join(args.draft_ckpt, "ckpt")
+        dmanifest = load_model_config(dckpt_dir)
+        if dmanifest is None:
+            parser.error(f"--draft_ckpt={args.draft_ckpt} has no "
+                         "model_config.json manifest; the draft "
+                         "architecture cannot be guessed")
+        try:
+            dbase = gpt.GPTConfig.by_name(dmanifest.get("size", "draft"))
+        except KeyError as e:
+            parser.error(f"draft manifest size: {e.args[0]}")
+        draft_cfg = dataclasses.replace(
+            dbase, layers=int(dmanifest.get("layers", dbase.layers)),
+            kv_heads=dmanifest.get("kv_heads") or None,
+            attn_window=int(dmanifest.get("attn_window", 0) or 0),
+            attn_global_every=int(
+                dmanifest.get("attn_global_every", 0) or 0),
+            kv_cache_dtype=decode_cfg["kv_cache_dtype"])
+        dck = Checkpointer(dckpt_dir)
+        if dck.latest_step() is None:
+            parser.error(f"no checkpoint under {dckpt_dir}")
+        draft_params = dck.restore_params()
+        print(f"restored draft params of step {dck.last_restored_step} "
+              f"from {dckpt_dir}", file=sys.stderr)
+    elif args.draft_layers:
+        try:
+            draft_cfg, draft_params = gpt.draft_truncate(cfg, params,
+                                                         args.draft_layers)
+        except ValueError as e:
+            parser.error(str(e))
     try:
         engine = DecodeEngine(cfg, params, n_slots=args.n_slots,
                               max_len=args.max_len,
                               prefill_chunk=args.prefill_chunk,
-                              device=device)
+                              device=device,
+                              kv_page_size=args.kv_page_size,
+                              prefix_pages=args.prefix_pages,
+                              draft_cfg=draft_cfg, draft_params=draft_params,
+                              spec_k=args.spec_k)
         sched = Scheduler(engine, MetricWriter(echo=False), log_every=0,
                           prefill_chunks_per_tick=args.prefill_chunks_per_tick,
                           ttft_slo_s=args.ttft_slo,
                           max_queue=args.max_queue)
-    except ValueError as e:     # n_slots / max_len / prefill_chunk
+    except ValueError as e:     # the engine's shape and option checks
         parser.error(str(e))
-    del params
+    del params, draft_params
     heartbeat = None
     if args.stats_every:
         heartbeat = Heartbeat(sched, every_ticks=args.stats_every,
@@ -260,15 +321,26 @@ def run(argv=None):
     t0 = time.perf_counter()
     if args.requests:
         n = 0
-        for i, row in enumerate(r for r in args.requests.split(";") if r):
-            prompt = [int(t) for t in row.split(",") if t.strip()]
+        text = args.requests
+        if text.startswith("@"):
+            with open(text[1:]) as f:
+                text = f.read()
+        lines = (r.strip() for r in text.replace("\n", ";").split(";"))
+        for i, row in enumerate(r for r in lines if r):
+            row, _, budget = row.partition("/")
+            try:
+                prompt = [int(t) for t in row.split(",") if t.strip()]
+                n_new = int(budget) if budget else args.n_new
+            except ValueError:
+                parser.error(f"request {i}: not a comma-list of token ids "
+                             f"with an optional /N: {row[:40]!r}")
             if not prompt or not all(
                     0 <= t < cfg.vocab_size for t in prompt):
                 parser.error(f"request {i}: token ids must be in "
                              f"[0, {cfg.vocab_size})")
             try:
                 sched.submit(Request(
-                    prompt=prompt, max_new=args.n_new,
+                    prompt=prompt, max_new=n_new,
                     temperature=args.temperature, top_k=args.top_k,
                     top_p=args.top_p, eos_id=eos, pad_id=args.pad_id,
                     seed=args.seed + i, ttft_deadline_s=args.ttft_deadline,
@@ -319,14 +391,24 @@ def run(argv=None):
                       if device.type == "cuda" else "cpu"),
            "step": step, "served_version": 0,
            "final_version": engine.param_version, "replicas": 1,
+           "spec_k": engine.spec_k,
+           "draft": ("ckpt" if args.draft_ckpt
+                     else f"layers:{args.draft_layers}"
+                     if args.draft_layers else ""),
            "request_statuses": statuses, "n_slots": args.n_slots,
            "max_len": args.max_len, "prefill_chunk": args.prefill_chunk,
+           "kv_page_size": engine.page_size,
+           "prefix_pages": engine.n_pages,
            "requests": n, "generated_tokens": n_tokens,
            "wall_s": round(wall, 4),
            "tokens_per_sec": round(n_tokens / max(wall, 1e-9), 1),
            "cache_mib": round(engine.cache_bytes() / 2 ** 20, 2)}
     out.update({k: (round(v, 6) if isinstance(v, float) else v)
                 for k, v in sched.stats().items()})
+    acc = sched.accept_by_version()
+    if acc:
+        out["accept_by_version"] = {str(v): [p, a]
+                                    for v, (p, a) in acc.items()}
     if heartbeat is not None:
         out.update(heartbeat.stats())
     return out, rows, engine

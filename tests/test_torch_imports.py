@@ -182,3 +182,20 @@ def test_serve_entry_as_a_module_with_jax_poisoned(poisoned_env):
     lines = proc.stdout.strip().splitlines()
     assert [r.split(":")[0] for r in lines[:-1]] == ["0", "1"]
     assert '"request_statuses": {"done": 2}' in lines[-1]
+
+
+def test_speculative_paged_serving_with_jax_poisoned(poisoned_env):
+    """``serve_gpt`` with speculative decoding (an early-exit draft) and
+    the prefix page pool (``serve/pages``, the verify and page steps)
+    serves on the CPU with nothing of JAX importable."""
+    env, cwd = poisoned_env
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.serve_gpt", "--size=tiny",
+         "--init_seed=0", "--device=cpu", "--n_new=6", "--spec_k=2",
+         "--draft_layers=1", "--prefix_pages=8", "--kv_page_size=4",
+         "--requests=1,2,3,4,5,6,7,8,9;1,2,3,4,5,6,7,8,10"], env=env,
+        cwd=cwd, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout.strip().splitlines()[-1]
+    assert '"request_statuses": {"done": 2}' in out
+    assert '"spec_k": 2' in out and '"serve_prefix_pinned": 0.0' in out

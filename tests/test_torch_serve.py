@@ -221,8 +221,10 @@ def test_slot_mode_checks():
     model = _port_model(tcfg, _tree(tcfg, 0))
     cache = model.init_cache(2)
     assert cache[0]["cache_index"].shape == (2,)
-    with pytest.raises(NotImplementedError, match="verify"):
-        model(torch.zeros(2, 3, dtype=torch.long), cache)
+    _, windowed = _pair(decode_len=16, slot_decode=True, attn_window=8)
+    wmodel = _port_model(windowed, _tree(windowed, 0))
+    with pytest.raises(ValueError, match="VERIFY"):
+        wmodel(torch.zeros(2, 3, dtype=torch.long), wmodel.init_cache(2))
     _, plain = _pair(decode_len=16)
     with pytest.raises(ValueError, match="decode_active"):
         _port_model(plain, _tree(plain, 0))(
@@ -449,10 +451,17 @@ def test_engine_constructor_checks_raise_where_the_reference_does(tiny):
             JEngine(j, tree, **kw)
         with pytest.raises(ValueError, match=match):
             DecodeEngine(t, sd, device="cpu", **kw)
-    for kw in (dict(prefix_pages=4, kv_page_size=8), dict(spec_k=2),
-               dict(draft_cfg=tcfg, draft_params=sd), dict(mesh=object()),
-               dict(shared_pages=object())):
+    for kw in (dict(draft_cfg=tcfg, draft_params=sd), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="not yet ported"):
+            DecodeEngine(tcfg, sd, n_slots=2, max_len=MAX_LEN, device="cpu",
+                         **kw)
+    for kw, match in ((dict(spec_k=2), "needs a draft model"),
+                      (dict(shared_pages=object()), "needs prefix_pages"),
+                      (dict(prefix_pages=4, kv_page_size=5),
+                       "does not divide")):
+        with pytest.raises(ValueError, match=match):
+            JEngine(jcfg, tree, n_slots=2, max_len=MAX_LEN, **kw)
+        with pytest.raises(ValueError, match=match):
             DecodeEngine(tcfg, sd, n_slots=2, max_len=MAX_LEN, device="cpu",
                          **kw)
     eng = DecodeEngine(tcfg, sd, n_slots=2, max_len=MAX_LEN, device="cpu")

@@ -87,9 +87,9 @@ def test_poisson_mode(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    "--replicas=2", "--prefill_replicas=1", "--spec_k=2",
+    "--replicas=2", "--prefill_replicas=1",
     "--draft_ckpt=/x", "--draft_layers=1", "--draft_precision=int8",
-    "--prefix_pages=4", "--kv_page_size=8", "--publish_dir=/x",
+    "--publish_dir=/x",
     "--publish_version=3", "--swap_poll_ticks=2", "--draft_publish_dir=/x",
     "--telemetry", "--trace_out=/x.json", "--log_sink_dir=/x",
     "--event_log_dir=/x", "--mesh_model=2", "--mesh_data=2"])
@@ -103,7 +103,11 @@ def test_unported_flags_raise(flag):
     ["--requests=1,2", "--prefill_chunk=1"],
     ["--requests=1,999"],
     ["--max_len=8", "--new_min=8"],
-], ids=["slots", "chunk", "token_range", "no_room"])
+    ["--requests=1,2", "--spec_k=2"],
+    ["--requests=1,2", "--prefix_pages=4"],
+    ["--requests=1,2", "--kv_page_size=8"],
+], ids=["slots", "chunk", "token_range", "no_room", "spec_without_draft",
+        "pages_without_size", "size_without_pages"])
 def test_usage_errors(argv):
     with pytest.raises(SystemExit):
         serve_gpt.run(_TINY + argv)
