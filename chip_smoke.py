@@ -35,7 +35,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (kv_heads 4), a 256 window with every 2nd layer global, an int8 KV
    cache and ``flash_block_h=2`` (B4); one greedy run, one seeded sampled
    run (temperature 0.8, top_p 0.9) twice.
-6. serve_engine — the serving engine (``dtf_tpu_torch.serve``) at GPT-2
+6. generate_beam — beam search (``models.gpt.generate_beam``) on GPT-2
+   small at full width and depth, JAX-init weights, bf16: batch 2, prompt
+   1024, 4 beams, 64 new tokens (decode_len 1088). Exactly 12 B1 launches
+   a call (the prompt prefilled once at batch 2, not 8); one beam equals
+   greedy ``generate`` token for token; against the dense path of the
+   same weights, each returned sequence's teacher-forced log-prob lies
+   within ``BEAM_SCORE_STEP_TOL`` x max|logit| x 64 of the flash run's
+   best score, and the two runs' sequences are equal up to the first
+   step whose k-th against (k+1)-th candidate margin is under that
+   tolerance at the step; the GQA + int8-KV variant (4 layers) runs,
+   deterministic, its one beam greedy. Prints the prefill ms, the ms and
+   device ops of a beam step, the cache reorder's ms beside its bytes
+   bound, and B1 at [2, 12, 1024, 64] against its plain version, its
+   bound and SDPA.
+7. serve_engine — the serving engine (``dtf_tpu_torch.serve``) at GPT-2
    small's full width and depth, JAX-init weights, bf16, 8 slots of 1024
    positions, prefill chunks of 128: twelve requests (prompts 17 to 880
    tokens, ragged chunk counts; greedy, seeded sampled with top-k/top-p,
@@ -49,17 +63,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ``torch.cuda.set_sync_debug_mode("error")``; ``trace_counts`` stays
    {prefill: 1, decode: 1}; the sampler draws the same tokens on the CPU
    and the card; no hand kernel launches.
-7. serve_bench — ``python -m dtf_tpu_torch.serve_gpt --logdir`` in process
+8. serve_bench — ``python -m dtf_tpu_torch.serve_gpt --logdir`` in process
    on the train phase's checkpoint (so it runs right after train, as do
    serve_spec and serve_pages; without train, 2 steps of ``train_gpt``
    make the checkpoint they serve): Poisson mode, 16 slots, max_len
-   1024, chunk 128, 64 requests, prompts 128–768, 32–256 new tokens, at
+   1024, chunk 128, 32 requests, prompts 128–768, 32–256 new tokens, at
    1000 requests/s (the slots full) and at 2/s: tokens/s, TTFT and
    per-token p50/p99, occupancy, KV-cache MiB, peak GB; then the decode
    step with every slot active (``profile_serve.measure_decode``): wall
    ms, device-busy ms and launches a step, idle share; beside it offline
    ``generate``'s decode ms/token at 16 rows of 512.
-8. serve_spec — speculative decoding (``spec_k`` 4) on the train phase's
+9. serve_spec — speculative decoding (``spec_k`` 4) on the train phase's
    checkpoint at full width and depth, 16 slots of 1024, chunk 128, with
    a self-draft and with the early-exit draft of 3 layers: serve_engine's
    twelve requests (greedy and sampled) equal a batch-1 reference stream
@@ -78,7 +92,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    rate, tokens a tick; and ``measure_decode`` of each engine: the tick,
    the draft step and the verify step (wall, busy, launches, idle); KV
    MiB of the target, the draft and the pool.
-9. serve_pages — the prefix page pool: a ``--requests`` file made from a
+10. serve_pages — the prefix page pool: a ``--requests`` file made from a
    seed (64 requests sharing a 512-token stem, tails of 32–256 tokens,
    32–128 new) through ``serve_gpt`` with ``--prefix_pages 256
    --kv_page_size 16`` and with the pool off: TTFT p50/p99, prefill
@@ -88,25 +102,39 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    slot's first 512 positions after a load equal, bit for bit, the pool
    pages and a fresh prefill's; both page steps sync-free; no hand
    kernel.
-10. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
+11. serve_fleet — the serving fleet (``serve.Router``) on the train
+   phase's checkpoint, 2 replicas of 16 slots of 1024, chunk 128: (a)
+   serve_engine's twelve requests (greedy, sampled, a stop token) through
+   the router bit-equal to one engine's, the replicas' weights one set
+   of tensors (``data_ptr``); (b) ``serve_gpt --replicas 2`` at
+   serve_bench's 2 requests/s traffic: tokens/s, TTFT and per-token
+   p50/p99, per-replica occupancy, the router tick's ms and ``cp_*``
+   split; (c) the same with ``DTF_FAULT_INJECT=wedge_replica@100:
+   replica=0`` and the health bars under the wedge: replica 0
+   quarantined, its requests requeued, all complete, every stream
+   equal to (b)'s; (d) ``--prefill_replicas 1 --prefix_pages 256
+   --kv_page_size 16`` on serve_pages' 64 requests: handoffs, pages
+   loaded, pins 0, streams equal to the one engine's pool-off run but at
+   near-ties, TTFT beside the one engine with pages. No hand kernel.
+12. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
    the plain backward on the card, bf16, dO as a transposed view: the
    training shape, ragged T, a window, a fully masked ``kv_mask`` row
    (gradient exactly 0), t_q != t_k, D 128, T 5, T 65 and 129 (one row
    past a tile), t_q 1 against t_k 1024, D 128 ragged with a window,
    B·H 65,552 at T 2; then two launches of each kernel at the training
    shape, bitwise equal.
-11. kernel_times_bwd — B2, B3 and B1 at the training shape
+13. kernel_times_bwd — B2, B3 and B1 at the training shape
    [8, 12, 1024, 64]: kernel, plain version, the library yardstick
    (SDPA's backward) and the bound.
-12. train_grads — GPT-2 small at full width, the trainer's init, one
+14. train_grads — GPT-2 small at full width, the trainer's init, one
    8 x 1024 batch: loss and every gradient on the flash path against the
    dense path; exactly 12 B1/B2/B3 launches per step (24 B1 under remat).
-13. train — ``train_gpt``'s main path in process: b8 s1024, AdamW, 30
+15. train — ``train_gpt``'s main path in process: b8 s1024, AdamW, 30
    steps, with the launch counts of that run; a relaunch that resumes
    from the checkpoint; ``generate_gpt --logdir`` on it; 30 steps on one
    fixed batch, whose loss must fall by ``FIXED_BATCH_LOSS_DROP``.
    Prints step ms, tokens/s, analytic MFU and peak memory.
-14. kernels_ce — the fused LM head + CE kernels (the split pass, B5 and
+16. kernels_ce — the fused LM head + CE kernels (the split pass, B5 and
     the merge of its vocab parts, B6 dX, B7 dW) against their plain
     versions on the card, f32, TF32 off: the training shape with ignored
     labels, the same with larger logits (W std 0.2), ragged N and V
@@ -115,22 +143,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     and the merge each against their own plain version, two B5 launches
     bitwise equal in every case; then two launches of B5, B6 and B7 at
     the training shape, bitwise equal.
-15. kernel_times_ce — B5, the merge, the split pass, B6, B7 at N 8192, D
+17. kernel_times_ce — B5, the merge, the split pass, B6, B7 at N 8192, D
     768, V 50304: kernel, plain version, the monolithic composite they
     replace (cuBLAS f32 head GEMM + logsumexp/gather, and its backward; a
     yardstick only) and the bound (3xTF32 on the tensor cores); B5's CTAs
     and B6's and B7's clusters against what the card holds at once.
-16. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
+18. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
     the token- and vocab-chunked losses against the monolithic loss (loss,
     the head's gradient, every other gradient); exactly 1/1/1/1/1
     split/B5/merge/B6/B7 launches per step on the fused path, none on the
     chunked ones.
-17. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
+19. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
     steps: the split pass, B5 and the merge 34 each (one per step and per
     final-eval batch), B6 30, B7 30 launches; the first 5 losses against
     the ``train`` run's. Prints step ms, tokens/s, analytic MFU and peak
     memory beside ``train``'s.
-18. kernels_embed — the embedding-row gather (B8) against its plain
+20. kernels_embed — the embedding-row gather (B8) against its plain
     version on the card, exactly (a gather copies): Wide&Deep's deep
     table [2,600,000, 16] in f32 and bf16 and its wide table [2,600,000,
     1] with synthetic batch 0's 512 x 26 ids, rank-2 ids, 4,096 copies of
@@ -143,7 +171,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     deep f32 -> bf16) on shard 1 and 0 of 2, one table with and without
     the cast, a bf16 table, D 3 bf16 with D 17 cast, D 768 cast with a
     1-wide f32 table, strided tables, ids outside the table, empty ids.
-19. kernel_times_embed — B8 at the deep table with 512 x 26 ids (the
+21. kernel_times_embed — B8 at the deep table with 512 x 26 ids (the
     launcher's batch) and 8,192 x 26 (``scripts/bench_lm.py``'s), f32 and
     bf16, and at the wide table: kernel, plain version, the library
     yardstick (``torch.nn.functional.embedding``) and the bound, each
@@ -154,7 +182,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     forward and backward,
     device ms and device ops, the bound, and the outputs and gradients
     of both bit for bit.
-20. widedeep_lookup — Wide&Deep at full width (hash_buckets 100,000,
+22. widedeep_lookup — Wide&Deep at full width (hash_buckets 100,000,
     embed_dim 16, mlp 256/128/64, bf16), the trainer's init, 4 synthetic
     batches of 512: the model's two lookups again through
     ``masked_lookup_grouped`` (the row-sharded forward's lookup) on its
@@ -163,19 +191,19 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     today's per-table composite bit for bit (deterministic index_add_),
     and the ``index_select`` path's within 1e-6 (the deep table's at f32
     rows).
-21. train_widedeep — ``train_widedeep`` in process at its defaults
+23. train_widedeep — ``train_widedeep`` in process at its defaults
     (batch 512, Adam 1e-3, 300 steps, the final 4-batch eval), then a
     relaunch that resumes to step 310: the loss falls, ``eval_accuracy``
     > 0.55, and no B8 launch (the launcher looks its tables up as the
     JAX one does, with ``take``). Prints step ms, examples/s and peak
     memory.
-22. resnet_batchnorm — train-mode BatchNorm as the model runs it on
+24. resnet_batchnorm — train-mode BatchNorm as the model runs it on
     the card (PyTorch's fused batch-norm kernels) against the port's
     plain f32 ops (what the CPU tests hold against flax) on the same
     bf16 channels-last inputs at ResNet-50's stem, first-stage and
     last-stage shapes at b256: y, mean, variance, dx, dscale, dbias
     within ``BN_BF16_TOL`` / ``BN_F32_TOL``; the device ms of both.
-23. train_resnet — ``train_resnet`` in process: ``--config=imagenet``
+25. train_resnet — ``train_resnet`` in process: ``--config=imagenet``
     (ResNet-50 v1.5 at full width, 25,557,032 parameters, batch 256, the
     synthetic ImageNet stream) for 10 steps — finite losses, every
     BatchNorm running statistic moved, every tensor on the card — and a
@@ -184,12 +212,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     of 128, whose loss must fall by ``RN_FIXED_LOSS_DROP``. No hand
     kernel launches on this path (cuDNN convolutions, as the JAX
     package's are XLA's).
-24. resnet_bench — ``profile_resnet``'s measurement at bench.py's batch
+26. resnet_bench — ``profile_resnet``'s measurement at bench.py's batch
     128 and the launcher's 256 (one fixed batch on the card, SGD 0.1
     momentum 0.9, 3 warm-up and 20 timed steps): step ms, images/s,
     analytic MFU, peak memory, device busy and idle share, launches and
     device ms by family (convolutions, BatchNorm, the rest).
-25. bert_kernels — B1, B2 and B3 at BERT's shapes (bf16, 12 heads of
+27. bert_kernels — B1, B2 and B3 at BERT's shapes (bf16, 12 heads of
     64, non-causal, a key-padding mask with rows of no padding, some, all
     but one key and every key padded; batch 16 and 64, T 128 and 512)
     against their plain versions at the kernels / kernels_bwd
@@ -197,7 +225,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     the path's [64, 12, 128, 64] and at [16, 12, 512, 64]: each kernel's
     time, plain version, bound and SDPA with the same boolean mask (the
     backend PyTorch's dispatch took, named).
-26. train_bert — ``train_bert`` in process: BERT-base at full width
+28. train_bert — ``train_bert`` in process: BERT-base at full width
     (109,514,298 parameters), seq 128, batch 64, ``--grad_accum 4``, 10
     steps — finite losses, every tensor on the card, B1, B2 and B3 each
     12 × 4 a step (B1 12 more an eval batch) — and a relaunch that
@@ -206,13 +234,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     30 AdamW steps on one fixed batch lower the loss by
     ``BERT_FIXED_LOSS_DROP``; ``--mlm_gather 128`` gives the full path's
     loss within ``BERT_GATHER_REL_TOL``.
-27. bert_bench — ``profile_bert``'s measurement (one fixed batch on the
+29. bert_bench — ``profile_bert``'s measurement (one fixed batch on the
     card, AdamW, 3 warm-up, 20 timed and 5 profiled steps) at
     ``grad_accum`` 1 and 4 with full logits, and 1 with ``--mlm_gather
     20`` and with ``--loss_chunk_vocab 8192``: step ms, tokens/s,
     analytic MFU, peak memory, flash launches a step, the head's ms and
     share, device busy and idle share, launches and device ms by family.
-28. dist_nccl — a process group of ONE over NCCL, made by this script,
+30. dist_nccl — a process group of ONE over NCCL, made by this script,
     with the entry points run inside it: ``python -m
     dtf_tpu_torch.distributed`` (MNIST softmax, 200 steps; its loss and
     held-out accuracy), and ``train_gpt --loss_pallas --mesh_data 1``
@@ -227,7 +255,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     batch 8, ``--grad_accum 2``, ZeRO-1, 4 steps) against the same run
     with no group: losses within ``DIST_LOSS_REL_TOL``, exact flash
     launch counts.
-29. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
+31. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
     group made by this script's ``--dist-child`` ranks; the kernels
     built before the spawn; each rank's output in a file, the wait
     bounded by ``DIST_CHILD_TIMEOUT_S``): ``train_widedeep --mesh_model
@@ -1044,6 +1072,183 @@ def phase_variants(torch):
           "sampled_differs_from_greedy": not torch.equal(a, greedy)})
     return launches
 
+#: generate_beam: GPT-2 small (JAX init), batch 2, prompt 1024, 4 beams,
+#: 64 new tokens (decode_len 1088)
+BEAM_BATCH, BEAM_K = 2, 4
+#: flash against dense: every logit of a step moves by at most
+#: delta = LOGITS_REL_TOL x max|logit| (the generate phase's gate), so a
+#: log-prob (the token's logit less the logsumexp, each 1-Lipschitz in
+#: the max norm) moves by at most 2 delta, and a sum of s of them by
+#: 2 s delta. The flash run's best score is held against the dense
+#: model's teacher-forced log-prob of that sequence within
+#: BEAM_SCORE_STEP_TOL x max|logit| x N_NEW, and the two runs' sequences
+#: must be equal up to the first step s whose k-th against (k+1)-th
+#: candidate margin (in either run) is under BEAM_SCORE_STEP_TOL x
+#: max|logit| x (s + 1).
+BEAM_SCORE_STEP_TOL = 2 * LOGITS_REL_TOL
+
+
+def phase_generate_beam(torch, smi):
+    """Beam search (``models.gpt.generate_beam``) at GPT-2 small's full
+    width and depth: the prompt prefilled ONCE at batch B through B1 (12
+    launches a call), one beam equal to greedy ``generate``, the flash
+    run against the dense path of the same weights (scores and
+    sequences, ``BEAM_SCORE_STEP_TOL``), the int8-KV + GQA variant; B1 at
+    the path's shape against its plain version, its bound and SDPA; the
+    prefill, a beam step, its device ops and the cache reorder."""
+    import dataclasses
+
+    from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(gpt.GPTConfig.gpt2_small(),
+                              decode_len=PROMPT + N_NEW)
+    model = build_model(torch, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    prompt = torch.randint(0, VOCAB_REAL, (BEAM_BATCH, PROMPT),
+                           generator=gen, device="cuda")
+    gpt.generate_beam(model, prompt[:, :128], 2, num_beams=BEAM_K)
+
+    def beam(m, n_new=N_NEW, k=BEAM_K, **kw):
+        return gpt.generate_beam(m, prompt, n_new, num_beams=k, **kw)
+
+    # (a) one prefill at batch B: exactly one B1 launch a layer a call
+    fa.reset_launch_counts()
+    (out, best, margins), total_s = timed(
+        torch, lambda: beam(model, return_scores=True))
+    launches = dict(fa.launch_counts)
+    require(launches == {"flash_fwd": cfg.layers, "flash_fwd_hfold": 0,
+                         "flash_dq": 0, "flash_dkv": 0},
+            f"flash launches per generate_beam call {launches} != "
+            f"{cfg.layers} (the prefill once at batch {BEAM_BATCH})")
+    require(tuple(out.shape) == (BEAM_BATCH, PROMPT + N_NEW)
+            and out.dtype == torch.int64, f"out {out.shape} {out.dtype}")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            "token out of range")
+    require(torch.equal(out[:, :PROMPT], prompt), "prompt not echoed")
+    require(torch.isfinite(best).all().item(), f"scores {best}")
+    _, one_s = timed(torch, lambda: beam(model, 1))
+    with torch.no_grad():
+        _, prefill_s = timed(torch, lambda: gpt._prefill(
+            model, model.init_cache(BEAM_BATCH), prompt, 0))
+    step_ms = (total_s - one_s) * 1e3 / (N_NEW - 1)
+    ops_step = (device_ops(torch, lambda: beam(model, 5))
+                - device_ops(torch, lambda: beam(model, 1))) / 4
+
+    # (b) one beam is greedy decode, token for token
+    greedy = gpt.generate(model, prompt, N_NEW)
+    require(torch.equal(beam(model, k=1), greedy),
+            "num_beams=1 differs from greedy generate")
+
+    # (c) the dense path of the same weights
+    dense = check_flash_vs_dense(torch, cfg, model, prompt, "generate_beam")
+    out_d, best_d, margins_d = beam(dense, return_scores=True)
+    with torch.no_grad():
+        logits = dense(out[:, :-1], dense.init_cache(BEAM_BATCH))
+        scale = logits.abs().max().item()
+        lp = torch.log_softmax(logits[:, PROMPT - 1:], dim=-1).gather(
+            -1, out[:, PROMPT:, None])[..., 0].sum(-1)
+    del logits
+    delta = BEAM_SCORE_STEP_TOL * scale
+    score_tol = delta * N_NEW
+    score_diff = (lp - best).abs().max().item()
+    require(score_diff <= score_tol,
+            f"flash best scores {best.tolist()} against the dense model's "
+            f"teacher-forced log-probs {lp.tolist()}: {score_diff} > "
+            f"{score_tol}")
+    compared = []
+    steps = torch.arange(1, N_NEW + 1, device="cuda")[:, None]
+    close = torch.minimum(margins, margins_d) < delta * steps    # [S, B]
+    for row in range(BEAM_BATCH):
+        hit = close[:, row].nonzero()
+        upto = int(hit[0]) if len(hit) else N_NEW
+        require(torch.equal(out[row, PROMPT:PROMPT + upto],
+                            out_d[row, PROMPT:PROMPT + upto]),
+                f"row {row}: flash and dense beams differ before step "
+                f"{upto} (the first candidate margin under tolerance)")
+        compared.append(upto)
+    del dense
+
+    # (d) GQA + the int8 cache: the scale leaves ride the reorder
+    vcfg = dataclasses.replace(cfg, layers=4, kv_heads=4,
+                               kv_cache_dtype="int8")
+    vmodel = build_model(torch, vcfg)
+    fa.reset_launch_counts()
+    out_v = beam(vmodel)
+    v_launches = fa.launch_counts["flash_fwd"]
+    require(v_launches == vcfg.layers, f"variant: {v_launches} B1 launches")
+    require(torch.equal(out_v[:, :PROMPT], prompt)
+            and bool(((out_v >= 0) & (out_v < cfg.vocab_size)).all()),
+            "variant: bad tokens")
+    require(torch.equal(beam(vmodel), out_v), "variant: not deterministic")
+    require(torch.equal(beam(vmodel, k=1), gpt.generate(vmodel, prompt,
+                                                        N_NEW)),
+            "variant: num_beams=1 differs from greedy")
+    del vmodel
+
+    # the cache reorder alone: every batch-led leaf gathered by parent
+    big = model.init_cache(BEAM_BATCH * BEAM_K)
+    rows = (torch.arange(BEAM_BATCH, device="cuda")[:, None] * BEAM_K
+            + torch.tensor([[1, 0, 3, 3], [2, 2, 0, 1]],
+                           device="cuda")).reshape(-1)
+    reorder_ms = time_ms(torch, lambda: gpt._map_batch_led(
+        big, lambda x: x.copy_(x.index_select(0, rows)),
+        BEAM_BATCH * BEAM_K), 10)
+    reorder_bytes = 2 * sum(x.numel() * x.element_size() for layer in big
+                            for name, x in layer.items()
+                            if name != "cache_index" and x is not None)
+    del big, model
+
+    # B1 at the path's shape: kernel against its plain version, times
+    q, k, v = (torch.randn(BEAM_BATCH, HEADS, PROMPT, D_HEAD, generator=gen,
+                           device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    sm = D_HEAD ** -0.5
+    got_o, got_lse = fa.flash_attention_cuda(q, k, v, sm_scale=sm,
+                                             causal=True)
+    ref_o, ref_lse = fa.flash_attention_reference(q, k, v, sm_scale=sm,
+                                                  causal=True)
+    err_o = (got_o.float() - ref_o.float()).abs().max().item()
+    err_lse = (got_lse - ref_lse).abs().max().item()
+    require(err_o <= OUT_ATOL and err_lse <= LSE_ATOL,
+            f"B1 at the beam path's shape: out {err_o}, lse {err_lse}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bound, bound_by = attention_bound_ms(BEAM_BATCH, HEADS, PROMPT, PROMPT,
+                                         D_HEAD, True, 0)
+    b1 = {"shape": [BEAM_BATCH, HEADS, PROMPT, D_HEAD], "causal": True,
+          "max_abs_err_out": err_o, "max_abs_err_lse": err_lse,
+          "kernel_ms": time_ms(torch, lambda: fa.flash_attention_cuda(
+              q, k, v, sm_scale=sm, causal=True), 20),
+          "plain_ms": time_ms(torch, lambda: fa.flash_attention_reference(
+              q, k, v, sm_scale=sm, causal=True), 5),
+          "library_ms": time_ms(torch, lambda: sdpa(q, k, v, is_causal=True),
+                                20),
+          "bound_ms": bound, "bound_by": bound_by,
+          "launches_per_call": launches["flash_fwd"]}
+    fa.reset_launch_counts()
+    emit({"phase": "generate_beam", "model": "gpt2-small", "nvidia_smi": smi,
+          "batch": BEAM_BATCH, "num_beams": BEAM_K, "prompt": PROMPT,
+          "n_new": N_NEW, "decode_len": cfg.decode_len,
+          "flash_launches": launches, "generate_beam_ms": total_s * 1e3,
+          "prefill_ms": prefill_s * 1e3, "beam_step_ms": step_ms,
+          "device_ops_per_step": ops_step,
+          "reorder_ms": reorder_ms,
+          "reorder_bytes_bound_ms": reorder_bytes / PEAK_BYTES_PER_S * 1e3,
+          "beam1_equals_greedy": True,
+          "flash_vs_dense": {"max_abs_logit": scale, "delta": delta,
+                             "score_tol": score_tol,
+                             "score_max_abs_diff": score_diff,
+                             "best_scores": best.tolist(),
+                             "dense_best_scores": best_d.tolist(),
+                             "teacher_forced_log_probs": lp.tolist(),
+                             "tokens_compared": compared,
+                             "first_margins": margins[:4].tolist()},
+          "variant_gqa_int8": {"layers": vcfg.layers, "kv_heads": 4,
+                               "flash_launches": v_launches},
+          "b1": b1})
+    torch.cuda.empty_cache()
+    return b1
+
 
 #: the serving engine's shape on the card: GPT-2 small, 8 slots of 1024
 #: positions, prefill chunks of 128; twelve requests of ragged chunk
@@ -1056,9 +1261,13 @@ SERVE_REQUESTS = (
     (640, 56, {"temperature": 1.0}), (128, 64, {}), (700, 8, {}),
     (45, 40, {"eos": 2}), (390, 16, SERVE_SAMPLED), (233, 64, {}))
 #: serve_bench: serve_gpt's Poisson mode on the train phase's checkpoint
-#: at a rate that keeps the 16 slots full and at 2 requests a second
+#: at a rate that keeps the 16 slots full and at 2 requests a second;
+#: SERVE_BENCH_REQUESTS requests a run (serve_spec and serve_fleet run the
+#: same traffic; 32 keeps the whole script well inside its time limit)
+SERVE_BENCH_REQUESTS = 32
 SERVE_BENCH_FLAGS = ("--n_slots=16", "--max_len=1024", "--prefill_chunk=128",
-                     "--n_requests=64", "--prompt_min=128",
+                     f"--n_requests={SERVE_BENCH_REQUESTS}",
+                     "--prompt_min=128",
                      "--prompt_max=768", "--new_min=32", "--new_max=256",
                      "--seed=0")
 SERVE_BENCH_RATES = (1000.0, 2.0)
@@ -1331,7 +1540,7 @@ def phase_serve_bench(torch, smi, logdir):
         (out, _, engine), wall = _no_hand_kernels(torch, lambda: serve_gpt.run(
             [f"--logdir={logdir}", f"--poisson_rate={rate}",
              *SERVE_BENCH_FLAGS]))
-        require(out["request_statuses"] == {"done": 64},
+        require(out["request_statuses"] == {"done": SERVE_BENCH_REQUESTS},
                 f"rate {rate}: statuses {out['request_statuses']}")
         runs.append({"poisson_rate": rate, **_serve_run(torch, out, wall)})
     step = measure_decode(engine, prompt_len=SERVE_PROFILE_PROMPT)
@@ -1530,7 +1739,7 @@ def phase_serve_spec(torch, smi, logdir, plain_run):
         # serve_bench's traffic at 2 requests/s through a spec engine
         (out, _, engine), wall = _no_hand_kernels(torch, lambda: serve_gpt.run(
             flags + [f"--spec_k={SPEC_K}", draft_flag]))
-        require(out["request_statuses"] == {"done": 64},
+        require(out["request_statuses"] == {"done": SERVE_BENCH_REQUESTS},
                 f"{name}: statuses {out['request_statuses']}")
         require(engine.trace_counts == {"prefill": 1, "decode": 1,
                                         "draft_prefill": 1, "draft": 1},
@@ -1680,16 +1889,52 @@ def _pages_requests(path):
     return reqs
 
 
+def _differ_at_near_ties(torch, engine, reqs, rows_a, rows_b, what):
+    """Greedy ``rid:tok,...`` rows of two runs of ``reqs`` (prompt,
+    budget) on ``engine``'s weights: where a pair differs, the first
+    differing token must sit on a near-tie — the top-2 margin of the
+    dense model's logits after the common prefix under
+    ``LOGITS_REL_TOL`` of the largest. Returns the differences."""
+    import dataclasses
+
+    from dtf_tpu_torch.models import gpt
+
+    ref_model = gpt.GPT(dataclasses.replace(engine.cfg, attn_impl="dense"),
+                        device="cuda")
+    ref_model.load_state_dict(engine._model.state_dict())
+    ref_model.eval()
+    differ = []
+    for i, (a, b) in enumerate(zip(rows_a, rows_b)):
+        if a == b:
+            continue
+        ta = [int(t) for t in a.split(":")[1].split(",")]
+        tb = [int(t) for t in b.split(":")[1].split(",")]
+        p = next(j for j, (x, y) in enumerate(zip(ta, tb)) if x != y)
+        with torch.no_grad():
+            cache = ref_model.init_cache(1)
+            seq = torch.tensor(reqs[i][0] + ta[:p], device="cuda")
+            logits = gpt._prefill(ref_model, cache, seq[None],
+                                  SERVE_CHUNK)[0, -1]
+        top2 = logits.topk(2).values
+        scale = logits.abs().max().item()
+        margin = (top2[0] - top2[1]).item()
+        require(margin < LOGITS_REL_TOL * scale,
+                f"request {i}: {what} differ at token {p} where the "
+                f"margin {margin} is over {LOGITS_REL_TOL} x {scale}")
+        differ.append({"request": i, "token": p, "margin": margin})
+    require(len(rows_a) == len(rows_b), f"{what}: row counts differ")
+    return differ
+
+
 def phase_serve_pages(torch, smi, logdir):
     """The prefix page pool on the train phase's checkpoint: a seeded
     requests file on one 512-token stem through serve_gpt with the pool
     on and off; streams, counters, the drained pins; then a load's bitwise
-    check and both page steps sync-free."""
-    import dataclasses
+    check and both page steps sync-free. Returns both runs' rows and
+    numbers, and the requests (serve_fleet's single-engine side)."""
     import gc
 
     from dtf_tpu_torch import serve_gpt
-    from dtf_tpu_torch.models import gpt
 
     path = os.path.join(logdir, "pages_requests.txt")
     reqs = _pages_requests(path)
@@ -1721,31 +1966,8 @@ def phase_serve_pages(torch, smi, logdir):
 
     # greedy streams: pool on == pool off, but where the pool-off stream
     # sits on a near-tie (teacher-forced margin under the tolerance)
-    cfg = engine.cfg
-    ref_model = gpt.GPT(dataclasses.replace(cfg, attn_impl="dense"),
-                        device="cuda")
-    ref_model.load_state_dict(engine._model.state_dict())
-    ref_model.eval()
-    differ = []
-    for i, (a, b) in enumerate(zip(rows["pages_off"], rows["pages_on"])):
-        if a == b:
-            continue
-        ta = [int(t) for t in a.split(":")[1].split(",")]
-        tb = [int(t) for t in b.split(":")[1].split(",")]
-        p = next(j for j, (x, y) in enumerate(zip(ta, tb)) if x != y)
-        with torch.no_grad():
-            cache = ref_model.init_cache(1)
-            seq = torch.tensor(reqs[i][0] + ta[:p], device="cuda")
-            logits = gpt._prefill(ref_model, cache, seq[None],
-                                  SERVE_CHUNK)[0, -1]
-        top2 = logits.topk(2).values
-        scale = logits.abs().max().item()
-        margin = (top2[0] - top2[1]).item()
-        require(margin < LOGITS_REL_TOL * scale,
-                f"request {i}: pool on and off differ at token {p} where "
-                f"the margin {margin} is over {LOGITS_REL_TOL} x {scale}")
-        differ.append({"request": i, "token": p, "margin": margin})
-    del ref_model
+    differ = _differ_at_near_ties(torch, engine, reqs, rows["pages_off"],
+                                  rows["pages_on"], "pool on and off")
 
     # a load is a bitwise copy of the pool and of a fresh prefill; a
     # prompt seen twice saves its two new pages
@@ -1791,6 +2013,212 @@ def phase_serve_pages(torch, smi, logdir):
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    return {"rows": rows, "runs": runs, "reqs": reqs}
+
+
+#: serve_fleet: 2 replicas of serve_bench's engine shape; the wedge plan
+#: of run (c): replica 0's decode calls from the FLEET_WEDGE_AT-th on
+#: sleep FLEET_WEDGE_S, past the watchdog's bars (the slow bar's adaptive
+#: part is 20 x p99 of the healthy ticks: a tick of 4 prefill chunks and
+#: a decode is ~0.25 s on one H100, so ~5 s), so the first wedged tick
+#: quarantines it; its probation is put off past the run
+FLEET_REPLICAS = 2
+FLEET_WEDGE_AT, FLEET_WEDGE_S, FLEET_HEALTH_S = 100, 12.0, 8.0
+FLEET_FLAGS = (f"--replicas={FLEET_REPLICAS}", "--emit_tokens")
+
+
+def _fleet_requests(path, reqs):
+    """serve_engine's twelve requests written as a ``--requests`` file
+    (prompt and budget; the sampling is set per run)."""
+    with open(path, "w") as f:
+        f.write("\n".join(",".join(map(str, r["prompt"]))
+                          + f"/{r['max_new']}" for r in reqs))
+
+
+def _tok_lat(router):
+    from dtf_tpu_torch.metrics import quantile
+
+    lats = [t for s in router.schedulers for t in s._tok_lats]
+    return {"tok_latency_p50_s": quantile(lats, 0.5),
+            "tok_latency_p99_s": quantile(lats, 0.99)}
+
+
+def _fleet_run(out, wall, router):
+    """One fleet serve_gpt run's numbers."""
+    keys = ("router_ttft_p50_s", "router_ttft_p99_s", "router_ticks",
+            "router_requeued", "router_quarantines",
+            "router_prefill_chunks", "router_decode_steps", "cache_mib",
+            *(f"replica{i}_{k}" for i in range(FLEET_REPLICAS)
+              for k in ("serve_occupancy_mean", "serve_completed",
+                        "serve_requeued_in", "health")),
+            *(f"{name}_{stat}" for name in ("cp_pick", "cp_engine_tick",
+                                            "cp_health_sweep", "cp_page_ops",
+                                            "cp_bookkeeping")
+              for stat in ("total_s", "mean_s", "p99_s")))
+    return {"wall_s": out["wall_s"], "in_process_wall_s": wall,
+            "generated_tokens": out["generated_tokens"],
+            "tokens_per_sec": out["tokens_per_sec"],
+            "router_tick_ms_mean": out["wall_s"] * 1e3 / out["router_ticks"],
+            **_tok_lat(router), **{k: out.get(k) for k in keys}}
+
+
+def phase_serve_fleet(torch, smi, logdir, pages):
+    """The serving fleet on the train phase's checkpoint, GPT-2 small at
+    full width, 2 replicas of 16 slots of 1024, chunk 128, through
+    ``serve_gpt --replicas 2``: (a) serve_engine's twelve requests
+    (greedy and sampled, a stop token) bit-equal to one engine's; (b)
+    serve_bench's 2 requests/s traffic; (c) the same traffic with replica
+    0 wedged: it is
+    quarantined, its requests requeued, every stream equal to (b)'s; (d)
+    ``--prefill_replicas 1`` on serve_pages' 64 requests, streams equal
+    to the one engine's pool-off run but at near-ties, TTFT beside the
+    one engine with pages. One set of weights; no hand kernel launches."""
+    import gc
+
+    import numpy as np
+
+    from dtf_tpu_torch import serve_gpt
+    from dtf_tpu_torch.checkpoint import Checkpointer, load_model_config
+    from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.serve import (DecodeEngine, Request, Router,
+                                     Scheduler)
+
+    seconds = {}
+    ckpt = os.path.join(logdir, "ckpt")
+    cfg = gpt.GPTConfig.by_name(load_model_config(ckpt)["size"])
+    params = Checkpointer(ckpt).restore_params()
+
+    # (a) the twelve requests: a fleet of two against one engine
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    reqs = []
+    for i, (t_p, n_new, kw) in enumerate(SERVE_REQUESTS):
+        reqs.append({"prompt": rng.integers(0, VOCAB_REAL, t_p).tolist(),
+                     "max_new": n_new, "seed": 40 + i,
+                     **{k: v for k, v in kw.items() if k != "eos"},
+                     **({"eos_id": 2} if "eos" in kw else {})})
+    shape = dict(n_slots=16, max_len=SERVE_MAX_LEN,
+                 prefill_chunk=SERVE_CHUNK)
+
+    def streams(pump):
+        rids = [pump.submit(Request(**r)) for r in reqs]
+        pump.run_until_idle()
+        return [pump.poll(rid)["tokens"] for rid in rids]
+
+    one = DecodeEngine(cfg, params, **shape)
+    single, _ = _no_hand_kernels(torch, lambda: streams(Scheduler(one)))
+    del one
+    router = Router.build(cfg, params, n_replicas=FLEET_REPLICAS, **shape)
+    del params
+    fleet, _ = _no_hand_kernels(torch, lambda: streams(router))
+    require(fleet == single, "the fleet's streams differ from one engine's: "
+            + str([i for i, (a, b) in enumerate(zip(fleet, single))
+                   if a != b]))
+    placed = sorted({router.replica_of(r) for r in range(len(reqs))})
+    require(placed == list(range(FLEET_REPLICAS)),
+            f"the twelve requests all went to replicas {placed}")
+    models = [s.engine._model for s in router.schedulers]
+    shared = all(p.data_ptr() == q.data_ptr() for m in models[1:]
+                 for p, q in zip(models[0].parameters(), m.parameters()))
+    require(shared, "the replicas do not share their weight tensors")
+    require(router.trace_counts() == [{"prefill": 1, "decode": 1}]
+            * FLEET_REPLICAS, f"trace_counts {router.trace_counts()}")
+    del router, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["identity"] = time.perf_counter() - t0
+
+    # (b) serve_bench's 2 requests/s traffic; (c) the same with a wedge
+    runs, rows, fleets = {}, {}, {}
+    flags = [f"--logdir={logdir}", "--poisson_rate=2", *SERVE_BENCH_FLAGS,
+             *FLEET_FLAGS]
+    wedge = {"DTF_FAULT_INJECT": f"wedge_replica@{FLEET_WEDGE_AT}:replica=0",
+             "DTF_FAULT_WEDGE_S": str(FLEET_WEDGE_S)}
+    for name, env, extra in (
+            ("traffic", {}, ()),
+            ("quarantine", wedge, (f"--health_slow_s={FLEET_HEALTH_S}",
+                                   f"--health_wedge_s={FLEET_HEALTH_S}",
+                                   "--health_probation_s=3600"))):
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.environ.update(env)
+        try:
+            (out, rows[name], fleets[name]), wall = _no_hand_kernels(
+                torch, lambda: serve_gpt.run(flags + list(extra)))
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        require(out["request_statuses"] == {"done": SERVE_BENCH_REQUESTS},
+                f"{name}: statuses {out['request_statuses']}")
+        runs[name] = {**_fleet_run(out, wall, fleets[name]),
+                      "fault_inject": out["fault_inject"]}
+        seconds[name] = time.perf_counter() - t0
+    q = fleets["quarantine"]
+    requeued = sorted(rid for rid in range(SERVE_BENCH_REQUESTS)
+                      if q.schedulers[
+        q.replica_of(rid)]._recs[q._where[rid][1]].requeued)
+    require(runs["quarantine"]["router_quarantines"] == 1.0
+            and runs["quarantine"]["replica0_health"] == "quarantined",
+            f"the wedge did not quarantine replica 0: {runs['quarantine']}")
+    require(runs["quarantine"]["replica1_serve_requeued_in"] > 0
+            and requeued, "no request was requeued")
+    differ = [i for i, (a, b) in enumerate(zip(rows["traffic"],
+                                               rows["quarantine"]))
+              if a != b]
+    require(not differ, f"streams differ from the fault-free run's: {differ} "
+                        f"(requeued {requeued})")
+    del fleets, q
+
+    # (d) disaggregation on serve_pages' requests against one engine
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = os.path.join(logdir, "fleet_pages_requests.txt")
+    preqs = _pages_requests(path)
+    base = [f"--logdir={logdir}", f"--requests=@{path}", *PAGES_SERVE_FLAGS]
+    if pages is None:
+        pages = {"rows": {}, "runs": {}}
+        for name, extra in (("pages_off", ()), ("pages_on", PAGES_FLAGS)):
+            (out, pages["rows"][name], engine), wall = _no_hand_kernels(
+                torch, lambda: serve_gpt.run(base + list(extra)))
+            pages["runs"][name] = _serve_run(torch, out, wall)
+    (out, rows["disagg"], disagg), wall = _no_hand_kernels(
+        torch, lambda: serve_gpt.run(
+            base + list(PAGES_FLAGS) + [f"--replicas={FLEET_REPLICAS}",
+                                        "--prefill_replicas=1"]))
+    require(out["request_statuses"] == {"done": PAGES_REQUESTS},
+            f"disagg: statuses {out['request_statuses']}")
+    require(out["router_handoffs"] > 0 and out["router_pages_loaded"] > 0,
+            f"no handoff carried pages: {out}")
+    require(all(s.engine.prefix_stats()["pinned"] == 0
+                for s in disagg.schedulers), "pins left")
+    differ_d = _differ_at_near_ties(
+        torch, disagg.schedulers[1].engine, preqs,
+        pages["rows"]["pages_off"], rows["disagg"], "disagg and pool off")
+    runs["disagg"] = {**_fleet_run(out, wall, disagg),
+                      "router_handoffs": out["router_handoffs"],
+                      "router_pages_loaded": out["router_pages_loaded"],
+                      "router_pages_saved": out["router_pages_saved"],
+                      "streams_equal": PAGES_REQUESTS - len(differ_d),
+                      "streams_differ_at_near_ties": differ_d,
+                      "one_engine_pages_on": {
+                          k: pages["runs"]["pages_on"][k] for k in (
+                              "serve_ttft_p50_s", "serve_ttft_p99_s",
+                              "tokens_per_sec", "wall_s")}}
+    del disagg
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["disagg"] = time.perf_counter() - t0
+    emit({"phase": "serve_fleet", "model": "gpt2-small", "nvidia_smi": smi,
+          "replicas": FLEET_REPLICAS, "flags": list(SERVE_BENCH_FLAGS),
+          "identity": {"requests": len(reqs), "bit_equal": True,
+                       "replicas_used": placed, "weights_shared": True,
+                       "tokens": sum(map(len, fleet))},
+          "runs": runs, "requeued": requeued,
+          "wedge": {"at_decode": FLEET_WEDGE_AT, "sleep_s": FLEET_WEDGE_S,
+                    "health_slow_and_wedge_s": FLEET_HEALTH_S},
+          "hand_kernel_launches": 0, "seconds": seconds})
 
 
 def _train_batch(torch, cfg, step=0):
@@ -4098,10 +4526,11 @@ def phase_dist_two_ranks_one_card(torch, smi):
 
 
 #: every phase, in the order a full run takes them — but serve_bench,
-#: serve_spec and serve_pages, which serve the train phase's checkpoint,
-#: run right after train
+#: serve_spec, serve_pages and serve_fleet, which serve the train phase's
+#: checkpoint, run right after train
 PHASES = ("device", "build", "kernels", "generate", "generate_variants",
-          "serve_engine", "serve_bench", "serve_spec", "serve_pages",
+          "generate_beam", "serve_engine", "serve_bench", "serve_spec",
+          "serve_pages", "serve_fleet",
           "kernels_bwd", "kernel_times_bwd",
           "train_grads", "train",
           "kernels_ce", "kernel_times_ce", "train_grads_ce", "train_ce",
@@ -4219,6 +4648,8 @@ def main(argv=None):
         got["generate"] = phase_generate(torch)
     if "generate_variants" in phases:
         got["generate_variants"] = phase_variants(torch)
+    if "generate_beam" in phases:
+        phase_generate_beam(torch, smi)
     if "serve_engine" in phases:
         phase_serve_engine(torch, smi)
     if "kernels_bwd" in phases:
@@ -4229,8 +4660,8 @@ def main(argv=None):
         phase_train_grads(torch)
     if "train" in phases:
         got["train"] = phase_train(torch, smi)
-    serving = [p for p in ("serve_bench", "serve_spec", "serve_pages")
-               if p in phases]
+    serving = [p for p in ("serve_bench", "serve_spec", "serve_pages",
+                           "serve_fleet") if p in phases]
     if serving:
         logdir = (got["train"]["logdir"] if "train" in got
                   else _serve_logdir())
@@ -4239,8 +4670,11 @@ def main(argv=None):
             plain_run = phase_serve_bench(torch, smi, logdir)
         if "serve_spec" in phases:
             phase_serve_spec(torch, smi, logdir, plain_run)
+        pages = None
         if "serve_pages" in phases:
-            phase_serve_pages(torch, smi, logdir)
+            pages = phase_serve_pages(torch, smi, logdir)
+        if "serve_fleet" in phases:
+            phase_serve_fleet(torch, smi, logdir, pages)
         if "train" not in got:
             shutil.rmtree(logdir, ignore_errors=True)
     if "train" in phases:

@@ -10,11 +10,12 @@ its parameters from ``--params_npz`` (a flax-style tree, see
 ``python -m dtf_tpu_torch.train_gpt`` wrote under ``--logdir`` (its
 ``model_config.json`` manifest sets the architecture), and runs
 :func:`dtf_tpu_torch.models.gpt.generate` — greedy or
-temperature/top-k/nucleus sampling. Prints one token-id row per batch
-element. Runs on ``cuda`` unless ``--device=cpu`` (or ``--backend=cpu``).
-The flag names are the JAX launcher's; restoring an Orbax checkpoint of
-the JAX package, beam search and sharded decode are not ported yet, and
-``--num_beams>1`` or a mesh axis > 1 says so.
+temperature/top-k/nucleus sampling — or, with ``--num_beams`` > 1,
+:func:`dtf_tpu_torch.models.gpt.generate_beam` (``--length_penalty``).
+Prints one token-id row per batch element. Runs on ``cuda`` unless
+``--device=cpu`` (or ``--backend=cpu``). The flag names are the JAX
+launcher's; restoring an Orbax checkpoint of the JAX package and sharded
+decode are not ported yet, and a mesh axis > 1 says so.
 """
 
 from __future__ import annotations
@@ -56,8 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.0,
                    help="0 = greedy, else sampling")
     p.add_argument("--num_beams", type=int, default=0,
-                   help="beam search is not ported yet: > 1 raises")
-    p.add_argument("--length_penalty", type=float, default=0.0)
+                   help="beam-search width (0/1 = off); deterministic, "
+                        "excludes the sampling flags")
+    p.add_argument("--length_penalty", type=float, default=0.0,
+                   help="beam rescoring alpha: score / len**alpha (0 = the "
+                        "sum of log-probs)")
     p.add_argument("--top_k", type=int, default=0)
     p.add_argument("--top_p", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0,
@@ -109,9 +113,6 @@ def main(argv=None) -> int:
     if args.temperature == 0.0 and (args.top_k or args.top_p < 1.0):
         parser.error("--top_k/--top_p have no effect at --temperature=0 "
                      "(greedy); set a positive temperature to sample")
-    if args.num_beams > 1:
-        raise NotImplementedError(
-            "--num_beams>1: beam search is not yet ported")
     if any(getattr(args, f"mesh_{a}") > 1
            for a in ("data", "seq", "model", "pipe", "expert")):
         raise NotImplementedError(
@@ -159,11 +160,18 @@ def main(argv=None) -> int:
 
     prompt = torch.tensor(prompt_ids, dtype=torch.long).expand(
         args.batch, len(prompt_ids))
-    out = gpt.generate(model, prompt, args.n_new, seed=args.seed,
-                       temperature=args.temperature, top_k=args.top_k,
-                       top_p=args.top_p,
-                       eos_id=args.eos_id if args.eos_id >= 0 else None,
-                       pad_id=args.pad_id, prefill_chunk=args.prefill_chunk)
+    eos = args.eos_id if args.eos_id >= 0 else None
+    if args.num_beams > 1:
+        out = gpt.generate_beam(
+            model, prompt, args.n_new, num_beams=args.num_beams,
+            eos_id=eos, pad_id=args.pad_id,
+            length_penalty=args.length_penalty,
+            prefill_chunk=args.prefill_chunk)
+    else:
+        out = gpt.generate(model, prompt, args.n_new, seed=args.seed,
+                           temperature=args.temperature, top_k=args.top_k,
+                           top_p=args.top_p, eos_id=eos, pad_id=args.pad_id,
+                           prefill_chunk=args.prefill_chunk)
     for row in out.cpu().tolist():
         print(",".join(str(int(t)) for t in row))
     return 0

@@ -16,12 +16,13 @@ masked by ``decode_active``) and its multi-token slot VERIFY step
 (speculative decoding) with :func:`cache_rollback`, :func:`draft_truncate`
 and the prefix-page copies (:func:`cache_load_pages`,
 :func:`cache_save_pages`), ``filter_logits``, ``filter_logits_dynamic``
-and ``generate``; for training, the backward through
+``generate`` and the beam search ``generate_beam``; for training, the
+backward through
 the flash kernels, remat per block (``torch.utils.checkpoint``), dropout
 from explicit per-step seeds, and the LM loss (:func:`make_loss`,
 :func:`make_eval`): monolithic logits, or the head fused with the CE —
-vocab- or token-chunked, or the fused kernels (B5–B7). Not yet: beam
-search, MoE layers, tensor and sequence parallelism.
+vocab- or token-chunked, or the fused kernels (B5–B7). Not yet: MoE
+layers, tensor and sequence parallelism.
 
 Dropout runs only when the caller passes ``dropout_seed`` (the training
 loss does; serving never does). Each mask is drawn from a fresh
@@ -956,9 +957,143 @@ def batch_led_cache_key(name: str) -> bool:
     if name not in _BATCH_LED_CACHE_KEYS:
         raise ValueError(
             f"unknown cache leaf {name!r}: add it to _BATCH_LED_CACHE_KEYS "
-            "or _NON_BATCH_CACHE_KEYS so the serving engine knows whether "
-            "to slice it per slot")
+            "or _NON_BATCH_CACHE_KEYS so the serving engine and beam search "
+            "know whether to slice or reorder it")
     return True
+
+
+def _map_batch_led(cache: list, fn, lead: int) -> None:
+    """Replace every batch-led leaf of every layer by ``fn(leaf)``, IN
+    PLACE (the dicts; the tensors may be new). Leaves are chosen by key
+    (:func:`batch_led_cache_key`), never by their leading size: an unknown
+    key raises instead of riding the beams unreordered."""
+    for layer in cache:
+        for name, x in list(layer.items()):
+            if not batch_led_cache_key(name) or x is None:
+                continue
+            if x.shape[0] != lead:
+                raise ValueError(f"cache leaf {name!r} leads with "
+                                 f"{x.shape[0]}, expected {lead}")
+            layer[name] = fn(x)
+
+
+def _beam_topk(flat: torch.Tensor, k: int) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """The k + 1 largest entries of each row of ``flat`` (k + 1 for the
+    margin of the k-th) and their indices, equal values in index order —
+    ``jax.lax.top_k``'s order, which ``torch.topk`` does not promise for
+    ties (frozen beams and the -inf start scores make ties common): a
+    stable descending sort."""
+    values, idx = torch.sort(flat, dim=1, descending=True, stable=True)
+    return values[:, :k + 1], idx[:, :k + 1]
+
+
+def generate_beam(model: GPT, prompt: torch.Tensor, n_new: int, *,
+                  num_beams: int = 4, eos_id: Optional[int] = None,
+                  pad_id: int = 0, length_penalty: float = 0.0,
+                  prefill_chunk: int = 0, return_scores: bool = False):
+    """Fixed-width beam search: [B, T_p] → [B, T_p + n_new] int64 on the
+    model's device (the reference's ``generate_beam``).
+
+    The prompt is prefilled ONCE at batch B (through the flash forward on
+    the card with ``prefill_chunk=0``), then every batch-led cache leaf is
+    repeated k-fold: rows ``b*k + i`` are batch b's beams, and only the
+    last position's logits are kept. Every step takes the log-softmax in
+    f32, keeps the global top k of k·V candidates a row (equal totals in
+    flat-index order, as ``jax.lax.top_k``), and reorders the batch-led
+    leaves (int8 scales included) by parent. A beam that emitted
+    ``eos_id`` is frozen: its one continuation is ``pad_id`` at 0 added
+    log-prob. ``length_penalty`` alpha rescores the finals by
+    ``score / len**alpha`` (0 = the sum of log-probs); the best final is
+    backtraced through the (parent, token) lattice.
+
+    ``return_scores``: return ``(tokens, scores, margins)`` — the
+    returned beam's sum of log-probs [B] (before any length penalty) and,
+    at each step, the k-th best candidate total less the (k+1)-th
+    [n_new, B] (inf where k·V has no (k+1)-th): how near a step was to
+    keeping another beam."""
+    cfg = model.cfg
+    b, t_p = prompt.shape
+    k = num_beams
+    if k < 1:
+        raise ValueError(f"num_beams={k} must be >= 1")
+    if n_new < 1:
+        raise ValueError(f"n_new={n_new} must be >= 1")
+    if cfg.decode_len < t_p + n_new:
+        raise ValueError(
+            f"decode_len={cfg.decode_len} < prompt+new={t_p + n_new}")
+    device = model.device
+    prompt = prompt.to(device=device, dtype=torch.long)
+    base = torch.arange(b, device=device)[:, None] * k
+
+    margins = []
+
+    def expand(scores, logprobs, done):
+        """(scores [B,k], logprobs [B,k,V], done [B,k]) → the top-k
+        beams: (new scores, parent [B,k], token [B,k], new done)."""
+        v = logprobs.shape[-1]
+        if eos_id is not None:
+            frozen = torch.full((v,), _NEG_INF, device=device)
+            frozen[pad_id] = 0.0
+            logprobs = torch.where(done[:, :, None], frozen, logprobs)
+        values, idx = _beam_topk(
+            (scores[:, :, None] + logprobs).reshape(b, k * v), k)
+        if return_scores:
+            margins.append(values[:, k - 1] - values[:, k]
+                           if values.shape[1] > k
+                           else torch.full((b,), float("inf"),
+                                           device=device))
+        new_scores, idx = values[:, :k], idx[:, :k]
+        parent, token = idx // v, idx % v
+        new_done = done.gather(1, parent)
+        if eos_id is not None:
+            new_done = new_done | (token == eos_id)
+        return new_scores, parent, token, new_done
+
+    def reorder(cache, parent):
+        rows = (base + parent).reshape(-1)
+        # advanced indexing copies before the write: no aliasing
+        _map_batch_led(cache, lambda x: x.copy_(x.index_select(0, rows)),
+                       b * k)
+
+    with torch.no_grad():
+        cache = model.init_cache(b)
+        last = _prefill(model, cache, prompt, prefill_chunk)[:, -1]
+        _map_batch_led(cache, lambda x: x.repeat_interleave(k, dim=0), b)
+        logprobs = F.log_softmax(last.float(), dim=-1)[:, None].expand(
+            b, k, -1)
+        # beams 1..k-1 start at -inf, so the first top-k comes from beam 0
+        scores = torch.where(torch.arange(k, device=device) == 0, 0.0,
+                             _NEG_INF).expand(b, k)
+        done = torch.zeros(b, k, dtype=torch.bool, device=device)
+        scores, parent, tok, done = expand(scores, logprobs, done)
+        reorder(cache, parent)
+        lens = torch.ones(b, k, device=device)                # emitted
+        parents, tokens = [parent], [tok]
+        for _ in range(n_new - 1):
+            logits = model(tok.reshape(b * k, 1), cache)[:, 0]
+            logprobs = F.log_softmax(logits.float(), dim=-1).reshape(b, k,
+                                                                     -1)
+            scores, parent, tok, new_done = expand(scores, logprobs, done)
+            was_done = done.gather(1, parent)
+            lens = lens.gather(1, parent) + (~was_done).float()
+            done = new_done
+            reorder(cache, parent)
+            parents.append(parent)
+            tokens.append(tok)
+        final = scores
+        if length_penalty:
+            final = scores / lens.clamp_min(1.0) ** length_penalty
+        idx = torch.argmax(final, dim=1)[:, None]                  # [B, 1]
+        best = scores.gather(1, idx)[:, 0]
+        out = []
+        for parent, tok in zip(reversed(parents), reversed(tokens)):
+            out.append(tok.gather(1, idx)[:, 0])
+            idx = parent.gather(1, idx)
+    tokens = torch.cat([prompt, torch.stack(out[::-1], dim=1)], dim=1)
+    if return_scores:
+        return tokens, best, torch.stack(margins)
+    return tokens
 
 
 def cache_index_of(cache: list):

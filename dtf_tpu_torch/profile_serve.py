@@ -2,7 +2,7 @@
 
     python -m dtf_tpu_torch.profile_serve [--n_slots 16] [--max_len 1024]
         [--prefill_chunk 128] [--prompt 512] [--steps 20]
-        [--spec_k 4 (--draft_layers 3 | --self_draft)]
+        [--spec_k 4 (--draft_layers 3 | --self_draft)] [--replicas 2]
 
 GPT-2 small, seeded random weights (bf16). Fills every slot with a greedy
 request of ``--prompt`` random tokens, then times ``--steps`` decode steps
@@ -15,8 +15,13 @@ profiled steps and against the unprofiled wall, and the KV cache MiB.
 With ``--spec_k`` a decode step is a speculative tick, and the draft step
 and the verify step are also timed and profiled alone (wall, busy,
 launches, idle share), beside the tokens a tick and the accept rate.
-Needs a GPU; :func:`measure_decode` is the measurement, which
-``chip_smoke.py`` runs on its own engines.
+With ``--replicas`` N > 1 the step is a ROUTER tick over N replicas
+sharing one set of weights (every slot of every replica decoding): its
+wall time, launches, busy ms and idle share, and the control-plane
+profile's split of the host time (``cp_pick``, ``cp_engine_tick``,
+``cp_health_sweep``, ``cp_page_ops``, ``cp_bookkeeping``). Needs a GPU;
+:func:`measure_decode` and :func:`measure_router_tick` are the
+measurements, which ``chip_smoke.py`` runs on its own engines.
 """
 
 from __future__ import annotations
@@ -143,6 +148,66 @@ def measure_decode(engine, *, prompt_len: int, steps: int = 20,
     return out
 
 
+def measure_router_tick(router, *, prompt_len: int, steps: int = 20,
+                        profiled: int = PROFILED_STEPS,
+                        seed: int = 0) -> dict:
+    """Fill every slot of every replica of ``router`` (CUDA engines) with
+    a greedy request of ``prompt_len`` seeded random tokens through
+    ``submit`` and ticks, then time ``steps`` router ticks and profile
+    ``profiled`` more — every replica decoding all its slots each tick.
+    Returns the tick's wall, busy ms, launches and idle share, and the
+    control-plane profile's mean ms a tick by phase over those ticks."""
+    import numpy as np
+    import torch
+
+    from dtf_tpu_torch.serve import Request
+    from dtf_tpu_torch.serve.router import CP_PHASES
+
+    scheds = router.schedulers
+    engine = scheds[0].engine
+    slots = sum(s.engine.n_slots for s in scheds)
+    max_new = steps + profiled + 8 + engine.n_chunks(prompt_len) * slots
+    if prompt_len + max_new > engine.max_len:
+        raise ValueError(f"prompt {prompt_len} + {max_new} new exceed "
+                         f"max_len={engine.max_len}")
+    rng = np.random.default_rng(seed)
+    for _ in range(slots):
+        router.submit(Request(
+            prompt=rng.integers(0, engine.cfg.vocab_size,
+                                prompt_len).tolist(), max_new=max_new))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while any(s.queue_depth for s in scheds):
+        router.tick()
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    if not all(s.occupancy == 1.0 for s in scheds):
+        raise RuntimeError("the fleet's slots did not all fill")
+    before = {name: router._cp.total(name) for name in CP_PHASES}
+    ticks0 = router._ticks
+
+    def tick():
+        router.tick()
+        torch.cuda.synchronize()
+
+    got = _profiled(tick, steps, profiled)
+    n_ticks = router._ticks - ticks0
+    return {"replicas": len(scheds), "n_slots": engine.n_slots,
+            "max_len": engine.max_len, "prompt": prompt_len,
+            "fill_s": fill_s, "tick_ms_median": got["ms_median"],
+            "tick_ms_min": got["ms_min"],
+            "profiled_wall_ms_per_tick": got["profiled_wall_ms"],
+            "device_busy_ms_per_tick": got["busy_ms"],
+            "launches_per_tick": got["launches"],
+            "device_ms_per_tick_by_op": got["device_ms_by_op"],
+            "device_idle_share": got["idle_share"],
+            "device_idle_share_unprofiled": got["idle_share_unprofiled"],
+            "cp_ms_per_tick": {
+                name: (router._cp.total(name) - before[name]) * 1e3
+                / n_ticks for name in CP_PHASES},
+            "decode_tokens_per_s": slots * 1e3 / got["ms_median"]}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m dtf_tpu_torch.profile_serve")
     p.add_argument("--n_slots", type=int, default=16)
@@ -156,7 +221,12 @@ def main(argv=None) -> int:
                    help="with --spec_k: an early-exit draft of N layers")
     p.add_argument("--self_draft", action="store_true",
                    help="with --spec_k: the model drafts for itself")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="> 1: time a router tick over this many replicas "
+                        "(one set of weights)")
     args = p.parse_args(argv)
+    if args.replicas < 1:
+        p.error(f"--replicas={args.replicas} must be >= 1")
     if bool(args.spec_k) != bool(args.draft_layers or args.self_draft) \
             or (args.draft_layers and args.self_draft):
         p.error("--spec_k takes exactly one of --draft_layers and "
@@ -166,7 +236,7 @@ def main(argv=None) -> int:
 
     from dtf_tpu_torch.convert import init_params, params_from_flax
     from dtf_tpu_torch.models import gpt
-    from dtf_tpu_torch.serve import DecodeEngine
+    from dtf_tpu_torch.serve import DecodeEngine, Router
 
     cfg = gpt.GPTConfig.gpt2_small()
     params = params_from_flax(init_params(cfg, 0))
@@ -176,11 +246,15 @@ def main(argv=None) -> int:
     elif args.draft_layers:
         dcfg, dparams = gpt.draft_truncate(cfg, params, args.draft_layers)
         draft = dict(draft_cfg=dcfg, draft_params=dparams)
-    engine = DecodeEngine(cfg, params, n_slots=args.n_slots,
-                          max_len=args.max_len,
-                          prefill_chunk=args.prefill_chunk,
-                          spec_k=args.spec_k, **draft)
-    got = measure_decode(engine, prompt_len=args.prompt, steps=args.steps)
+    kw = dict(n_slots=args.n_slots, max_len=args.max_len,
+              prefill_chunk=args.prefill_chunk, spec_k=args.spec_k, **draft)
+    if args.replicas > 1:
+        router = Router.build(cfg, params, n_replicas=args.replicas, **kw)
+        got = measure_router_tick(router, prompt_len=args.prompt,
+                                  steps=args.steps)
+    else:
+        got = measure_decode(DecodeEngine(cfg, params, **kw),
+                             prompt_len=args.prompt, steps=args.steps)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

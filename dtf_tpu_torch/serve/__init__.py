@@ -15,21 +15,33 @@
   with prefill/decode interleave, slot allocation, EOS / max-len eviction,
   deadlines, load shedding, and TTFT / per-token latency / queue depth /
   occupancy / SLO metrics.
+- :mod:`dtf_tpu_torch.serve.router` — ``Router``: N engine replicas
+  over one set of weights behind least-occupancy admission, with
+  quarantine and requeue, and prefill/decode disaggregation over a shared
+  page store.
+- :mod:`dtf_tpu_torch.serve.health` — the replicas' health state machine
+  (healthy, degraded, quarantined, probation) and the serve verbs of
+  ``DTF_FAULT_INJECT``.
 - :mod:`dtf_tpu_torch.serve.client` — the in-process submit/poll API, the
   open-loop replay pump, a seeded Poisson load generator and a heartbeat.
 
 ``python -m dtf_tpu_torch.serve_gpt`` is the launcher. Not yet ported:
-beam search, the router with its health, hot-swap and log-sink tier, and
+the router's weight hot-swap, the serve-log sink, the event log and
 sharded serving.
 """
 
 from dtf_tpu_torch.serve.client import (Heartbeat, PoissonLoadGen,
                                         ServeClient, replay)
 from dtf_tpu_torch.serve.engine import DecodeEngine
+from dtf_tpu_torch.serve.health import (HealthConfig, HealthTracker,
+                                        install_serve_fault)
 from dtf_tpu_torch.serve.pages import PageStore, PrefixHandle, PrefixIndex
+from dtf_tpu_torch.serve.router import Router, SwapConfig, poisson_replay
 from dtf_tpu_torch.serve.scheduler import (FAILED_STATUSES, Request,
                                            RequestFailed, Scheduler)
 
-__all__ = ["DecodeEngine", "FAILED_STATUSES", "Heartbeat", "PageStore",
-           "PoissonLoadGen", "PrefixHandle", "PrefixIndex", "Request",
-           "RequestFailed", "Scheduler", "ServeClient", "replay"]
+__all__ = ["DecodeEngine", "FAILED_STATUSES", "Heartbeat", "HealthConfig",
+           "HealthTracker", "PageStore", "PoissonLoadGen", "PrefixHandle",
+           "PrefixIndex", "Request", "RequestFailed", "Router", "Scheduler",
+           "ServeClient", "SwapConfig", "install_serve_fault",
+           "poisson_replay", "replay"]

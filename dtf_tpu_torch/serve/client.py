@@ -7,8 +7,9 @@
 (exponential inter-arrivals, seeded prompt and length draws, numpy's
 ``default_rng`` as in the reference, so the same seed gives the same
 arrivals); :func:`replay` is the one pump loop that feeds it to a
-scheduler. :class:`Heartbeat` prints periodic JSON snapshots of one
-scheduler's ``stats()``.
+scheduler or to a :class:`~dtf_tpu_torch.serve.router.Router` (the same
+``submit`` / ``tick`` / ``pending`` surface). :class:`Heartbeat` prints
+periodic JSON snapshots of either's ``stats()``.
 """
 
 from __future__ import annotations
@@ -28,14 +29,14 @@ from dtf_tpu_torch.serve.scheduler import (FAILED_STATUSES, Request,
 log = logging.getLogger("dtf_tpu_torch")
 
 
-def replay(scheduler: Scheduler, arrivals, *,
+def replay(scheduler, arrivals, *,
            clock=time.perf_counter, sleep=time.sleep,
            on_tick=None) -> float:
     """Open-loop arrival replay: submit each ``(t_arrival, Request)`` when
-    its wall-clock moment comes, tick the scheduler whenever work is
-    pending, and drain. Returns the makespan in seconds; request ids are
-    the submit order (callers poll ``scheduler``). ``on_tick`` (optional,
-    zero-arg) fires after every scheduler tick — the :class:`Heartbeat`
+    its wall-clock moment comes, tick the scheduler (or router) whenever
+    work is pending, and drain. Returns the makespan in seconds; request
+    ids are the submit order (callers poll ``scheduler``). ``on_tick``
+    (optional, zero-arg) fires after every tick — the :class:`Heartbeat`
     hook point."""
     arrivals = list(arrivals)
     t0 = clock()
@@ -59,20 +60,29 @@ def replay(scheduler: Scheduler, arrivals, *,
 _HEARTBEAT_KEYS = ("serve_completed", "serve_queue_depth",
                    "serve_occupancy", "serve_ttft_p50_s",
                    "serve_ttft_p99_s", "serve_ttft_slo_ok_frac",
-                   "serve_shed", "serve_timeouts")
+                   "serve_shed", "serve_timeouts",
+                   "router_completed", "router_queue_depth",
+                   "router_occupancy", "router_ttft_p50_s",
+                   "router_ttft_p99_s", "router_ttft_slo_ok_frac",
+                   "router_shed", "router_timeouts", "router_requeued",
+                   "router_quarantines", "router_version",
+                   "router_swaps", "router_swap_rollbacks",
+                   "router_swap_in_progress")
 
 
 class Heartbeat:
-    """Periodic one-line JSON liveness snapshots of a running scheduler.
+    """Periodic one-line JSON liveness snapshots of a running scheduler or
+    router.
 
     Call :meth:`maybe_emit` after every tick (``replay``'s ``on_tick``):
     every ``every_ticks`` ticks it emits one ``{"serve_heartbeat": ...}``
     line through ``emit`` (default: stderr — stdout's last line stays the
-    launcher's one metrics line) with the ``stats()`` panel. With
-    ``slo_floor > 0``, a TTFT SLO-ok fraction under the floor logs one
-    WARNING an excursion (re-armed when it recovers); every excursion is
-    counted and the worst fraction kept, so :meth:`stats` can put both in
-    the launcher's final line."""
+    launcher's one metrics line) with the ``stats()`` panel, a router's
+    ``replica{i}_*`` keys included. With ``slo_floor > 0``, a TTFT SLO-ok
+    fraction under the floor logs one WARNING an excursion, per key: the
+    fleet's (or the scheduler's) and each replica's, each re-armed when it
+    recovers; every excursion is counted and the worst fleet fraction
+    kept, so :meth:`stats` can put them in the launcher's final line."""
 
     def __init__(self, sched, *, every_ticks: int, slo_floor: float = 0.0,
                  emit=None, clock=time.monotonic):
@@ -87,8 +97,10 @@ class Heartbeat:
         self._ticks = 0
         self.emitted = 0
         self.excursions = 0
+        self.replica_excursions = 0
         self.worst_ok_frac: Optional[float] = None
-        self._in_excursion = False
+        #: keys ("fleet", "replica{i}") inside an excursion
+        self._episodes: set = set()
 
     def snapshot(self) -> dict:
         stats = self.sched.stats()
@@ -98,6 +110,9 @@ class Heartbeat:
             if k in stats:
                 snap[k] = (round(v, 6) if isinstance(v := stats[k], float)
                            else v)
+        for k, v in stats.items():          # a router's replica panel
+            if k.startswith("replica"):
+                snap[k] = round(v, 6) if isinstance(v, float) else v
         return snap
 
     def maybe_emit(self) -> Optional[dict]:
@@ -107,21 +122,36 @@ class Heartbeat:
         snap = self.snapshot()
         self.emitted += 1
         self.emit(json.dumps(snap))
-        ok = snap.get("serve_ttft_slo_ok_frac")
+        ok = next((snap[k] for k in ("router_ttft_slo_ok_frac",
+                                     "serve_ttft_slo_ok_frac")
+                   if k in snap), None)
         if ok is not None:
             self.worst_ok_frac = (ok if self.worst_ok_frac is None
                                   else min(self.worst_ok_frac, ok))
-            if self.slo_floor > 0.0:
-                if ok < self.slo_floor and not self._in_excursion:
-                    self._in_excursion = True
-                    self.excursions += 1
-                    log.warning(
-                        "TTFT SLO compliance %.3f below the %.3f floor "
-                        "(p99 %.4fs; excursion %d)", ok, self.slo_floor,
-                        snap.get("serve_ttft_p99_s") or 0.0,
-                        self.excursions)
-                elif ok >= self.slo_floor:
-                    self._in_excursion = False
+        if self.slo_floor > 0.0:
+            fracs = {} if ok is None else {"fleet": ok}
+            suffix = "_serve_ttft_slo_ok_frac"
+            fracs.update((k[:-len(suffix)], v) for k, v in snap.items()
+                         if k.startswith("replica") and k.endswith(suffix))
+            for key, frac in fracs.items():
+                if frac < self.slo_floor and key not in self._episodes:
+                    self._episodes.add(key)
+                    if key == "fleet":
+                        self.excursions += 1
+                        log.warning(
+                            "TTFT SLO compliance %.3f below the %.3f floor "
+                            "(p99 %.4fs; excursion %d)", frac,
+                            self.slo_floor,
+                            snap.get("router_ttft_p99_s",
+                                     snap.get("serve_ttft_p99_s")) or 0.0,
+                            self.excursions)
+                    else:
+                        self.replica_excursions += 1
+                        log.warning(
+                            "%s TTFT SLO compliance %.3f below the %.3f "
+                            "floor", key, frac, self.slo_floor)
+                elif frac >= self.slo_floor:
+                    self._episodes.discard(key)
         return snap
 
     def stats(self) -> dict:
@@ -129,7 +159,8 @@ class Heartbeat:
         often compliance dipped below the floor and how bad the worst dip
         was (a breach-and-recover run must not look clean)."""
         out = {"heartbeats": float(self.emitted),
-               "slo_excursions": float(self.excursions)}
+               "slo_excursions": float(self.excursions),
+               "replica_slo_excursions": float(self.replica_excursions)}
         if self.worst_ok_frac is not None:
             out["worst_ttft_slo_ok_frac"] = round(self.worst_ok_frac, 6)
         return out

@@ -329,21 +329,28 @@ def _new_state(model: gpt.GPT, n_slots: int) -> dict:
     return state
 
 
+def _source_ids(params: dict) -> dict:
+    """The identity of each input tensor of a state dict (``id``): what
+    :func:`_load_model` compares to find the tensors two loads share."""
+    return {n: id(x) for n, x in params.items()}
+
+
 def _load_model(cfg: gpt.GPTConfig, params: dict, device,
                 share=None) -> gpt.GPT:
     """``cfg``'s model on ``device`` with ``params``. ``share`` (a target
-    model and the state dict it was loaded from): every tensor of
-    ``params`` that IS the target's input tensor becomes the target
-    model's own parameter, not a copy — a self-draft or an early-exit
-    draft (:func:`gpt.draft_truncate`) costs no second set of weights."""
+    model and the :func:`_source_ids` of the state dict it was loaded
+    from): every tensor of ``params`` that IS one of the target's input
+    tensors becomes the target model's own parameter, not a copy — a
+    self-draft or an early-exit draft (:func:`gpt.draft_truncate`), or a
+    router's further replica, costs no second set of weights."""
     with torch.no_grad():
         model = gpt.GPT(cfg, device=device)
         model.load_state_dict(params)
         if share is not None:
-            target, target_params = share
+            target, target_ids = share
             own = dict(target.named_parameters())
             same = {n: own[n] for n, x in params.items()
-                    if n in own and target_params.get(n) is x}
+                    if n in own and target_ids.get(n) == id(x)}
             if same:
                 model.load_state_dict(same, strict=False, assign=True)
     return model.eval()
@@ -361,8 +368,11 @@ class DecodeEngine:
     step). ``prefix_pages`` / ``kv_page_size`` / ``page_save_after``
     size the prefix page pool (``shared_pages``: another engine's
     ``page_store`` to mount instead); ``draft_cfg`` / ``draft_params`` /
-    ``spec_k`` turn on speculative decoding. ``device``: ``cuda`` unless
-    asked for the CPU; without a GPU asking for ``cuda`` raises.
+    ``spec_k`` turn on speculative decoding. ``weights_from``: another
+    engine built from the same ``params`` tensors — this engine's model
+    takes that engine's parameters instead of a copy (a router's
+    replicas: N KV caches, one set of weights). ``device``: ``cuda``
+    unless asked for the CPU; without a GPU asking for ``cuda`` raises.
     """
 
     def __init__(self, cfg: gpt.GPTConfig, params, *, n_slots: int,
@@ -370,7 +380,8 @@ class DecodeEngine:
                  mesh=None, kv_page_size: int = 0, prefix_pages: int = 0,
                  page_save_after: int = 2,
                  draft_cfg: Optional[gpt.GPTConfig] = None,
-                 draft_params=None, spec_k: int = 0, shared_pages=None):
+                 draft_params=None, spec_k: int = 0, shared_pages=None,
+                 weights_from: Optional["DecodeEngine"] = None):
         if mesh is not None:
             raise NotImplementedError("mesh (sharded serving) is not yet "
                                       "ported")
@@ -472,8 +483,14 @@ class DecodeEngine:
         #: are keyed by it)
         self.param_version = 0
 
-        self._model = _load_model(dataclasses.replace(base, slot_decode=True),
-                                  params, self.device)
+        if weights_from is not None and weights_from.cfg != base:
+            raise ValueError("weights_from= is an engine of another "
+                             "architecture")
+        self._source = _source_ids(params)
+        self._model = _load_model(
+            dataclasses.replace(base, slot_decode=True), params, self.device,
+            share=None if weights_from is None
+            else (weights_from._model, weights_from._source))
         self._state = _new_state(self._model, n_slots)
         # the prefill step's operand buffers: the host fills them with one
         # copy a chunk, the step reads only these
@@ -499,7 +516,7 @@ class DecodeEngine:
                                   "spec_proposed": 0, "spec_accepted": 0})
             self._draft_model = _load_model(
                 dataclasses.replace(dbase, slot_decode=True), draft_params,
-                self.device, share=(self._model, params))
+                self.device, share=(self._model, self._source))
             self._draft_state = _new_state(self._draft_model, n_slots)
             self.trace_counts.update({"draft_prefill": 0, "draft": 0})
             self._draft_prefill_fn = _build_prefill_fn(self._draft_model)

@@ -31,13 +31,21 @@ to each running slot in order, until its eos or budget — the tokens
 ``n_emit`` plain ticks would have delivered — and counts the proposals
 made and accepted, per request and per param version.
 
+Behind a :class:`~dtf_tpu_torch.serve.router.Router` a decode-path
+exception goes to the router's health machinery, which quarantines the
+replica and drains it: :meth:`Scheduler.evict_for_requeue` hands every
+in-flight request back in submit order (status ``requeued`` here, their
+prefix pins released), and the survivor's :meth:`Scheduler.submit`
+takes each with its fleet id, its original submit time and
+``requeued=True``.
+
 ``poll`` reports the terminal status (and its hint or cause);
 :class:`RequestFailed` is what ``ServeClient.result`` raises on one.
 ``stats()`` gives TTFT and per-token latency p50/p99, occupancy, queue
-peak, the TTFT SLO fraction, the speculative accept rate and the page
-pool's aggregates — host arithmetic only, no device readback. Not yet
-ported: the telemetry spans and request traces, the serve-log sink and
-the router's requeue drain; the first two raise when passed.
+peak, the requeue counts, the TTFT SLO fraction, the speculative accept
+rate and the page pool's aggregates — host arithmetic only, no device
+readback. Not yet ported: the telemetry spans and request traces and the
+serve-log sink; both raise when passed.
 """
 
 from __future__ import annotations
@@ -99,7 +107,8 @@ class Request:
 class _Rec:
     rid: int
     req: Request
-    #: queued | prefill | running | done | shed | timeout | error
+    #: queued | prefill | running | done | shed | timeout | error |
+    #: requeued (drained off a quarantined replica)
     status: str = "queued"
     slot: int = -1
     chunks_done: int = 0
@@ -108,6 +117,14 @@ class _Rec:
     #: None until the first token lands — NOT 0.0: an injected test clock
     #: legitimately stamps first tokens at t == 0.0
     first_token_t: Optional[float] = None
+    #: TTFT in this scheduler's ticks (each replica's own clock: replicas
+    #: sharing one pump share its wall time)
+    submit_tick: int = 0
+    first_token_tick: Optional[int] = None
+    #: the request's fleet-wide id behind a router (the local rid alone)
+    trace_id: int = -1
+    #: readmitted off a quarantined replica
+    requeued: bool = False
     finish_t: float = 0.0
     retry_after_s: float = 0.0        # shed hint (poll surfaces it)
     timeout_kind: str = ""            # "ttft" | "total" on timeout
@@ -136,7 +153,8 @@ class Scheduler:
                  prefill_chunks_per_tick: int = 4, clock=time.monotonic,
                  completed_cap: int = 100_000, telemetry=None,
                  ttft_slo_s: float = 0.0, max_queue: int = 0,
-                 shed_retry_after_s: float = 0.25, log_sink=None):
+                 shed_retry_after_s: float = 0.25, log_sink=None,
+                 replica_index: int = 0):
         if telemetry is not None:
             raise NotImplementedError(
                 "telemetry (engine-call spans, request traces) is not yet "
@@ -146,6 +164,8 @@ class Scheduler:
                                       "yet ported")
         self.engine = engine
         self.writer = writer
+        #: this scheduler's replica behind a router (0 alone)
+        self.replica_index = int(replica_index)
         self.log_every = log_every
         #: TTFT service-level objective (0 = untracked): ``stats()`` then
         #: reports the fraction of completed first tokens inside it
@@ -184,6 +204,8 @@ class Scheduler:
         self._timeouts = 0
         self._timeouts_ttft = 0
         self._request_errors = 0
+        self._requeued_out = 0
+        self._requeued_in = 0
         # deadline sweeps only run once a deadlined request has been seen
         self._any_deadlines = False
         self._spec_proposed = 0
@@ -194,8 +216,13 @@ class Scheduler:
 
     # ----------------------------------------------------------- submit/poll
 
-    def submit(self, req: Request) -> int:
-        """Accept a request; returns its id."""
+    def submit(self, req: Request, *, trace_id: Optional[int] = None,
+               submit_t: Optional[float] = None,
+               requeued: bool = False) -> int:
+        """Accept a request; returns its local id. A router passes its
+        fleet-wide id as ``trace_id``; its requeue path also passes the
+        request's ORIGINAL ``submit_t`` and ``requeued=True``, so TTFT and
+        the deadlines include the time lost on the quarantined replica."""
         if not 1 <= len(req.prompt) <= self.engine.max_len - 1:
             raise ValueError(
                 f"prompt length {len(req.prompt)} must be in "
@@ -204,8 +231,13 @@ class Scheduler:
             raise ValueError(f"max_new={req.max_new} must be >= 1")
         rid = self._next_id
         self._next_id += 1
-        rec = _Rec(rid, req, submit_t=self.clock())
+        rec = _Rec(rid, req, requeued=requeued,
+                   submit_t=self.clock() if submit_t is None else submit_t,
+                   submit_tick=self._tick,
+                   trace_id=rid if trace_id is None else trace_id)
         self._recs[rid] = rec
+        if requeued:
+            self._requeued_in += 1
         if req.ttft_deadline_s > 0 or req.deadline_s > 0:
             self._any_deadlines = True
         if self.max_queue and len(self._queue) >= self.max_queue:
@@ -298,6 +330,7 @@ class Scheduler:
                         self._fail(rec, e)
                         continue
                 rec.first_token_t = self.clock()
+                rec.first_token_tick = self._tick
                 rec.tokens.append(tok)
                 self._admitting = None
                 self._ttfts.append(rec.first_token_t - rec.submit_t)
@@ -373,6 +406,18 @@ class Scheduler:
 
     def _occupancy(self) -> float:
         return 1.0 - len(self._free) / self.engine.n_slots
+
+    @property
+    def occupancy(self) -> float:
+        """The occupied share of the slots (prefilling ones included) —
+        the router's admission signal."""
+        return self._occupancy()
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests accepted but not in a slot yet — the router's
+        tiebreak."""
+        return len(self._queue) + (self._admitting is not None)
 
     def _finish(self, rec: _Rec) -> None:
         rec.finish_t = rec.finish_t or self.clock()
@@ -455,6 +500,69 @@ class Scheduler:
             if kind:
                 self._timeout(rec, kind, now)
 
+    # ------------------------------------------------------ quarantine drain
+
+    def evict_for_requeue(self) -> list:
+        """Vacate every in-flight request (queued, admitting, running) for
+        readmission elsewhere — the router's quarantine drain. Returns the
+        records in SUBMIT order, marked ``requeued`` here; their prefix
+        pins are released (host index work, safe against a wedged
+        engine), their tokens cleared (the survivor regenerates the whole
+        stream) and every slot freed. The device state needs no touch: a
+        stale slot is a masked spectator until an admission resets it."""
+        recs = list(self._queue)
+        if self._admitting is not None:
+            recs.append(self._admitting)
+        recs += list(self._running.values())
+        recs.sort(key=lambda r: r.rid)
+        self._queue.clear()
+        self._admitting = None
+        self._running.clear()
+        self._free = list(range(self.engine.n_slots))
+        for rec in recs:
+            if rec.handle is not None:
+                try:
+                    self.engine.release_prefix(rec.handle)
+                except Exception:  # noqa: BLE001 — draining a broken
+                    pass           # replica must not fail the requeue
+                rec.handle = None
+            rec.pages_loaded = 0
+            rec.slot = -1
+            rec.tokens = []
+            rec.proposed = 0
+            rec.accepted = 0
+            rec.status = "requeued"
+            self._requeued_out += 1
+        return recs
+
+    def postmortem_state(self) -> dict:
+        """In-flight request ids and slot ages — host clocks and counters
+        only, no device call (it is read when the device may be wedged)."""
+        now = self.clock()
+        in_flight, slot_ages = [], {}
+        recs = list(self._queue)
+        if self._admitting is not None:
+            recs.append(self._admitting)
+        recs += list(self._running.values())
+        for rec in recs:
+            in_flight.append({
+                "rid": rec.rid, "trace_id": rec.trace_id,
+                "status": rec.status, "slot": rec.slot,
+                "age_s": round(now - rec.submit_t, 3),
+                "tokens": len(rec.tokens)})
+            if rec.slot >= 0:
+                slot_ages[str(rec.slot)] = round(now - rec.submit_t, 3)
+        return {"in_flight": in_flight,
+                "queue_depth": len(self._queue),
+                "occupancy": round(self._occupancy(), 4),
+                "slot_ages_s": slot_ages,
+                "completed": self._completed,
+                "shed": self._shed,
+                "timeouts": self._timeouts,
+                "request_errors": self._request_errors,
+                "requeued_out": self._requeued_out,
+                "requeued_in": self._requeued_in}
+
     # --------------------------------------------------------------- metrics
 
     def accept_by_version(self) -> dict:
@@ -482,9 +590,8 @@ class Scheduler:
             "serve_timeouts": float(self._timeouts),
             "serve_timeouts_ttft": float(self._timeouts_ttft),
             "serve_request_errors": float(self._request_errors),
-            # the router's quarantine requeue is not yet ported: none
-            "serve_requeued_out": 0.0,
-            "serve_requeued_in": 0.0,
+            "serve_requeued_out": float(self._requeued_out),
+            "serve_requeued_in": float(self._requeued_in),
             "serve_queue_peak": float(self._queue_peak),
             "serve_occupancy_mean": (self._occupancy_sum / self._tick
                                      if self._tick else 0.0),

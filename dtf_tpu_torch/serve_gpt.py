@@ -14,6 +14,11 @@
         --draft_layers=3 --prefix_pages=256 --kv_page_size=16 \\
         --requests=@/tmp/requests.txt
 
+    # a fleet of two replicas, replica 0 wedged from its 5th decode on
+    DTF_FAULT_INJECT=wedge_replica@5:replica=0 DTF_FAULT_WEDGE_S=2 \\
+    python -m dtf_tpu_torch.serve_gpt --logdir=/tmp/run --replicas=2 \\
+        --health_slow_s=1 --health_wedge_s=1.5 --poisson_rate=4
+
 The online half of the GPT loop (``generate_gpt`` is the offline half):
 parameters come from the newest checkpoint that ``train_gpt`` wrote under
 ``--logdir`` (its ``model_config.json`` manifest sets the architecture;
@@ -21,17 +26,25 @@ hand-given flags that contradict it raise), from ``--params_npz`` (a
 flax-style tree) or from ``--init_seed``. Builds a
 :class:`dtf_tpu_torch.serve.DecodeEngine` (``--n_slots`` concurrent
 requests, ``--max_len`` a slot) and pumps a FIFO scheduler with
-prefill/decode interleave. ``--spec_k`` with a draft (``--draft_ckpt``:
+prefill/decode interleave — or, with ``--replicas`` N > 1, a
+:class:`dtf_tpu_torch.serve.Router` over N engines sharing one set of
+weights, with replica health (``--health``, ``--health_slow_s``,
+``--health_wedge_s``, ``--health_probation_s``: quarantine, requeue,
+probation) and, with ``--prefill_replicas`` P, prefill/decode
+disaggregation over a shared prefix page store. ``DTF_FAULT_INJECT``'s
+serve verbs (``wedge_replica``, ``slow_decode``, ``poison_request``,
+``poison_draft``) are armed on the scheduler or router. ``--spec_k`` with a draft (``--draft_ckpt``:
 another train_gpt logdir, or ``--draft_layers``: the served model's first
 layers) decodes speculatively; ``--prefix_pages`` / ``--kv_page_size``
 keep a prefix page pool. Prints ONE JSON line of serving metrics:
 tokens/s, TTFT and per-token latency p50/p99, occupancy, queue depth,
-the speculative counters and accept rate, the page pool's aggregates.
+the speculative counters and accept rate, the page pool's aggregates;
+for a fleet the router's keys (``router_*``, the ``replica{i}_*`` panel,
+the control-plane tick profile ``cp_*``).
 ``--emit_tokens`` first prints one ``rid:tok,tok,...`` row a request.
 Runs on ``cuda`` unless ``--device=cpu`` (or ``--backend=cpu``).
 
-Not yet ported, and raising when asked for: more than one replica
-(``--replicas``, ``--prefill_replicas``), ``--draft_precision``,
+Not yet ported, and raising when asked for: ``--draft_precision``,
 ``--spec_k=0`` with a draft (the kernel tuner's width), published weights
 and hot-swap (``--publish_dir``, ``--publish_version``,
 ``--swap_poll_ticks``, ``--draft_publish_dir``), ``--telemetry``,
@@ -84,10 +97,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="at most this many prompt chunks between decode "
                         "steps (0 = admit greedily)")
     p.add_argument("--replicas", type=int, default=1,
-                   help="engine replicas behind a router; > 1 is not yet "
-                        "ported")
+                   help="engine replicas behind a router: one set of "
+                        "weights, a KV cache each, least-occupancy "
+                        "admission")
     p.add_argument("--prefill_replicas", type=int, default=0,
-                   help="prefill/decode disaggregation; not yet ported")
+                   help="prefill/decode disaggregation: the first N "
+                        "replicas only prefill, handing the KV to decode "
+                        "replicas through one shared page store (needs "
+                        "--prefix_pages)")
+    dflags.add_bool(p, "health", True, "with --replicas > 1: the replica "
+                    "health watchdog (quarantine, requeue, probation)")
+    p.add_argument("--health_slow_s", type=float, default=0.0,
+                   help="health: the least slow-tick bar in seconds (0 = "
+                        "the library's default)")
+    p.add_argument("--health_wedge_s", type=float, default=0.0,
+                   help="health: one tick this slow quarantines at once "
+                        "(0 = the library's default)")
+    p.add_argument("--health_probation_s", type=float, default=0.0,
+                   help="health: quarantine to probation delay in seconds "
+                        "(0 = the library's default)")
     p.add_argument("--spec_k", type=int, default=0,
                    help="speculative decoding: draft proposals a tick (needs "
                         "--draft_ckpt or --draft_layers)")
@@ -171,9 +199,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 #: flags of features not yet ported: (dest, what), raising when given a
 #: value other than their default
-_UNPORTED = (("replicas", "--replicas > 1 (a router of engine replicas)"),
-             ("prefill_replicas", "--prefill_replicas (disaggregation)"),
-             ("draft_precision", "--draft_precision (a low-precision "
+_UNPORTED = (("draft_precision", "--draft_precision (a low-precision "
                                  "draft)"),
              ("publish_dir", "--publish_dir (published weights)"),
              ("publish_version", "--publish_version (published weights)"),
@@ -188,8 +214,8 @@ _UNPORTED = (("replicas", "--replicas > 1 (a router of engine replicas)"),
 def run(argv=None):
     """Serve as the command line says, in process. Returns ``(out, rows,
     engine)``: the JSON line's dict, the ``--emit_tokens`` rows (none
-    without the flag) and the engine, for a caller that measures it
-    further."""
+    without the flag) and the engine — the router with ``--replicas`` >
+    1 — for a caller that measures it further."""
     argv = sys.argv[1:] if argv is None else list(argv)
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -215,6 +241,16 @@ def run(argv=None):
         parser.error(f"--kv_page_size={args.kv_page_size} has no effect "
                      "without --prefix_pages > 0 (the prefix page cache "
                      "stays off); set both or neither")
+    if args.replicas < 1:
+        parser.error(f"--replicas={args.replicas} must be >= 1")
+    if args.prefill_replicas:
+        if not 0 < args.prefill_replicas < args.replicas:
+            parser.error(
+                f"--prefill_replicas={args.prefill_replicas} must leave at "
+                f"least one decode replica (--replicas={args.replicas})")
+        if not args.prefix_pages:
+            parser.error("--prefill_replicas needs --prefix_pages > 0: the "
+                         "page pool is the prefill→decode KV transport")
 
     import torch
 
@@ -224,8 +260,10 @@ def run(argv=None):
     from dtf_tpu_torch.core.device import resolve_device
     from dtf_tpu_torch.metrics import MetricWriter
     from dtf_tpu_torch.models import gpt
-    from dtf_tpu_torch.serve import (DecodeEngine, Heartbeat, PoissonLoadGen,
-                                     Request, Scheduler, replay)
+    from dtf_tpu_torch.fault.inject import ServeFaultPlan
+    from dtf_tpu_torch.serve import (DecodeEngine, HealthConfig, Heartbeat,
+                                     PoissonLoadGen, Request, Router,
+                                     Scheduler, install_serve_fault, replay)
 
     device = resolve_device(args.device or
                             ("cpu" if args.backend == "cpu" else "cuda"))
@@ -295,22 +333,43 @@ def run(argv=None):
                                                          args.draft_layers)
         except ValueError as e:
             parser.error(str(e))
+    engine_kw = dict(n_slots=args.n_slots, max_len=args.max_len,
+                     prefill_chunk=args.prefill_chunk, device=device,
+                     kv_page_size=args.kv_page_size,
+                     prefix_pages=args.prefix_pages, draft_cfg=draft_cfg,
+                     draft_params=draft_params, spec_k=args.spec_k)
+    sched_kw = dict(prefill_chunks_per_tick=args.prefill_chunks_per_tick,
+                    ttft_slo_s=args.ttft_slo, max_queue=args.max_queue)
     try:
-        engine = DecodeEngine(cfg, params, n_slots=args.n_slots,
-                              max_len=args.max_len,
-                              prefill_chunk=args.prefill_chunk,
-                              device=device,
-                              kv_page_size=args.kv_page_size,
-                              prefix_pages=args.prefix_pages,
-                              draft_cfg=draft_cfg, draft_params=draft_params,
-                              spec_k=args.spec_k)
-        sched = Scheduler(engine, MetricWriter(echo=False), log_every=0,
-                          prefill_chunks_per_tick=args.prefill_chunks_per_tick,
-                          ttft_slo_s=args.ttft_slo,
-                          max_queue=args.max_queue)
-    except ValueError as e:     # the engine's shape and option checks
+        if args.replicas > 1:
+            health = False
+            if args.health:
+                health = HealthConfig(**{
+                    name: value for name, value in (
+                        ("min_slow_s", args.health_slow_s),
+                        ("wedge_s", args.health_wedge_s),
+                        ("probation_delay_s", args.health_probation_s))
+                    if value > 0})
+            # one constructor for the fleet: Router.build shares the
+            # weights and owns the role rules (one page store, eager
+            # saves, no draft on a prefill replica)
+            sched = Router.build(cfg, params, n_replicas=args.replicas,
+                                 prefill_replicas=args.prefill_replicas,
+                                 writer=MetricWriter(echo=False),
+                                 health=health, **engine_kw, **sched_kw)
+            engines = [s.engine for s in sched.schedulers]
+            served = sched
+        else:
+            engines = [DecodeEngine(cfg, params, **engine_kw)]
+            sched = Scheduler(engines[0], MetricWriter(echo=False),
+                              log_every=0, **sched_kw)
+            served = engines[0]
+    except ValueError as e:     # the engine's and health's option checks
         parser.error(str(e))
-    del params, draft_params
+    del params, draft_params, engine_kw
+    fault_plan = ServeFaultPlan.from_env()
+    if fault_plan is not None:
+        install_serve_fault(fault_plan, sched)
     heartbeat = None
     if args.stats_every:
         heartbeat = Heartbeat(sched, every_ticks=args.stats_every,
@@ -376,6 +435,7 @@ def run(argv=None):
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    engine = engines[-1]                # a decode replica
 
     rids = range(n)                      # submit order = id order
     polls = [sched.poll(r) for r in rids]
@@ -390,19 +450,26 @@ def run(argv=None):
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu"),
            "step": step, "served_version": 0,
-           "final_version": engine.param_version, "replicas": 1,
+           "final_version": engine.param_version,
+           "replicas": args.replicas,
+           "prefill_replicas": args.prefill_replicas,
            "spec_k": engine.spec_k,
            "draft": ("ckpt" if args.draft_ckpt
                      else f"layers:{args.draft_layers}"
                      if args.draft_layers else ""),
-           "request_statuses": statuses, "n_slots": args.n_slots,
+           "draft_precision": args.draft_precision,
+           "request_statuses": statuses,
+           "fault_inject": (os.environ.get("DTF_FAULT_INJECT", "")
+                            if fault_plan is not None else ""),
+           "n_slots": args.n_slots,
            "max_len": args.max_len, "prefill_chunk": args.prefill_chunk,
            "kv_page_size": engine.page_size,
            "prefix_pages": engine.n_pages,
            "requests": n, "generated_tokens": n_tokens,
            "wall_s": round(wall, 4),
            "tokens_per_sec": round(n_tokens / max(wall, 1e-9), 1),
-           "cache_mib": round(engine.cache_bytes() / 2 ** 20, 2)}
+           "cache_mib": round(sum(e.cache_bytes() for e in engines)
+                              / 2 ** 20, 2)}
     out.update({k: (round(v, 6) if isinstance(v, float) else v)
                 for k, v in sched.stats().items()})
     acc = sched.accept_by_version()
@@ -411,7 +478,7 @@ def run(argv=None):
                                     for v, (p, a) in acc.items()}
     if heartbeat is not None:
         out.update(heartbeat.stats())
-    return out, rows, engine
+    return out, rows, served
 
 
 def main(argv=None) -> int:

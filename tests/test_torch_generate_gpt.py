@@ -45,9 +45,8 @@ def test_cli_sampling_repeats_per_seed(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--num_beams=2"], "beam search is not yet ported"),
     (["--mesh_model=2"], "sharded decode"),
-], ids=["num_beams", "mesh"])
+], ids=["mesh"])
 def test_cli_not_yet_ported_raises(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         generate_gpt.main(["--size=tiny", "--init_seed=0", "--device=cpu",

@@ -199,3 +199,39 @@ def test_speculative_paged_serving_with_jax_poisoned(poisoned_env):
     out = proc.stdout.strip().splitlines()[-1]
     assert '"request_statuses": {"done": 2}' in out
     assert '"spec_k": 2' in out and '"serve_prefix_pinned": 0.0' in out
+
+
+def test_fleet_modules_are_in_the_poisoned_import():
+    """The router, health, fault-plan and span modules are among the
+    modules the poisoned child imports."""
+    mods = _port_modules()
+    for mod in ("dtf_tpu_torch.serve.router", "dtf_tpu_torch.serve.health",
+                "dtf_tpu_torch.fault.inject",
+                "dtf_tpu_torch.telemetry.spans"):
+        assert mod in mods, mod
+
+
+def test_beam_search_and_a_faulted_fleet_with_jax_poisoned(poisoned_env):
+    """``generate_gpt --num_beams`` and a disaggregated ``serve_gpt
+    --replicas 2`` with a ``DTF_FAULT_INJECT`` slow-decode plan run on the
+    CPU with nothing of JAX importable."""
+    env, cwd = poisoned_env
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.generate_gpt", "--size=tiny",
+         "--init_seed=0", "--device=cpu", "--n_new=4", "--num_beams=3",
+         "--kv_cache_dtype=int8"], env=env, cwd=cwd, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert len(proc.stdout.strip().splitlines()[-1].split(",")) == 8
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.serve_gpt", "--size=tiny",
+         "--init_seed=0", "--device=cpu", "--n_new=4", "--replicas=2",
+         "--n_slots=2", "--prefix_pages=8", "--kv_page_size=4",
+         "--prefill_replicas=1", "--requests=1,2,3,4,5,6,7,8,9;5,6,7"],
+        env={**env, "DTF_FAULT_INJECT": "slow_decode@1:replica=1",
+             "DTF_FAULT_SLOW_S": "0.01"},
+        cwd=cwd, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout.strip().splitlines()[-1]
+    assert '"request_statuses": {"done": 2}' in out
+    assert '"fault_inject": "slow_decode@1:replica=1"' in out

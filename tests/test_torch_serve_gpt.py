@@ -1,7 +1,9 @@
 """The port's serving launcher (``python -m dtf_tpu_torch.serve_gpt``), in
 process on the CPU: its rows equal the engine's, a ``train_gpt`` logdir
-serves, the Poisson mode reports the reference's keys, and every flag of
-a feature not yet ported raises."""
+serves, the Poisson mode reports the reference's keys, a fleet
+(``--replicas``, ``--prefill_replicas``, a ``DTF_FAULT_INJECT`` wedge)
+serves the same rows and reports the reference's fleet keys, and every
+flag of a feature not yet ported raises."""
 
 import json
 
@@ -86,8 +88,105 @@ def test_poisson_mode(capsys):
     assert out["serve_ttft_slo_ok_frac"] == 1.0 and out["heartbeats"] >= 1
 
 
+#: the fleet keys of the reference launcher's line
+_FLEET_KEYS = ("replicas", "prefill_replicas", "fault_inject",
+               "router_replicas", "router_completed", "router_requeued",
+               "router_quarantines", "router_ttft_p50_s", "router_ticks",
+               "replica0_health", "replica1_health",
+               "replica0_serve_completed", "replica1_serve_requeued_in",
+               "cp_pick_total_s", "cp_engine_tick_mean_s",
+               "cp_health_sweep_p99_s", "cp_page_ops_total_s",
+               "cp_bookkeeping_total_s")
+_FLEET_REQUESTS = ["--requests=12,7,99;5,6,7,8;3;9,9,9,9,9,9,9,9,9,1",
+                   "--n_new=6", "--emit_tokens", "--n_slots=2",
+                   "--max_len=32", "--prefill_chunk=4"]
+
+
+def _single_rows():
+    out, rows, _ = serve_gpt.run(_TINY + _FLEET_REQUESTS)
+    return rows
+
+
+def test_fleet_serves_the_engines_rows(capsys):
+    """Two replicas behind the router: the rows of one engine, the
+    reference's fleet keys, one set of weights, the heartbeat's router
+    panel."""
+    out, rows, router = serve_gpt.run(_TINY + _FLEET_REQUESTS
+                                      + ["--replicas=2", "--stats_every=2"])
+    assert rows == _single_rows()
+    # a fleet's line has the router's keys where one scheduler's has serve_*
+    assert all(k in out for k in _FLEET_KEYS + tuple(
+        k for k in _KEYS if not k.startswith("serve_"))), sorted(out)
+    assert out["replicas"] == 2 and out["fault_inject"] == ""
+    assert out["request_statuses"] == {"done": 4}
+    assert {router.replica_of(r) for r in range(4)} == {0, 1}
+    a, b = (s.engine._model for s in router.schedulers)
+    assert a.lm_head.weight.data_ptr() == b.lm_head.weight.data_ptr()
+    assert out["heartbeats"] >= 1
+    assert '"router_completed"' in capsys.readouterr().err
+
+
+def test_fleet_disaggregated(capsys):
+    out, rows, router = serve_gpt.run(
+        _TINY + _FLEET_REQUESTS + ["--replicas=2", "--prefill_replicas=1",
+                                   "--prefix_pages=8", "--kv_page_size=4"])
+    assert rows == _single_rows()
+    assert out["prefill_replicas"] == 1 and out["router_handoffs"] > 0
+    assert out["replica0_role"] == "prefill"
+    assert out["router_pages_loaded"] > 0
+    assert router.schedulers[1].engine.prefix_stats()["pinned"] == 0
+
+
+def test_fleet_wedge_plan_quarantines_and_requeues(monkeypatch, capsys):
+    """``DTF_FAULT_INJECT=wedge_replica@2:replica=0``: replica 0's third
+    decode sleeps past ``--health_wedge_s``, the watchdog quarantines it,
+    its requests finish on replica 1 with the same tokens. The launcher's
+    router runs on a clock that only the wedge's sleep advances (through
+    the ``Router`` and ``install_serve_fault`` it imports), so a loaded
+    host's slow ticks cannot move the verdict."""
+    import functools
+
+    from dtf_tpu_torch import serve
+    from dtf_tpu_torch.serve import health
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+        def advance(self, s):
+            self.t += s
+
+    clock = Clock()
+
+    plain = serve.Router
+
+    class ClockedRouter(plain):
+        @classmethod
+        def build(cls, *args, **kw):
+            return plain.build.__func__(cls, *args, clock=clock, **kw)
+
+    monkeypatch.setattr(serve, "Router", ClockedRouter)
+    monkeypatch.setattr(serve, "install_serve_fault", functools.partial(
+        health.install_serve_fault, sleep=clock.advance))
+    monkeypatch.setenv("DTF_FAULT_INJECT", "wedge_replica@2:replica=0")
+    monkeypatch.setenv("DTF_FAULT_WEDGE_S", "1.2")
+    out, rows, _ = serve_gpt.run(
+        _TINY + _FLEET_REQUESTS + ["--replicas=2", "--health_slow_s=0.5",
+                                   "--health_wedge_s=1.0",
+                                   "--health_probation_s=600"])
+    assert out["fault_inject"] == "wedge_replica@2:replica=0"
+    assert out["router_quarantines"] == 1.0
+    assert out["replica0_health"] == "quarantined"
+    assert out["replica1_serve_requeued_in"] > 0
+    assert out["request_statuses"] == {"done": 4}
+    assert clock.t == 1.2
+    monkeypatch.delenv("DTF_FAULT_INJECT")
+    assert rows == _single_rows()
+
+
 @pytest.mark.parametrize("flag", [
-    "--replicas=2", "--prefill_replicas=1",
     "--draft_ckpt=/x", "--draft_layers=1", "--draft_precision=int8",
     "--publish_dir=/x",
     "--publish_version=3", "--swap_poll_ticks=2", "--draft_publish_dir=/x",
@@ -106,8 +205,14 @@ def test_unported_flags_raise(flag):
     ["--requests=1,2", "--spec_k=2"],
     ["--requests=1,2", "--prefix_pages=4"],
     ["--requests=1,2", "--kv_page_size=8"],
+    ["--requests=1,2", "--replicas=0"],
+    ["--requests=1,2", "--replicas=2", "--prefill_replicas=1"],
+    ["--requests=1,2", "--replicas=2", "--prefill_replicas=2",
+     "--prefix_pages=8", "--kv_page_size=4"],
+    ["--requests=1,2", "--replicas=2", "--health_wedge_s=1"],
 ], ids=["slots", "chunk", "token_range", "no_room", "spec_without_draft",
-        "pages_without_size", "size_without_pages"])
+        "pages_without_size", "size_without_pages", "no_replica",
+        "prefill_without_pages", "no_decode_replica", "wedge_under_slow"])
 def test_usage_errors(argv):
     with pytest.raises(SystemExit):
         serve_gpt.run(_TINY + argv)
