@@ -67,7 +67,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    on the train phase's checkpoint (so it runs right after train, as do
    serve_spec and serve_pages; without train, 2 steps of ``train_gpt``
    make the checkpoint they serve): Poisson mode, 16 slots, max_len
-   1024, chunk 128, 32 requests, prompts 128–768, 32–256 new tokens, at
+   1024, chunk 128, 16 requests, prompts 128–768, 32–256 new tokens, at
    1000 requests/s (the slots full) and at 2/s: tokens/s, TTFT and
    per-token p50/p99, occupancy, KV-cache MiB, peak GB; then the decode
    step with every slot active (``profile_serve.measure_decode``): wall
@@ -109,32 +109,49 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    of tensors (``data_ptr``); (b) ``serve_gpt --replicas 2`` at
    serve_bench's 2 requests/s traffic: tokens/s, TTFT and per-token
    p50/p99, per-replica occupancy, the router tick's ms and ``cp_*``
-   split; (c) the same with ``DTF_FAULT_INJECT=wedge_replica@100:
+   split; (c) the same with ``DTF_FAULT_INJECT=wedge_replica@50:
    replica=0`` and the health bars under the wedge: replica 0
    quarantined, its requests requeued, all complete, every stream
    equal to (b)'s; (d) ``--prefill_replicas 1 --prefix_pages 256
    --kv_page_size 16`` on serve_pages' 64 requests: handoffs, pages
    loaded, pins 0, streams equal to the one engine's pool-off run but at
    near-ties, TTFT beside the one engine with pages. No hand kernel.
-12. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
+12. publish_swap — train → publish → rolling swap, GPT-2 small at full
+   width: (a) ``train_gpt --attn_impl flash`` (batch 4 x 1024, 4 steps,
+   the trainer's init from ``--seed 0``) with ``--publish_dir
+   --publish_every 2``: versions 1 and 2 in the manifest, each digest
+   verified, exactly 12 B1 a step and an eval batch and 12 B2 and B3 a
+   step; (b) ``serve_gpt --replicas 2 --publish_dir --publish_version 1
+   --swap_poll_ticks 4 --canary_ticks 8`` (16 slots of 1024 a replica,
+   chunk 128) on 16 greedy requests of serve_engine's shapes: one swap to
+   version 2 and no rollback, all 16 done, every record stamped 1 or 2,
+   the streams stamped 2 bit-equal to a fresh ``--publish_version 2``
+   fleet's, ``trace_counts`` {prefill: 1, decode: 1} on each replica, the
+   replicas on one set of tensors (``data_ptr``) equal to version 2's,
+   the roll's ``max_memory_allocated`` within one set of parameters (and
+   ``SWAP_PEAK_SLACK_BYTES``) of the fresh fleet's, no hand kernel in
+   serving. Prints the swap's drain, swap, probe, canary window and whole
+   roll on the router's clock, a version's load ms (digest and read) and
+   its copy to the card, and the phase's seconds.
+13. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
    the plain backward on the card, bf16, dO as a transposed view: the
    training shape, ragged T, a window, a fully masked ``kv_mask`` row
    (gradient exactly 0), t_q != t_k, D 128, T 5, T 65 and 129 (one row
    past a tile), t_q 1 against t_k 1024, D 128 ragged with a window,
    B·H 65,552 at T 2; then two launches of each kernel at the training
    shape, bitwise equal.
-13. kernel_times_bwd — B2, B3 and B1 at the training shape
+14. kernel_times_bwd — B2, B3 and B1 at the training shape
    [8, 12, 1024, 64]: kernel, plain version, the library yardstick
    (SDPA's backward) and the bound.
-14. train_grads — GPT-2 small at full width, the trainer's init, one
+15. train_grads — GPT-2 small at full width, the trainer's init, one
    8 x 1024 batch: loss and every gradient on the flash path against the
    dense path; exactly 12 B1/B2/B3 launches per step (24 B1 under remat).
-15. train — ``train_gpt``'s main path in process: b8 s1024, AdamW, 30
+16. train — ``train_gpt``'s main path in process: b8 s1024, AdamW, 30
    steps, with the launch counts of that run; a relaunch that resumes
    from the checkpoint; ``generate_gpt --logdir`` on it; 30 steps on one
    fixed batch, whose loss must fall by ``FIXED_BATCH_LOSS_DROP``.
    Prints step ms, tokens/s, analytic MFU and peak memory.
-16. kernels_ce — the fused LM head + CE kernels (the split pass, B5 and
+17. kernels_ce — the fused LM head + CE kernels (the split pass, B5 and
     the merge of its vocab parts, B6 dX, B7 dW) against their plain
     versions on the card, f32, TF32 off: the training shape with ignored
     labels, the same with larger logits (W std 0.2), ragged N and V
@@ -143,22 +160,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     and the merge each against their own plain version, two B5 launches
     bitwise equal in every case; then two launches of B5, B6 and B7 at
     the training shape, bitwise equal.
-17. kernel_times_ce — B5, the merge, the split pass, B6, B7 at N 8192, D
+18. kernel_times_ce — B5, the merge, the split pass, B6, B7 at N 8192, D
     768, V 50304: kernel, plain version, the monolithic composite they
     replace (cuBLAS f32 head GEMM + logsumexp/gather, and its backward; a
     yardstick only) and the bound (3xTF32 on the tensor cores); B5's CTAs
     and B6's and B7's clusters against what the card holds at once.
-18. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
+19. train_grads_ce — GPT-2 small, one 8 x 1024 batch: the fused loss and
     the token- and vocab-chunked losses against the monolithic loss (loss,
     the head's gradient, every other gradient); exactly 1/1/1/1/1
     split/B5/merge/B6/B7 launches per step on the fused path, none on the
     chunked ones.
-19. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
+20. train_ce — ``train_gpt --loss_pallas`` in process, b8 s1024, 30
     steps: the split pass, B5 and the merge 34 each (one per step and per
     final-eval batch), B6 30, B7 30 launches; the first 5 losses against
     the ``train`` run's. Prints step ms, tokens/s, analytic MFU and peak
     memory beside ``train``'s.
-20. kernels_embed — the embedding-row gather (B8) against its plain
+21. kernels_embed — the embedding-row gather (B8) against its plain
     version on the card, exactly (a gather copies): Wide&Deep's deep
     table [2,600,000, 16] in f32 and bf16 and its wide table [2,600,000,
     1] with synthetic batch 0's 512 x 26 ids, rank-2 ids, 4,096 copies of
@@ -171,7 +188,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     deep f32 -> bf16) on shard 1 and 0 of 2, one table with and without
     the cast, a bf16 table, D 3 bf16 with D 17 cast, D 768 cast with a
     1-wide f32 table, strided tables, ids outside the table, empty ids.
-21. kernel_times_embed — B8 at the deep table with 512 x 26 ids (the
+22. kernel_times_embed — B8 at the deep table with 512 x 26 ids (the
     launcher's batch) and 8,192 x 26 (``scripts/bench_lm.py``'s), f32 and
     bf16, and at the wide table: kernel, plain version, the library
     yardstick (``torch.nn.functional.embedding``) and the bound, each
@@ -182,7 +199,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     forward and backward,
     device ms and device ops, the bound, and the outputs and gradients
     of both bit for bit.
-22. widedeep_lookup — Wide&Deep at full width (hash_buckets 100,000,
+23. widedeep_lookup — Wide&Deep at full width (hash_buckets 100,000,
     embed_dim 16, mlp 256/128/64, bf16), the trainer's init, 4 synthetic
     batches of 512: the model's two lookups again through
     ``masked_lookup_grouped`` (the row-sharded forward's lookup) on its
@@ -191,19 +208,19 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     today's per-table composite bit for bit (deterministic index_add_),
     and the ``index_select`` path's within 1e-6 (the deep table's at f32
     rows).
-23. train_widedeep — ``train_widedeep`` in process at its defaults
+24. train_widedeep — ``train_widedeep`` in process at its defaults
     (batch 512, Adam 1e-3, 300 steps, the final 4-batch eval), then a
     relaunch that resumes to step 310: the loss falls, ``eval_accuracy``
     > 0.55, and no B8 launch (the launcher looks its tables up as the
     JAX one does, with ``take``). Prints step ms, examples/s and peak
     memory.
-24. resnet_batchnorm — train-mode BatchNorm as the model runs it on
+25. resnet_batchnorm — train-mode BatchNorm as the model runs it on
     the card (PyTorch's fused batch-norm kernels) against the port's
     plain f32 ops (what the CPU tests hold against flax) on the same
     bf16 channels-last inputs at ResNet-50's stem, first-stage and
     last-stage shapes at b256: y, mean, variance, dx, dscale, dbias
     within ``BN_BF16_TOL`` / ``BN_F32_TOL``; the device ms of both.
-25. train_resnet — ``train_resnet`` in process: ``--config=imagenet``
+26. train_resnet — ``train_resnet`` in process: ``--config=imagenet``
     (ResNet-50 v1.5 at full width, 25,557,032 parameters, batch 256, the
     synthetic ImageNet stream) for 10 steps — finite losses, every
     BatchNorm running statistic moved, every tensor on the card — and a
@@ -212,12 +229,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     of 128, whose loss must fall by ``RN_FIXED_LOSS_DROP``. No hand
     kernel launches on this path (cuDNN convolutions, as the JAX
     package's are XLA's).
-26. resnet_bench — ``profile_resnet``'s measurement at bench.py's batch
+27. resnet_bench — ``profile_resnet``'s measurement at bench.py's batch
     128 and the launcher's 256 (one fixed batch on the card, SGD 0.1
-    momentum 0.9, 3 warm-up and 20 timed steps): step ms, images/s,
+    momentum 0.9, 3 warm-up and 10 timed steps): step ms, images/s,
     analytic MFU, peak memory, device busy and idle share, launches and
     device ms by family (convolutions, BatchNorm, the rest).
-27. bert_kernels — B1, B2 and B3 at BERT's shapes (bf16, 12 heads of
+28. bert_kernels — B1, B2 and B3 at BERT's shapes (bf16, 12 heads of
     64, non-causal, a key-padding mask with rows of no padding, some, all
     but one key and every key padded; batch 16 and 64, T 128 and 512)
     against their plain versions at the kernels / kernels_bwd
@@ -225,7 +242,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     the path's [64, 12, 128, 64] and at [16, 12, 512, 64]: each kernel's
     time, plain version, bound and SDPA with the same boolean mask (the
     backend PyTorch's dispatch took, named).
-28. train_bert — ``train_bert`` in process: BERT-base at full width
+29. train_bert — ``train_bert`` in process: BERT-base at full width
     (109,514,298 parameters), seq 128, batch 64, ``--grad_accum 4``, 10
     steps — finite losses, every tensor on the card, B1, B2 and B3 each
     12 × 4 a step (B1 12 more an eval batch) — and a relaunch that
@@ -234,13 +251,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     30 AdamW steps on one fixed batch lower the loss by
     ``BERT_FIXED_LOSS_DROP``; ``--mlm_gather 128`` gives the full path's
     loss within ``BERT_GATHER_REL_TOL``.
-29. bert_bench — ``profile_bert``'s measurement (one fixed batch on the
-    card, AdamW, 3 warm-up, 20 timed and 5 profiled steps) at
+30. bert_bench — ``profile_bert``'s measurement (one fixed batch on the
+    card, AdamW, 3 warm-up, 10 timed and 5 profiled steps) at
     ``grad_accum`` 1 and 4 with full logits, and 1 with ``--mlm_gather
     20`` and with ``--loss_chunk_vocab 8192``: step ms, tokens/s,
     analytic MFU, peak memory, flash launches a step, the head's ms and
     share, device busy and idle share, launches and device ms by family.
-30. dist_nccl — a process group of ONE over NCCL, made by this script,
+31. dist_nccl — a process group of ONE over NCCL, made by this script,
     with the entry points run inside it: ``python -m
     dtf_tpu_torch.distributed`` (MNIST softmax, 200 steps; its loss and
     held-out accuracy), and ``train_gpt --loss_pallas --mesh_data 1``
@@ -255,7 +272,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     batch 8, ``--grad_accum 2``, ZeRO-1, 4 steps) against the same run
     with no group: losses within ``DIST_LOSS_REL_TOL``, exact flash
     launch counts.
-31. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
+32. dist_two_ranks_one_card — two processes on cuda:0 over gloo (the
     group made by this script's ``--dist-child`` ranks; the kernels
     built before the spawn; each rank's output in a file, the wait
     bounded by ``DIST_CHILD_TIMEOUT_S``): ``train_widedeep --mesh_model
@@ -280,7 +297,8 @@ Then one JSON line listing every kernel (launches on its main path, error
 against the plain version, times, bound; the 8 ported TPU kernels, the
 split pass and the merge of B5's parts; B5-B7's, the split's and the
 merge's launches from rank 0 of the 2-rank GPT run, B8's from rank 0 of
-the 2-rank Wide&Deep run), the ``nvidia-smi`` line, and last ``{"ok":
+the 2-rank Wide&Deep run; B1-B3 also by path, ``train`` and
+``publish_swap``), the ``nvidia-smi`` line, and last ``{"ok":
 true, "device": {...}}``. ``--phases a,b`` runs a subset
 (without the kernels line). Exits non-zero without printing a result
 when no GPU is present or when the port's package is not beside this
@@ -1263,8 +1281,9 @@ SERVE_REQUESTS = (
 #: serve_bench: serve_gpt's Poisson mode on the train phase's checkpoint
 #: at a rate that keeps the 16 slots full and at 2 requests a second;
 #: SERVE_BENCH_REQUESTS requests a run (serve_spec and serve_fleet run the
-#: same traffic; 32 keeps the whole script well inside its time limit)
-SERVE_BENCH_REQUESTS = 32
+#: same traffic; 16 keeps the whole script inside its time limit on a
+#: slow host: 32 took 1,157.6 s with publish_swap on one card)
+SERVE_BENCH_REQUESTS = 16
 SERVE_BENCH_FLAGS = ("--n_slots=16", "--max_len=1024", "--prefill_chunk=128",
                      f"--n_requests={SERVE_BENCH_REQUESTS}",
                      "--prompt_min=128",
@@ -2021,9 +2040,10 @@ def phase_serve_pages(torch, smi, logdir):
 #: sleep FLEET_WEDGE_S, past the watchdog's bars (the slow bar's adaptive
 #: part is 20 x p99 of the healthy ticks: a tick of 4 prefill chunks and
 #: a decode is ~0.25 s on one H100, so ~5 s), so the first wedged tick
-#: quarantines it; its probation is put off past the run
+#: quarantines it; its probation is put off past the run. The 50th decode
+#: falls while the requests still arrive, so some are in flight there
 FLEET_REPLICAS = 2
-FLEET_WEDGE_AT, FLEET_WEDGE_S, FLEET_HEALTH_S = 100, 12.0, 8.0
+FLEET_WEDGE_AT, FLEET_WEDGE_S, FLEET_HEALTH_S = 50, 12.0, 8.0
 FLEET_FLAGS = (f"--replicas={FLEET_REPLICAS}", "--emit_tokens")
 
 
@@ -2219,6 +2239,179 @@ def phase_serve_fleet(torch, smi, logdir, pages):
           "wedge": {"at_decode": FLEET_WEDGE_AT, "sleep_s": FLEET_WEDGE_S,
                     "health_slow_and_wedge_s": FLEET_HEALTH_S},
           "hand_kernel_launches": 0, "seconds": seconds})
+
+
+#: publish_swap: train_gpt publishes every SWAP_PUBLISH_EVERY of
+#: SWAP_TRAIN_STEPS steps at batch SWAP_BATCH (versions 1 and 2); a fleet
+#: of FLEET_REPLICAS starts on version 1 and rolls to 2 while serving
+#: SWAP_REQUESTS greedy requests of serve_engine's shapes, polling every
+#: SWAP_POLL_TICKS ticks, the canary alone for SWAP_CANARY_TICKS
+SWAP_TRAIN_STEPS, SWAP_PUBLISH_EVERY, SWAP_BATCH = 4, 2, 4
+SWAP_REQUESTS, SWAP_POLL_TICKS, SWAP_CANARY_TICKS = 16, 4, 8
+#: the roll's peak memory may exceed a fresh fleet's on the new version by
+#: one set of parameters (the new set placed while the old one serves)
+#: and this much for allocations that differ with the requeues
+SWAP_PEAK_SLACK_BYTES = 64 * 2 ** 20
+
+
+def phase_publish_swap(torch, smi):
+    """Train → publish → poll → rolling swap on GPT-2 small at full width:
+    (a) ``train_gpt`` (``--attn_impl flash``, batch 4 x 1024, 4 steps)
+    with ``--publish_dir --publish_every 2``: versions 1 and 2 in the
+    manifest, each digest verified, B1-B3 launches counted; (b)
+    ``serve_gpt --replicas 2 --publish_dir --publish_version 1
+    --swap_poll_ticks 4 --canary_ticks 8`` on 16 greedy requests: one
+    swap to version 2, no rollback, all done, every record stamped 1 or
+    2, the streams stamped 2 bit-equal to a fresh ``--publish_version 2``
+    fleet's, ``trace_counts`` pinned, the replicas on one set of tensors
+    (version 2's), the roll's peak memory within one set of parameters of
+    the fresh fleet's, and no hand kernel in serving. Prints the swap's
+    steps on the router's clock, a version's load ms and the phase's
+    seconds."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from dtf_tpu_torch import serve_gpt, train_gpt
+    from dtf_tpu_torch.publish import dir_digest, load_published, \
+        read_manifest
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_swap_")
+    pub = os.path.join(root, "publish")
+
+    # (a) the trainer publishes
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    (state, _), fused, flash, embed, train_wall = _counted(
+        torch, lambda: train_gpt.run([
+            "--size=small", f"--batch_size={SWAP_BATCH}",
+            f"--seq_len={TRAIN_SEQ}", "--attn_impl=flash", "--seed=0",
+            f"--train_steps={SWAP_TRAIN_STEPS}", "--log_every=1",
+            "--checkpoint_every=1000", f"--logdir={root}/run",
+            f"--publish_dir={pub}",
+            f"--publish_every={SWAP_PUBLISH_EVERY}"]))
+    want = {"flash_fwd": 12 * (SWAP_TRAIN_STEPS + EVAL_BATCHES),
+            "flash_fwd_hfold": 0, "flash_dq": 12 * SWAP_TRAIN_STEPS,
+            "flash_dkv": 12 * SWAP_TRAIN_STEPS}
+    require(state.step == SWAP_TRAIN_STEPS, f"trained to {state.step}")
+    require(flash == want, f"train launches {flash} != {want}")
+    require(not any(fused.values()) and not embed,
+            f"other hand kernels launched: {fused}, B8 {embed}")
+    del state
+    m = read_manifest(pub)
+    versions = sorted(int(v) for v in m["history"])
+    require(m["version"] == 2 and versions == [1, 2]
+            and [m["history"][str(v)]["step"] for v in versions] == [2, 4],
+            f"manifest {m}")
+    for v in versions:
+        require(dir_digest(os.path.join(pub, str(v)))
+                == m["history"][str(v)]["digest"],
+                f"version {v} fails its digest")
+    seconds["train_publish"] = time.perf_counter() - t0
+
+    # a version's load: digest + read on the host, then onto the card
+    t0 = time.perf_counter()
+    _, _, v2 = load_published(pub, version=2)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    v2_card = {n: x.cuda() for n, x in v2.items()}
+    torch.cuda.synchronize()
+    place_ms = (time.perf_counter() - t0) * 1e3
+    param_bytes = sum(x.numel() * x.element_size() for x in v2.values())
+    del v2
+
+    # (b) the fleet rolls from 1 to 2 while serving, then a fresh fleet
+    rng = np.random.default_rng(7)
+    path = os.path.join(root, "requests.txt")
+    with open(path, "w") as f:
+        for i in range(SWAP_REQUESTS):
+            t_p, n_new, _ = SERVE_REQUESTS[i % len(SERVE_REQUESTS)]
+            f.write(",".join(map(str, rng.integers(0, VOCAB_REAL, t_p)))
+                    + f"/{n_new}\n")
+    base = [f"--publish_dir={pub}", f"--replicas={FLEET_REPLICAS}",
+            "--n_slots=16", f"--max_len={SERVE_MAX_LEN}",
+            f"--prefill_chunk={SERVE_CHUNK}", f"--requests=@{path}",
+            "--emit_tokens"]
+    runs, rows, peaks = {}, {}, {}
+    t_serve = time.perf_counter()
+    for name, extra in (
+            ("swap", ["--publish_version=1",
+                      f"--swap_poll_ticks={SWAP_POLL_TICKS}",
+                      f"--canary_ticks={SWAP_CANARY_TICKS}"]),
+            ("fresh_v2", ["--publish_version=2"])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (out, rows[name], router), wall = _no_hand_kernels(
+            torch, lambda: serve_gpt.run(base + extra))
+        peaks[name] = torch.cuda.max_memory_allocated()
+        require(out["request_statuses"] == {"done": SWAP_REQUESTS},
+                f"{name}: statuses {out['request_statuses']}")
+        require(router.trace_counts() == [{"prefill": 1, "decode": 1}]
+                * FLEET_REPLICAS, f"{name}: {router.trace_counts()}")
+        stamps = [router.poll(r)["version"] for r in range(SWAP_REQUESTS)]
+        runs[name] = {k: out.get(k) for k in (
+            "served_version", "final_version", "router_swaps",
+            "router_swap_rollbacks", "router_requeued", "router_ticks",
+            "router_param_swaps", "router_probe_decodes", "wall_s",
+            "tokens_per_sec", "generated_tokens", "serve_swap_p50_s",
+            "serve_swap_p99_s")}
+        runs[name].update({"in_process_wall_s": wall, "stamps": stamps,
+                           "peak_bytes": peaks[name]})
+        if name == "swap":
+            require(out["served_version"] == 1 and out["final_version"] == 2
+                    and out["router_swaps"] == 1.0
+                    and out["router_swap_rollbacks"] == 0.0,
+                    f"swap: {runs[name]}")
+            require(set(stamps) <= {1, 2} and 2 in stamps,
+                    f"swap: record stamps {stamps}")
+            models = [s.engine._model for s in router.schedulers]
+            shared = all(p.data_ptr() == q.data_ptr() for mdl in models[1:]
+                         for p, q in zip(models[0].parameters(),
+                                         mdl.parameters()))
+            require(shared, "after the roll the replicas hold two sets")
+            own = dict(models[0].named_parameters())
+            require(all(torch.equal(own[n], x) for n, x in v2_card.items()),
+                    "the replicas do not serve version 2's weights")
+            runs[name]["swap_profile"] = router.swap_profile()
+            swap_stamps = stamps
+            del models, own
+        del router
+    del v2_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = [r for r, v in enumerate(swap_stamps) if v == 2]
+    differ = [r for r in after if rows["swap"][r] != rows["fresh_v2"][r]]
+    require(not differ, f"streams on version 2 differ from a fresh "
+                        f"version-2 fleet's: {differ}")
+    extra_peak = peaks["swap"] - peaks["fresh_v2"]
+    require(extra_peak <= param_bytes + SWAP_PEAK_SLACK_BYTES,
+            f"the roll's peak is {extra_peak} bytes over a fresh fleet's, "
+            f"past one set of parameters ({param_bytes})")
+    shutil.rmtree(root, ignore_errors=True)
+    seconds["serve"] = time.perf_counter() - t_serve
+    seconds["phase"] = time.perf_counter() - t_phase
+    prof = runs["swap"]["swap_profile"]
+    emit({"phase": "publish_swap", "model": "gpt2-small", "nvidia_smi": smi,
+          "train": {"batch": SWAP_BATCH, "seq": TRAIN_SEQ,
+                    "steps": SWAP_TRAIN_STEPS,
+                    "publish_every": SWAP_PUBLISH_EVERY,
+                    "flash_launches": flash, "wall_s": train_wall,
+                    "versions": versions},
+          "version_load_ms": load_ms, "version_to_card_ms": place_ms,
+          "param_bytes": param_bytes,
+          "swap_ms": {k: {"mean": prof[k]["mean_s"] * 1e3,
+                          "p99": prof[k]["p99_s"] * 1e3,
+                          "count": prof[k]["count"]}
+                      for k in prof},
+          "peak_extra_bytes": extra_peak, "runs": runs,
+          "streams_after_swap_equal": len(after),
+          "hand_kernel_launches_serving": 0, "seconds": seconds})
+    return {"launches": flash}
 
 
 def _train_batch(torch, cfg, step=0):
@@ -3343,7 +3536,7 @@ BN_BF16_TOL, BN_F32_TOL = 2.0 ** -7, 1e-4
 BN_SHAPES = ((256, 64, 112, 112), (256, 256, 56, 56), (256, 2048, 7, 7))
 #: profile_resnet's batches (bench.py's 128 and the launcher's 256) and
 #: its timed steps
-RN_BENCH_BATCHES, RN_BENCH_STEPS = (128, 256), 20
+RN_BENCH_BATCHES, RN_BENCH_STEPS = (128, 256), 10
 #: ResNet-20 at batch 256 in a group of one (against no group) and over 2
 #: ranks (against one rank on the same global batch), 5 steps: the losses
 #: within DIST_LOSS_REL_TOL, and every BatchNorm running statistic within
@@ -3559,7 +3752,7 @@ def phase_train_resnet(torch, smi):
 
 def phase_resnet_bench(torch, smi):
     """``profile_resnet``'s measurement (bench.py's recipe: ResNet-50, one
-    fixed batch on the card, SGD 0.1 momentum 0.9, 3 warm-up and 20 timed
+    fixed batch on the card, SGD 0.1 momentum 0.9, 3 warm-up and 10 timed
     steps) at batch 128 and 256: step ms, images/s, analytic MFU, peak
     memory, device busy and idle share, launches and device ms by
     family."""
@@ -3604,7 +3797,7 @@ BERT_KERNEL_SHAPES = ((16, 128), (64, 128), (16, 512), (64, 512))
 #: mlm_gather), full logits at 1 and 4, the gather and the vocab-chunked
 #: loss at 1; timed steps and profiled steps each
 BERT_BENCH = ((1, 0, 0), (4, 0, 0), (1, 0, 20), (1, 8192, 0))
-BERT_BENCH_STEPS, BERT_BENCH_PROFILED = 20, 5
+BERT_BENCH_STEPS, BERT_BENCH_PROFILED = 10, 5
 #: dist_nccl and dist_two_ranks_one_card: BERT-base at a global batch of
 #: 8 (4 rows a rank at 2 ranks), --grad_accum 2, ZeRO-1, dropout 0.1, 4
 #: steps
@@ -3899,7 +4092,7 @@ def phase_train_bert(torch, smi):
 
 def phase_bert_bench(torch, smi):
     """``profile_bert``'s measurement (BERT-base, seq 128, batch 64, one
-    fixed batch on the card, AdamW, 3 warm-up, 20 timed and 5 profiled
+    fixed batch on the card, AdamW, 3 warm-up, 10 timed and 5 profiled
     steps) at each BERT_BENCH configuration: step ms, tokens/s, analytic
     MFU, peak memory, flash launches a step, the head's ms and share,
     device busy and idle share, launches and device ms by family."""
@@ -4530,7 +4723,7 @@ def phase_dist_two_ranks_one_card(torch, smi):
 #: checkpoint, run right after train
 PHASES = ("device", "build", "kernels", "generate", "generate_variants",
           "generate_beam", "serve_engine", "serve_bench", "serve_spec",
-          "serve_pages", "serve_fleet",
+          "serve_pages", "serve_fleet", "publish_swap",
           "kernels_bwd", "kernel_times_bwd",
           "train_grads", "train",
           "kernels_ce", "kernel_times_ce", "train_grads_ce", "train_ce",
@@ -4543,9 +4736,11 @@ PHASES = ("device", "build", "kernels", "generate", "generate_variants",
 def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
                  timing_bwd, train_launches, err_ce, timing_ce,
                  train_ce_launches, err_embed, timing_embed,
-                 embed_launches):
+                 embed_launches, swap_launches):
     """The one JSON line listing every ported kernel: its launches on its
-    main path, its error against the plain version, its times and bound."""
+    main path, its error against the plain version, its times and bound.
+    B1-B3 also give their launches on each path that runs them
+    (``launches_by_path``: ``train`` and ``publish_swap``'s trainer)."""
     fwd_common = {"route": "cuda",
                   "source": "dtf_tpu_torch/ops/csrc/flash_fwd.cu",
                   "plain_ms": timing["plain_ms"],
@@ -4558,7 +4753,9 @@ def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
         {"name": "flash_fwd", **fwd_common,
          "replaces": "dtf_tpu/ops/flash_attention.py:164",
          "launches": fwd_launches, "max_abs_err": err["flash_fwd"],
-         "ms": timing["flash_fwd"]},
+         "ms": timing["flash_fwd"],
+         "launches_by_path": {"train": fwd_launches,
+                              "publish_swap": swap_launches["flash_fwd"]}},
         {"name": "flash_fwd_hfold", **fwd_common,
          "replaces": "dtf_tpu/ops/flash_attention.py:222",
          "launches": variant_launches["flash_fwd_hfold"],
@@ -4567,11 +4764,15 @@ def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
         {"name": "flash_dq", **bwd_src,
          "replaces": "dtf_tpu/ops/flash_attention.py:363",
          "launches": train_launches["flash_dq"],
-         "max_abs_err": err_bwd["flash_dq"], **timing_bwd["flash_dq"]},
+         "max_abs_err": err_bwd["flash_dq"], **timing_bwd["flash_dq"],
+         "launches_by_path": {"train": train_launches["flash_dq"],
+                              "publish_swap": swap_launches["flash_dq"]}},
         {"name": "flash_dkv", **bwd_src,
          "replaces": "dtf_tpu/ops/flash_attention.py:405",
          "launches": train_launches["flash_dkv"],
-         "max_abs_err": err_bwd["flash_dkv"], **timing_bwd["flash_dkv"]},
+         "max_abs_err": err_bwd["flash_dkv"], **timing_bwd["flash_dkv"],
+         "launches_by_path": {"train": train_launches["flash_dkv"],
+                              "publish_swap": swap_launches["flash_dkv"]}},
         *({"name": name, "route": "cuda",
            "source": "dtf_tpu_torch/ops/csrc/fused_ce.cu",
            "replaces": f"dtf_tpu/ops/fused_ce.py:{line}",
@@ -4677,6 +4878,8 @@ def main(argv=None):
             phase_serve_fleet(torch, smi, logdir, pages)
         if "train" not in got:
             shutil.rmtree(logdir, ignore_errors=True)
+    if "publish_swap" in phases:
+        got["publish_swap"] = phase_publish_swap(torch, smi)
     if "train" in phases:
         shutil.rmtree(got["train"]["logdir"], ignore_errors=True)
     if "kernels_ce" in phases:
@@ -4728,7 +4931,8 @@ def main(argv=None):
                              got["kernel_times_ce"], two["fused"],
                              got["kernels_embed"],
                              got["kernel_times_embed"]["path"]["line"],
-                             two["embed_gather"]),
+                             two["embed_gather"],
+                             got["publish_swap"]["launches"]),
               "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

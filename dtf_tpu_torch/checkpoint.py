@@ -12,6 +12,9 @@ machine, so the port has its own format. One directory per step,
   written without it restores as none;
 - ``meta.json``: the step and the rng seed.
 
+A weight publish (:mod:`dtf_tpu_torch.publish`) writes parameters-only
+steps (:meth:`Checkpointer.save_params`): ``params.pt`` alone.
+
 A step is written under a temporary name and renamed into place, so a
 crash mid-save leaves no half step behind; ``max_to_keep`` steps are kept.
 Saves are synchronous.
@@ -202,6 +205,32 @@ class Checkpointer:
                 shutil.rmtree(os.path.join(self._dir, str(old)),
                               ignore_errors=True)
         self._barrier()
+        return True
+
+    def save_params(self, step: int, params: dict) -> bool:
+        """Write a PARAMETERS-ONLY step, ``<dir>/<step>/params.pt`` alone
+        (``{state_dict name: tensor}``, on the CPU): the weight publish's
+        version directory, where ``step`` is a publish version.
+        :meth:`restore_params` reads it back. Written under a temporary
+        name and renamed into place; ``max_to_keep`` applies. An existing
+        step is not rewritten (returns False). Not collective: the caller
+        is the one process that publishes."""
+        step = int(step)
+        if step in self.all_steps():
+            return False
+        final = os.path.join(self._dir, str(step))
+        tmp = os.path.join(self._dir, f".{step}.tmp{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        path = os.path.join(tmp, "params.pt")
+        with open(path, "wb") as f:
+            torch.save({n: t.detach().cpu() for n, t in params.items()}, f)
+            f.flush()
+            os.fsync(f.fileno())    # durable before a manifest names it
+        os.replace(tmp, final)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self._dir, str(old)),
+                          ignore_errors=True)
         return True
 
     def _restore_one(self, target, step: int):

@@ -18,6 +18,8 @@ The reference's defaults: batch 64, lr 0.01, 200 steps, plain SGD,
 ``--data_dir``, else the synthetic ``mnist`` stream. After training, a
 held-out eval (the test split, or a held-out synthetic batch), reduced
 over ranks; every worker prints ``done: step=N eval_accuracy=...``.
+``DTF_FAULT_INJECT``'s training verbs fire at their seeded step
+(:mod:`dtf_tpu_torch.fault.inject`).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ def run(argv=None):
     from dtf_tpu_torch.core.sharding import make_layout
     from dtf_tpu_torch.data import mnist as mnist_data
     from dtf_tpu_torch.data.synthetic import SyntheticData
+    from dtf_tpu_torch.fault import inject
     from dtf_tpu_torch.hooks import (CheckpointHook, LoggingHook,
                                      PreemptionHook, StopAtStepHook)
     from dtf_tpu_torch.loop import Trainer, place_batch
@@ -109,6 +112,9 @@ def run(argv=None):
              CheckpointHook(ckpt, args.checkpoint_every),
              PreemptionHook(ckpt, mesh=mesh),
              StopAtStepHook(args.train_steps)]
+    fault = inject.maybe_hook(host_index=info.process_id, checkpointer=ckpt)
+    if fault is not None:
+        hooks.insert(0, fault)   # injected faults land before save hooks
     state = Trainer(step, device, hooks, checkpointer=ckpt,
                     prefetch=args.prefetch_depth).fit(state, data)
 

@@ -1,7 +1,7 @@
 """Training hooks (counterpart of ``dtf_tpu.hooks``): the begin /
 before-step / after-step / end lifecycle of ``tf.train.SessionRunHook``,
 run by :class:`dtf_tpu_torch.loop.Trainer` on the host around each step.
-The profiler and publish hooks are not ported yet.
+The profiler hook is not ported yet.
 
 Over a mesh every rank runs the same hooks at the same steps, so their
 collectives (the eval's reduction, a checkpoint's gathers, the
@@ -114,6 +114,53 @@ class CheckpointHook(Hook):
 
     def end(self, state):
         self.ckpt.save(int(state.step), state, force=True)
+
+
+class PublishHook(Hook):
+    """Weight publishing for the train → serve hot-swap: every ``every_n``
+    steps the parameters are published as the next version
+    (:class:`dtf_tpu_torch.publish.ParamPublisher`: atomic manifest,
+    content digest), and the final parameters at ``end()`` unless the last
+    periodic publish covered that step. It rides next to
+    :class:`CheckpointHook`: a publish is weights only, for serving.
+    ``publisher=None`` (a process that does not save) makes it inert. A
+    failed publish warns and training goes on; an injected crash
+    (``crash_in_publish``) goes through."""
+
+    def __init__(self, publisher, every_n: int = 100):
+        if every_n < 1:
+            raise ValueError(f"every_n={every_n} must be >= 1")
+        self.publisher = publisher
+        self.every_n = every_n
+        self._last_published_step: int | None = None
+
+    def _publish(self, step, state) -> None:
+        from dtf_tpu_torch.fault.inject import InjectedCrash
+
+        try:
+            self.publisher.publish(step, state.params)
+            self._last_published_step = step
+        except InjectedCrash:
+            # the host dies mid-publish (the scenario): end() must not
+            # publish again from the loop's finally, as a killed host
+            # would not
+            self.publisher = None
+            raise
+        except Exception as e:  # noqa: BLE001 — a failed publish leaves
+            # the previous version serving; training continues
+            log.warning(
+                "publish at step %d failed (%s: %.200s); the previous "
+                "published version keeps serving", step,
+                type(e).__name__, e)
+
+    def after_step(self, step, state, metrics):
+        if self.publisher is not None and step % self.every_n == 0:
+            self._publish(step, state)
+
+    def end(self, state):
+        if (self.publisher is not None
+                and int(state.step) != self._last_published_step):
+            self._publish(int(state.step), state)
 
 
 class PreemptionHook(Hook):

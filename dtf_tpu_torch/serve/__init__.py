@@ -17,8 +17,9 @@
   occupancy / SLO metrics.
 - :mod:`dtf_tpu_torch.serve.router` — ``Router``: N engine replicas
   over one set of weights behind least-occupancy admission, with
-  quarantine and requeue, and prefill/decode disaggregation over a shared
-  page store.
+  quarantine and requeue, prefill/decode disaggregation over a shared
+  page store, and the rolling weight swap (canary, rollback) from a
+  publish dir (:mod:`dtf_tpu_torch.publish`).
 - :mod:`dtf_tpu_torch.serve.health` — the replicas' health state machine
   (healthy, degraded, quarantined, probation) and the serve verbs of
   ``DTF_FAULT_INJECT``.
@@ -26,8 +27,8 @@
   open-loop replay pump, a seeded Poisson load generator and a heartbeat.
 
 ``python -m dtf_tpu_torch.serve_gpt`` is the launcher. Not yet ported:
-the router's weight hot-swap, the serve-log sink, the event log and
-sharded serving.
+the draft-only swap, the serve-log sink, the event log and sharded
+serving.
 """
 
 from dtf_tpu_torch.serve.client import (Heartbeat, PoissonLoadGen,

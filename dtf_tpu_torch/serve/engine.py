@@ -65,9 +65,14 @@ dense, like the reference: its prefill is the chunked-prefill einsum and
 its decode the grouped decode einsum, so it launches none of the hand
 kernels.
 
+**Weight hot-swap** (:meth:`DecodeEngine.swap_params`): a drained engine
+takes new weights of the same architecture by rebinding its module's
+parameters, with no step function built again; the version bump keys
+new prefix pages apart from the old weights'.
+
 Not yet ported: the tuner's ``spec_k = 0`` with a draft, sharded serving
-(``mesh``), weight hot-swap (``swap_params``) and trace annotations
-(``annotate_traces``); each raises when asked for.
+(``mesh``) and trace annotations (``annotate_traces``); each raises when
+asked for.
 """
 
 from __future__ import annotations
@@ -356,6 +361,57 @@ def _load_model(cfg: gpt.GPTConfig, params: dict, device,
     return model.eval()
 
 
+def place_params(params: dict, device, memo: Optional[dict] = None
+                 ) -> dict:
+    """``params`` as parameters on ``device``: a parameter already there
+    is taken as it is; any other tensor is moved there (no copy when it
+    is there already) and wrapped. A tensor given under two names (or
+    twice through one ``memo``) becomes ONE parameter, so an early-exit
+    draft placed with its target shares the target's tensors."""
+    memo = {} if memo is None else memo
+    device = torch.device(device)
+    out = {}
+    for n, x in params.items():
+        got = memo.get(id(x))
+        if got is None:
+            if isinstance(x, torch.nn.Parameter) and x.device == device:
+                got = x
+            else:
+                got = torch.nn.Parameter(x.detach().to(device),
+                                         requires_grad=False)
+            memo[id(x)] = got
+        out[n] = got
+    return out
+
+
+def _check_and_place(new: dict, served: dict, what: str, device,
+                     memo: dict) -> dict:
+    """Validate ``new`` against the served tensors (the same names, shapes
+    and dtypes: anything else is a new engine, not a swap), then
+    :func:`place_params`."""
+    if set(new) != set(served):
+        diff = sorted(set(new) ^ set(served))
+        raise ValueError(
+            f"swap_params: new {what} tree structure differs from the "
+            f"served tree ({diff[:4]}) — hot-swap needs the SAME "
+            "architecture (a different config is a new engine, not a swap)")
+    for n, o in served.items():
+        x = new[n]
+        if tuple(x.shape) != tuple(o.shape) or x.dtype != o.dtype:
+            raise ValueError(
+                f"swap_params: {what} leaf {n!r} is {tuple(x.shape)}/"
+                f"{x.dtype}, the served engine expects "
+                f"{tuple(o.shape)}/{o.dtype}")
+    return place_params({n: new[n] for n in served}, device, memo)
+
+
+def _rebind(model: torch.nn.Module, params: dict) -> None:
+    """Make each ``params[name]`` the module's own parameter ``name``."""
+    for name, p in params.items():
+        path, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(path), leaf, p)
+
+
 class DecodeEngine:
     """Slot-pooled online decode over a GPT's parameters.
 
@@ -472,15 +528,15 @@ class DecodeEngine:
         self.spec_k = spec_k if dbase is not None else 0
         self.draft_cfg = dbase
         self.device = resolve_device(device)
-        #: host-side call counters (plain ints, no device readback); the
-        #: probe and swap counters stay 0 until those are ported
+        #: host-side call counters (plain ints, no device readback)
         self.counters = {"prefill_chunks": 0, "decode_steps": 0,
                          "pages_loaded": 0, "pages_saved": 0,
                          "prefix_hit_tokens": 0, "prefix_miss_tokens": 0,
                          "probe_decodes": 0, "param_swaps": 0}
-        #: the version of the weights served: 0, as constructed (the
-        #: scheduler stamps it into every completed record; prefix pages
-        #: are keyed by it)
+        #: the version of the weights served: 0 as constructed,
+        #: :meth:`set_param_version` or a swap moves it (the scheduler
+        #: stamps it into every completed record; prefix pages are keyed
+        #: by it)
         self.param_version = 0
 
         if weights_from is not None and weights_from.cfg != base:
@@ -586,9 +642,113 @@ class DecodeEngine:
                 "annotate_traces (request ids on the step calls) is not "
                 "yet ported")
 
-    def swap_params(self, params, *, draft_params=None, version=None):
-        raise NotImplementedError("swap_params (weight hot-swap) is not "
-                                  "yet ported")
+    # -------------------------------------------------- weight hot-swap
+
+    @property
+    def params(self) -> dict:
+        """The served parameters, ``{state_dict name: tensor}``: the model
+        module's own tensors (a fleet's replicas hold the same ones)."""
+        return dict(self._model.named_parameters())
+
+    @property
+    def draft_params(self) -> Optional[dict]:
+        """The draft model's parameters (None without a draft); a
+        self-draft's or an early-exit draft's are the target's tensors."""
+        if not self.spec_k:
+            return None
+        return dict(self._draft_model.named_parameters())
+
+    def place(self, params: dict, draft_params: Optional[dict] = None
+              ) -> tuple[dict, Optional[dict]]:
+        """``(params, draft_params)`` placed on this engine's device once
+        (:func:`place_params`, one memo: a draft's tensors shared with
+        ``params`` stay shared) — what a router hands every replica of a
+        swap, so the fleet holds one set of each version."""
+        memo: dict = {}
+        placed = place_params(params, self.device, memo)
+        return placed, (None if draft_params is None
+                        else place_params(draft_params, self.device, memo))
+
+    def set_param_version(self, version: int) -> None:
+        """Stamp the version of the weights this engine was BUILT with
+        (serving a published version from the start): no swap, no
+        counter. Call it before traffic, so records and page epochs carry
+        the real version."""
+        self.param_version = int(version)
+
+    def swap_params(self, params: dict, *, draft_params=None,
+                    version: Optional[int] = None) -> int:
+        """Hot-swap the served weights: no step function is built again
+        (``trace_counts`` stays pinned).
+
+        ``params`` (``{state_dict name: tensor}``) must be drop-in for the
+        served ones: the same names, shapes and dtypes, or ``ValueError``
+        names the first offence. Tensors on another device are copied to
+        the engine's (:func:`place_params`); tensors already there are
+        taken as they are, not copied — the caller hands them over and
+        must not write them afterwards.
+
+        **The swap REBINDS, it does not copy.** The model module's
+        parameters are replaced by the new tensor objects. A fleet's
+        replicas share one set of tensors (``weights_from``), so a
+        ``copy_`` into them would flip every replica at once, with no
+        canary, no rollback, and mixed versions mid-stream on replicas
+        that have not drained; rebinding one replica's module leaves the
+        others on their set. The step closures hold the module, not its
+        tensors, so they stay valid. The router places one set per
+        version and hands the same set to every replica it swaps: after a
+        roll the fleet again holds one set, during it at most two. A
+        CUDA graph of a step would capture the tensors' addresses: after
+        a swap it has to be captured again.
+
+        Caller contract (the router's rolling swap keeps it): the engine
+        is drained, no request queued, admitting or running; a stale slot
+        needs no cleanup (an admitted request fully resets its slot), and
+        the bump of the version makes every prefix page of the old
+        weights unreachable from this engine.
+
+        With a draft, target, draft and version swap as one transaction:
+        ``draft_params`` swaps the draft explicitly (tensors it shares by
+        identity with ``params`` stay shared); otherwise a self-draft, or
+        an early-exit draft (:func:`gpt.draft_truncate`), takes the new
+        target tensors it shared before, and a distinct draft keeps its
+        old weights (logged: acceptance may move, the streams cannot,
+        since the verifier samples every delivered token).
+
+        ``version`` stamps :attr:`param_version` (default: the previous
+        + 1). Returns the new version."""
+        memo: dict = {}
+        served = self.params
+        placed = _check_and_place(params, served, "params", self.device,
+                                  memo)
+        placed_draft = None
+        if self.spec_k:
+            dserved = self.draft_params
+            if draft_params is not None:
+                placed_draft = _check_and_place(draft_params, dserved,
+                                                "draft_params", self.device,
+                                                memo)
+            else:
+                shared = [n for n, p in dserved.items()
+                          if served.get(n) is p]
+                if shared:
+                    placed_draft = {**dserved,
+                                    **{n: placed[n] for n in shared}}
+                if len(shared) < len(dserved):
+                    log.info(
+                        "swap_params: the draft keeps its previous weights "
+                        "for %d of %d tensors (no draft_params passed) — "
+                        "acceptance may move, the streams cannot",
+                        len(dserved) - len(shared), len(dserved))
+        # THE transaction: target, draft and version flip together,
+        # between step calls (the pump is single-threaded)
+        _rebind(self._model, placed)
+        if placed_draft is not None:
+            _rebind(self._draft_model, placed_draft)
+        self.param_version = (int(version) if version is not None
+                              else self.param_version + 1)
+        self.counters["param_swaps"] += 1
+        return self.param_version
 
     @property
     def state(self) -> dict:

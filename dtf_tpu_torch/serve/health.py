@@ -30,9 +30,9 @@ time includes the decode's readback, so the watchdog sees device time.
 
 :func:`install_serve_fault` arms a ``DTF_FAULT_INJECT`` serve verb on a
 live router or scheduler by wrapping engine methods: ``wedge_replica``,
-``slow_decode``, ``poison_request`` and ``poison_draft``. The verbs of
-the hot-swap, the serve-log sink and the event log raise "not yet
-ported".
+``slow_decode``, ``poison_request``, ``poison_draft`` and the hot-swap's
+``wedge_in_swap``; ``corrupt_publish`` wraps a publish watcher. The
+verbs of the serve-log sink and the event log raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -45,7 +45,9 @@ import os
 import time
 from typing import Optional
 
-from dtf_tpu_torch.fault.inject import InjectedPoison, ServeFaultPlan
+from dtf_tpu_torch.fault.inject import (InjectedCrash, InjectedPoison,
+                                        ServeFaultPlan,
+                                        corrupt_publish_version)
 from dtf_tpu_torch.metrics import quantile
 
 log = logging.getLogger("dtf_tpu_torch")
@@ -247,10 +249,10 @@ class HealthTracker:
 # Serve-side fault injection.
 # ---------------------------------------------------------------------------
 
-#: the verbs install_serve_fault arms; the others' targets (the hot-swap,
-#: the serve-log sink, the event log) are not ported yet
+#: the verbs install_serve_fault arms; the others' targets (the serve-log
+#: sink, the event log) are not ported yet
 _PORTED_KINDS = ("wedge_replica", "slow_decode", "poison_request",
-                "poison_draft")
+                "poison_draft", "wedge_in_swap", "corrupt_publish")
 
 
 class ServeFaultState:
@@ -280,7 +282,7 @@ def _arm_poison_submit(plan, pump, state, note) -> None:
 def install_serve_fault(plan: ServeFaultPlan, pump, *, sleep=time.sleep,
                         wedge_s: Optional[float] = None,
                         slow_s: Optional[float] = None,
-                        emit=None) -> ServeFaultState:
+                        emit=None, watcher=None) -> ServeFaultState:
     """Arm a serve fault on a live Router or Scheduler (``pump``).
 
     - ``wedge_replica@N[:replica=k]`` — from the target engine's N-th
@@ -296,6 +298,16 @@ def install_serve_fault(plan: ServeFaultPlan, pump, *, sleep=time.sleep,
     - ``poison_draft@N`` — the N-th submit is marked; while it runs on a
       replica, that replica's ``draft_propose`` raises: the engine falls
       back to null proposals (``draft_fallbacks``).
+    - ``wedge_in_swap@N[:replica=k]`` — the target replica's N-th
+      ``swap_params`` call (0-based) sleeps ``wedge_s`` then raises
+      mid-roll: the router must roll the partial fleet back onto ONE
+      version. Fires once.
+    - ``corrupt_publish@N`` — needs ``watcher`` (a
+      :class:`dtf_tpu_torch.publish.PublishWatcher`): the N-th new
+      published version it sees (0-based) is damaged on disk before it
+      loads (:func:`~dtf_tpu_torch.fault.inject.corrupt_publish_version`);
+      the digest check must skip it with a warning and the fleet keep
+      its version. No-op without a watcher.
 
     Ticks count in the target's own call domain, so a plan is
     deterministic under Poisson timing; ``sleep`` is injectable. Each
@@ -304,7 +316,7 @@ def install_serve_fault(plan: ServeFaultPlan, pump, *, sleep=time.sleep,
     if plan.kind not in _PORTED_KINDS:
         raise NotImplementedError(
             f"serve fault {plan.kind!r} is not yet ported (its target — the "
-            "hot-swap, the serve-log sink or the event log — is not)")
+            "serve-log sink or the event log — is not)")
     scheds = getattr(pump, "schedulers", None) or [pump]
     state = ServeFaultState(plan)
     _emit = emit or (lambda line: print(line, flush=True))
@@ -358,6 +370,57 @@ def install_serve_fault(plan: ServeFaultPlan, pump, *, sleep=time.sleep,
                 return _orig(**kw)
 
             eng.draft_propose = draft
+        return state
+
+    if plan.kind == "wedge_in_swap":
+        delay = (wedge_s if wedge_s is not None
+                 else float(os.environ.get("DTF_FAULT_WEDGE_S", "0.75")))
+        for k, s in enumerate(scheds):
+            if plan.replica is not None and plan.replica != k:
+                continue
+            eng = s.engine
+            orig = getattr(eng, "swap_params", None)
+            if orig is None:
+                continue        # an engine with no swap surface: no-op
+            calls = [0]
+
+            def swap(*a, _orig=orig, _calls=calls, _k=k, **kw):
+                idx = _calls[0]
+                _calls[0] += 1
+                if idx == plan.tick and not state.fired:
+                    state.fired = True
+                    note("firing", on_replica=_k, delay_s=delay)
+                    sleep(delay)
+                    raise InjectedCrash(
+                        f"injected wedge_in_swap on replica {_k} "
+                        f"(swap call #{idx})")
+                return _orig(*a, **kw)
+
+            eng.swap_params = swap
+        return state
+
+    if plan.kind == "corrupt_publish":
+        if watcher is None:
+            return state        # nothing to arm without a publish watcher
+        orig_load = watcher.load_new
+        seen: list = []
+
+        def load_new(*, _orig=orig_load):
+            m = watcher.poll()
+            if m is not None:
+                v = int(m["version"])
+                if v not in seen:
+                    seen.append(v)
+                    if len(seen) - 1 == plan.tick and not state.fired:
+                        state.fired = True
+                        note("firing", version=v)
+                        try:
+                            corrupt_publish_version(watcher.directory, v)
+                        except FileNotFoundError:
+                            pass   # raced a prune: nothing to corrupt
+            return _orig()
+
+        watcher.load_new = load_new
         return state
 
     if plan.kind == "wedge_replica":

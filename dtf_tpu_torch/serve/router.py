@@ -42,14 +42,33 @@ role), the fleet-summed engine counters and the control-plane tick
 profile (``cp_pick``, ``cp_engine_tick``, ``cp_health_sweep``,
 ``cp_page_ops``, ``cp_bookkeeping`` on
 :class:`~dtf_tpu_torch.telemetry.spans.SpanRecorder`; host arithmetic
-only). Not yet ported, and raising: the rolling weight swap
-(``start_swap`` and the rest of the hot-swap, :class:`SwapConfig`), the
-serve-log sink, the event log and telemetry.
+only). Not yet ported, and raising: the draft-only swap
+(``maybe_swap_draft``), the serve-log sink, the event log and telemetry.
+
+**The rolling weight swap** (:meth:`Router.start_swap`): a new version
+rolls across the fleet with no downtime. One replica at a time is
+drained through the requeue path (its requests replay whole on the
+others), swapped (``DecodeEngine.swap_params``: its module rebinds to
+the version's tensors, no step function is built again), probed and
+readmitted. The first is the CANARY: it serves alone on the new version
+for :class:`SwapConfig`'s ``canary_ticks`` under the health watchdog and
+a TTFT floor, and a breach, or a failed swap step (the ``wedge_in_swap``
+verb), rolls every swapped replica back to the previous version. A
+replica whose rollback fails stays out of traffic until a repair
+realigns it. The router places each version's tensors once and hands
+the same set to every replica, so the fleet holds one set, two during a
+roll. ``maybe_swap_published`` drives it from a
+:class:`dtf_tpu_torch.publish.PublishWatcher`; records stamp the version
+that decoded them, and a commit or a rollback frees the prefix pages of
+other versions. Each swap step is timed on the router's clock
+(:meth:`Router.swap_profile`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import logging
 import time
 from typing import Optional, Sequence
 
@@ -70,14 +89,35 @@ _REPLICA_KEYS = ("serve_completed", "serve_occupancy_mean",
 CP_PHASES = ("cp_pick", "cp_engine_tick", "cp_health_sweep", "cp_page_ops",
              "cp_bookkeeping")
 
-_HOT_SWAP = "the rolling weight swap (hot-swap) is not yet ported"
+log = logging.getLogger("dtf_tpu_torch")
 
 
+@dataclasses.dataclass(frozen=True)
 class SwapConfig:
-    """The rolling swap's knobs: not yet ported (hot-swap)."""
+    """Knobs of the rolling weight swap (module docstring).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_HOT_SWAP)
+    The FIRST swapped replica is the canary: for ``canary_ticks`` router
+    ticks it serves on the new version alone, and a breach inside that
+    window — its health leaving HEALTHY, or, with a TTFT objective set,
+    its post-swap ok-fraction under ``slo_floor`` over at least
+    ``slo_min_samples`` completions — rolls the fleet back. After a clean
+    window the rest of the fleet follows, one replica a tick."""
+
+    canary_ticks: int = 8
+    slo_floor: float = 0.0          # 0 = health gate only
+    slo_min_samples: int = 1
+
+    def __post_init__(self):
+        if self.canary_ticks < 1:
+            raise ValueError(
+                f"canary_ticks={self.canary_ticks} must be >= 1 (a swap "
+                "with no canary window cannot be health-gated)")
+        if not 0.0 <= self.slo_floor <= 1.0:
+            raise ValueError(f"slo_floor={self.slo_floor} must be in "
+                             "[0, 1]")
+        if self.slo_min_samples < 1:
+            raise ValueError(
+                f"slo_min_samples={self.slo_min_samples} must be >= 1")
 
 
 class Router:
@@ -150,8 +190,32 @@ class Router:
         self._handoffs = 0
         self._next_id = 0
         self._ticks = 0
-        #: the fleet's param version (hot-swap is not ported: always 0)
+        #: the fleet's COMMITTED param version (each replica's own is on
+        #: its engine)
         self._version = 0
+        #: the rolling swap in progress (None: steady state)
+        self._swap: Optional[dict] = None
+        #: the replica being drained and swapped (never routable)
+        self._swapping: Optional[int] = None
+        #: replicas left on rejected weights (their rollback failed):
+        #: replica -> (params, draft, version) to realign them with; never
+        #: routable until :meth:`_retry_version_repair` lands
+        self._version_repair: dict[int, tuple] = {}
+        #: without health there is no quarantine to pace repair retries:
+        #: replica -> (next tick allowed, delay in ticks)
+        self._repair_backoff: dict[int, tuple[int, int]] = {}
+        self._swaps = 0
+        self._swap_rollbacks = 0
+        self._last_swap: Optional[dict] = None
+        #: the version-skew tripwire: warned once while the fleet spans
+        #: more than one version outside a swap, re-armed on convergence
+        self._skew_warned = False
+        #: each swap step on the router's clock: ``swap_drain``,
+        #: ``swap_params``, ``swap_probe`` (per replica), ``serve_swap``
+        #: (drain and swap, the reference's span), ``swap_canary`` (the
+        #: canary's swap to the end of its window) and ``swap_roll``
+        #: (start to commit or rollback)
+        self._swap_spans = SpanRecorder(clock=clock)
 
     @classmethod
     def build(cls, cfg, params, *, n_replicas: int, n_slots: int,
@@ -200,6 +264,12 @@ class Router:
     # ------------------------------------------------------------ admission
 
     def _routable(self, i: int) -> bool:
+        if i == self._swapping:     # mid-drain or mid-swap
+            return False
+        if i in self._version_repair:
+            # on weights the fleet rolled back from: no traffic (and no
+            # probation probe) until the repair lands
+            return False
         return self.health is None or self.health.routable(i)
 
     def _pick(self, phase: str = "decode") -> Optional[int]:
@@ -230,6 +300,15 @@ class Router:
         prompt is not in the shared store yet; cached stems and sub-page
         prompts go straight to a decode replica."""
         if not self._prefill_replicas:
+            return False
+        # pages are keyed by version: while the routable replicas'
+        # versions differ (a roll in flight), a prefill job would save
+        # pages at one version that the decode admission looks up at
+        # another — go straight to decode until they converge
+        versions = {getattr(s.engine, "param_version", 0)
+                    for i, s in enumerate(self.schedulers)
+                    if self._routable(i)}
+        if len(versions) > 1:
             return False
         eng = self.schedulers[0].engine
         prompt = tuple(int(t) for t in req.prompt)
@@ -316,8 +395,16 @@ class Router:
         out["router"] = {"shed_at_door": self._shed_router,
                          "requeued": self._requeued,
                          "version": self._version,
-                         "replica_versions": [s.engine.param_version
-                                              for s in self.schedulers]}
+                         "replica_versions": [
+                             getattr(s.engine, "param_version", None)
+                             for s in self.schedulers],
+                         "swaps": self._swaps,
+                         "swap_rollbacks": self._swap_rollbacks,
+                         "swap_in_progress": self._swap is not None,
+                         "version_repair_pending": sorted(
+                             self._version_repair)}
+        if self._last_swap is not None:
+            out["router"]["last_swap"] = dict(self._last_swap)
         if self.health is not None:
             out["router"]["health"] = self.health.states()
             out["router"]["health_counters"] = dict(self.health.counters)
@@ -368,22 +455,354 @@ class Router:
             return
         self.health.note_tick(i, self.clock() - t0)
 
-    # -------------------------------------------------------------- hot-swap
+    # --------------------------------------------------- rolling weight swap
 
-    def start_swap(self, *args, **kwargs):
-        raise NotImplementedError(_HOT_SWAP)
+    def stamp_version(self, version: int) -> None:
+        """Stamp the version the fleet was BUILT with (serving a published
+        version from the start) on every replica: no swap, no drain. Call
+        it before traffic, so records, page epochs and the skew tripwire
+        carry the real version."""
+        for s in self.schedulers:
+            setter = getattr(s.engine, "set_param_version", None)
+            if setter is not None:
+                setter(version)
+        self._version = int(version)
 
-    def finish_swap(self, *args, **kwargs):
-        raise NotImplementedError(_HOT_SWAP)
+    @property
+    def swap_in_progress(self) -> bool:
+        return self._swap is not None
 
-    def maybe_swap_published(self, *args, **kwargs):
-        raise NotImplementedError(_HOT_SWAP)
+    @property
+    def version(self) -> int:
+        """The fleet's committed version (each replica's: ``stats()``'s
+        ``replica{i}_version``)."""
+        return self._version
+
+    def start_swap(self, params, *, version: Optional[int] = None,
+                   draft_params=None,
+                   config: Optional[SwapConfig] = None) -> int:
+        """Begin a ROLLING swap of the fleet onto ``params`` (module
+        docstring); it advances one step a :meth:`tick` (with no traffic,
+        pump :meth:`finish_swap`). The tensors are placed on the device
+        once here (``DecodeEngine.place``): every replica takes the same
+        set. ``version`` must move forward (default: committed + 1);
+        ``draft_params`` rides the same transaction on speculative
+        replicas. Returns the target version."""
+        if self._swap is not None:
+            raise RuntimeError(
+                f"a rolling swap to version {self._swap['version']} is "
+                "already in progress")
+        n = len(self.schedulers)
+        if n < 2:
+            raise ValueError(
+                "a rolling swap needs >= 2 replicas (one drains while "
+                "the others serve); a single engine swaps via "
+                "DecodeEngine.swap_params after draining")
+        version = self._version + 1 if version is None else int(version)
+        if version <= self._version:
+            raise ValueError(
+                f"swap version {version} is not monotone (fleet is at "
+                f"{self._version}) — published versions only move "
+                "forward")
+        cfg = config or SwapConfig()
+        place = getattr(self.schedulers[0].engine, "place", None)
+        if place is not None:
+            params, draft_params = place(params, draft_params)
+        rank = (self.health.rank if self.health is not None
+                else (lambda i: 0))
+        # healthiest replica first: the canary must start clean, or the
+        # gate would trip on trouble it did not cause
+        order = sorted(range(n), key=lambda i: (rank(i), i))
+        self._swap = {
+            "version": version, "params": params, "draft": draft_params,
+            "cfg": cfg, "order": order, "canary": order[0],
+            "canary_swapped": False, "ticks_left": cfg.canary_ticks,
+            "ttft_mark": 0, "done": [], "t0": self.clock(),
+            "t_canary": None,
+            "prev_params": [getattr(s.engine, "params", None)
+                            for s in self.schedulers],
+            "prev_draft": [getattr(s.engine, "draft_params", None)
+                           if getattr(s.engine, "spec_k", 0) else None
+                           for s in self.schedulers],
+            "prev_version": [getattr(s.engine, "param_version", 0)
+                             for s in self.schedulers],
+            "watcher": None,
+        }
+        log.info("rolling swap to param version %d started (canary "
+                 "replica %d, %d-tick window)", version, order[0],
+                 cfg.canary_ticks)
+        return version
+
+    def maybe_swap_published(self, watcher, *,
+                             config: Optional[SwapConfig] = None,
+                             draft_factory=None) -> Optional[int]:
+        """Poll a :class:`dtf_tpu_torch.publish.PublishWatcher` and start
+        a rolling swap when it hands over a NEW verified version (a
+        corrupt publish was already skipped with a warning there).
+        ``draft_factory(params) -> draft_params`` rebuilds the draft from
+        the new weights (the ``--draft_layers`` early exit). No-op while a
+        swap is in progress. Returns the version a swap started for, else
+        None."""
+        if self._swap is not None:
+            return None
+        got = watcher.load_new()
+        if got is None:
+            return None
+        version, step, params = got
+        if version <= self._version:
+            watcher.note_applied(version)
+            return None
+        draft = draft_factory(params) if draft_factory is not None else None
+        v = self.start_swap(params, version=version, draft_params=draft,
+                            config=config)
+        self._swap["watcher"] = watcher
+        self._swap["step"] = step
+        return v
 
     def maybe_swap_draft(self, *args, **kwargs):
-        raise NotImplementedError(_HOT_SWAP)
+        """The draft-only swap (a distilled draft's publish dir): not yet
+        ported — its only writer, ``train_gpt --distill_*``, needs the
+        serve-log sink."""
+        raise NotImplementedError("the draft-only swap (maybe_swap_draft, "
+                                  "--draft_publish_dir) is not yet ported")
 
-    def stamp_version(self, *args, **kwargs):
-        raise NotImplementedError(_HOT_SWAP)
+    def finish_swap(self, max_ticks: int = 100000) -> None:
+        """Pump ticks until the swap in progress commits or rolls back
+        (ticks with no traffic still advance it)."""
+        for _ in range(max_ticks):
+            if self._swap is None:
+                return
+            self.tick()
+        raise RuntimeError(f"swap still in progress after {max_ticks} "
+                           "ticks")
+
+    def swap_profile(self) -> dict:
+        """The swap steps' timings on the router's clock, by span
+        (``SpanRecorder.rollup``; ``__init__`` names them)."""
+        return {k: dict(v) for k, v in self._swap_spans.rollup().items()}
+
+    def _swap_replica(self, i: int, params, draft, version: int, *,
+                      probe: bool = True, mark=None) -> None:
+        """Drain replica ``i`` onto the rest of the fleet, swap its
+        weights, probe it, readmit it. Its requests requeue with their
+        original id and submit time, so a request spanning the swap
+        replays WHOLE on one version. ``mark`` runs the moment
+        ``swap_params`` returns, before the probe: a replica whose probe
+        raises is already recorded as swapped, and a rollback includes
+        it (its weights did flip)."""
+        spans, clock = self._swap_spans, self.clock
+        self._swapping = i
+        try:
+            t0 = clock()
+            self._requeue_from(i)
+            t1 = clock()
+            self.schedulers[i].engine.swap_params(
+                params, draft_params=draft, version=version)
+            t2 = clock()
+        finally:
+            self._swapping = None
+        spans.add("swap_drain", t1 - t0)
+        spans.add("swap_params", t2 - t1)
+        spans.add("serve_swap", t2 - t0)
+        # any successful swap supersedes a pending repair: a later retry
+        # would revert the replica to the stale rolled-back weights
+        self._version_repair.pop(i, None)
+        self._repair_backoff.pop(i, None)
+        if mark is not None:
+            mark()
+        quarantined = (self.health is not None
+                       and self.health.state(i) == health_lib.QUARANTINED)
+        if probe and not quarantined:
+            # the same decode step, timed and judged: a replica that comes
+            # back wedged is caught before live traffic lands on it
+            fn = getattr(self.schedulers[i].engine, "probe", None)
+            if fn is not None:
+                t0 = clock()
+                fn()        # raises: a swap failure (the caller rolls back)
+                dur = clock() - t0
+                spans.add("swap_probe", dur)
+                if (self.health is not None
+                        and self.health.note_tick(i, dur)
+                        == health_lib.QUARANTINED):
+                    self._requeue_from(i)
+
+    def _advance_swap(self) -> None:
+        """One step of the rolling swap, at the end of every tick. Any
+        exception in a replica's swap step (``wedge_in_swap``, a failed
+        probe, a tree that is not drop-in) rolls the partial fleet back
+        onto ONE version: a swap can fail, the fleet cannot."""
+        sw = self._swap
+        if sw is None:
+            return
+        try:
+            if not sw["canary_swapped"]:
+                i = sw["canary"]
+
+                def mark_canary():
+                    sw["canary_swapped"] = True
+                    sw["t_canary"] = self.clock()
+                    sw["ttft_mark"] = self.schedulers[i].ttft_count
+
+                self._swap_replica(i, sw["params"], sw["draft"],
+                                   sw["version"], mark=mark_canary)
+                return
+            if sw["ticks_left"] > 0:
+                cause = self._canary_breach()
+                if cause is not None:
+                    self._rollback_swap(f"canary breach: {cause}")
+                    return
+                sw["ticks_left"] -= 1
+                if sw["ticks_left"] == 0:
+                    self._swap_spans.add("swap_canary",
+                                         self.clock() - sw["t_canary"])
+                return
+            nxt = next((i for i in sw["order"]
+                        if i != sw["canary"] and i not in sw["done"]),
+                       None)
+            if nxt is None:
+                self._commit_swap()
+                return
+            self._swap_replica(nxt, sw["params"], sw["draft"],
+                               sw["version"],
+                               mark=lambda: sw["done"].append(nxt))
+        except Exception as e:  # noqa: BLE001 — a failed swap step rolls
+            # back; only the rollback itself may quarantine a replica
+            self._rollback_swap(
+                f"swap step failed: {type(e).__name__}: {e}")
+
+    def _canary_breach(self) -> Optional[str]:
+        """The canary gate: its health first, then the post-swap TTFT
+        floor. None: clean so far."""
+        sw = self._swap
+        i = sw["canary"]
+        if (self.health is not None
+                and self.health.state(i) != health_lib.HEALTHY):
+            return f"canary replica {i} health {self.health.state(i)}"
+        cfg = sw["cfg"]
+        if self.ttft_slo_s > 0.0 and cfg.slo_floor > 0.0:
+            # samples since the canary's swap, counted on the monotone
+            # counter (the TTFT deque is bounded: an index into it goes
+            # stale once it wraps); requeued requests are left out — their
+            # TTFT includes time lost on another replica's fault
+            sched = self.schedulers[i]
+            new = sched.ttft_count - sw["ttft_mark"]
+            d, rq = sched._ttfts, sched._ttft_requeued
+            lo = max(0, len(d) - min(new, len(d)))
+            samples = [t for t, requeued in zip(
+                itertools.islice(d, lo, None),
+                itertools.islice(rq, lo, None)) if not requeued]
+            if len(samples) >= cfg.slo_min_samples:
+                ok = sum(1 for t in samples
+                         if t <= self.ttft_slo_s) / len(samples)
+                if ok < cfg.slo_floor:
+                    return (f"canary TTFT SLO ok-frac {ok:.3f} < floor "
+                            f"{cfg.slo_floor} over {len(samples)} "
+                            "completions")
+        return None
+
+    def _rollback_swap(self, cause: str) -> None:
+        """Fleet-wide rollback: every swapped replica (the canary
+        included) drains and takes its previous weights back, so the fleet
+        converges on one version. A replica that cannot swap back is
+        quarantined out of traffic and marked for repair."""
+        sw = self._swap
+        self._swap = None
+        swapped = ([sw["canary"]] if sw["canary_swapped"] else []) \
+            + sw["done"]
+        log.warning(
+            "rolling swap to param version %d ROLLED BACK after %d "
+            "replica(s): %s", sw["version"], len(swapped), cause)
+        for i in reversed(swapped):
+            try:
+                self._swap_replica(i, sw["prev_params"][i],
+                                   sw["prev_draft"][i],
+                                   sw["prev_version"][i], probe=False)
+            except Exception as e:  # noqa: BLE001 — a replica wedged both
+                # ways leaves traffic by quarantine; the repair record
+                # keeps probation from readmitting it on rejected weights
+                log.warning("replica %d failed to roll back (%r)", i, e)
+                self._version_repair[i] = (sw["prev_params"][i],
+                                           sw["prev_draft"][i],
+                                           sw["prev_version"][i])
+                if self.health is not None:
+                    self.health.quarantine(i, f"rollback failed: {e!r}")
+                    self._requeue_from(i)
+        self._swap_rollbacks += 1
+        self._last_swap = {"version": sw["version"],
+                           "outcome": "rolled_back", "cause": cause}
+        self._swap_spans.add("swap_roll", self.clock() - sw["t0"])
+        if sw["watcher"] is not None:
+            # a rolled-back version must not re-swap at the next poll:
+            # only a newer publish may try again
+            sw["watcher"].skipped.add(sw["version"])
+        self._invalidate_stale_pages()
+
+    def _commit_swap(self) -> None:
+        sw = self._swap
+        self._swap = None
+        self._version = sw["version"]
+        self._swaps += 1
+        self._last_swap = {"version": sw["version"], "outcome": "done"}
+        self._swap_spans.add("swap_roll", self.clock() - sw["t0"])
+        if sw["watcher"] is not None:
+            sw["watcher"].note_applied(sw["version"])
+        self._invalidate_stale_pages()
+        log.info("rolling swap complete: fleet serving param version %d",
+                 sw["version"])
+
+    def _retry_version_repair(self, i: int) -> bool:
+        """Realign a replica left on rolled-back weights with the fleet's
+        version, before any probe or traffic. True once aligned."""
+        params, draft, version = self._version_repair[i]
+        try:
+            self._swap_replica(i, params, draft, version, probe=False)
+        except Exception as e:  # noqa: BLE001 — still broken: stays out
+            # of traffic; the quarantine backoff (health) or the tick
+            # backoff (no health) paces the next try
+            log.warning("replica %d version repair failed (%r)", i, e)
+            if self.health is not None:
+                self.health.quarantine(i, f"version repair failed: {e!r}")
+            else:
+                _, delay = self._repair_backoff.get(i, (0, 1))
+                self._repair_backoff[i] = (self._ticks + delay,
+                                           min(delay * 2, 1024))
+            return False
+        log.info("replica %d re-aligned to param version %d after a "
+                 "failed rollback", i, version)
+        return True
+
+    def _invalidate_stale_pages(self) -> None:
+        """Free the prefix pages of other versions once the fleet has
+        converged (lookups already skip them by version; this reclaims
+        the pool). One pass a distinct store: a shared pool is walked
+        once, not once a mounting replica."""
+        seen: set[int] = set()
+        for s in self.schedulers:
+            store = getattr(s.engine, "page_store", None)
+            if store is None or id(store) in seen:
+                continue
+            seen.add(id(store))
+            freed = store.index.invalidate_stale(self._version)
+            if freed:
+                log.info("freed %d stale-version prefix page(s)", freed)
+
+    def _skew_check(self) -> None:
+        """The version-skew tripwire: warn once while the replicas serve
+        more than one version OUTSIDE a rolling swap; re-armed when the
+        fleet converges."""
+        vs = {getattr(s.engine, "param_version", None)
+              for s in self.schedulers}
+        vs.discard(None)
+        if len(vs) > 1 and self._swap is None:
+            if not self._skew_warned:
+                self._skew_warned = True
+                log.warning(
+                    "fleet spans param versions %s outside a rolling "
+                    "swap — replicas are serving DIFFERENT weights "
+                    "(skew tripwire; re-armed on convergence)",
+                    sorted(vs))
+        elif len(vs) <= 1:
+            self._skew_warned = False
 
     # ----------------------------------------------------------- pump surface
 
@@ -403,6 +822,15 @@ class Router:
         t_loop0 = self.clock()
         engine_s = 0.0
         for i, s in enumerate(self.schedulers):
+            if i in self._version_repair:
+                # on rejected weights: the repair lands before any probe
+                # or traffic. With health, once the quarantine's backoff
+                # lets it (routable() moves quarantine to probation);
+                # without, on the tick backoff
+                if (h.routable(i) if h is not None else
+                        self._ticks >= self._repair_backoff.get(i, (0, 1))[0]):
+                    self._retry_version_repair(i)
+                continue
             if h is None:
                 if s.pending:
                     t0 = self.clock()
@@ -436,6 +864,8 @@ class Router:
         self._promote_handoffs()
         t1 = self.clock()
         cp.add("cp_page_ops", t1 - t0)
+        self._advance_swap()
+        self._skew_check()
         cp.add("cp_bookkeeping", self.clock() - t1)
 
     def run_until_idle(self, max_ticks: int = 100000, *,
@@ -511,12 +941,15 @@ class Router:
         }
         if brief:
             return out
+        self._skew_check()
         out["router_version"] = float(self._version)
-        out["router_swaps"] = 0.0
-        out["router_swap_rollbacks"] = 0.0
-        out["router_swap_in_progress"] = 0.0
+        out["router_swaps"] = float(self._swaps)
+        out["router_swap_rollbacks"] = float(self._swap_rollbacks)
+        out["router_swap_in_progress"] = float(self._swap is not None)
         for i, s in enumerate(self.schedulers):
-            out[f"replica{i}_version"] = float(s.engine.param_version)
+            v = getattr(s.engine, "param_version", None)
+            if v is not None:
+                out[f"replica{i}_version"] = float(v)
         out["router_shed"] = float(self._shed_router
                                    + sum(s._shed for s in self.schedulers))
         out["router_timeouts"] = float(sum(s._timeouts
@@ -566,6 +999,10 @@ class Router:
             for k in _REPLICA_KEYS:
                 if k in st:
                     out[f"replica{i}_{k}"] = st[k]
+        swap_roll = self._swap_spans.rollup().get("serve_swap")
+        if swap_roll is not None:
+            out["serve_swap_p50_s"] = swap_roll["p50_s"]
+            out["serve_swap_p99_s"] = swap_roll["p99_s"]
         return out
 
 

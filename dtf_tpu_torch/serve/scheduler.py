@@ -195,6 +195,14 @@ class Scheduler:
         self._tick = 0
         self._ttfts: collections.deque[float] = collections.deque(
             maxlen=completed_cap)
+        #: the count of TTFT samples ever recorded (the deque is bounded,
+        #: so its length stops moving: the router's canary gate counts
+        #: "samples since a mark" on this), and beside each sample whether
+        #: its request was requeued (its TTFT includes time lost on
+        #: another replica, which the gate must not blame on new weights)
+        self._ttft_count = 0
+        self._ttft_requeued: collections.deque[bool] = collections.deque(
+            maxlen=completed_cap)
         self._tok_lats: collections.deque[float] = collections.deque(
             maxlen=completed_cap)
         self._completed = 0
@@ -334,6 +342,8 @@ class Scheduler:
                 rec.tokens.append(tok)
                 self._admitting = None
                 self._ttfts.append(rec.first_token_t - rec.submit_t)
+                self._ttft_requeued.append(rec.requeued)
+                self._ttft_count += 1
                 if done or self._budget_spent(rec):
                     self._finish(rec)
                 else:
@@ -412,6 +422,11 @@ class Scheduler:
         """The occupied share of the slots (prefilling ones included) —
         the router's admission signal."""
         return self._occupancy()
+
+    @property
+    def ttft_count(self) -> int:
+        """TTFT samples ever recorded (monotone)."""
+        return self._ttft_count
 
     @property
     def queue_depth(self) -> int:

@@ -44,12 +44,18 @@ the control-plane tick profile ``cp_*``).
 ``--emit_tokens`` first prints one ``rid:tok,tok,...`` row a request.
 Runs on ``cuda`` unless ``--device=cpu`` (or ``--backend=cpu``).
 
+``--publish_dir`` serves the weights ``train_gpt --publish_dir``
+published (the newest servable version, or ``--publish_version``
+exactly), and with ``--swap_poll_ticks`` N and ``--replicas`` >= 2 polls
+the publish dir every N ticks and rolls each new version across the
+fleet (``--canary_ticks``; the ``corrupt_publish`` and ``wedge_in_swap``
+serve verbs); the line reports ``served_version``, ``final_version`` and
+the router's swap keys.
+
 Not yet ported, and raising when asked for: ``--draft_precision``,
-``--spec_k=0`` with a draft (the kernel tuner's width), published weights
-and hot-swap (``--publish_dir``, ``--publish_version``,
-``--swap_poll_ticks``, ``--draft_publish_dir``), ``--telemetry``,
-``--trace_out``, ``--log_sink_dir``, ``--event_log_dir``, and a mesh axis
-> 1.
+``--spec_k=0`` with a draft (the kernel tuner's width), the draft-only
+swap (``--draft_publish_dir``), ``--telemetry``, ``--trace_out``,
+``--log_sink_dir``, ``--event_log_dir``, and a mesh axis > 1.
 """
 
 from __future__ import annotations
@@ -143,11 +149,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--deadline", type=float, default=0.0,
                    help="per-request TOTAL deadline in seconds (0 = none)")
     p.add_argument("--publish_dir", default="",
-                   help="serve published weights; not yet ported")
+                   help="serve PUBLISHED weights (train_gpt --publish_dir): "
+                        "the newest servable version, or "
+                        "--publish_version; the JSON line reports the "
+                        "version served")
     p.add_argument("--publish_version", type=int, default=0,
-                   help="with --publish_dir; not yet ported")
+                   help="with --publish_dir: serve exactly this version, "
+                        "with no fallback past corruption; 0 = the newest "
+                        "servable (the guarded walk warns past a corrupt "
+                        "newest)")
     p.add_argument("--swap_poll_ticks", type=int, default=0,
-                   help="rolling weight swap; not yet ported")
+                   help="with --publish_dir and --replicas >= 2: poll the "
+                        "publish dir every N ticks and ROLL new versions "
+                        "across the fleet (drain a replica, swap, probe, "
+                        "readmit; the first is a health-gated canary); 0 = "
+                        "serve the start version only")
+    p.add_argument("--canary_ticks", type=int, default=8,
+                   help="rolling swap: ticks the first swapped replica "
+                        "serves alone before the rest follow; a health or "
+                        "SLO breach inside the window rolls back")
     p.add_argument("--requests", default="",
                    help="semicolon-separated comma-lists of token ids, a "
                         "row optionally ending in /N (its own --n_new), or "
@@ -178,7 +198,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "stderr (0 = off)")
     p.add_argument("--ttft_slo_frac", type=float, default=0.0,
                    help="with --stats_every and --ttft_slo: WARN when the "
-                        "SLO-ok fraction drops below this floor")
+                        "SLO-ok fraction drops below this floor; with "
+                        "--swap_poll_ticks, also the canary's rollback "
+                        "floor")
     p.add_argument("--trace_out", default="",
                    help="per-request chrome trace; not yet ported")
     p.add_argument("--log_sink_dir", default="",
@@ -201,9 +223,6 @@ def build_parser() -> argparse.ArgumentParser:
 #: value other than their default
 _UNPORTED = (("draft_precision", "--draft_precision (a low-precision "
                                  "draft)"),
-             ("publish_dir", "--publish_dir (published weights)"),
-             ("publish_version", "--publish_version (published weights)"),
-             ("swap_poll_ticks", "--swap_poll_ticks (weight hot-swap)"),
              ("draft_publish_dir", "--draft_publish_dir (draft swaps)"),
              ("telemetry", "--telemetry"),
              ("trace_out", "--trace_out (request traces)"),
@@ -243,6 +262,22 @@ def run(argv=None):
                      "stays off); set both or neither")
     if args.replicas < 1:
         parser.error(f"--replicas={args.replicas} must be >= 1")
+    if args.publish_version and not args.publish_dir:
+        parser.error("--publish_version needs --publish_dir (it names a "
+                     "PUBLISHED version, not a checkpoint step)")
+    if args.swap_poll_ticks:
+        if not args.publish_dir:
+            parser.error("--swap_poll_ticks needs --publish_dir (there is "
+                         "nothing to poll for new versions without a "
+                         "publish dir)")
+        if args.replicas < 2:
+            parser.error("--swap_poll_ticks needs --replicas >= 2: a "
+                         "rolling swap drains one replica while the others "
+                         "serve (a single engine cannot swap with zero "
+                         "downtime)")
+    if args.publish_dir and (args.params_npz or args.init_seed is not None):
+        parser.error("--publish_dir gives the parameters; drop "
+                     "--params_npz / --init_seed")
     if args.prefill_replicas:
         if not 0 < args.prefill_replicas < args.replicas:
             parser.error(
@@ -261,14 +296,20 @@ def run(argv=None):
     from dtf_tpu_torch.metrics import MetricWriter
     from dtf_tpu_torch.models import gpt
     from dtf_tpu_torch.fault.inject import ServeFaultPlan
+    from dtf_tpu_torch.publish import PublishWatcher, load_published
     from dtf_tpu_torch.serve import (DecodeEngine, HealthConfig, Heartbeat,
                                      PoissonLoadGen, Request, Router,
-                                     Scheduler, install_serve_fault, replay)
+                                     Scheduler, SwapConfig,
+                                     install_serve_fault, replay)
 
     device = resolve_device(args.device or
                             ("cpu" if args.backend == "cpu" else "cuda"))
     ckpt_dir = os.path.join(args.logdir, "ckpt") if args.logdir else ""
-    manifest = load_model_config(ckpt_dir) if ckpt_dir else None
+    # train_gpt writes the architecture manifest next to the publish
+    # manifest too; the logdir's stays the fallback
+    manifest = ((load_model_config(args.publish_dir)
+                 if args.publish_dir else None)
+                or (load_model_config(ckpt_dir) if ckpt_dir else None))
     try:
         decode_cfg = resolve_decode_config(
             args, manifest, present_flags(build_parser(), argv))
@@ -284,7 +325,16 @@ def run(argv=None):
         kv_cache_dtype=decode_cfg["kv_cache_dtype"])
 
     step = None
-    if args.params_npz:
+    served_version = 0
+    if args.publish_dir:
+        try:
+            served_version, step, params = load_published(
+                args.publish_dir, args.publish_version or None)
+        except (FileNotFoundError, ValueError, RuntimeError) as e:
+            parser.error(str(e))
+        print(f"serving published version {served_version} (train step "
+              f"{step}) from {args.publish_dir}", file=sys.stderr)
+    elif args.params_npz:
         params = params_from_flax(load_npz(args.params_npz))
     elif args.init_seed is not None:
         params = params_from_flax(init_params(cfg, args.init_seed))
@@ -367,14 +417,51 @@ def run(argv=None):
     except ValueError as e:     # the engine's and health's option checks
         parser.error(str(e))
     del params, draft_params, engine_kw
+    if served_version:
+        # the published version the fleet was BUILT with: records, page
+        # epochs and the skew tripwire carry it
+        if args.replicas > 1:
+            sched.stamp_version(served_version)
+        else:
+            engines[0].set_param_version(served_version)
+    # the swap poller: every --swap_poll_ticks ticks a NEW published
+    # version (digest-verified; a corrupt one skipped with a warning)
+    # starts a rolling swap; the serve loop never pauses
+    watcher = swap_tick = None
+    if args.swap_poll_ticks:
+        watcher = PublishWatcher(args.publish_dir,
+                                 applied_version=served_version)
+        # with a TTFT objective, --ttft_slo_frac is also the canary's
+        # rollback floor; health verdicts gate regardless
+        try:
+            swap_cfg = SwapConfig(
+                canary_ticks=args.canary_ticks,
+                slo_floor=args.ttft_slo_frac if args.ttft_slo > 0 else 0.0)
+        except ValueError as e:
+            parser.error(str(e))
+        draft_factory = None
+        if args.draft_layers:
+            draft_factory = lambda p: gpt.draft_truncate(  # noqa: E731
+                cfg, p, args.draft_layers)[1]
+        ticks = [0]
+
+        def swap_tick():
+            ticks[0] += 1
+            if ticks[0] % args.swap_poll_ticks == 0:
+                sched.maybe_swap_published(watcher, config=swap_cfg,
+                                           draft_factory=draft_factory)
+
     fault_plan = ServeFaultPlan.from_env()
     if fault_plan is not None:
-        install_serve_fault(fault_plan, sched)
+        install_serve_fault(fault_plan, sched, watcher=watcher)
     heartbeat = None
     if args.stats_every:
         heartbeat = Heartbeat(sched, every_ticks=args.stats_every,
                               slo_floor=args.ttft_slo_frac)
-    on_tick = heartbeat.maybe_emit if heartbeat is not None else None
+    hooks = [h for h in (heartbeat.maybe_emit if heartbeat is not None
+                         else None, swap_tick) if h is not None]
+    on_tick = (None if not hooks else hooks[0] if len(hooks) == 1
+               else (lambda: [h() for h in hooks]))
 
     eos = args.eos_id if args.eos_id >= 0 else None
     t0 = time.perf_counter()
@@ -432,6 +519,10 @@ def run(argv=None):
                 deadline_s=args.deadline)) for t, req in arrivals)
         replay(sched, arrivals, on_tick=on_tick)
         n = args.n_requests
+    if args.swap_poll_ticks and sched.swap_in_progress:
+        # a swap that started near the end converges before the line
+        # (ticks with no traffic still advance it)
+        sched.finish_swap()
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -449,8 +540,9 @@ def run(argv=None):
            "backend": device.type,
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu"),
-           "step": step, "served_version": 0,
-           "final_version": engine.param_version,
+           "step": step, "served_version": served_version,
+           "final_version": int(sched.version if args.replicas > 1
+                                else engine.param_version),
            "replicas": args.replicas,
            "prefill_replicas": args.prefill_replicas,
            "spec_k": engine.spec_k,

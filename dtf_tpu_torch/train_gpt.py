@@ -14,6 +14,11 @@ stream) → ``model_config.json`` manifest → hooks → ``Trainer.fit`` →
 ``done: step=N``. Attention runs the flash kernels forward and backward
 on ``cuda`` (``--attn_impl=auto``). A relaunch into the same ``--logdir``
 resumes from its newest checkpoint, at the batch of the step it resumes.
+``--publish_dir`` publishes the parameters every ``--publish_every``
+steps and at the end as monotone versions (:mod:`dtf_tpu_torch.publish`)
+for a serving fleet's rolling swap (``serve_gpt --swap_poll_ticks``).
+``DTF_FAULT_INJECT``'s training verbs (``crash@2``, ``sigterm@3``, …,
+:mod:`dtf_tpu_torch.fault.inject`) fire at their seeded step.
 
 More than one process (``--worker_hosts``, one process per device) is
 data parallelism over ``--mesh_data``: each rank reads its rows of the
@@ -41,7 +46,7 @@ import sys
 UNPORTED = {
     "moe_every": 0, "moe_top_k": 1, "tp_overlap": False,
     "matmul_precision": "", "pipe_microbatches": 0, "pipe_interleave": 1,
-    "pipe_schedule": "gpipe", "stream_spec": "", "publish_dir": "",
+    "pipe_schedule": "gpipe", "stream_spec": "",
     "event_log_dir": "", "distill_draft": 0, "distill_from": "",
     "profile_steps": 0, "telemetry": False,
 }
@@ -129,13 +134,16 @@ def run(argv=None):
     from dtf_tpu_torch.core.sharding import make_layout
     from dtf_tpu_torch.data.formats import detect_token_data
     from dtf_tpu_torch.data.synthetic import SyntheticData
+    from dtf_tpu_torch.fault import inject
     from dtf_tpu_torch.hooks import (CheckpointHook, LoggingHook,
-                                     PreemptionHook, StopAtStepHook)
+                                     PreemptionHook, PublishHook,
+                                     StopAtStepHook)
     from dtf_tpu_torch.loop import Trainer
     from dtf_tpu_torch.metrics import (MetricWriter,
                                        analytic_lm_flops_per_step,
                                        param_count)
     from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.publish import ParamPublisher
 
     if args.mesh_model > 1:
         raise NotImplementedError(
@@ -201,14 +209,23 @@ def run(argv=None):
     writer = MetricWriter(echo=info.is_chief)
     ckpt = Checkpointer(os.path.join(args.logdir, "ckpt"),
                         save_interval_steps=args.checkpoint_every, mesh=mesh)
+    manifest_cfg = {
+        "model": "gpt", "size": args.size,
+        "kv_heads": args.kv_heads, "attn_window": args.attn_window,
+        "attn_global_every": args.attn_global_every,
+        "moe_every": args.moe_every, "vocab_size": cfg.vocab_size,
+        "d_model": cfg.d_model, "layers": cfg.layers, "heads": cfg.heads,
+        "d_ff": cfg.d_ff, "kv_cache_dtype": ""}
+    publisher = None
     if info.is_chief:
-        save_model_config(ckpt.directory, {
-            "model": "gpt", "size": args.size,
-            "kv_heads": args.kv_heads, "attn_window": args.attn_window,
-            "attn_global_every": args.attn_global_every,
-            "moe_every": args.moe_every, "vocab_size": cfg.vocab_size,
-            "d_model": cfg.d_model, "layers": cfg.layers, "heads": cfg.heads,
-            "d_ff": cfg.d_ff, "kv_cache_dtype": ""})
+        save_model_config(ckpt.directory, manifest_cfg)
+        # only the process that saves publishes: two publishers over one
+        # manifest would commit digests of each other's half-written
+        # versions; the architecture manifest rides next to the publish
+        # manifest, so a fleet serving only the publish dir resolves it
+        if args.publish_dir:
+            publisher = ParamPublisher(args.publish_dir)
+            save_model_config(args.publish_dir, manifest_cfg)
     eval_hook = lm_eval_hook(args, device, eval_fn, writer, mesh,
                              kind="gpt", mode="clm",
                              vocab_size=cfg.vocab_size)
@@ -219,14 +236,22 @@ def run(argv=None):
                                                if device.type == "cuda"
                                                else None)),
              CheckpointHook(ckpt, args.checkpoint_every),
+             *([PublishHook(publisher, args.publish_every)]
+               if publisher is not None else []),
              PreemptionHook(ckpt, mesh=mesh),
              *([eval_hook] if eval_hook else []),
              StopAtStepHook(args.train_steps)]
+    fault = inject.maybe_hook(host_index=info.process_id,
+                              checkpointer=ckpt, publisher=publisher)
+    if fault is not None:
+        hooks.insert(0, fault)   # injected faults land before save hooks
     trainer = Trainer(step, device, hooks, checkpointer=ckpt,
                       prefetch=args.prefetch_depth)
     state = trainer.fit(state, data)
     writer.close()
     ckpt.close()
+    if publisher is not None:
+        publisher.close()
     return state, writer
 
 

@@ -235,3 +235,34 @@ def test_beam_search_and_a_faulted_fleet_with_jax_poisoned(poisoned_env):
     out = proc.stdout.strip().splitlines()[-1]
     assert '"request_statuses": {"done": 2}' in out
     assert '"fault_inject": "slow_decode@1:replica=1"' in out
+
+
+def test_publish_and_rolling_swap_with_jax_poisoned(poisoned_env, tmp_path):
+    """``train_gpt --publish_dir`` (``publish``, ``hooks.PublishHook`` and
+    the training verbs of ``fault.inject``, armed with a plan for another
+    host) publishes, and ``serve_gpt --publish_dir --swap_poll_ticks``
+    rolls the fleet from version 1 to 2, with nothing of JAX
+    importable."""
+    mods = _port_modules()
+    for mod in ("dtf_tpu_torch.publish", "dtf_tpu_torch.fault.inject"):
+        assert mod in mods, mod
+    env, cwd = poisoned_env
+    pub = str(tmp_path / "pub")
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.train_gpt", "--device=cpu",
+         "--size=tiny", "--train_steps=4", "--batch_size=2", "--seq_len=16",
+         f"--logdir={tmp_path / 'run'}", f"--publish_dir={pub}",
+         "--publish_every=2"],
+        env={**env, "DTF_FAULT_INJECT": "crash@1:host=3"}, cwd=cwd,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.serve_gpt", "--device=cpu",
+         f"--publish_dir={pub}", "--publish_version=1", "--replicas=2",
+         "--swap_poll_ticks=2", "--canary_ticks=1", "--n_slots=2",
+         "--n_new=6", "--requests=1,2,3;4,5;6,7,8,9"], env=env, cwd=cwd,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout.strip().splitlines()[-1]
+    assert '"request_statuses": {"done": 3}' in out
+    assert '"served_version": 1, "final_version": 2' in out

@@ -76,7 +76,28 @@ def test_a_train_gpt_logdir_serves(tmp_path, capsys):
                        "--requests=1"])
 
 
-def test_poisson_mode(capsys):
+def test_poisson_mode(monkeypatch, capsys):
+    """The launcher's scheduler and its replay pump run on a clock that
+    only the replay's waits advance, so the 10-s TTFT objective is held
+    against the arrivals, not a loaded host's wall clock."""
+    import functools
+
+    from dtf_tpu_torch import serve
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+        def sleep(self, s):
+            self.t += max(s, 0.0)
+
+    clock = Clock()
+    monkeypatch.setattr(serve, "Scheduler", functools.partial(
+        serve.Scheduler, clock=clock))
+    monkeypatch.setattr(serve, "replay", functools.partial(
+        serve.replay, clock=clock, sleep=clock.sleep))
     out, rows, _ = serve_gpt.run(
         _TINY + ["--poisson_rate=1000", "--n_requests=5", "--max_len=40",
                  "--prompt_min=3", "--prompt_max=20", "--new_min=2",
@@ -193,6 +214,14 @@ def test_fleet_wedge_plan_quarantines_and_requeues(monkeypatch, capsys):
     "--telemetry", "--trace_out=/x.json", "--log_sink_dir=/x",
     "--event_log_dir=/x", "--mesh_model=2", "--mesh_data=2"])
 def test_unported_flags_raise(flag):
+    """The publish flags are ported since: here (no publish dir, or one
+    that does not exist) they fail the reference's usage checks
+    (tests/test_torch_serve_swap.py serves and rolls them)."""
+    if flag.split("=")[0] in ("--publish_dir", "--publish_version",
+                              "--swap_poll_ticks"):
+        with pytest.raises(SystemExit):
+            serve_gpt.run(_TINY[:-1] + ["--requests=1,2", flag])
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve_gpt.run(_TINY + ["--requests=1,2", flag])
 

@@ -25,6 +25,7 @@ from dtf_tpu_torch.checkpoint import Checkpointer, load_model_config
 from dtf_tpu_torch.data import formats as tformats
 from dtf_tpu_torch.data import synthetic as tsynthetic
 from dtf_tpu_torch.models import gpt as tgpt
+from dtf_tpu_torch.publish import read_manifest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--device=cpu", "--size=tiny", "--batch_size=4", "--seq_len=32",
@@ -211,6 +212,10 @@ def test_unported_flags_raise(tmp_path, flag):
     if flag.startswith("--optimizer="):
         state, _ = _run(tmp_path, 1, flag)
         assert state.step == 1
+        return
+    if flag == "--publish_dir=p":   # ported since: the step is published
+        state, _ = _run(tmp_path, 1, f"--publish_dir={tmp_path}/p")
+        assert read_manifest(f"{tmp_path}/p")["step"] == state.step == 1
         return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _run(tmp_path, 1, flag)
