@@ -130,9 +130,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    replicas on one set of tensors (``data_ptr``) equal to version 2's,
    the roll's ``max_memory_allocated`` within one set of parameters (and
    ``SWAP_PEAK_SLACK_BYTES``) of the fresh fleet's, no hand kernel in
-   serving. Prints the swap's drain, swap, probe, canary window and whole
-   roll on the router's clock, a version's load ms (digest and read) and
-   its copy to the card, and the phase's seconds.
+   serving. The run-record plane rides the same path: the trainer's
+   ``--event_log_dir`` (read back with the port's ``read_events``: one
+   ``ckpt_save`` a checkpoint step, ``publish_version`` 1 and 2 each
+   emitted with the manifest already naming it, ``seq`` strictly
+   increasing, ``train_end``), and the rolling fleet's ``--event_log_dir
+   --log_sink_dir --trace_out`` (one ``swap_start`` and one
+   ``swap_commit`` for version 2, no rollback, ``serve_summary`` of 16
+   requests; 16 CRC-valid sink records, each with its request's emitted
+   tokens, version stamp and replica; the trace loads as JSON with one
+   ``request`` slice a request, its queue waits and engine slices tagged
+   with live trace ids). The same roll with the plane off serves the same
+   rows, record stamps and ticks: the plane changes no token. Prints the
+   swap's drain, swap, probe, canary window and whole roll on the
+   router's clock, a version's load ms (digest and read) and its copy to
+   the card, the plane's counts and the router tick ms with the plane on
+   and off, and the phase's seconds.
 13. kernels_bwd — the flash backward kernels (B2 dQ, B3 dK/dV) against
    the plain backward on the card, bf16, dO as a transposed view: the
    training shape, ragged T, a window, a fully masked ``kv_mask`` row
@@ -2265,8 +2278,12 @@ def phase_publish_swap(torch, smi):
     2, the streams stamped 2 bit-equal to a fresh ``--publish_version 2``
     fleet's, ``trace_counts`` pinned, the replicas on one set of tensors
     (version 2's), the roll's peak memory within one set of parameters of
-    the fresh fleet's, and no hand kernel in serving. Prints the swap's
-    steps on the router's clock, a version's load ms and the phase's
+    the fresh fleet's, and no hand kernel in serving. The run-record
+    plane: the trainer's event log, the rolling fleet's event log, sink
+    and trace checked against what ran (:func:`_check_plane`), and a roll
+    with the plane off serving the same rows, stamps and ticks. Prints the
+    swap's steps on the router's clock, a version's load ms, the plane's
+    counts, the tick ms with the plane on and off and the phase's
     seconds."""
     import gc
     import tempfile
@@ -2274,26 +2291,45 @@ def phase_publish_swap(torch, smi):
     import numpy as np
 
     from dtf_tpu_torch import serve_gpt, train_gpt
+    from dtf_tpu_torch.checkpoint import Checkpointer
+    from dtf_tpu_torch.data.stream.servelog import decode_record, \
+        read_manifest as read_sink_manifest
     from dtf_tpu_torch.publish import dir_digest, load_published, \
         read_manifest
+    from dtf_tpu_torch.telemetry.events import EventLog, read_events
 
     t_phase = time.perf_counter()
     seconds = {}
     root = tempfile.mkdtemp(prefix="chip_smoke_swap_")
     pub = os.path.join(root, "publish")
 
-    # (a) the trainer publishes
+    # (a) the trainer publishes, with its event log; each emit notes the
+    # version the publish manifest names at that moment
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    (state, _), fused, flash, embed, train_wall = _counted(
-        torch, lambda: train_gpt.run([
-            "--size=small", f"--batch_size={SWAP_BATCH}",
-            f"--seq_len={TRAIN_SEQ}", "--attn_impl=flash", "--seed=0",
-            f"--train_steps={SWAP_TRAIN_STEPS}", "--log_every=1",
-            "--checkpoint_every=1000", f"--logdir={root}/run",
-            f"--publish_dir={pub}",
-            f"--publish_every={SWAP_PUBLISH_EVERY}"]))
+    train_events = os.path.join(root, "train_events")
+    manifest_at_emit = []
+    emit_event = EventLog.emit
+
+    def noting_emit(self, kind, /, **fields):
+        if kind == "publish_version":
+            manifest_at_emit.append(read_manifest(pub)["version"])
+        return emit_event(self, kind, **fields)
+
+    EventLog.emit = noting_emit
+    try:
+        (state, _), fused, flash, embed, train_wall = _counted(
+            torch, lambda: train_gpt.run([
+                "--size=small", f"--batch_size={SWAP_BATCH}",
+                f"--seq_len={TRAIN_SEQ}", "--attn_impl=flash", "--seed=0",
+                f"--train_steps={SWAP_TRAIN_STEPS}", "--log_every=1",
+                "--checkpoint_every=1000", f"--logdir={root}/run",
+                f"--publish_dir={pub}",
+                f"--publish_every={SWAP_PUBLISH_EVERY}",
+                f"--event_log_dir={train_events}"]))
+    finally:
+        EventLog.emit = emit_event
     want = {"flash_fwd": 12 * (SWAP_TRAIN_STEPS + EVAL_BATCHES),
             "flash_fwd_hfold": 0, "flash_dq": 12 * SWAP_TRAIN_STEPS,
             "flash_dkv": 12 * SWAP_TRAIN_STEPS}
@@ -2311,6 +2347,25 @@ def phase_publish_swap(torch, smi):
         require(dir_digest(os.path.join(pub, str(v)))
                 == m["history"][str(v)]["digest"],
                 f"version {v} fails its digest")
+    tev = read_events(train_events, include_orphans=False)
+    seqs = [e["seq"] for e in tev]
+    require(all(b > a for a, b in zip(seqs, seqs[1:])),
+            f"train event seq not strictly increasing: {seqs}")
+    pubs = [e for e in tev if e["event"] == "publish_version"]
+    require([(e["version"], e["step"]) for e in pubs] == [(1, 2), (2, 4)]
+            and [e["digest"] for e in pubs]
+            == [m["history"][str(v)]["digest"] for v in versions],
+            f"publish_version events {pubs}")
+    require(manifest_at_emit == [1, 2],
+            f"publish_version emitted before its commit: {manifest_at_emit}")
+    saves = [e["step"] for e in tev if e["event"] == "ckpt_save"]
+    ckpt_steps = Checkpointer(os.path.join(root, "run", "ckpt")).all_steps()
+    require(saves == ckpt_steps, f"ckpt_save {saves} != steps {ckpt_steps}")
+    require(tev[-1]["event"] == "train_end"
+            and tev[-1]["step"] == SWAP_TRAIN_STEPS, f"last {tev[-1]}")
+    train_kinds = {}
+    for e in tev:
+        train_kinds[e["event"]] = train_kinds.get(e["event"], 0) + 1
     seconds["train_publish"] = time.perf_counter() - t0
 
     # a version's load: digest + read on the host, then onto the card
@@ -2336,13 +2391,18 @@ def phase_publish_swap(torch, smi):
             "--n_slots=16", f"--max_len={SERVE_MAX_LEN}",
             f"--prefill_chunk={SERVE_CHUNK}", f"--requests=@{path}",
             "--emit_tokens"]
-    runs, rows, peaks = {}, {}, {}
+    roll = ["--publish_version=1", f"--swap_poll_ticks={SWAP_POLL_TICKS}",
+            f"--canary_ticks={SWAP_CANARY_TICKS}"]
+    plane_dir = os.path.join(root, "plane")
+    plane = [f"--event_log_dir={plane_dir}/events",
+             f"--log_sink_dir={plane_dir}/sink",
+             f"--trace_out={plane_dir}/trace/trace.json"]
+    runs, rows, peaks, stamps_of, outs = {}, {}, {}, {}, {}
     t_serve = time.perf_counter()
-    for name, extra in (
-            ("swap", ["--publish_version=1",
-                      f"--swap_poll_ticks={SWAP_POLL_TICKS}",
-                      f"--canary_ticks={SWAP_CANARY_TICKS}"]),
-            ("fresh_v2", ["--publish_version=2"])):
+    # the plane-off roll first: the first serving run after the trainer
+    # pays the allocator's growth, which must not count against the plane
+    for name, extra in (("swap_plane_off", roll), ("swap", roll + plane),
+                        ("fresh_v2", ["--publish_version=2"])):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2354,15 +2414,29 @@ def phase_publish_swap(torch, smi):
         require(router.trace_counts() == [{"prefill": 1, "decode": 1}]
                 * FLEET_REPLICAS, f"{name}: {router.trace_counts()}")
         stamps = [router.poll(r)["version"] for r in range(SWAP_REQUESTS)]
+        stamps_of[name], outs[name] = stamps, out
         runs[name] = {k: out.get(k) for k in (
             "served_version", "final_version", "router_swaps",
             "router_swap_rollbacks", "router_requeued", "router_ticks",
             "router_param_swaps", "router_probe_decodes", "wall_s",
             "tokens_per_sec", "generated_tokens", "serve_swap_p50_s",
-            "serve_swap_p99_s")}
+            "serve_swap_p99_s", "router_events", "router_log_sink_records",
+            "trace_events")}
         runs[name].update({"in_process_wall_s": wall, "stamps": stamps,
-                           "peak_bytes": peaks[name]})
+                           "peak_bytes": peaks[name],
+                           "tick_ms": out["wall_s"] * 1e3
+                           / out["router_ticks"],
+                           "cp_ms_per_tick": 1e3 * sum(
+                               out[f"{k}_total_s"] for k in (
+                                   "cp_pick", "cp_engine_tick",
+                                   "cp_health_sweep", "cp_page_ops",
+                                   "cp_bookkeeping"))
+                           / out["router_ticks"]})
         if name == "swap":
+            plane_line = _check_plane(
+                plane_dir, out, rows[name], stamps,
+                [router.replica_of(r) for r in range(SWAP_REQUESTS)],
+                read_events, read_sink_manifest, decode_record)
             require(out["served_version"] == 1 and out["final_version"] == 2
                     and out["router_swaps"] == 1.0
                     and out["router_swap_rollbacks"] == 0.0,
@@ -2388,6 +2462,12 @@ def phase_publish_swap(torch, smi):
     differ = [r for r in after if rows["swap"][r] != rows["fresh_v2"][r]]
     require(not differ, f"streams on version 2 differ from a fresh "
                         f"version-2 fleet's: {differ}")
+    # the plane changes no token, no stamp and no tick of the roll
+    require(rows["swap"] == rows["swap_plane_off"]
+            and stamps_of["swap"] == stamps_of["swap_plane_off"]
+            and outs["swap"]["router_ticks"]
+            == outs["swap_plane_off"]["router_ticks"],
+            "the roll with the plane on differs from the roll with it off")
     extra_peak = peaks["swap"] - peaks["fresh_v2"]
     require(extra_peak <= param_bytes + SWAP_PEAK_SLACK_BYTES,
             f"the roll's peak is {extra_peak} bytes over a fresh fleet's, "
@@ -2410,8 +2490,80 @@ def phase_publish_swap(torch, smi):
                       for k in prof},
           "peak_extra_bytes": extra_peak, "runs": runs,
           "streams_after_swap_equal": len(after),
+          "plane": {"train_events": train_kinds, **plane_line,
+                    "tick_ms_plane_on": runs["swap"]["tick_ms"],
+                    "tick_ms_plane_off": runs["swap_plane_off"]["tick_ms"],
+                    "cp_ms_per_tick_plane_on":
+                        runs["swap"]["cp_ms_per_tick"],
+                    "cp_ms_per_tick_plane_off":
+                        runs["swap_plane_off"]["cp_ms_per_tick"]},
           "hand_kernel_launches_serving": 0, "seconds": seconds})
     return {"launches": flash}
+
+
+def _check_plane(plane_dir, out, rows, stamps, replicas, read_events,
+                 read_sink_manifest, decode_record):
+    """The rolling fleet's run-record plane against what the run served:
+    the event log's swap story, one CRC-valid sink record a request (its
+    emitted row, version stamp and replica), and a loadable trace with one
+    lifecycle slice a request and every engine slice on a live trace id.
+    Returns the counts to print."""
+    events = read_events(os.path.join(plane_dir, "events"))
+    kinds = {}
+    for e in events:
+        kinds[e["event"]] = kinds.get(e["event"], 0) + 1
+    swaps = [(e["event"], e["version"]) for e in events
+             if e["event"] in ("swap_start", "swap_commit", "swap_rollback")]
+    require(swaps == [("swap_start", 2), ("swap_commit", 2)],
+            f"swap events {swaps}")
+    require(events[-1]["event"] == "serve_summary"
+            and events[-1]["requests"] == SWAP_REQUESTS,
+            f"last event {events[-1]}")
+    require(out["event_log"]["events"] == len(events)
+            and out["event_log"]["io_errors"] == 0, f"{out['event_log']}")
+    sink_dir = os.path.join(plane_dir, "sink")
+    manifest = read_sink_manifest(sink_dir)
+    recs, sink_bytes = [], 0
+    for shard in manifest["shards"]:
+        path = os.path.join(sink_dir, shard["name"])
+        sink_bytes += os.path.getsize(path)
+        with open(path) as f:
+            recs += [decode_record(ln) for ln in f.read().splitlines()]
+    require(len(recs) == SWAP_REQUESTS == manifest["records"]
+            and all(r is not None for r in recs),
+            f"sink: {len(recs)} records, manifest {manifest['records']}, "
+            f"{sum(r is None for r in recs)} failing their CRC")
+    for r in recs:
+        rid = r["rid"]
+        require(rows[rid] == f"{rid}:" + ",".join(map(str, r["tokens"]))
+                and r["version"] == stamps[rid]
+                and r["replica"] == replicas[rid] and r["status"] == "done",
+                f"sink record of request {rid} differs from what it served")
+    require(sorted(r["rid"] for r in recs) == list(range(SWAP_REQUESTS)),
+            "sink records are not one a request")
+    with open(os.path.join(plane_dir, "trace", "trace.json")) as f:
+        trace = json.load(f)["traceEvents"]
+    require(len(trace) == out["trace_events"],
+            f"trace {len(trace)} events, line {out['trace_events']}")
+    rids = set(range(SWAP_REQUESTS))
+    lifecycles = [e["tid"] for e in trace if e["name"] == "request"]
+    waits = [e["tid"] for e in trace if e["name"] == "queue_wait"]
+    require(sorted(lifecycles) == sorted(rids),
+            f"request slices {sorted(lifecycles)}")
+    # one queue wait an admission: a request the drain requeued after its
+    # admission waits again on the survivor
+    require(set(waits) == rids
+            and len(waits) <= SWAP_REQUESTS + out["router_requeued"],
+            f"{len(waits)} queue_wait slices")
+    engine = [e for e in trace if e["cat"] == "engine"]
+    live = all((set(e["args"]["trace_ids"]) <= rids and e["tid"] == "engine")
+               if e["name"] == "serve_decode" else e["tid"] in rids
+               for e in engine)
+    require(engine and live, "an engine slice on no live trace id")
+    return {"events": kinds, "sink_records": len(recs),
+            "sink_bytes": sink_bytes, "sink_shards": len(manifest["shards"]),
+            "trace_events": len(trace), "queue_wait_slices": len(waits),
+            "engine_slices": len(engine)}
 
 
 def _train_batch(torch, cfg, step=0):

@@ -29,6 +29,13 @@ blocks again, so the files do not depend on the world size.
 ``model_config.json`` (the architecture manifest) sits next to the step
 directories: the training launcher writes it, the serving entry points
 read it.
+
+With an event log attached (:meth:`Checkpointer.attach_event_log`) a
+save, a fallback past an unreadable step and the step a restore loaded
+land on the run's timeline (``ckpt_save``, ``ckpt_fallback``,
+``ckpt_restore``). The JAX package's ``ckpt_resume_degraded`` belongs to
+its named extra items (``restore_extra``: a data stream's state), which
+the port does not have yet.
 """
 
 from __future__ import annotations
@@ -130,6 +137,16 @@ class Checkpointer:
         #: the step the last latest-step restore loaded (it may be older
         #: than :meth:`latest_step` when the newest step was unreadable)
         self.last_restored_step: int | None = None
+        self._event_log = None
+
+    def attach_event_log(self, event_log) -> None:
+        """Mirror saves, restore fallbacks and restores onto a
+        :class:`dtf_tpu_torch.telemetry.events.EventLog`."""
+        self._event_log = event_log
+
+    def _ckpt_event(self, kind: str, /, **fields) -> None:
+        if self._event_log is not None:
+            self._event_log.emit(kind, directory=self.directory, **fields)
 
     @property
     def directory(self) -> str:
@@ -205,6 +222,7 @@ class Checkpointer:
                 shutil.rmtree(os.path.join(self._dir, str(old)),
                               ignore_errors=True)
         self._barrier()
+        self._ckpt_event("ckpt_save", step=step)
         return True
 
     def save_params(self, step: int, params: dict) -> bool:
@@ -307,8 +325,11 @@ class Checkpointer:
                             type(e).__name__, e,
                             f"step {older}" if older is not None
                             else "nothing")
+                self._ckpt_event("ckpt_fallback", bad_step=s,
+                                 error=type(e).__name__)
                 continue
             self.last_restored_step = s
+            self._ckpt_event("ckpt_restore", step=s, newest=steps[0])
             return state
         raise RuntimeError(f"every checkpoint step under {self._dir} is "
                            f"unreadable (tried {steps})")

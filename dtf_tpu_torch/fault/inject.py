@@ -41,8 +41,8 @@ ENV_VAR = "DTF_FAULT_INJECT"
 KINDS = ("kill", "wedge", "sigterm", "sigterm_in_save", "crash",
          "crash_in_publish")
 
-#: the serve-tier verbs, the reference's list: the serve-log sink's and
-#: the event log's are parsed but not installable yet
+#: the serve-tier verbs (the reference's list), armed by
+#: :func:`dtf_tpu_torch.serve.health.install_serve_fault`
 SERVE_KINDS = ("wedge_replica", "slow_decode", "poison_request",
                "poison_draft", "corrupt_publish", "wedge_in_swap",
                "corrupt_log_record", "crash_in_log_rotate",

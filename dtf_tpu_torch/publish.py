@@ -29,7 +29,9 @@ The JAX package publishes Orbax; the port never reads that. Parameters
 are ``{state_dict name: tensor}``: ``hooks.PublishHook`` drives
 :class:`ParamPublisher` from the training loop, ``serve_gpt
 --publish_dir`` wires :class:`PublishWatcher` to the router's rolling
-swap. The event log's hook (``event_log``) is not ported yet.
+swap. With ``ParamPublisher.event_log`` set, each committed publish
+lands on the run's timeline as ``publish_version`` (after the manifest's
+rename: a crashed attempt never appears).
 """
 
 from __future__ import annotations
@@ -119,6 +121,8 @@ class ParamPublisher:
         #: committed" (``crash_in_publish`` raises here)
         self._pre_commit = None
         self.published = 0
+        #: an optional :class:`dtf_tpu_torch.telemetry.events.EventLog`
+        self.event_log = None
 
     @property
     def checkpointer(self) -> Checkpointer:
@@ -149,6 +153,10 @@ class ParamPublisher:
         _atomic_write(os.path.join(self.directory, MANIFEST_BASENAME),
                       json.dumps(manifest, indent=1, sort_keys=True) + "\n")
         self.published += 1
+        if self.event_log is not None:
+            # after the rename: only committed versions reach the timeline
+            self.event_log.emit("publish_version", version=version,
+                                step=int(step), digest=digest)
         log.info("published params version %d (train step %d) to %s",
                  version, step, self.directory)
         return version

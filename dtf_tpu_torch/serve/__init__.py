@@ -25,10 +25,12 @@
   ``DTF_FAULT_INJECT``.
 - :mod:`dtf_tpu_torch.serve.client` — the in-process submit/poll API, the
   open-loop replay pump, a seeded Poisson load generator and a heartbeat.
+- :mod:`dtf_tpu_torch.serve.logsink` — ``LogSink``: every done request
+  recorded into CRC-framed rotated shards (import it directly: it needs
+  no engine).
 
 ``python -m dtf_tpu_torch.serve_gpt`` is the launcher. Not yet ported:
-the draft-only swap, the serve-log sink, the event log and sharded
-serving.
+the draft-only swap and sharded serving.
 """
 
 from dtf_tpu_torch.serve.client import (Heartbeat, PoissonLoadGen,

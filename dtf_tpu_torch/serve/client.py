@@ -82,10 +82,16 @@ class Heartbeat:
     fraction under the floor logs one WARNING an excursion, per key: the
     fleet's (or the scheduler's) and each replica's, each re-armed when it
     recovers; every excursion is counted and the worst fleet fraction
-    kept, so :meth:`stats` can put them in the launcher's final line."""
+    kept, so :meth:`stats` can put them in the launcher's final line.
+    With ``events`` (an :class:`~dtf_tpu_torch.telemetry.events.EventLog`)
+    each excursion lands on the run's timeline as a pair of
+    ``slo_excursion`` records (``edge`` enter / exit, with their ticks);
+    with ``flight`` (a :class:`~dtf_tpu_torch.telemetry.flight.
+    FlightRecorder`) each emit also writes the heartbeat file with a
+    ``serve`` summary. Host arithmetic only."""
 
     def __init__(self, sched, *, every_ticks: int, slo_floor: float = 0.0,
-                 emit=None, clock=time.monotonic):
+                 emit=None, clock=time.monotonic, flight=None, events=None):
         if every_ticks < 1:
             raise ValueError(f"every_ticks={every_ticks} must be >= 1")
         self.sched = sched
@@ -93,14 +99,17 @@ class Heartbeat:
         self.slo_floor = slo_floor
         self.emit = emit or (lambda line: print(line, file=sys.stderr))
         self.clock = clock
+        self.flight = flight
+        self.events = events
         self._t0 = clock()
         self._ticks = 0
         self.emitted = 0
         self.excursions = 0
         self.replica_excursions = 0
         self.worst_ok_frac: Optional[float] = None
-        #: keys ("fleet", "replica{i}") inside an excursion
-        self._episodes: set = set()
+        #: open excursions by key ("fleet", "replica{i}"): the tick and
+        #: the fraction they began at
+        self._episodes: dict = {}
 
     def snapshot(self) -> dict:
         stats = self.sched.stats()
@@ -134,8 +143,9 @@ class Heartbeat:
             fracs.update((k[:-len(suffix)], v) for k, v in snap.items()
                          if k.startswith("replica") and k.endswith(suffix))
             for key, frac in fracs.items():
-                if frac < self.slo_floor and key not in self._episodes:
-                    self._episodes.add(key)
+                ep = self._episodes.get(key)
+                if frac < self.slo_floor and ep is None:
+                    self._episodes[key] = {"tick": self._ticks, "ok": frac}
                     if key == "fleet":
                         self.excursions += 1
                         log.warning(
@@ -150,8 +160,31 @@ class Heartbeat:
                         log.warning(
                             "%s TTFT SLO compliance %.3f below the %.3f "
                             "floor", key, frac, self.slo_floor)
-                elif frac >= self.slo_floor:
-                    self._episodes.discard(key)
+                    if self.events is not None:
+                        self.events.emit(
+                            "slo_excursion", edge="enter", key=key,
+                            ok_frac=round(frac, 6), tick=self._ticks)
+                elif frac >= self.slo_floor and ep is not None:
+                    del self._episodes[key]
+                    if self.events is not None:
+                        self.events.emit(
+                            "slo_excursion", edge="exit", key=key,
+                            ok_frac=round(frac, 6), tick=self._ticks,
+                            entered_tick=ep["tick"],
+                            ticks=self._ticks - ep["tick"])
+        if self.flight is not None:
+            # the liveness file a watcher polls, with the serve panel
+            serve = {k: snap[k] for k in
+                     ("serve_completed", "serve_queue_depth",
+                      "router_completed", "router_queue_depth",
+                      "router_quarantines", "router_version",
+                      "router_swaps", "router_swap_rollbacks")
+                     if k in snap}
+            versions = {k: snap[k] for k in snap
+                        if k.startswith("replica") and k.endswith("_version")}
+            if versions:
+                serve["replica_versions"] = versions
+            self.flight.write_heartbeat(extra={"serve": serve})
         return snap
 
     def stats(self) -> dict:

@@ -70,13 +70,20 @@ takes new weights of the same architecture by rebinding its module's
 parameters, with no step function built again; the version bump keys
 new prefix pages apart from the old weights'.
 
-Not yet ported: the tuner's ``spec_k = 0`` with a draft, sharded serving
-(``mesh``) and trace annotations (``annotate_traces``); each raises when
-asked for.
+**Trace annotations** (``annotate_traces``): with it set, each prefill
+chunk and decode step runs under a ``torch.profiler.record_function``
+range named ``dtf.serve.prefill_chunk#slot=…,chunk=…,trace_id=…#`` or
+``dtf.serve.decode#trace_ids=…#`` (the scheduler passes the ids), so a
+profiler trace names the requests a step served. A host-side range only:
+no sync, no extra launch.
+
+Not yet ported: the tuner's ``spec_k = 0`` with a draft and sharded
+serving (``mesh``); each raises when asked for.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -538,6 +545,9 @@ class DecodeEngine:
         #: stamps it into every completed record; prefix pages are keyed
         #: by it)
         self.param_version = 0
+        #: request trace ids on the step calls (module docstring); the
+        #: scheduler passes them only when this is set
+        self.annotate_traces = False
 
         if weights_from is not None and weights_from.cfg != base:
             raise ValueError("weights_from= is an engine of another "
@@ -630,17 +640,15 @@ class DecodeEngine:
 
     # ------------------------------------------------------------- host API
 
-    @property
-    def annotate_traces(self) -> bool:
-        """Request trace annotations on the step calls: not yet ported."""
-        return False
-
-    @annotate_traces.setter
-    def annotate_traces(self, on: bool) -> None:
-        if on:
-            raise NotImplementedError(
-                "annotate_traces (request ids on the step calls) is not "
-                "yet ported")
+    def _annotation(self, name: str, **ids):
+        """A ``torch.profiler.record_function`` range carrying the request
+        trace ids (``annotate_traces``), named as the JAX engine's
+        annotation renders (``name#k=v,…#``); a null context otherwise.
+        Host side only: it reads no device value."""
+        if not self.annotate_traces:
+            return contextlib.nullcontext()
+        args = ",".join(f"{k}={v}" for k, v in ids.items())
+        return torch.profiler.record_function(f"{name}#{args}#")
 
     # -------------------------------------------------- weight hot-swap
 
@@ -862,21 +870,25 @@ class DecodeEngine:
                            chunk_i: int, *, start: int = 0,
                            temperature: float = 0.0, top_k: int = 0,
                            top_p: float = 1.0, eos_id: Optional[int] = None,
-                           pad_id: int = 0, seed: int = 0
+                           pad_id: int = 0, seed: int = 0,
+                           trace_id: Optional[int] = None
                            ) -> Optional[tuple[int, bool]]:
         """Run prompt chunk ``chunk_i`` of a request into ``slot`` — the
         scheduler's prefill/decode interleave granularity (decode_all may
         run between chunks; the slot stays a masked spectator until its
         last chunk lands). Chunks cover ``prompt[start:]``. Returns
         ``(first_token, done)`` on the last chunk (the one readback), None
-        before."""
-        out = self.prefill_into_slot(
-            slot, prompt, chunk_i, start=start, temperature=temperature,
-            top_k=top_k, top_p=top_p, eos_id=eos_id, pad_id=pad_id,
-            seed=seed)
-        if chunk_i != self.n_chunks(len(prompt) - start) - 1:
-            return None
-        tok, done = out.tolist()
+        before. ``trace_id`` names the request in the annotation."""
+        with self._annotation("dtf.serve.prefill_chunk", slot=slot,
+                              chunk=chunk_i,
+                              trace_id=-1 if trace_id is None else trace_id):
+            out = self.prefill_into_slot(
+                slot, prompt, chunk_i, start=start, temperature=temperature,
+                top_k=top_k, top_p=top_p, eos_id=eos_id, pad_id=pad_id,
+                seed=seed)
+            if chunk_i != self.n_chunks(len(prompt) - start) - 1:
+                return None
+            tok, done = out.tolist()
         return int(tok), bool(done)
 
     def prefill(self, slot: int, prompt: Sequence[int], *, start: int = 0,
@@ -939,14 +951,19 @@ class DecodeEngine:
         self.counters["decode_steps"] += 1
         return out
 
-    def decode(self):
+    def decode(self, *, trace_ids: Optional[Sequence[int]] = None):
         """One masked step across all slots as host arrays — the one
         device-to-host sync a tick (eos and delivery decisions live on
         the host). Without a draft: ``(tokens [n_slots], done
         [n_slots])``. With ``spec_k`` = k: ``(tokens [n_slots, k+1], done
         [n_slots, k+1], n_emit [n_slots])``; the scheduler delivers
-        ``tokens[s, :n_emit[s]]``."""
-        out = self.decode_all().cpu().numpy()
+        ``tokens[s, :n_emit[s]]``. ``trace_ids`` names the requests the
+        step serves in the annotation."""
+        with self._annotation(
+                "dtf.serve.decode",
+                trace_ids="" if trace_ids is None
+                else ",".join(map(str, trace_ids))):
+            out = self.decode_all().cpu().numpy()
         if not self.spec_k:
             return out[0], out[1].astype(bool)
         k1 = self.spec_k + 1

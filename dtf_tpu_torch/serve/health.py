@@ -31,8 +31,11 @@ time includes the decode's readback, so the watchdog sees device time.
 :func:`install_serve_fault` arms a ``DTF_FAULT_INJECT`` serve verb on a
 live router or scheduler by wrapping engine methods: ``wedge_replica``,
 ``slow_decode``, ``poison_request``, ``poison_draft`` and the hot-swap's
-``wedge_in_swap``; ``corrupt_publish`` wraps a publish watcher. The
-verbs of the serve-log sink and the event log raise "not yet ported".
+``wedge_in_swap``; ``corrupt_publish`` wraps a publish watcher;
+``corrupt_log_record`` and ``crash_in_log_rotate`` arm the pump's
+serve-log sink, ``crash_in_event_rotate`` its event log. With an event
+log (``HealthTracker(events=)``), every transition lands on the run's
+timeline as ``health_transition``.
 """
 
 from __future__ import annotations
@@ -113,14 +116,16 @@ class HealthTracker:
     The router feeds it ``note_tick(i, wall_s)`` after every replica tick
     and ``note_fault(i, err)`` on an engine exception, and reads
     ``routable`` / ``rank`` for admission and ``state`` / ``counters`` /
-    ``transitions`` for its stats."""
+    ``transitions`` for its stats. ``events``: an optional
+    :class:`dtf_tpu_torch.telemetry.events.EventLog`."""
 
     def __init__(self, n_replicas: int, cfg: Optional[HealthConfig] = None,
-                 *, clock=time.monotonic):
+                 *, clock=time.monotonic, events=None):
         if n_replicas < 1:
             raise ValueError(f"n_replicas={n_replicas} must be >= 1")
         self.cfg = cfg or HealthConfig()
         self.clock = clock
+        self.events = events
         self._r = [
             _Replica(delay_s=self.cfg.probation_delay_s,
                      durations=collections.deque(maxlen=self.cfg.keep))
@@ -205,6 +210,12 @@ class HealthTracker:
         h.last_cause = cause
         self.transitions.append({"replica": i, "from": old, "to": state,
                                  "cause": cause, "t": round(h.since, 3)})
+        if self.events is not None:
+            # "at" is the tracker's own (injectable) clock; the log's wall
+            # "t" orders the record against the other subsystems' events
+            self.events.emit("health_transition", replica=i, state_from=old,
+                             state_to=state, cause=cause,
+                             at=round(h.since, 6))
         log.warning("serve replica %d: %s -> %s (%s)", i, old, state, cause)
         return state
 
@@ -249,10 +260,11 @@ class HealthTracker:
 # Serve-side fault injection.
 # ---------------------------------------------------------------------------
 
-#: the verbs install_serve_fault arms; the others' targets (the serve-log
-#: sink, the event log) are not ported yet
+#: the verbs install_serve_fault arms
 _PORTED_KINDS = ("wedge_replica", "slow_decode", "poison_request",
-                "poison_draft", "wedge_in_swap", "corrupt_publish")
+                "poison_draft", "wedge_in_swap", "corrupt_publish",
+                "corrupt_log_record", "crash_in_log_rotate",
+                "crash_in_event_rotate")
 
 
 class ServeFaultState:
@@ -308,15 +320,23 @@ def install_serve_fault(plan: ServeFaultPlan, pump, *, sleep=time.sleep,
       loads (:func:`~dtf_tpu_torch.fault.inject.corrupt_publish_version`);
       the digest check must skip it with a warning and the fleet keep
       its version. No-op without a watcher.
+    - ``corrupt_log_record@N`` — the serve-log sink's N-th record (0-based)
+      is written with a damaged CRC: readers skip it.
+    - ``crash_in_log_rotate@N`` / ``crash_in_event_rotate@N`` — the sink's
+      / the event log's N-th rotation (0-based) raises
+      :class:`~dtf_tpu_torch.fault.inject.InjectedCrash` after the shard
+      is durable and before the manifest commits: the next sink or log
+      over the directory adopts the shard.
+    Each sink and the event log are armed once, however many replicas
+    share them; with none attached the plan arms nothing.
 
     Ticks count in the target's own call domain, so a plan is
     deterministic under Poisson timing; ``sleep`` is injectable. Each
     firing first prints one JSON line through ``emit`` (default stdout).
     """
     if plan.kind not in _PORTED_KINDS:
-        raise NotImplementedError(
-            f"serve fault {plan.kind!r} is not yet ported (its target — the "
-            "serve-log sink or the event log — is not)")
+        raise NotImplementedError(f"serve fault {plan.kind!r} is not yet "
+                                  "ported")
     scheds = getattr(pump, "schedulers", None) or [pump]
     state = ServeFaultState(plan)
     _emit = emit or (lambda line: print(line, flush=True))
@@ -421,6 +441,31 @@ def install_serve_fault(plan: ServeFaultPlan, pump, *, sleep=time.sleep,
             return _orig()
 
         watcher.load_new = load_new
+        return state
+
+    def mark(what: str) -> None:
+        state.fired = True
+        note(what)
+
+    if plan.kind in ("corrupt_log_record", "crash_in_log_rotate"):
+        # a router's replicas share one sink: arm each distinct sink once,
+        # counting in its own record / rotation domain
+        seen_sinks: set = set()
+        for s in scheds:
+            sink = getattr(s, "_log_sink", None)
+            if sink is None or id(sink) in seen_sinks:
+                continue
+            seen_sinks.add(id(sink))
+            if plan.kind == "corrupt_log_record":
+                sink.arm_corrupt(plan.tick, note=mark)
+            else:
+                sink.arm_crash_rotate(plan.tick, note=mark)
+        return state
+
+    if plan.kind == "crash_in_event_rotate":
+        events = getattr(pump, "events", None)
+        if events is not None:
+            events.arm_crash_rotate(plan.tick, note=mark)
         return state
 
     if plan.kind == "wedge_replica":

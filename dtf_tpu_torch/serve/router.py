@@ -43,7 +43,18 @@ profile (``cp_pick``, ``cp_engine_tick``, ``cp_health_sweep``,
 ``cp_page_ops``, ``cp_bookkeeping`` on
 :class:`~dtf_tpu_torch.telemetry.spans.SpanRecorder`; host arithmetic
 only). Not yet ported, and raising: the draft-only swap
-(``maybe_swap_draft``), the serve-log sink, the event log and telemetry.
+(``maybe_swap_draft``).
+
+**The run-record plane** (host facts only: no device readback, no token
+changed): ``events=`` (:class:`dtf_tpu_torch.telemetry.events.EventLog`)
+receives ``requeue_drain``, ``swap_start``, ``swap_canary``,
+``swap_rollback``, ``swap_commit`` and every :attr:`CP_PROFILE_EVERY`
+ticks ``cp_profile``, each stamped with the router tick, and the health
+tracker's ``health_transition``; ``log_sink=`` is one
+:class:`dtf_tpu_torch.serve.logsink.LogSink` every replica's scheduler
+records into; ``telemetry=`` gives each scheduler its spans and tracer,
+times each replica's swap as ``serve_swap`` and registers the fleet's
+postmortem provider.
 
 **The rolling weight swap** (:meth:`Router.start_swap`): a new version
 rolls across the fleet with no downtime. One replica at a time is
@@ -129,6 +140,9 @@ class Router:
     :class:`~dtf_tpu_torch.serve.health.HealthConfig` or a
     :class:`~dtf_tpu_torch.serve.health.HealthTracker`."""
 
+    #: router ticks between ``cp_profile`` events on the event log
+    CP_PROFILE_EVERY = 256
+
     def __init__(self, engines: Sequence[DecodeEngine], writer=None, *,
                  telemetry=None, ttft_slo_s: float = 0.0,
                  clock=time.monotonic, health=None,
@@ -136,11 +150,6 @@ class Router:
                  **scheduler_kw):
         if not engines:
             raise ValueError("Router needs at least one engine replica")
-        for name, value in (("telemetry", telemetry), ("log_sink", log_sink),
-                            ("events", events)):
-            if value is not None:
-                raise NotImplementedError(f"Router({name}=...) is not yet "
-                                          "ported")
         self._prefill_replicas = prefill_replicas
         if prefill_replicas:
             if not 0 < prefill_replicas < len(engines):
@@ -157,23 +166,38 @@ class Router:
                     "prefix_pages=...)")
         self._roles = ["prefill" if i < prefill_replicas else "decode"
                        for i in range(len(engines))]
+        self.telemetry = telemetry
         self.clock = clock
+        #: one serve-log sink for the fleet: the pump is one thread and
+        #: records carry their replica
+        self.log_sink = log_sink
+        #: one event log for the fleet (module docstring)
+        self.events = events
         self._cp = SpanRecorder(clock=clock)
         self.schedulers = [
-            Scheduler(e, writer, ttft_slo_s=ttft_slo_s, clock=clock,
+            Scheduler(e, writer, telemetry=telemetry, ttft_slo_s=ttft_slo_s,
+                      clock=clock, postmortem_name=None, log_sink=log_sink,
                       replica_index=i, **scheduler_kw)
             for i, e in enumerate(engines)]
         if health is False:
             self.health: Optional[health_lib.HealthTracker] = None
         elif isinstance(health, health_lib.HealthTracker):
             self.health = health
+            if events is not None and health.events is None:
+                health.events = events   # one timeline for the fleet
         elif isinstance(health, health_lib.HealthConfig):
-            self.health = health_lib.HealthTracker(len(engines), health,
-                                                   clock=clock)
+            self.health = health_lib.HealthTracker(
+                len(engines), health, clock=clock, events=events)
         elif health is None and len(engines) == 1:
             self.health = None
         else:    # None with a fleet, or True
-            self.health = health_lib.HealthTracker(len(engines), clock=clock)
+            self.health = health_lib.HealthTracker(len(engines), clock=clock,
+                                                   events=events)
+        if telemetry is not None:
+            # one postmortem provider for the fleet (the replicas' would
+            # collide on the name)
+            telemetry.add_postmortem_provider("serve_router",
+                                              self.postmortem_state)
         self.ttft_slo_s = ttft_slo_s
         #: fleet rid -> (replica, the replica's local rid)
         self._where: dict[int, tuple[int, int]] = {}
@@ -262,6 +286,13 @@ class Router:
         return cls(engines, prefill_replicas=prefill_replicas, **router_kw)
 
     # ------------------------------------------------------------ admission
+
+    def _emit(self, kind: str, /, **fields) -> None:
+        """One fleet event, stamped with the router tick (the pump's own
+        counter, which lines events up with the tick profile under an
+        injected clock)."""
+        if self.events is not None:
+            self.events.emit(kind, tick=self._ticks, **fields)
 
     def _routable(self, i: int) -> bool:
         if i == self._swapping:     # mid-drain or mid-swap
@@ -430,6 +461,7 @@ class Router:
         in submit order with its fleet id and original submit time (a
         drained prefill job to the prefill tier, if any of it is
         routable); with no routable survivor it sheds at the door."""
+        moved = shed = 0
         for rec in self.schedulers[i].evict_for_requeue():
             rid = rec.trace_id
             phase = "prefill" if rid in self._handoff else "decode"
@@ -437,11 +469,16 @@ class Router:
             if j is None:
                 self._handoff.pop(rid, None)
                 self._shed_at_door(rid)
+                shed += 1
                 continue
             local = self.schedulers[j].submit(
                 rec.req, trace_id=rid, submit_t=rec.submit_t, requeued=True)
             self._where[rid] = (j, local)
             self._requeued += 1
+            moved += 1
+        if moved or shed:
+            self._emit("requeue_drain", replica=i, requeued=moved,
+                       shed=shed)
 
     def _probe(self, i: int) -> None:
         """One timed decode probe of an idle probation replica, so its
@@ -528,6 +565,9 @@ class Router:
                              for s in self.schedulers],
             "watcher": None,
         }
+        self._emit("swap_start", version=version, canary=order[0],
+                   canary_ticks=cfg.canary_ticks,
+                   draft=draft_params is not None)
         log.info("rolling swap to param version %d started (canary "
                  "replica %d, %d-tick window)", version, order[0],
                  cfg.canary_ticks)
@@ -604,6 +644,8 @@ class Router:
         spans.add("swap_drain", t1 - t0)
         spans.add("swap_params", t2 - t1)
         spans.add("serve_swap", t2 - t0)
+        if self.telemetry is not None:
+            self.telemetry.spans.add("serve_swap", t2 - t0)
         # any successful swap supersedes a pending repair: a later retry
         # would revert the replica to the stale rolled-back weights
         self._version_repair.pop(i, None)
@@ -642,6 +684,9 @@ class Router:
                     sw["canary_swapped"] = True
                     sw["t_canary"] = self.clock()
                     sw["ttft_mark"] = self.schedulers[i].ttft_count
+                    self._emit("swap_canary", version=sw["version"],
+                               replica=i,
+                               canary_ticks=sw["cfg"].canary_ticks)
 
                 self._swap_replica(i, sw["params"], sw["draft"],
                                    sw["version"], mark=mark_canary)
@@ -731,6 +776,8 @@ class Router:
         self._last_swap = {"version": sw["version"],
                            "outcome": "rolled_back", "cause": cause}
         self._swap_spans.add("swap_roll", self.clock() - sw["t0"])
+        self._emit("swap_rollback", version=sw["version"], cause=cause,
+                   swapped=len(swapped))
         if sw["watcher"] is not None:
             # a rolled-back version must not re-swap at the next poll:
             # only a newer publish may try again
@@ -747,6 +794,8 @@ class Router:
         if sw["watcher"] is not None:
             sw["watcher"].note_applied(sw["version"])
         self._invalidate_stale_pages()
+        self._emit("swap_commit", version=sw["version"],
+                   draft=sw["draft"] is not None)
         log.info("rolling swap complete: fleet serving param version %d",
                  sw["version"])
 
@@ -867,6 +916,10 @@ class Router:
         self._advance_swap()
         self._skew_check()
         cp.add("cp_bookkeeping", self.clock() - t1)
+        if self.events is not None and self._ticks % self.CP_PROFILE_EVERY == 0:
+            self._emit("cp_profile", **{f"{name}_total_s":
+                                        round(cp.total(name), 6)
+                                        for name in CP_PHASES})
 
     def run_until_idle(self, max_ticks: int = 100000, *,
                        on_tick=None) -> None:
@@ -984,6 +1037,9 @@ class Router:
         for v, (prop, acc) in self.accept_by_version().items():
             if prop:
                 out[f"router_spec_accept_rate_v{v}"] = acc / prop
+        if self.log_sink is not None:
+            out["router_log_sink_records"] = float(
+                self.log_sink.stats()["records"])
         counters: dict = {}
         for s in self.schedulers:
             for k, v in s.engine.counters.items():
@@ -994,6 +1050,8 @@ class Router:
             out[f"{name}_total_s"] = roll["total_s"]
             out[f"{name}_mean_s"] = roll["mean_s"]
             out[f"{name}_p99_s"] = roll["p99_s"]
+        if self.events is not None:
+            out["router_events"] = float(self.events.stats()["events"])
         for i, s in enumerate(self.schedulers):
             st = s.stats()
             for k in _REPLICA_KEYS:
@@ -1003,6 +1061,11 @@ class Router:
         if swap_roll is not None:
             out["serve_swap_p50_s"] = swap_roll["p50_s"]
             out["serve_swap_p99_s"] = swap_roll["p99_s"]
+        if self.telemetry is not None:
+            roll = self.telemetry.spans.rollup().get("router_wait")
+            if roll is not None:
+                out["router_wait_p50_s"] = roll["p50_s"]
+                out["router_wait_p99_s"] = roll["p99_s"]
         return out
 
 

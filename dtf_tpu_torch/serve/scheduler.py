@@ -44,8 +44,18 @@ takes each with its fleet id, its original submit time and
 ``stats()`` gives TTFT and per-token latency p50/p99, occupancy, queue
 peak, the requeue counts, the TTFT SLO fraction, the speculative accept
 rate and the page pool's aggregates — host arithmetic only, no device
-readback. Not yet ported: the telemetry spans and request traces and the
-serve-log sink; both raise when passed.
+readback.
+
+The run-record plane, host arithmetic only (no device readback, no
+token changed): ``telemetry=`` (:class:`dtf_tpu_torch.telemetry.run.
+Telemetry`) times every engine call in a phase span (``serve_prefill_
+chunk``, ``serve_page_load``, ``serve_page_save``, ``serve_decode``,
+and the queue wait ``router_wait``) and, with a tracer attached, records
+each request's ``queue_wait`` and ``request`` slices and the engine-call
+slices, tagged with its trace id; standalone, it registers the
+scheduler's postmortem provider. ``log_sink=`` (:class:`dtf_tpu_torch.
+serve.logsink.LogSink`) records every ``done`` request. An engine that
+sets ``annotate_traces`` gets the trace ids in its step calls.
 """
 
 from __future__ import annotations
@@ -139,6 +149,8 @@ class _Rec:
     #: many the verifier accepted
     proposed: int = 0
     accepted: int = 0
+    #: the submit moment on the tracer's clock (chrome ``ts``)
+    submit_us: float = 0.0
 
 
 class Scheduler:
@@ -153,17 +165,20 @@ class Scheduler:
                  prefill_chunks_per_tick: int = 4, clock=time.monotonic,
                  completed_cap: int = 100_000, telemetry=None,
                  ttft_slo_s: float = 0.0, max_queue: int = 0,
-                 shed_retry_after_s: float = 0.25, log_sink=None,
-                 replica_index: int = 0):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry (engine-call spans, request traces) is not yet "
-                "ported")
-        if log_sink is not None:
-            raise NotImplementedError("log_sink (the serve-log sink) is not "
-                                      "yet ported")
+                 shed_retry_after_s: float = 0.25,
+                 postmortem_name: Optional[str] = "serve_scheduler",
+                 log_sink=None, replica_index: int = 0):
         self.engine = engine
         self.writer = writer
+        #: the serve-log sink: one record a ``done`` request (a router
+        #: hands every replica the same sink)
+        self._log_sink = log_sink
+        self.telemetry = telemetry
+        if telemetry is not None and postmortem_name:
+            # a router registers one provider for the fleet instead
+            # (postmortem_name None for its replicas)
+            telemetry.add_postmortem_provider(postmortem_name,
+                                              self.postmortem_state)
         #: this scheduler's replica behind a router (0 alone)
         self.replica_index = int(replica_index)
         self.log_every = log_every
@@ -243,6 +258,9 @@ class Scheduler:
                    submit_t=self.clock() if submit_t is None else submit_t,
                    submit_tick=self._tick,
                    trace_id=rid if trace_id is None else trace_id)
+        tracer = self._tracer()
+        if tracer is not None:
+            rec.submit_us = tracer.now_us()
         self._recs[rid] = rec
         if requeued:
             self._requeued_in += 1
@@ -298,6 +316,15 @@ class Scheduler:
                 rec.slot = self._free.pop(0)
                 rec.status = "prefill"
                 self._admitting = rec
+                if self.telemetry is not None:
+                    self.telemetry.spans.add(
+                        "router_wait", self.clock() - rec.submit_t)
+                    tracer = self._tracer()
+                    if tracer is not None:
+                        tracer.complete(
+                            "queue_wait", cat="request", tid=rec.trace_id,
+                            t0_us=rec.submit_us, t1_us=tracer.now_us(),
+                            args={"slot": rec.slot})
                 # the prefix-page lookup (None with the pool off): the
                 # pinned chain loads below, on the same budget
                 pm = getattr(self.engine, "prefix_match", None)
@@ -310,15 +337,24 @@ class Scheduler:
                     # the whole chain in ONE page-load step, for one unit
                     # of budget (so admission cannot starve decode); the
                     # load deactivates the slot first
-                    self.engine.load_prefix(rec.slot, rec.handle)
+                    self._timed("serve_page_load", self.engine.load_prefix,
+                                rec.slot, rec.handle, tid=rec.trace_id)
                     rec.pages_loaded = len(rec.handle.entries)
                     budget -= 1
                     continue
                 start = rec.handle.n_tokens if rec.handle is not None else 0
-                out = self.engine.prefill_chunk_into(
+                # the trace id reaches the engine only when it annotates
+                ekw = ({"trace_id": rec.trace_id}
+                       if getattr(self.engine, "annotate_traces", False)
+                       else {})
+                out = self._timed(
+                    "serve_prefill_chunk", self.engine.prefill_chunk_into,
                     rec.slot, r.prompt, rec.chunks_done, start=start,
                     temperature=r.temperature, top_k=r.top_k, top_p=r.top_p,
-                    eos_id=r.eos_id, pad_id=r.pad_id, seed=r.seed)
+                    eos_id=r.eos_id, pad_id=r.pad_id, seed=r.seed,
+                    tid=rec.trace_id,
+                    targs={"slot": rec.slot, "chunk": rec.chunks_done},
+                    **ekw)
             except Exception as e:  # noqa: BLE001 — an ADMISSION failure
                 # has exactly one owner: fail that request terminally and
                 # keep serving. Decode-path exceptions below have no
@@ -333,7 +369,8 @@ class Scheduler:
                 save = getattr(self.engine, "save_prefix_pages", None)
                 if save is not None:
                     try:
-                        save(rec.slot, r.prompt)
+                        self._timed("serve_page_save", save, rec.slot,
+                                    r.prompt, tid=rec.trace_id)
                     except Exception as e:  # noqa: BLE001 — same owner
                         self._fail(rec, e)
                         continue
@@ -351,7 +388,17 @@ class Scheduler:
                     self._running[rec.slot] = rec
 
         if self._running:
-            out = self.engine.decode()
+            if self.telemetry is None \
+                    and not getattr(self.engine, "annotate_traces", False):
+                # the hot loop with the plane off: no id list a tick
+                out = self.engine.decode()
+            else:
+                active = [r.trace_id for r in self._running.values()]
+                ekw = ({"trace_ids": active}
+                       if getattr(self.engine, "annotate_traces", False)
+                       else {})
+                out = self._timed("serve_decode", self.engine.decode,
+                                  targs={"trace_ids": active}, **ekw)
             now = self.clock()
             spec_k = getattr(self.engine, "spec_k", 0)
             if spec_k:
@@ -409,6 +456,30 @@ class Scheduler:
 
     # ------------------------------------------------------------- internals
 
+    def _tracer(self):
+        """The run's TraceCollector, if the telemetry has one."""
+        return getattr(self.telemetry, "tracer", None)
+
+    def _timed(self, name, fn, *args, tid=None, targs=None, **kwargs):
+        """An engine call in a telemetry phase span (a plain call without
+        telemetry); with a tracer, also one chrome slice tagged ``tid``
+        (the shared ``engine`` track for decode steps). Host clock
+        arithmetic only."""
+        if self.telemetry is None:
+            return fn(*args, **kwargs)
+        tracer = self._tracer()
+        if tracer is None:
+            with self.telemetry.spans.span(name):
+                return fn(*args, **kwargs)
+        t0 = tracer.now_us()
+        try:
+            with self.telemetry.spans.span(name):
+                return fn(*args, **kwargs)
+        finally:
+            tracer.complete(name, cat="engine",
+                            tid="engine" if tid is None else tid,
+                            t0_us=t0, t1_us=tracer.now_us(), args=targs)
+
     def _budget_spent(self, rec: _Rec) -> bool:
         used = len(rec.req.prompt) + len(rec.tokens)
         return (len(rec.tokens) >= rec.req.max_new
@@ -445,12 +516,39 @@ class Scheduler:
     def _retire(self, rec: _Rec, status: str,
                 now: Optional[float] = None) -> None:
         """Shared terminal bookkeeping for done/shed/timeout/error: stamp
-        the status, free the slot (if the request held one) and enter the
+        the status, record a done request in the sink, emit the request's
+        trace slice, free the slot (if the request held one) and enter the
         bounded retention window."""
         rec.status = status
         rec.finish_t = rec.finish_t or (self.clock() if now is None else now)
         if status == "done":
             rec.version = getattr(self.engine, "param_version", None)
+            if self._log_sink is not None:
+                # host facts only: the token ints crossed in tick()
+                self._log_sink.record({
+                    "rid": rec.trace_id if rec.trace_id >= 0 else rec.rid,
+                    "replica": self.replica_index,
+                    "version": rec.version,
+                    "status": status,
+                    "prompt": [int(t) for t in rec.req.prompt],
+                    "tokens": list(rec.tokens),
+                    "ttft_s": round(rec.first_token_t - rec.submit_t, 6)
+                    if rec.first_token_t is not None else None,
+                    "latency_s": round(rec.finish_t - rec.submit_t, 6),
+                    "proposed": rec.proposed,
+                    "accepted": rec.accepted,
+                })
+        tracer = self._tracer()
+        if tracer is not None:
+            # the whole lifecycle as one slice on the request's track
+            args = {"rid": rec.rid, "status": status,
+                    "prompt_len": len(rec.req.prompt),
+                    "tokens": len(rec.tokens)}
+            if rec.first_token_t is not None:
+                args["ttft_s"] = round(rec.first_token_t - rec.submit_t, 6)
+            tracer.complete("request", cat="request", tid=rec.trace_id,
+                            t0_us=rec.submit_us, t1_us=tracer.now_us(),
+                            args=args)
         if rec.handle is not None:       # the chain's pin goes with the slot
             self.engine.release_prefix(rec.handle)
             rec.handle = None
@@ -632,4 +730,9 @@ class Scheduler:
         if prefix is not None:
             out.update({f"serve_prefix_{k}": float(v)
                         for k, v in prefix().items()})
+        if self.telemetry is not None:
+            for name, roll in self.telemetry.spans.rollup().items():
+                if name.startswith("serve_") or name == "router_wait":
+                    out[f"{name}_p50_s"] = roll["p50_s"]
+                    out[f"{name}_p99_s"] = roll["p99_s"]
         return out

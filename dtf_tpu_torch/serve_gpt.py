@@ -52,10 +52,26 @@ fleet (``--canary_ticks``; the ``corrupt_publish`` and ``wedge_in_swap``
 serve verbs); the line reports ``served_version``, ``final_version`` and
 the router's swap keys.
 
+The run-record plane (host side only: no device readback, no token
+changed): ``--event_log_dir`` writes the fleet's event log
+(:mod:`dtf_tpu_torch.telemetry.events`: ``serve_start``, health
+transitions, requeue drains, the swap's start, canary, commit and
+rollback, sink rotations, ``cp_profile``, the closing ``serve_summary``);
+``--log_sink_dir`` records every done request
+(:mod:`dtf_tpu_torch.serve.logsink`, mounted on the event log);
+``--trace_out`` writes a Perfetto-loadable chrome trace of every
+request's queue wait, engine calls and lifecycle, and annotates the
+engines' step calls with the trace ids; ``--telemetry`` adds the
+engine-call spans (``serve_*_p50_s``/``_p99_s``) and, with ``--logdir``,
+``<logdir>/telemetry/TELEMETRY.json`` and its postmortem file. The line
+then carries ``event_log``, ``log_sink``, ``trace_out`` /
+``trace_events`` and ``trace_counts``; the JAX launcher's
+``compile_events`` and ``monitoring_available`` are absent (no XLA
+compile to count).
+
 Not yet ported, and raising when asked for: ``--draft_precision``,
 ``--spec_k=0`` with a draft (the kernel tuner's width), the draft-only
-swap (``--draft_publish_dir``), ``--telemetry``, ``--trace_out``,
-``--log_sink_dir``, ``--event_log_dir``, and a mesh axis > 1.
+swap (``--draft_publish_dir``), and a mesh axis > 1.
 """
 
 from __future__ import annotations
@@ -191,8 +207,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--new_min", type=int, default=8)
     p.add_argument("--new_max", type=int, default=64)
     dflags.add_bool(p, "emit_tokens", False, "print rid:tok,... per request")
-    dflags.add_bool(p, "telemetry", False, "engine-call spans; not yet "
-                    "ported")
+    dflags.add_bool(p, "telemetry", False, "engine-call phase spans "
+                    "(serve_prefill_chunk / serve_decode p50/p99 in the "
+                    "JSON line); with --logdir, TELEMETRY.json and the "
+                    "postmortem under <logdir>/telemetry")
     p.add_argument("--stats_every", type=int, default=0,
                    help="every N ticks, one JSON stats snapshot line to "
                         "stderr (0 = off)")
@@ -202,11 +220,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "--swap_poll_ticks, also the canary's rollback "
                         "floor")
     p.add_argument("--trace_out", default="",
-                   help="per-request chrome trace; not yet ported")
+                   help="write a Perfetto-loadable chrome trace of every "
+                        "request (queue wait, prefill chunks, decode steps, "
+                        "tagged with trace ids) to this path")
     p.add_argument("--log_sink_dir", default="",
-                   help="serve-traffic log sink; not yet ported")
+                   help="record every done request (prompt, tokens, "
+                        "version, replica, TTFT, latency) into CRC-framed "
+                        "rotated shards under this directory")
     p.add_argument("--event_log_dir", default="",
-                   help="fleet event log; not yet ported")
+                   help="the fleet's event log (health, requeues, swaps, "
+                        "sink rotations, the tick profile) under this "
+                        "directory")
     p.add_argument("--draft_publish_dir", default="",
                    help="distilled-draft swaps; not yet ported")
     # the port's own
@@ -223,11 +247,7 @@ def build_parser() -> argparse.ArgumentParser:
 #: value other than their default
 _UNPORTED = (("draft_precision", "--draft_precision (a low-precision "
                                  "draft)"),
-             ("draft_publish_dir", "--draft_publish_dir (draft swaps)"),
-             ("telemetry", "--telemetry"),
-             ("trace_out", "--trace_out (request traces)"),
-             ("log_sink_dir", "--log_sink_dir (the serve-log sink)"),
-             ("event_log_dir", "--event_log_dir (the fleet event log)"))
+             ("draft_publish_dir", "--draft_publish_dir (draft swaps)"))
 
 
 def run(argv=None):
@@ -301,6 +321,11 @@ def run(argv=None):
                                      PoissonLoadGen, Request, Router,
                                      Scheduler, SwapConfig,
                                      install_serve_fault, replay)
+    from dtf_tpu_torch.serve.logsink import LogSink
+    from dtf_tpu_torch.telemetry.events import EventLog
+    from dtf_tpu_torch.telemetry.profile import export_chrome_trace
+    from dtf_tpu_torch.telemetry.run import Telemetry, merge_artifact
+    from dtf_tpu_torch.telemetry.trace import TraceCollector
 
     device = resolve_device(args.device or
                             ("cpu" if args.backend == "cpu" else "cuda"))
@@ -388,8 +413,21 @@ def run(argv=None):
                      kv_page_size=args.kv_page_size,
                      prefix_pages=args.prefix_pages, draft_cfg=draft_cfg,
                      draft_params=draft_params, spec_k=args.spec_k)
+    tel = None
+    if args.telemetry or args.trace_out:
+        # serving is host-driven: spans and the postmortem, no watchdog
+        tel = Telemetry(watchdog=False,
+                        out_dir=(os.path.join(args.logdir, "telemetry")
+                                 if args.logdir else None))
+        if args.trace_out:
+            tel.tracer = TraceCollector()
+    # the event log first, so the sink's recovery at mount is on it
+    events = EventLog(args.event_log_dir) if args.event_log_dir else None
+    sink = (LogSink(args.log_sink_dir, events=events)
+            if args.log_sink_dir else None)
     sched_kw = dict(prefill_chunks_per_tick=args.prefill_chunks_per_tick,
-                    ttft_slo_s=args.ttft_slo, max_queue=args.max_queue)
+                    ttft_slo_s=args.ttft_slo, max_queue=args.max_queue,
+                    telemetry=tel, log_sink=sink)
     try:
         if args.replicas > 1:
             health = False
@@ -406,17 +444,26 @@ def run(argv=None):
             sched = Router.build(cfg, params, n_replicas=args.replicas,
                                  prefill_replicas=args.prefill_replicas,
                                  writer=MetricWriter(echo=False),
-                                 health=health, **engine_kw, **sched_kw)
+                                 health=health, events=events, **engine_kw,
+                                 **sched_kw)
             engines = [s.engine for s in sched.schedulers]
             served = sched
         else:
             engines = [DecodeEngine(cfg, params, **engine_kw)]
             sched = Scheduler(engines[0], MetricWriter(echo=False),
                               log_every=0, **sched_kw)
+            # the crash_in_event_rotate verb reads the pump's event log
+            sched.events = events
             served = engines[0]
     except ValueError as e:     # the engine's and health's option checks
         parser.error(str(e))
     del params, draft_params, engine_kw
+    if events is not None:
+        events.emit("serve_start", replicas=args.replicas,
+                    version=served_version,
+                    step=None if step is None else int(step),
+                    spec_k=engines[-1].spec_k,
+                    prefill_replicas=args.prefill_replicas)
     if served_version:
         # the published version the fleet was BUILT with: records, page
         # epochs and the skew tripwire carry it
@@ -424,6 +471,11 @@ def run(argv=None):
             sched.stamp_version(served_version)
         else:
             engines[0].set_param_version(served_version)
+    if tel is not None:
+        if args.trace_out:
+            for e in engines:
+                e.annotate_traces = True
+        tel.start()
     # the swap poller: every --swap_poll_ticks ticks a NEW published
     # version (digest-verified; a corrupt one skipped with a warning)
     # starts a rolling swap; the serve loop never pauses
@@ -457,7 +509,9 @@ def run(argv=None):
     heartbeat = None
     if args.stats_every:
         heartbeat = Heartbeat(sched, every_ticks=args.stats_every,
-                              slo_floor=args.ttft_slo_frac)
+                              slo_floor=args.ttft_slo_frac,
+                              flight=tel.flight if tel is not None else None,
+                              events=events)
     hooks = [h for h in (heartbeat.maybe_emit if heartbeat is not None
                          else None, swap_tick) if h is not None]
     on_tick = (None if not hooks else hooks[0] if len(hooks) == 1
@@ -568,8 +622,43 @@ def run(argv=None):
     if acc:
         out["accept_by_version"] = {str(v): [p, a]
                                     for v, (p, a) in acc.items()}
+    if sink is not None:
+        # commits the open shard; a torn one is the next sink's to adopt
+        sink.close()
+        out["log_sink_dir"] = args.log_sink_dir
+        out["log_sink"] = sink.stats()
+    if events is not None:
+        # the run's closing record, then the open shard commits
+        events.emit("serve_summary", requests=n, generated_tokens=n_tokens,
+                    statuses=statuses, final_version=out["final_version"],
+                    accept_by_version=out.get("accept_by_version", {}))
+        events.close()
+        out["event_log_dir"] = args.event_log_dir
+        out["event_log"] = events.stats()
     if heartbeat is not None:
         out.update(heartbeat.stats())
+    if tel is not None:
+        if args.trace_out:
+            export_chrome_trace(args.trace_out,
+                                request_events=tel.tracer.events,
+                                meta={"source": "serve_gpt",
+                                      "replicas": args.replicas})
+            out["trace_out"] = args.trace_out
+            out["trace_events"] = len(tel.tracer.events)
+        tel.stop()
+        out["trace_counts"] = [
+            {**e.trace_counts,
+             **{f"page_{k}": v for k, v in e.page_trace_counts.items()}}
+            for e in engines]
+        if args.logdir:
+            extra = {"source": "serve_gpt", "served_version": served_version,
+                     "final_version": out["final_version"]}
+            if "accept_by_version" in out:
+                extra["accept_by_version"] = out["accept_by_version"]
+            if sink is not None:
+                extra["log_sink"] = sink.stats()
+            merge_artifact(os.path.join(args.logdir, "telemetry",
+                                        "TELEMETRY.json"), tel.report(extra))
     return out, rows, served
 
 

@@ -17,6 +17,9 @@ resumes from its newest checkpoint, at the batch of the step it resumes.
 ``--publish_dir`` publishes the parameters every ``--publish_every``
 steps and at the end as monotone versions (:mod:`dtf_tpu_torch.publish`)
 for a serving fleet's rolling swap (``serve_gpt --swap_poll_ticks``).
+``--event_log_dir`` writes the run's event log on the chief
+(:mod:`dtf_tpu_torch.telemetry.events`: ``ckpt_save``,
+``publish_version`` after each manifest commit, ``train_end``).
 ``DTF_FAULT_INJECT``'s training verbs (``crash@2``, ``sigterm@3``, …,
 :mod:`dtf_tpu_torch.fault.inject`) fire at their seeded step.
 
@@ -47,7 +50,7 @@ UNPORTED = {
     "moe_every": 0, "moe_top_k": 1, "tp_overlap": False,
     "matmul_precision": "", "pipe_microbatches": 0, "pipe_interleave": 1,
     "pipe_schedule": "gpipe", "stream_spec": "",
-    "event_log_dir": "", "distill_draft": 0, "distill_from": "",
+    "distill_draft": 0, "distill_from": "",
     "profile_steps": 0, "telemetry": False,
 }
 
@@ -100,7 +103,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="held-out eval every N steps; 0 = final only")
     p.add_argument("--publish_dir", default="")
     p.add_argument("--publish_every", type=int, default=100)
-    p.add_argument("--event_log_dir", default="")
+    p.add_argument("--event_log_dir", default="",
+                   help="the run's event log (chief only): checkpoint saves "
+                        "and fallbacks, weight publishes, the end of "
+                        "training; read with "
+                        "dtf_tpu_torch.telemetry.events.read_events")
     p.add_argument("--stream_spec", default="")
     p.add_argument("--distill_draft", type=int, default=0)
     p.add_argument("--distill_from", default="")
@@ -216,15 +223,22 @@ def run(argv=None):
         "moe_every": args.moe_every, "vocab_size": cfg.vocab_size,
         "d_model": cfg.d_model, "layers": cfg.layers, "heads": cfg.heads,
         "d_ff": cfg.d_ff, "kv_cache_dtype": ""}
-    publisher = None
+    publisher = events = None
     if info.is_chief:
         save_model_config(ckpt.directory, manifest_cfg)
+        # the event log has one writer: the chief's
+        if args.event_log_dir:
+            from dtf_tpu_torch.telemetry.events import EventLog
+
+            events = EventLog(args.event_log_dir)
+            ckpt.attach_event_log(events)
         # only the process that saves publishes: two publishers over one
         # manifest would commit digests of each other's half-written
         # versions; the architecture manifest rides next to the publish
         # manifest, so a fleet serving only the publish dir resolves it
         if args.publish_dir:
             publisher = ParamPublisher(args.publish_dir)
+            publisher.event_log = events
             save_model_config(args.publish_dir, manifest_cfg)
     eval_hook = lm_eval_hook(args, device, eval_fn, writer, mesh,
                              kind="gpt", mode="clm",
@@ -252,6 +266,9 @@ def run(argv=None):
     ckpt.close()
     if publisher is not None:
         publisher.close()
+    if events is not None:
+        events.emit("train_end", step=int(state.step))
+        events.close()
     return state, writer
 
 

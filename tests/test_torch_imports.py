@@ -10,6 +10,7 @@ of ``dtf_tpu_torch/``, and not ``chip_smoke.py``, has an import of them.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -266,3 +267,43 @@ def test_publish_and_rolling_swap_with_jax_poisoned(poisoned_env, tmp_path):
     out = proc.stdout.strip().splitlines()[-1]
     assert '"request_statuses": {"done": 3}' in out
     assert '"served_version": 1, "final_version": 2' in out
+
+
+def test_record_plane_with_jax_poisoned(poisoned_env, tmp_path):
+    """The run-record plane's modules are among those the poisoned child
+    imports, and ``train_gpt --event_log_dir`` then ``serve_gpt
+    --event_log_dir --log_sink_dir --trace_out --telemetry`` run with
+    nothing of JAX importable."""
+    mods = _port_modules()
+    for mod in ("_hostio", "data.tfrecord", "data.stream.servelog",
+                "telemetry.trace", "telemetry.events", "telemetry.profile",
+                "telemetry.flight", "telemetry.run", "serve.logsink"):
+        assert f"dtf_tpu_torch.{mod}" in mods, mod
+    env, cwd = poisoned_env
+    ev, pub = str(tmp_path / "events"), str(tmp_path / "pub")
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.train_gpt", "--device=cpu",
+         "--size=tiny", "--train_steps=2", "--batch_size=2", "--seq_len=16",
+         f"--logdir={tmp_path / 'run'}", f"--publish_dir={pub}",
+         "--publish_every=2", f"--event_log_dir={ev}"], env=env, cwd=cwd,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    proc = subprocess.run(
+        [sys.executable, "-m", "dtf_tpu_torch.serve_gpt", "--device=cpu",
+         f"--publish_dir={pub}", "--replicas=2", "--n_slots=2", "--n_new=4",
+         "--requests=1,2,3;4,5", f"--event_log_dir={ev}",
+         f"--log_sink_dir={tmp_path / 'sink'}", "--telemetry",
+         f"--trace_out={tmp_path / 'trace.json'}",
+         f"--logdir={tmp_path / 'serve'}"], env=env, cwd=cwd,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["request_statuses"] == {"done": 2}
+    assert out["log_sink"]["records"] == 2 and out["trace_events"] > 0
+    assert out["event_log"]["adopted_shards"] == 0
+    from dtf_tpu_torch.telemetry.events import read_events
+
+    kinds = [e["event"] for e in read_events(ev)]
+    assert kinds[:4] == ["publish_version", "ckpt_save", "train_end",
+                         "serve_start"]
+    assert kinds[-1] == "serve_summary"

@@ -469,8 +469,6 @@ def test_engine_constructor_checks_raise_where_the_reference_does(tiny):
     # the reference's does (tests/test_torch_serve_swap.py holds the rest)
     with pytest.raises(ValueError, match="tree structure"):
         eng.swap_params({n: x for n, x in list(sd.items())[1:]})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        eng.annotate_traces = True
     with pytest.raises(ValueError, match="prompt length"):
         eng.prefill(0, [1] * MAX_LEN)
 

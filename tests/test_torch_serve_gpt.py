@@ -213,14 +213,29 @@ def test_fleet_wedge_plan_quarantines_and_requeues(monkeypatch, capsys):
     "--publish_version=3", "--swap_poll_ticks=2", "--draft_publish_dir=/x",
     "--telemetry", "--trace_out=/x.json", "--log_sink_dir=/x",
     "--event_log_dir=/x", "--mesh_model=2", "--mesh_data=2"])
-def test_unported_flags_raise(flag):
+def test_unported_flags_raise(flag, tmp_path):
     """The publish flags are ported since: here (no publish dir, or one
     that does not exist) they fail the reference's usage checks
-    (tests/test_torch_serve_swap.py serves and rolls them)."""
+    (tests/test_torch_serve_swap.py serves and rolls them). The run-record
+    plane's flags are ported since too: here each serves with its output
+    under a temporary directory (tests/test_torch_events.py,
+    test_torch_servelog.py and test_torch_serve_trace.py hold them against
+    the JAX package's)."""
     if flag.split("=")[0] in ("--publish_dir", "--publish_version",
                               "--swap_poll_ticks"):
         with pytest.raises(SystemExit):
             serve_gpt.run(_TINY[:-1] + ["--requests=1,2", flag])
+        return
+    name = flag.split("=")[0]
+    if name in ("--telemetry", "--trace_out", "--log_sink_dir",
+                "--event_log_dir"):
+        arg = name if name == "--telemetry" else f"{name}={tmp_path}/x"
+        out, _, _ = serve_gpt.run(_TINY + ["--requests=1,2", arg,
+                                           f"--logdir={tmp_path}"])
+        assert out["request_statuses"] == {"done": 1}
+        key = {"--telemetry": "trace_counts", "--trace_out": "trace_events",
+               "--log_sink_dir": "log_sink", "--event_log_dir": "event_log"}
+        assert key[name] in out
         return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve_gpt.run(_TINY + ["--requests=1,2", flag])

@@ -170,16 +170,14 @@ class _FakeEngine:
                                   "crash_in_log_rotate",
                                   "crash_in_event_rotate"])
 def test_unported_verbs_raise_when_installed(kind):
-    """The hot-swap's verbs are ported since: they arm without firing
-    (``tests/test_torch_serve_swap.py`` fires them); the serve-log sink's
-    and the event log's still raise."""
+    """Every serve verb is ported since: the hot-swap's
+    (``tests/test_torch_serve_swap.py`` fires them) and the serve-log
+    sink's and the event log's (``tests/test_torch_servelog.py`` and
+    ``tests/test_torch_events.py`` fire them) arm without firing on a
+    scheduler with nothing to arm."""
     sched = Scheduler(_FakeEngine())
     plan = tinject.ServeFaultPlan(kind, 0)
-    if kind in ("corrupt_publish", "wedge_in_swap"):
-        assert not thealth.install_serve_fault(plan, sched).fired
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        thealth.install_serve_fault(plan, sched)
+    assert not thealth.install_serve_fault(plan, sched).fired
 
 
 def test_wedge_and_poison_fire_on_a_scheduler():

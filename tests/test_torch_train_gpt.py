@@ -217,6 +217,13 @@ def test_unported_flags_raise(tmp_path, flag):
         state, _ = _run(tmp_path, 1, f"--publish_dir={tmp_path}/p")
         assert read_manifest(f"{tmp_path}/p")["step"] == state.step == 1
         return
+    if flag == "--event_log_dir=e":  # ported since: the run's events
+        _run(tmp_path, 1, f"--event_log_dir={tmp_path}/e")
+        from dtf_tpu_torch.telemetry.events import read_events
+
+        assert [e["event"] for e in read_events(f"{tmp_path}/e")] == [
+            "ckpt_save", "train_end"]
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _run(tmp_path, 1, flag)
 
