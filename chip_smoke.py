@@ -305,17 +305,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     row exchange's time on each rank (a ResNet-50 b256 batch and BERT's
     b64 batch). Its times go through the host (gloo): a check that it
     runs, not a speed.
+33. gpt_tp_two_ranks — Megatron tensor parallelism: B1 forward and B2/B3
+    backward at a rank's shape [4, 6, 1024, 64] against their plain
+    versions (the kernels / kernels_bwd gates) with their times, plain
+    versions, SDPA and bounds; then two processes on cuda:0 over gloo
+    (``--tp-child``, the kernels built before the spawn, outputs in
+    files, the wait bounded by ``TP_CHILD_TIMEOUT_S``) run ``train_gpt
+    --size small --mesh_model 2`` (b4 × 1024, 4 steps, 6 heads a rank,
+    publishing at the end), then the same with ``--tp_overlap``, against
+    one rank with no model axis on the same global batch and seed:
+    the step-4 checkpoints whole, with the one-rank run's names and
+    shapes, and each leaf's change from the init within
+    ``TP_PARAM_DELTA_TOL`` of the one-rank run's (the worst leaf but
+    ``TP_PARAM_UNGATED``'s);
+    losses within ``DIST_LOSS_REL_TOL``, exact B1/B2/B3 launches a rank,
+    the exact counted collectives a rank (``_tp_collectives_want``), the
+    published version whole and loading into a one-process model; and of
+    each run, each rank's step ms, the host ms inside the counted
+    collectives against the summed step ms, and its peak memory. Through
+    gloo: it runs, not a speed.
 
 Then one JSON line listing every kernel (launches on its main path, error
 against the plain version, times, bound; the 8 ported TPU kernels, the
 split pass and the merge of B5's parts; B5-B7's, the split's and the
 merge's launches from rank 0 of the 2-rank GPT run, B8's from rank 0 of
-the 2-rank Wide&Deep run; B1-B3 also by path, ``train`` and
-``publish_swap``), the ``nvidia-smi`` line, and last ``{"ok":
-true, "device": {...}}``. ``--phases a,b`` runs a subset
-(without the kernels line). Exits non-zero without printing a result
-when no GPU is present or when the port's package is not beside this
-file.
+the 2-rank Wide&Deep run; B1-B3 also by path, ``train``,
+``publish_swap`` and rank 0 of ``gpt_tp_two_ranks``), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+``--phases a,b`` runs a subset (without the kernels line). Exits
+non-zero without printing a result when no GPU is present or when the
+port's package is not beside this file.
 """
 
 import contextlib
@@ -4747,40 +4766,8 @@ def phase_dist_two_ranks_one_card(torch, smi):
     rn_ref, rn_ref_stats = _rn_global_batch_run(torch)
     bert_ref = _bert_global_batch_losses(torch)
     torch.cuda.empty_cache()
-    store = os.path.join(logdir, "store")
-    # the ranks' output goes to files: a full pipe would stall a rank
-    # inside a collective
-    logs = [open(os.path.join(logdir, f"rank{r}.log"), "w") for r in range(2)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dist-child", str(r),
-         "2", store, logdir], stdout=logs[r], stderr=subprocess.STDOUT)
-        for r in range(2)]
-    deadline = time.monotonic() + DIST_CHILD_TIMEOUT_S
-    failed = None
-    try:
-        for r, p in enumerate(procs):
-            try:
-                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-            except subprocess.TimeoutExpired:
-                failed = f"rank {r} did not finish in {DIST_CHILD_TIMEOUT_S} s"
-                break
-            if p.returncode:
-                failed = f"rank {r} exited {p.returncode}"
-                break
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in logs:
-            f.close()
-    if failed:
-        tails = []
-        for r in range(2):
-            with open(os.path.join(logdir, f"rank{r}.log")) as f:
-                tails.append(f"rank {r}:\n" + f.read()[-4000:])
-        require(False, f"{failed}; output of the ranks:\n" +
-                "\n----\n".join(tails))
+    _run_children("--dist-child", 2, os.path.join(logdir, "store"), logdir,
+                  DIST_CHILD_TIMEOUT_S, "rank")
     ranks = []
     for r in range(2):
         with open(os.path.join(logdir, f"rank{r}.json")) as f:
@@ -4870,6 +4857,367 @@ def phase_dist_two_ranks_one_card(torch, smi):
             "fused": ranks[0]["gpt"]["fused_launches"]}
 
 
+#: gpt_tp_two_ranks: GPT-2 small over a model axis of 2 on one card,
+#: b4 x 1024, 4 steps
+TP_RANKS, TP_BATCH, TP_STEPS = 2, 4, 4
+TP_CHILD_TIMEOUT_S = 300
+#: a TP run's step-4 parameters against the one-rank run's, leaf by leaf:
+#: |p_tp - p_1| / |p_1 - p_init| over the whole leaf (each leaf's change
+#: from the init, the runs' difference relative to it), the worst leaf
+#: against this limit, set between readings on the card (PERF.md §6):
+#: the sound runs' worst leaf 0.120 / 0.121 (the token table, plain /
+#: overlap); with one planted fault in the TP backward 1.34 (the q/k/v
+#: input's cotangent not summed) and 0.868 (the SP leaves' gradients not
+#: summed)
+TP_PARAM_DELTA_TOL = 0.3
+#: leaves left out of that limit (reported): the attention key bias's
+#: gradient is zero in exact arithmetic (it shifts every logit of a query
+#: row alike, which the softmax ignores), so AdamW's update of it is its
+#: rounding, scaled up, in either run
+TP_PARAM_UNGATED = (".attention.key.bias",)
+
+
+def _tp_flags(logdir, *extra):
+    return ["--size=small", f"--batch_size={TP_BATCH}",
+            f"--seq_len={TRAIN_SEQ}", "--log_every=1",
+            "--checkpoint_every=1000", f"--logdir={logdir}",
+            f"--train_steps={TP_STEPS}", "--seed=0", *extra]
+
+
+def _tp_collectives_want(layers, overlap, steps=TP_STEPS,
+                         evals=EVAL_BATCHES):
+    """The model-group collectives a rank issues in a ``train_gpt
+    --mesh_model 2`` run (``comms.collective_counts``), from the code.
+    Plain TP, a step: 2 all-reduces a layer forward (attn_out's and
+    mlp_out's sums), 2 backward (the cotangents of the q/k/v input and
+    of mlp_in's), the embedding's sum, the head input's cotangent, the
+    CE's max and its sums: 4L + 4; an eval batch, forward only: 2L + 3.
+    ``--tp_overlap``, a step: 6 rings a layer forward (q, k, v, mlp_in
+    gather, attn_out and mlp_out scatter), each mirrored by 2 in the
+    backward (dx and dW), one exchange a ring at 2 ranks: 18L; the
+    all-reduces of the embedding's sum, the CE's 2 and the SP leaves'
+    gradients: 4; the all-gathers of the head's input and of the token
+    split's cotangent: 2; the head gather's reduce-scatter: 1. An eval
+    batch: 6L exchanges, 3 all-reduces, 1 all-gather. Both layouts add
+    one ``psum`` over the data group (of one rank here) a step (the loss
+    statistics) and one an eval batch (the metrics' mean)."""
+    if not overlap:
+        return {"all_reduce": steps * (4 * layers + 5)
+                + evals * (2 * layers + 4),
+                "all_gather": 0, "reduce_scatter": 0, "ring_exchange": 0}
+    return {"all_reduce": 5 * steps + 4 * evals,
+            "all_gather": 2 * steps + evals, "reduce_scatter": steps,
+            "ring_exchange": 18 * layers * steps + 6 * layers * evals}
+
+
+def _tp_kernels(torch):
+    """B1 forward and B2/B3 backward at one rank's attention of GPT-2
+    small over 2 model ranks, [4, 6, 1024, 64] bf16 causal: against
+    their plain versions at the kernels / kernels_bwd gates, then each
+    kernel's time, its plain version's, SDPA's and the bound."""
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    shape = (TP_BATCH, HEADS // TP_RANKS, TRAIN_SEQ, D_HEAD)
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    do = torch.randn(shape[0], shape[2], shape[1], D_HEAD, generator=gen,
+                     device="cuda", dtype=torch.bfloat16).transpose(1, 2)
+    opts = dict(sm_scale=D_HEAD ** -0.5, causal=True, window=0)
+    out, lse = fa.flash_attention_cuda(q, k, v, **opts)
+    got = fa.flash_attention_bwd_cuda(q, k, v, None, out, lse, do, **opts)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, **opts)
+    want = fa.flash_attention_bwd_reference(q, k, v, None, out, lse, do,
+                                            **opts)
+    err = {"flash_fwd": (out.float() - ref_out.float()).abs().max().item()}
+    d_lse = (lse - ref_lse).abs().max().item()
+    require(torch.isfinite(out).all().item() and err["flash_fwd"] <= OUT_ATOL
+            and d_lse <= LSE_ATOL, f"B1 at {list(shape)} disagrees (out "
+            f"{err['flash_fwd']}, lse {d_lse})")
+    rel = {}
+    for gname, x, y in zip(("dq", "dk", "dv"), got, want):
+        diff = x.float() - y.float()
+        rel[gname] = (diff.norm() / y.float().norm().clamp_min(1e-30)).item()
+        mab = diff.abs().max().item()
+        require(torch.isfinite(x).all().item() and rel[gname] <= GRAD_REL_TOL
+                and mab <= GRAD_MAX_ABS_TOL * y.float().abs().max().item(),
+                f"{gname} at {list(shape)} disagrees (rel {rel[gname]}, "
+                f"max-abs {mab})")
+        kname = "flash_dq" if gname == "dq" else "flash_dkv"
+        err[kname] = max(err.get(kname, 0.0), mab)
+    delta = (do.float() * out.reshape(shape).float()).sum(dim=-1)
+    fwd_bound = attention_bound_ms(*shape[:3], TRAIN_SEQ, D_HEAD, True, 0)
+    dq_bound, dkv_bound = attention_bwd_bounds_ms(*shape[:3], TRAIN_SEQ,
+                                                  D_HEAD, True, 0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    lib_fwd = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True), 20)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do), 20) - lib_fwd
+    plain_bwd = time_ms(torch, lambda: fa.flash_attention_bwd_reference(
+        q, k, v, None, out, lse, do, **opts), 3)
+    times = {
+        "flash_fwd": dict(
+            ms=time_ms(torch, lambda: fa.flash_attention_cuda(
+                q, k, v, **opts), 20),
+            plain_ms=time_ms(torch, lambda: fa.flash_attention_reference(
+                q, k, v, **opts), 3),
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+            library_ms=lib_fwd),
+        "flash_dq": dict(
+            ms=time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
+                q, k, v, do, lse, delta, **opts), 20),
+            plain_ms=plain_bwd, bound_ms=dq_bound[0], bound_by=dq_bound[1],
+            library_ms=lib_bwd),
+        "flash_dkv": dict(
+            ms=time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
+                q, k, v, do, lse, delta, **opts), 20),
+            plain_ms=plain_bwd, bound_ms=dkv_bound[0],
+            bound_by=dkv_bound[1], library_ms=lib_bwd)}
+    fa.reset_launch_counts()
+    return {"shape": list(shape), "lse_max_abs": d_lse, "grad_rel": rel,
+            "max_abs_err": err, "times": times}
+
+
+def tp_child(rank, world, store, logdir):
+    """One rank of gpt_tp_two_ranks: joins the gloo group through
+    ``file://store`` on cuda:0, runs ``train_gpt --mesh_model 2`` and
+    then with ``--tp_overlap`` inside it, each counted, with its step ms,
+    the host ms inside the counted collectives (``comms.collective_
+    seconds``) and its peak memory, and writes
+    ``logdir/tp_rank{rank}.json``."""
+    import gc
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from dtf_tpu_torch import train_gpt
+    from dtf_tpu_torch.core import comms
+    from dtf_tpu_torch.metrics import MetricWriter
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    # the host ms inside the collectives so far, read where the
+    # LoggingHook writes a step's line (where it reads the step's time)
+    at_log = []
+    write = MetricWriter.write_scalars
+
+    def write_and_read(self, step, scalars):
+        if "steps_per_sec" in scalars:
+            at_log.append({k: v * 1e3
+                           for k, v in comms.collective_seconds.items()})
+        write(self, step, scalars)
+
+    MetricWriter.write_scalars = write_and_read
+    out = {"rank": rank, "backend": dist.get_backend()}
+    for name, extra in (("plain", [f"--publish_dir={logdir}/pub"]),
+                        ("overlap", ["--tp_overlap"])):
+        comms.reset_collective_counts()
+        torch.cuda.reset_peak_memory_stats()
+        at_log.clear()
+        (state, writer), _, flash, _, wall = _counted(torch, lambda: (
+            train_gpt.run(_tp_flags(f"{logdir}/{name}", "--mesh_model=2",
+                                    *extra))))
+        losses, step_ms = _history(writer)
+        steps_ms = [1e3 / m["steps_per_sec"] for _, m in writer.history
+                    if "steps_per_sec" in m]
+        totals = [0.0] + [sum(c.values()) for c in at_log]
+        coll_ms = [b - a for a, b in zip(totals, totals[1:])]
+        share = [c / w for c, w in zip(coll_ms, steps_ms)]
+        out[name] = {
+            "losses": losses, "step_ms_median_after_1": step_ms,
+            "step_ms": steps_ms, "run_wall_s": wall, "flash_launches": flash,
+            "collectives": dict(comms.collective_counts),
+            "collective_ms": coll_ms,
+            "collective_share_median_after_1": statistics.median(share[1:]),
+            # the steps' (to the last step's line), then the final eval's
+            "collective_ms_by_kind_steps": at_log[-1],
+            "collective_ms_by_kind_eval": {
+                k: v * 1e3 - at_log[-1][k]
+                for k, v in comms.collective_seconds.items()},
+            "run_peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "heads_a_rank": state.params[
+                "layer_0.attention.query.weight"].shape[0] // D_HEAD,
+            "param_elements_a_rank": sum(p.numel()
+                                         for p in state.params.values())}
+        del state, writer
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(logdir, f"tp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_children(flag, world, store, logdir, timeout_s, log_prefix):
+    """``world`` processes of this script with ``flag`` (a rank each),
+    outputs in files (a full pipe would stall a rank inside a
+    collective), waited on within ``timeout_s`` in all; on expiry or a
+    failure all are killed and the phase fails with their tails."""
+    logs = [open(os.path.join(logdir, f"{log_prefix}{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r),
+         str(world), store, logdir], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    failed = None
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                failed = f"rank {r} did not finish in {timeout_s} s"
+                break
+            if p.returncode:
+                failed = f"rank {r} exited {p.returncode}"
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if failed:
+        tails = []
+        for r in range(world):
+            with open(os.path.join(logdir, f"{log_prefix}{r}.log")) as f:
+                tails.append(f"rank {r}:\n" + f.read()[-4000:])
+        require(False, f"{failed}; output of the ranks:\n" +
+                "\n----\n".join(tails))
+
+
+def _load_params(torch, path):
+    return torch.load(path, map_location="cuda", weights_only=True)
+
+
+def _param_delta_rel(got, ref, init):
+    """Leaf → |got - ref| / |ref - init| (whole leaves, f32)."""
+    out = {}
+    for n, r in ref.items():
+        moved = (r.float() - init[n].float()).norm().item()
+        diff = (got[n].float() - r.float()).norm().item()
+        out[n] = diff / moved if moved else (0.0 if not diff else math.inf)
+    return out
+
+
+def phase_gpt_tp_two_ranks(torch, smi):
+    """Megatron TP of GPT-2 small over 2 ranks on cuda:0 (docstring item
+    33). Returns rank 0's flash launches of the plain TP run."""
+    import gc
+    import statistics
+    import tempfile
+
+    from dtf_tpu_torch import publish, train_gpt
+    from dtf_tpu_torch.convert import init_params_flax, params_from_flax
+    from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build(_build.KERNELS)
+    kernels = _tp_kernels(torch)
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    (state, writer), _, ref_flash, _, ref_wall = _counted(torch, lambda: (
+        train_gpt.run(_tp_flags(f"{logdir}/ref"))))
+    ref_losses, ref_step_ms = _history(writer)
+    layers = gpt.GPTConfig.by_name("small").layers
+    del state, writer
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = f"ckpt/{TP_STEPS}/params.pt"
+    _run_children("--tp-child", TP_RANKS, os.path.join(logdir, "store"),
+                  logdir, TP_CHILD_TIMEOUT_S, "tp_rank")
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(logdir, f"tp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    # the TP runs' whole step-4 parameters against the one-rank run's,
+    # each leaf's change from the init (the runs' own, from the seed)
+    init = {n: t.cuda() for n, t in params_from_flax(init_params_flax(
+        gpt.GPTConfig.by_name("small"), 0)).items()}
+    ref_params = _load_params(torch, os.path.join(logdir, "ref", ckpt))
+    ref_shapes = {n: list(t.shape) for n, t in ref_params.items()}
+    param_rel = {}
+    for name in ("plain", "overlap"):
+        got = _load_params(torch, os.path.join(logdir, name, ckpt))
+        require({n: list(t.shape) for n, t in got.items()} == ref_shapes,
+                f"{name}: the checkpoint's names or shapes differ from the "
+                "one-rank run's")
+        rel = _param_delta_rel(got, ref_params, init)
+        gated = {n: v for n, v in rel.items()
+                 if not n.endswith(TP_PARAM_UNGATED)}
+        worst = max(gated, key=gated.get)
+        param_rel[name] = {
+            "worst_leaf": worst, "worst": rel[worst],
+            "median": statistics.median(rel.values()),
+            "ungated_max": max(v for n, v in rel.items() if n not in gated)}
+        del got
+    require(all(v["worst"] <= TP_PARAM_DELTA_TOL
+                for v in param_rel.values()),
+        f"the TP runs' step-{TP_STEPS} parameters are off the one-rank "
+        f"run's: {param_rel}, limit {TP_PARAM_DELTA_TOL}")
+    del init, ref_params
+    evals = EVAL_BATCHES
+    want_flash = {"flash_fwd": 12 * (TP_STEPS + evals), "flash_fwd_hfold": 0,
+                  "flash_dq": 12 * TP_STEPS, "flash_dkv": 12 * TP_STEPS}
+    require(ref_flash == want_flash, f"one rank: flash launches {ref_flash}")
+    rel = {}
+    for name in ("plain", "overlap"):
+        want_coll = _tp_collectives_want(layers, name == "overlap")
+        for got in ranks:
+            g = got[name]
+            require(got["backend"] == "gloo", got["backend"])
+            require(g["heads_a_rank"] == HEADS // TP_RANKS,
+                    f"rank {got['rank']} {name}: {g['heads_a_rank']} heads")
+            require(g["flash_launches"] == want_flash,
+                    f"rank {got['rank']} {name}: flash launches "
+                    f"{g['flash_launches']}, want {want_flash}")
+            require(g["collectives"] == want_coll,
+                    f"rank {got['rank']} {name}: counted collectives "
+                    f"{g['collectives']}, want {want_coll}")
+            require(g["losses"] == ranks[0][name]["losses"],
+                    f"{name}: the ranks' losses differ")
+        losses = ranks[0][name]["losses"]
+        rel[name] = _rel_losses(losses, ref_losses)
+        require(len(losses) == TP_STEPS and max(rel[name]) <=
+                DIST_LOSS_REL_TOL, f"GPT TP {name} over 2 ranks {losses} vs "
+                                   f"one rank {ref_losses}")
+    # the version the TP run published loads into a one-process model
+    _, pub_step, params = publish.load_published(os.path.join(logdir, "pub"))
+    require(pub_step == TP_STEPS and {n: list(t.shape) for n, t in
+                                      params.items()} == ref_shapes,
+            f"the TP run's published version (step {pub_step}) is not "
+            "whole")
+    model = gpt.GPT(gpt.GPTConfig.by_name("small"), device="cuda")
+    model.load_state_dict(params)
+    del model, params
+    shutil.rmtree(logdir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "gpt_tp_two_ranks", "world_size": TP_RANKS,
+          "backend": "gloo", "device": "cuda:0 (both ranks)",
+          "nvidia_smi": smi, "mesh_model": TP_RANKS, "batch": TP_BATCH,
+          "seq": TRAIN_SEQ, "steps": TP_STEPS,
+          "heads_a_rank": HEADS // TP_RANKS,
+          "note": "collectives cross the host through gloo: the times "
+                  "show that it runs, not a speed",
+          "kernels": kernels, "losses_1_rank": ref_losses,
+          "step_ms_1_rank_median_after_1": ref_step_ms,
+          "run_wall_s_1_rank": ref_wall, "loss_rel": rel,
+          "loss_rel_tol": DIST_LOSS_REL_TOL, "param_delta_rel": param_rel,
+          "param_delta_rel_tol": TP_PARAM_DELTA_TOL,
+          "collectives_want": {n: _tp_collectives_want(layers,
+                                                       n == "overlap")
+                               for n in ("plain", "overlap")},
+          "ranks": ranks, "seconds": seconds})
+    return {"flash_launches": ranks[0]["plain"]["flash_launches"]}
+
+
 #: every phase, in the order a full run takes them — but serve_bench,
 #: serve_spec, serve_pages and serve_fleet, which serve the train phase's
 #: checkpoint, run right after train
@@ -4882,17 +5230,18 @@ PHASES = ("device", "build", "kernels", "generate", "generate_variants",
           "kernels_embed", "kernel_times_embed", "widedeep_lookup",
           "train_widedeep", "resnet_batchnorm", "train_resnet",
           "resnet_bench", "bert_kernels", "train_bert", "bert_bench",
-          "dist_nccl", "dist_two_ranks_one_card")
+          "dist_nccl", "dist_two_ranks_one_card", "gpt_tp_two_ranks")
 
 
 def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
                  timing_bwd, train_launches, err_ce, timing_ce,
                  train_ce_launches, err_embed, timing_embed,
-                 embed_launches, swap_launches):
+                 embed_launches, swap_launches, tp_launches):
     """The one JSON line listing every ported kernel: its launches on its
     main path, its error against the plain version, its times and bound.
     B1-B3 also give their launches on each path that runs them
-    (``launches_by_path``: ``train`` and ``publish_swap``'s trainer)."""
+    (``launches_by_path``: ``train``, ``publish_swap``'s trainer and rank
+    0 of ``gpt_tp_two_ranks``' plain TP run)."""
     fwd_common = {"route": "cuda",
                   "source": "dtf_tpu_torch/ops/csrc/flash_fwd.cu",
                   "plain_ms": timing["plain_ms"],
@@ -4907,7 +5256,8 @@ def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
          "launches": fwd_launches, "max_abs_err": err["flash_fwd"],
          "ms": timing["flash_fwd"],
          "launches_by_path": {"train": fwd_launches,
-                              "publish_swap": swap_launches["flash_fwd"]}},
+                              "publish_swap": swap_launches["flash_fwd"],
+                              "gpt_tp_two_ranks": tp_launches["flash_fwd"]}},
         {"name": "flash_fwd_hfold", **fwd_common,
          "replaces": "dtf_tpu/ops/flash_attention.py:222",
          "launches": variant_launches["flash_fwd_hfold"],
@@ -4918,13 +5268,15 @@ def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
          "launches": train_launches["flash_dq"],
          "max_abs_err": err_bwd["flash_dq"], **timing_bwd["flash_dq"],
          "launches_by_path": {"train": train_launches["flash_dq"],
-                              "publish_swap": swap_launches["flash_dq"]}},
+                              "publish_swap": swap_launches["flash_dq"],
+                              "gpt_tp_two_ranks": tp_launches["flash_dq"]}},
         {"name": "flash_dkv", **bwd_src,
          "replaces": "dtf_tpu/ops/flash_attention.py:405",
          "launches": train_launches["flash_dkv"],
          "max_abs_err": err_bwd["flash_dkv"], **timing_bwd["flash_dkv"],
          "launches_by_path": {"train": train_launches["flash_dkv"],
-                              "publish_swap": swap_launches["flash_dkv"]}},
+                              "publish_swap": swap_launches["flash_dkv"],
+                              "gpt_tp_two_ranks": tp_launches["flash_dkv"]}},
         *({"name": name, "route": "cuda",
            "source": "dtf_tpu_torch/ops/csrc/fused_ce.cu",
            "replaces": f"dtf_tpu/ops/fused_ce.py:{line}",
@@ -4965,6 +5317,9 @@ def main(argv=None):
     if argv[:1] == ["--dist-child"]:        # a rank of dist_two_ranks_...
         sys.path.insert(0, ROOT)
         return dist_child(int(argv[1]), int(argv[2]), argv[3], argv[4])
+    if argv[:1] == ["--tp-child"]:          # a rank of gpt_tp_two_ranks
+        sys.path.insert(0, ROOT)
+        return tp_child(int(argv[1]), int(argv[2]), argv[3], argv[4])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--phases", default=",".join(PHASES),
@@ -5067,6 +5422,8 @@ def main(argv=None):
     if "dist_two_ranks_one_card" in phases:
         got["dist_two_ranks_one_card"] = phase_dist_two_ranks_one_card(
             torch, smi)
+    if "gpt_tp_two_ranks" in phases:
+        got["gpt_tp_two_ranks"] = phase_gpt_tp_two_ranks(torch, smi)
     if all(p in phases for p in PHASES):
         # launches: each kernel's count on its slice's main path (the
         # train run for B1-B3; B5-B7, the merge and the split pass under
@@ -5084,7 +5441,8 @@ def main(argv=None):
                              got["kernels_embed"],
                              got["kernel_times_embed"]["path"]["line"],
                              two["embed_gather"],
-                             got["publish_swap"]["launches"]),
+                             got["publish_swap"]["launches"],
+                             got["gpt_tp_two_ranks"]["flash_launches"]),
               "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

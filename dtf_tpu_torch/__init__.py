@@ -23,7 +23,8 @@ or anything of ``dtf_tpu``. The module layout mirrors the JAX package:
 - ``core/dist.py``: the cluster-flag collapse and the process group
   (NCCL / gloo); ``core/mesh.py``: ``MeshConfig``, ``HostView`` and the
   data and model axes' groups; ``core/comms.py``: the collectives over a
-  group and ``tp_dense`` / ``TpDense`` (unsharded);
+  group, Megatron's TP operators and ``tp_dense`` / ``TpDense``;
+  ``ops/collective_matmul.py``: the ``--tp_overlap`` rings;
   ``core/sharding.py``: the placement rules and ZeRO-1's;
 - ``core/train.py``: ``TrainState``, ``make_train_step`` (data
   parallelism, ZeRO-1, microbatches of the global batch),

@@ -222,8 +222,8 @@ class LmLossPath(NamedTuple):
 
 
 def resolve_lm_loss(args, *, batch: int, seq_len: int, vocab_size: int,
-                    device="cuda", hbm_bytes: Optional[float] = None
-                    ) -> LmLossPath:
+                    device="cuda", hbm_bytes: Optional[float] = None,
+                    model_axis: int = 1) -> LmLossPath:
     """Pick the LM loss path from the memory estimate, the JAX package's
     policy.
 
@@ -240,7 +240,10 @@ def resolve_lm_loss(args, *, batch: int, seq_len: int, vocab_size: int,
 
     ``hbm_bytes``: the budget's memory; by default the card's
     (``torch.cuda.get_device_properties(device).total_memory``). On the
-    CPU, with no ``hbm_bytes``, there is no budget: the logits fit."""
+    CPU, with no ``hbm_bytes``, there is no budget: the logits fit.
+    ``model_axis`` > 1 (tensor parallelism): with no explicit flag, the
+    monolithic path, the only one a vocab-sharded head takes (the
+    launcher refuses the explicit flags there)."""
     lchunk = getattr(args, "loss_chunk_vocab", 0)
     tchunk = getattr(args, "loss_chunk_tokens", 0)
     lpallas = bool(getattr(args, "loss_pallas", False))
@@ -266,6 +269,8 @@ def resolve_lm_loss(args, *, batch: int, seq_len: int, vocab_size: int,
                 "default bounded-memory path is the token-chunked loss — "
                 "drop the flag to follow it")
         return LmLossPath(lchunk, tchunk, lpallas, source="explicit")
+    if model_axis > 1:
+        return LmLossPath(0, 0, source="tp mesh: monolithic only")
     if fits:
         return LmLossPath(0, 0, source=f"monolithic logits fit ({budget})")
     log.warning(

@@ -13,6 +13,9 @@ BatchNorm's running statistics (flax's ``batch_stats`` collection,
 ``.../mean`` and ``.../var``) are the module's buffers of those names:
 :func:`stats_from_flax`, :func:`stats_to_flax`.
 
+:func:`shard_params` takes a rank's blocks of a whole tree for a
+tensor-parallel model.
+
 ``.npz`` files hold the flax tree with flat ``/``-joined keys, so either
 package can read them. :func:`init_params` makes a seeded GPT-2-style
 tree in numpy, for handing the same weights to both packages (serving);
@@ -115,6 +118,16 @@ def flax_dims(name: str, ndim: int) -> tuple:
     if is_kernel(name, ndim):
         return _KERNEL_TO_FLAX[ndim]
     return tuple(range(ndim))
+
+
+def shard_params(state_dict, layout, mesh) -> "OrderedDict[str, torch.Tensor]":
+    """This rank's blocks of a whole ``state_dict`` (a converted flax tree,
+    a checkpoint's parameters) over ``mesh``'s model axis: each tensor
+    through ``layout.shard_param``
+    (:class:`dtf_tpu_torch.core.sharding.Layout`), contiguous, for
+    ``load_state_dict`` of a tensor-parallel model."""
+    return OrderedDict((n, layout.shard_param(n, t, mesh).contiguous())
+                       for n, t in state_dict.items())
 
 
 def params_to_flax(state_dict) -> dict:

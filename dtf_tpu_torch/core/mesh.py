@@ -9,8 +9,9 @@ per line of the ``data`` axis and one per line of the ``model`` axis:
 - ``data``: batches split over it, gradients reduced over it
   (``SyncReplicasOptimizer``'s mean), ZeRO-1 shards optimizer state over
   it;
-- ``model``: row-sharded embedding tables (tensor parallelism over it is
-  not ported; GPT raises).
+- ``model``: row-sharded embedding tables (Wide&Deep) and Megatron
+  tensor parallelism (GPT: :mod:`dtf_tpu_torch.core.comms`' TP
+  operators and rings over this group).
 
 ``seq``, ``pipe`` and ``expert`` > 1 raise "not yet ported".
 """

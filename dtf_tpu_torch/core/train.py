@@ -32,6 +32,13 @@ the data group and row-sharded leaves (``layout.model_dims``) over the
 model group, in one collective a step (:class:`~dtf_tpu_torch.optim.
 ShardedTree`). A world of one runs the same collectives; only
 ``mesh=None`` skips them.
+
+Under tensor parallelism (a model axis > 1) each rank's gradients of the
+model-sharded leaves are its own blocks' and stay on the rank; the
+leaves whole on every rank get equal gradients on the plain TP path, and
+in the Megatron-SP layout (``--tp_overlap``) the rank's part of their
+sum, which the step completes over the model group in one all-reduce a
+microbatch (``LossAux.model_partial``).
 """
 
 from __future__ import annotations
@@ -67,6 +74,11 @@ class LossAux:
     #: token-sharded fused CE): the step sums the gradients over ranks,
     #: and ``weight`` (the global count) is the same on every rank
     global_mean: bool = False
+    #: names of parameters that are whole on every rank of the model group
+    #: but whose gradient here is this rank's part of a sum over it (the
+    #: leaves the Megatron-SP layout applies to the rank's tokens only):
+    #: the step sums them over the model group, in one all-reduce
+    model_partial: tuple = ()
 
 
 @dataclasses.dataclass
@@ -210,8 +222,16 @@ def make_train_step(loss_fn: LossFn, tx: optim.Transform, *,
 
     def grads_of(params, batch, rng):
         loss, aux = loss_fn(params, batch, rng)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return loss.detach(), aux, dict(zip(params, grads))
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        if aux.model_partial:
+            names = list(aux.model_partial)
+            whole = comms.psum(torch.cat(
+                [grads[n].reshape(-1) for n in names]), mesh.model_group)
+            for n, g in zip(names, whole.split([grads[n].numel()
+                                                for n in names])):
+                grads[n] = g.view_as(grads[n])
+        return loss.detach(), aux, grads
 
     def accumulate(params, batch, rng, pack, reduce_mb=None):
         """Σ reduce_mb(wᵢ·pack(gᵢ)) (``pack``: the gradients as a list of

@@ -123,42 +123,67 @@ class PublishHook(Hook):
     content digest), and the final parameters at ``end()`` unless the last
     periodic publish covered that step. It rides next to
     :class:`CheckpointHook`: a publish is weights only, for serving.
-    ``publisher=None`` (a process that does not save) makes it inert. A
-    failed publish warns and training goes on; an injected crash
-    (``crash_in_publish``) goes through."""
+    ``publisher=None`` (a process that does not save) makes it inert,
+    unless ``params_of`` is given: ``params_of(state)`` is the parameters
+    to publish, collective over a mesh (a tensor-parallel run gathers
+    the whole tensors), so every rank's hook calls it at a publish step,
+    only the publishing rank writes, and all take its outcome. A failed
+    publish warns and training goes on (``end()`` tries the final step
+    again); an injected crash (``crash_in_publish``) goes through."""
 
-    def __init__(self, publisher, every_n: int = 100):
+    def __init__(self, publisher, every_n: int = 100, *, params_of=None):
         if every_n < 1:
             raise ValueError(f"every_n={every_n} must be >= 1")
         self.publisher = publisher
         self.every_n = every_n
+        self.params_of = params_of
         self._last_published_step: int | None = None
+
+    @property
+    def _active(self) -> bool:
+        return self.publisher is not None or self.params_of is not None
 
     def _publish(self, step, state) -> None:
         from dtf_tpu_torch.fault.inject import InjectedCrash
 
-        try:
-            self.publisher.publish(step, state.params)
+        params = (state.params if self.params_of is None
+                  else self.params_of(state))
+        ok = False
+        if self.publisher is not None:
+            try:
+                self.publisher.publish(step, params)
+                ok = True
+            except InjectedCrash:
+                # the host dies mid-publish (the scenario): end() must not
+                # publish again from the loop's finally, as a killed host
+                # would not
+                self.publisher = self.params_of = None
+                raise
+            except Exception as e:  # noqa: BLE001 — a failed publish
+                # leaves the previous version serving; training continues
+                log.warning(
+                    "publish at step %d failed (%s: %.200s); the previous "
+                    "published version keeps serving", step,
+                    type(e).__name__, e)
+        if self.params_of is not None:
+            # every rank takes the publishing rank's outcome (one tiny
+            # all-reduce), so they decide alike whether end() gathers and
+            # publishes again
+            import torch.distributed as dist
+
+            flag = torch.tensor([int(ok)],
+                                device=next(iter(params.values())).device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            ok = bool(flag.item())
+        if ok:
             self._last_published_step = step
-        except InjectedCrash:
-            # the host dies mid-publish (the scenario): end() must not
-            # publish again from the loop's finally, as a killed host
-            # would not
-            self.publisher = None
-            raise
-        except Exception as e:  # noqa: BLE001 — a failed publish leaves
-            # the previous version serving; training continues
-            log.warning(
-                "publish at step %d failed (%s: %.200s); the previous "
-                "published version keeps serving", step,
-                type(e).__name__, e)
 
     def after_step(self, step, state, metrics):
-        if self.publisher is not None and step % self.every_n == 0:
+        if self._active and step % self.every_n == 0:
             self._publish(step, state)
 
     def end(self, state):
-        if (self.publisher is not None
+        if (self._active
                 and int(state.step) != self._last_published_step):
             self._publish(int(state.step), state)
 

@@ -21,8 +21,15 @@ backward through
 the flash kernels, remat per block (``torch.utils.checkpoint``), dropout
 from explicit per-step seeds, and the LM loss (:func:`make_loss`,
 :func:`make_eval`): monolithic logits, or the head fused with the CE —
-vocab- or token-chunked, or the fused kernels (B5–B7). Not yet: MoE
-layers, tensor and sequence parallelism.
+vocab- or token-chunked, or the fused kernels (B5–B7). Megatron tensor
+parallelism over a mesh's model group (``GPT(mesh=)``, the reference's
+``tp_rules`` as :data:`tp_rules`): the rank holds its heads of q/k/v and
+attn_out, its features of the MLP, its V/m rows of the token table and
+of the head; the embedding is a masked lookup summed over the group, the
+loss :func:`~dtf_tpu_torch.ops.losses.vocab_parallel_cross_entropy`, and
+under ``tp_overlap`` the residual stream is token-sharded between the
+collective-matmul rings (Megatron-SP). Not yet: MoE layers, sequence
+parallelism, sharded decode.
 
 Dropout runs only when the caller passes ``dropout_seed`` (the training
 loss does; serving never does). Each mask is drawn from a fresh
@@ -40,6 +47,7 @@ one rank on the whole batch does.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import NamedTuple, Optional
 
 import torch
@@ -47,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from dtf_tpu_torch.core import comms
 from dtf_tpu_torch.core.comms import TpDense
 from dtf_tpu_torch.core.device import resolve_device
 from dtf_tpu_torch.core.train import LossAux, fold_in
@@ -56,9 +65,39 @@ from dtf_tpu_torch.ops.fused_ce import fused_lm_cross_entropy
 from dtf_tpu_torch.ops.losses import (chunked_lm_cross_entropy,
                                       softmax_cross_entropy,
                                       token_chunked_lm_cross_entropy,
-                                      valid_count)
+                                      valid_count,
+                                      vocab_parallel_cross_entropy)
+from dtf_tpu_torch.parallel.embedding import masked_lookup_sharded
 
 _NEG_INF = float("-inf")
+
+#: Megatron TP placement over the model axis (the reference's ``tp_rules``)
+#: in the port's layout: a weight is [out, in], so the reference's
+#: column-parallel kernel P(None, "model") is dim 0 here and its
+#: row-parallel kernel P("model", None) dim 1; the token table and the
+#: head [V, D] split their vocab rows
+tp_rules = [
+    (r"token_embed\.weight", ("model", None)),
+    (r"\.(query|key|value)\.weight", ("model", None)),
+    (r"\.attn_out\.weight", (None, "model")),
+    (r"\.mlp_in\.weight", ("model", None)),
+    (r"\.mlp_out\.weight", (None, "model")),
+    (r"\.(query|key|value|mlp_in)\.bias", ("model",)),
+    (r"lm_head\.weight", ("model", None)),
+]
+
+#: why a fused or chunked LM loss is refused over a model axis (the
+#: reference launcher's words)
+TP_FUSED_LOSS_REFUSED = (
+    "--loss_chunk_vocab/--loss_chunk_tokens/--loss_pallas cannot combine "
+    "with --mesh_model: TP shards the lm_head over the vocab dim, which "
+    "fused application would fight (all-gathering W per chunk)")
+
+#: the leaves a rank's forward applies to its own tokens only in the
+#: Megatron-SP layout: their gradients are this rank's part of the sum
+#: over the model group (:class:`dtf_tpu_torch.core.train.LossAux`
+#: ``model_partial``)
+SP_PARTIAL_LEAVES = r"(ln1|ln2|ln_f)\.|\.(attn_out|mlp_out)\.bias"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +138,10 @@ class GPTConfig:
     #: recompute each block in the backward (torch.utils.checkpoint):
     #: activation memory for FLOPs, as ``nn.remat(Block)``.
     remat: bool = False
+    #: over a model axis > 1: the TP projections run as collective-matmul
+    #: rings and the residual stream stays token-sharded (Megatron-SP)
+    #: where ``comms.tp_overlap_viable`` allows; else the plain TP path.
+    tp_overlap: bool = False
 
     def __post_init__(self):
         if self.kv_heads is not None and (
@@ -327,11 +370,15 @@ ATTN_SITE, MLP_SITE, EMBED_SITE = 1, 2, 0
 class DropoutKey(NamedTuple):
     """A step's dropout seed on rank ``shard`` of ``shards`` along the
     data axis: masks are drawn for the global batch (``shards`` times
-    the rank's rows) and the rank takes its block of rows."""
+    the rank's rows) and the rank takes its block of rows; in the
+    Megatron-SP layout also its block ``tshard`` of ``tshards`` along
+    the tokens (dim 1)."""
 
     seed: int
     shard: int = 0
     shards: int = 1
+    tshard: int = 0
+    tshards: int = 1
 
 
 def _dropout(x: torch.Tensor, rate: float, seed, slot: int,
@@ -346,27 +393,51 @@ def _dropout(x: torch.Tensor, rate: float, seed, slot: int,
     key = seed if isinstance(seed, DropoutKey) else DropoutKey(seed)
     gen = torch.Generator(device=x.device)
     gen.manual_seed(fold_in(key.seed, slot, site))
-    rows = x.shape[0]
-    keep = torch.rand((rows * key.shards,) + x.shape[1:], generator=gen,
-                      device=x.device)[key.shard * rows:
-                                       (key.shard + 1) * rows] < 1.0 - rate
+    rows, toks = x.shape[0], x.shape[1]
+    keep = torch.rand((rows * key.shards, toks * key.tshards) + x.shape[2:],
+                      generator=gen, device=x.device)[
+        key.shard * rows:(key.shard + 1) * rows,
+        key.tshard * toks:(key.tshard + 1) * toks] < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+def _tp_mesh(mesh):
+    """``mesh`` when its model axis splits the model, else None."""
+    return mesh if mesh is not None and mesh.model_size > 1 else None
+
+
 class CausalSelfAttention(nn.Module):
+    """Causal attention; over a model group (``mesh``) the rank's heads:
+    q/k/v column-parallel, ``heads / m`` (``kv_heads / m``) of them,
+    attn_out row-parallel."""
+
     def __init__(self, cfg: GPTConfig, window: int, device=None,
-                 layer: int = 0):
+                 layer: int = 0, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.layer = layer
         #: effective sliding window of THIS layer (0 on a global layer)
         self.window = window
+        self.mesh = _tp_mesh(mesh)
+        m = self.mesh.model_size if self.mesh is not None else 1
         d_head = cfg.d_model // cfg.heads
         kv = cfg.kv_heads_resolved
+        if cfg.heads % m:
+            raise ValueError(f"{cfg.heads} heads not divisible by the model "
+                             f"axis ({m})")
+        if kv % m:
+            raise ValueError(f"{kv} kv_heads not divisible by the model "
+                             f"axis ({m}) — TP shards the heads over "
+                             "'model'")
+        if (cfg.heads // m) % cfg.flash_block_h:
+            raise ValueError(f"flash_block_h={cfg.flash_block_h} must "
+                             f"divide the rank's {cfg.heads // m} heads")
+        #: this rank's query and K/V heads
+        self.heads, self.kv_heads = cfg.heads // m, kv // m
 
         def dense(d_in, d_out, parallel):
             return TpDense(d_in, d_out, parallel=parallel, dtype=cfg.dtype,
-                           device=device)
+                           device=device, mesh=self.mesh)
 
         self.query = dense(cfg.d_model, cfg.heads * d_head, "column")
         self.key = dense(cfg.d_model, kv * d_head, "column")
@@ -408,12 +479,16 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[dict] = None,
                 chunked: bool = False, dropout_seed=None, prefill_len=None,
-                decode_active=None) -> torch.Tensor:
+                decode_active=None, sp: bool = False) -> torch.Tensor:
+        """``sp``: ``x`` is this rank's token block (Megatron-SP) and the
+        projections run as rings; the output is the rank's token block."""
         cfg = self.cfg
         d_head = cfg.d_model // cfg.heads
-        kv_heads = cfg.kv_heads_resolved
-        group = cfg.heads // kv_heads
-        b, t = x.shape[0], x.shape[1]
+        heads, kv_heads = self.heads, self.kv_heads
+        group = heads // kv_heads
+        if self.mesh is not None and not sp:
+            x = comms.copy_to_model(x, self.mesh)
+        b, t = x.shape[0], x.shape[1] * (self.mesh.model_size if sp else 1)
         if prefill_len is not None and not (
                 cache is not None and t != 1 and chunked):
             raise ValueError(
@@ -435,9 +510,9 @@ class CausalSelfAttention(nn.Module):
         def split(y, nh):
             return y.reshape(b, t, nh, d_head).transpose(1, 2)
 
-        q = split(self.query(x), cfg.heads)
-        k = split(self.key(x), kv_heads)
-        v = split(self.value(x), kv_heads)
+        q = split(self.query(x, sp), heads)
+        k = split(self.key(x, sp), kv_heads)
+        v = split(self.value(x, sp), kv_heads)
         if cache is not None and t != 1 and chunked:
             return self._chunked_prefill(q, k, v, cache, prefill_len)
         if verify:
@@ -483,8 +558,8 @@ class CausalSelfAttention(nn.Module):
             raise NotImplementedError(
                 f"attn_impl={impl!r} (sequence parallelism) is not ported "
                 "yet; use 'auto', 'flash' or 'dense'")
-        out = out.transpose(1, 2).reshape(b, t, cfg.heads * d_head)
-        out = self.attn_out(out)
+        out = out.transpose(1, 2).reshape(b, t, heads * d_head)
+        out = self.attn_out(out, sp)
         return _dropout(out, cfg.dropout, dropout_seed, self.layer + 1,
                         ATTN_SITE)
 
@@ -646,32 +721,40 @@ class CausalSelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN block: LayerNorm in f32 with eps 1e-6 (flax's), tanh GELU."""
+    """Pre-LN block: LayerNorm in f32 with eps 1e-6 (flax's), tanh GELU.
+    Over a model group the MLP is Megatron's pair: mlp_in
+    column-parallel (GELU on the rank's ``d_ff / m`` features), mlp_out
+    row-parallel."""
 
     def __init__(self, cfg: GPTConfig, window: int, device=None,
-                 layer: int = 0):
+                 layer: int = 0, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.layer = layer
+        self.mesh = _tp_mesh(mesh)
         f32 = torch.float32
         self.ln1 = nn.LayerNorm(cfg.d_model, eps=1e-6, dtype=f32,
                                 device=device)
         self.attention = CausalSelfAttention(cfg, window, device=device,
-                                             layer=layer)
+                                             layer=layer, mesh=mesh)
         self.ln2 = nn.LayerNorm(cfg.d_model, eps=1e-6, dtype=f32,
                                 device=device)
         self.mlp_in = TpDense(cfg.d_model, cfg.d_ff, parallel="column",
-                              dtype=cfg.dtype, device=device)
+                              dtype=cfg.dtype, device=device, mesh=mesh)
         self.mlp_out = TpDense(cfg.d_ff, cfg.d_model, parallel="row",
-                               dtype=cfg.dtype, device=device)
+                               dtype=cfg.dtype, device=device, mesh=mesh)
 
     def forward(self, x, cache=None, chunked=False, dropout_seed=None,
-                prefill_len=None, decode_active=None):
+                prefill_len=None, decode_active=None, sp=False):
+        """``sp``: ``x`` is this rank's token block (Megatron-SP); the
+        LayerNorms, the residual adds and dropout see only its tokens."""
         h = self.ln1(x.float())
         x = x + self.attention(h, cache, chunked, dropout_seed, prefill_len,
-                               decode_active)
+                               decode_active, sp)
         h = self.ln2(x.float())
-        y = self.mlp_out(F.gelu(self.mlp_in(h), approximate="tanh"))
+        if self.mesh is not None and not sp:
+            h = comms.copy_to_model(h, self.mesh)
+        y = self.mlp_out(F.gelu(self.mlp_in(h, sp), approximate="tanh"), sp)
         return x + _dropout(y, self.cfg.dropout, dropout_seed,
                             self.layer + 1, MLP_SITE)
 
@@ -680,26 +763,49 @@ class GPT(nn.Module):
     """Decoder-only LM. ids [B,T] → f32 logits [B,T,V] (or the f32 hidden
     states with ``return_hidden=True``). Parameter names mirror the flax
     tree (``token_embed``, ``layer_{i}.attention.query``, ``ln_f``,
-    ``lm_head`` …) so :mod:`dtf_tpu_torch.convert` maps them one to one."""
+    ``lm_head`` …) so :mod:`dtf_tpu_torch.convert` maps them one to one.
 
-    def __init__(self, cfg: GPTConfig, device="cuda"):
+    ``mesh`` with a model axis of m > 1: Megatron tensor parallelism over
+    its model group, the parameters this rank's blocks
+    (:data:`tp_rules`), and the logits this rank's V/m vocab columns
+    (module docstring). Training only: a decode model raises."""
+
+    def __init__(self, cfg: GPTConfig, device="cuda", mesh=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = _tp_mesh(mesh)
+        m = self.mesh.model_size if self.mesh is not None else 1
+        if self.mesh is not None and cfg.decode_len > 0:
+            raise NotImplementedError(
+                "sharded decode (a decode model over a model axis) is not "
+                "ported yet")
+        if cfg.vocab_size % m:
+            raise ValueError(f"vocab {cfg.vocab_size} not divisible by the "
+                             f"model axis ({m})")
         f32 = torch.float32
-        self.token_embed = nn.Embedding(cfg.vocab_size, cfg.d_model,
+        self.token_embed = nn.Embedding(cfg.vocab_size // m, cfg.d_model,
                                         dtype=f32, device=device)
         for i in range(cfg.layers):
             self.add_module(f"layer_{i}", Block(cfg, cfg.layer_window(i),
-                                                device=device, layer=i))
+                                                device=device, layer=i,
+                                                mesh=mesh))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=1e-6, dtype=f32,
                                  device=device)
-        self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False,
-                                 dtype=f32, device=device)
+        self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size // m,
+                                 bias=False, dtype=f32, device=device)
 
     @property
     def device(self) -> torch.device:
         return self.lm_head.weight.device
+
+    def sp_layout(self, ids_shape) -> bool:
+        """Whether a forward of ids ``ids_shape`` [B, T] runs the
+        Megatron-SP layout: ``tp_overlap`` over a model axis, where
+        ``comms.tp_overlap_viable`` allows (T divisible by it)."""
+        cfg = self.cfg
+        return cfg.tp_overlap and comms.tp_overlap_viable(
+            (*ids_shape, cfg.d_model), self.mesh)
 
     def blocks(self) -> list[Block]:
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.layers)]
@@ -734,21 +840,45 @@ class GPT(nn.Module):
                 "and only then: pass cache=model.init_cache(batch)")
         chunked = (cfg.chunked_prefill if chunked_prefill is None
                    else chunked_prefill)
+        mesh = self.mesh
         # nn.Embed(dtype=bf16) casts the f32 table; casting the gathered
         # rows gives the same values
-        x = F.embedding(input_ids, self.token_embed.weight).to(cfg.dtype)
+        if mesh is None:
+            x = F.embedding(input_ids, self.token_embed.weight).to(cfg.dtype)
+        else:
+            # the vocab-parallel table: this rank's rows, zeros elsewhere,
+            # summed over the group
+            x = masked_lookup_sharded(self.token_embed.weight, input_ids,
+                                      mesh.model_group, dtype=cfg.dtype)
         x = _dropout(x, cfg.dropout, dropout_seed, 0, EMBED_SITE)
+        sp = self.sp_layout(input_ids.shape)
+        seed = dropout_seed
+        if sp:
+            x = comms.scatter_tokens(x, mesh)
+            if seed is not None:
+                seed = (seed if isinstance(seed, DropoutKey)
+                        else DropoutKey(seed))._replace(
+                    tshard=mesh.model_index, tshards=mesh.model_size)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks()):
             if remat:
-                x = checkpoint(blk, x, None, chunked, dropout_seed,
+                x = checkpoint(blk, x, None, chunked, seed, None, None, sp,
                                use_reentrant=False)
             else:
                 x = blk(x, None if cache is None else cache[i], chunked,
-                        dropout_seed, prefill_len, decode_active)
+                        seed, prefill_len, decode_active, sp)
         x = self.ln_f(x.float())
         if return_hidden:
+            if mesh is not None:
+                raise ValueError(
+                    "return_hidden over a model axis: the head is "
+                    "vocab-parallel, and a head applied outside the model "
+                    "would need it whole")
             return x
+        if sp:
+            x = comms.gather_tokens(x, mesh)     # the one gather, at the head
+        elif mesh is not None:
+            x = comms.copy_to_model(x, mesh)
         return self.lm_head(x)                         # f32 head
 
 
@@ -1225,17 +1355,26 @@ def _prefill(model: GPT, cache: list, prompt: torch.Tensor,
 
 
 def _fused_ce(loss_chunk: int, loss_chunk_tokens: int,
-              loss_pallas: bool = False, mesh=None):
+              loss_pallas: bool = False, mesh=None, model=None):
     """Resolve the head-fused CE options to one callable on
     ``(hidden, lm_head.weight, labels)``, or None for the monolithic
     logits. Vocab chunking bounds live logits at O(N·chunk) with an online
     logsumexp; token chunking at O(chunk·V) with a plain CE per token
     block; ``loss_pallas`` runs the fused kernels (B5–B7), whose logits
     live only in on-chip tiles — token-sharded over ``mesh``'s data
-    group when one is given."""
+    group when one is given. None of them composes with a vocab-parallel
+    head (a ``model`` over a model axis): that raises, as the reference's
+    launcher refuses them."""
     if sum(map(bool, (loss_chunk, loss_chunk_tokens, loss_pallas))) > 1:
         raise ValueError("loss_chunk (vocab), loss_chunk_tokens and "
                          "loss_pallas are mutually exclusive")
+    if mesh is not None and mesh.model_size > 1 and (
+            model is None or model.mesh is None):
+        raise ValueError("a mesh with a model axis > 1 needs the model "
+                         "built over it: GPT(cfg, mesh=mesh)")
+    if (loss_chunk or loss_chunk_tokens or loss_pallas) and (
+            model is not None and model.mesh is not None):
+        raise ValueError(TP_FUSED_LOSS_REFUSED)
     if loss_pallas:
         return lambda y, w, lab: fused_lm_cross_entropy(
             y, w, lab, ignore_index=-100, mesh=mesh)
@@ -1269,33 +1408,46 @@ def make_loss(model: GPT, *, loss_chunk: int = 0,
     ``mesh``: the batch is this rank's rows of the data axis; dropout
     takes the rank's rows of the global masks, and ``loss_pallas`` is the
     token-sharded fused CE, whose loss and count are the global ones
-    (``LossAux.global_mean``)."""
-    if mesh is not None and mesh.model_size > 1:
-        raise NotImplementedError("GPT over a model axis (tensor "
-                                  "parallelism): not yet ported")
-    fused = _fused_ce(loss_chunk, loss_chunk_tokens, loss_pallas, mesh)
+    (``LossAux.global_mean``). With a model axis > 1 the model is
+    ``GPT(mesh=mesh)``, the loss the vocab-parallel CE (the same on every
+    rank of the model group), and in the Megatron-SP layout the leaves of
+    :data:`SP_PARTIAL_LEAVES` are ``LossAux.model_partial``."""
+    fused = _fused_ce(loss_chunk, loss_chunk_tokens, loss_pallas, mesh,
+                      model)
     shard = ((mesh.data_index, mesh.data_size) if mesh is not None
              else (0, 1))
+    partial = tuple(n for n, _ in model.named_parameters()
+                    if re.search(SP_PARTIAL_LEAVES, n))
 
     def loss_fn(params, batch, rng):
         cfg = model.cfg
-        y = model(batch["input_ids"], dropout_seed=DropoutKey(rng, *shard)
+        ids = batch["input_ids"]
+        y = model(ids, dropout_seed=DropoutKey(rng, *shard)
                   if cfg.dropout else None,
                   return_hidden=fused is not None)
-        if fused is not None:
-            loss, n = fused(y, model.lm_head.weight, batch["labels"])
-        else:
-            loss, n = softmax_cross_entropy(y, batch["labels"],
-                                            ignore_index=-100)
+        loss, n = _lm_loss(model, fused, y, batch["labels"])
         global_mean = bool(loss_pallas and mesh is not None)
         if mesh is not None and not global_mean:
             # this rank's part of the count, 0 when it has no label: the
             # reference clamps the count at 1 over the global microbatch
             n = valid_count(batch["labels"], -100)
-        return loss, LossAux(metrics={"lm_tokens": n}, weight=n,
-                             global_mean=global_mean)
+        return loss, LossAux(
+            metrics={"lm_tokens": n}, weight=n, global_mean=global_mean,
+            model_partial=partial if model.sp_layout(ids.shape) else ())
 
     return loss_fn
+
+
+def _lm_loss(model: GPT, fused, y, labels):
+    """(mean, count) of the model's output ``y``: the fused callable on
+    the hidden states, else the CE of the logits (vocab-parallel over a
+    model group)."""
+    if fused is not None:
+        return fused(y, model.lm_head.weight, labels)
+    if model.mesh is not None:
+        return vocab_parallel_cross_entropy(y, labels, model.mesh.model_group,
+                                            ignore_index=-100)
+    return softmax_cross_entropy(y, labels, ignore_index=-100)
 
 
 def make_eval(model: GPT, *, loss_chunk: int = 0,
@@ -1304,15 +1456,12 @@ def make_eval(model: GPT, *, loss_chunk: int = 0,
     """Held-out eval: ``eval_fn(params, batch) -> {"eval_loss",
     "eval_ppl"}``, mean next-token CE (ignore -100) without dropout, on
     the loss path :func:`make_loss` takes for the same options."""
-    fused = _fused_ce(loss_chunk, loss_chunk_tokens, loss_pallas, mesh)
+    fused = _fused_ce(loss_chunk, loss_chunk_tokens, loss_pallas, mesh,
+                      model)
 
     def eval_fn(params, batch):
         y = model(batch["input_ids"], return_hidden=fused is not None)
-        if fused is not None:
-            loss, _ = fused(y, model.lm_head.weight, batch["labels"])
-        else:
-            loss, _ = softmax_cross_entropy(y, batch["labels"],
-                                            ignore_index=-100)
+        loss, _ = _lm_loss(model, fused, y, batch["labels"])
         return {"eval_loss": loss, "eval_ppl": torch.exp(loss)}
 
     return eval_fn

@@ -1,7 +1,8 @@
 """Losses (counterpart of ``dtf_tpu.ops.losses``): the monolithic softmax
 cross-entropy and its ignore/mean tail, and the vocab- and token-chunked
-LM losses that never hold the whole [N, V] logits. The fused head + CE
-kernels (B5–B7) are :mod:`dtf_tpu_torch.ops.fused_ce`."""
+LM losses that never hold the whole [N, V] logits, and the vocab-parallel
+cross-entropy of tensor parallelism. The fused head + CE kernels (B5–B7)
+are :mod:`dtf_tpu_torch.ops.fused_ce`."""
 
 from __future__ import annotations
 
@@ -46,6 +47,61 @@ def valid_count(labels: torch.Tensor, ignore_index: int) -> torch.Tensor:
     clamped: a rank's part of a data group's count (the clamp at 1 of
     :func:`_masked_mean` belongs to the whole group's batch)."""
     return (labels != ignore_index).sum().float()
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token CE of logits split over ``group`` along the vocab: this
+    rank holds columns [start, start + V/m). Forward: the global max (one
+    all-reduce), then the sum of exponentials and the target logit (one
+    all-reduce of both); backward: this rank's softmax columns minus its
+    columns of the one-hot, no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        from dtf_tpu_torch.core import comms
+        import torch.distributed as dist
+
+        m = comms.psum(logits.amax(dim=-1), group, op=dist.ReduceOp.MAX)
+        local = labels - start
+        hit = (local >= 0) & (local < logits.shape[-1])
+        local = local.clamp(0, logits.shape[-1] - 1)
+        shifted = logits - m[:, None]
+        picked = torch.where(hit, shifted.gather(-1, local[:, None])[:, 0],
+                             torch.zeros_like(m))
+        sums = comms.psum(
+            torch.stack([torch.exp(shifted).sum(dim=-1), picked]), group)
+        ctx.save_for_backward(logits, m, sums[0], local, hit)
+        return torch.log(sums[0]) - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, m, s, local, hit = ctx.saved_tensors
+        grad = torch.exp(logits - m[:, None]) * (g / s)[:, None]
+        grad.scatter_add_(1, local[:, None],
+                          torch.where(hit, -g, torch.zeros_like(g))[:, None])
+        return grad, None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 group, *, ignore_index: Optional[int] = None,
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`softmax_cross_entropy` of logits whose vocab is split over
+    ``group`` (the vocab-parallel LM head of tensor parallelism): this
+    rank's ``logits`` [..., V/m] are columns [r·V/m, (r+1)·V/m) of the
+    whole, r its rank in the group. The same ``(mean, valid_count)`` on
+    every rank of the group, the ignore/mean tail the same."""
+    import torch.distributed as dist
+
+    logits = logits.float()
+    vl = logits.shape[-1]
+    safe = labels
+    if ignore_index is not None:
+        safe = torch.where(labels != ignore_index, labels,
+                           torch.zeros_like(labels))
+    ce = _VocabParallelCE.apply(logits.reshape(-1, vl),
+                                safe.reshape(-1).long(),
+                                dist.get_rank(group) * vl, group)
+    return _masked_mean(ce.reshape(labels.shape), labels, ignore_index)
 
 
 def _acc_dtype(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:

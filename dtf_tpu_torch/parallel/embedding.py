@@ -31,6 +31,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from dtf_tpu_torch.core.comms import ReduceFromGroup
+
 
 def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0)`` for ids in range: ``index_select``,
@@ -63,21 +65,8 @@ def masked_lookup(table_shard: torch.Tensor, ids: torch.Tensor,
     return torch.where(in_range[..., None], rows, torch.zeros_like(rows))
 
 
-class _SumOverShards(torch.autograd.Function):
-    """All-reduce (sum) of the shards' rows over ``group``; the backward
-    is the identity (module docstring)."""
-
-    @staticmethod
-    def forward(ctx, rows, group):
-        import torch.distributed as dist
-
-        rows = rows.clone()
-        dist.all_reduce(rows, group=group)
-        return rows
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
+#: the name ``tests/_torch_multirank_worker.py`` imports the shards' sum by
+_SumOverShards = ReduceFromGroup
 
 
 def _shard_index(group) -> int:
@@ -89,19 +78,24 @@ def _shard_index(group) -> int:
 
 
 def masked_lookup_sharded(table: torch.Tensor, ids: torch.Tensor,
-                          group=None, *,
-                          use_kernel: bool = False) -> torch.Tensor:
+                          group=None, *, use_kernel: bool = False,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
     """``table[ids]`` through :func:`masked_lookup` over the shards of
     ``group``, summed: ``table`` is this rank's shard (rank k of the group
     holds rows from k·len(table) on), ``ids`` the global row ids, the
     same on every rank of the group. ``group`` None is one shard holding
     the whole table, and no collective. ``use_kernel=True`` runs the
     shard's lookup as one B8 launch on CUDA tensors (its plain version on
-    CPU tensors)."""
+    CPU tensors). ``dtype``: the plain lookup's rows are cast to it
+    before the sum (exact: one shard holds each row; the vocab-parallel
+    GPT embedding sums bf16 rows)."""
     if use_kernel:
         return masked_lookup_grouped((table,), ids, group)[0]
     rows = masked_lookup(table, ids, _shard_index(group))
-    return rows if group is None else _SumOverShards.apply(rows, group)
+    if dtype is not None:
+        rows = rows.to(dtype)
+    return rows if group is None else ReduceFromGroup.apply(rows, group)
 
 
 def masked_lookup_grouped(tables, ids: torch.Tensor, group=None,
@@ -118,7 +112,7 @@ def masked_lookup_grouped(tables, ids: torch.Tensor, group=None,
     outs = masked_gather_rows(tables, ids, _shard_index(group), out_dtypes)
     if group is None:
         return outs
-    return tuple(_SumOverShards.apply(rows, group) for rows in outs)
+    return tuple(ReduceFromGroup.apply(rows, group) for rows in outs)
 
 
 class RowShardedEmbed(nn.Module):

@@ -30,10 +30,19 @@ all-reduce, or under ``--zero1``, on by default, a reduce-scatter, the
 update on this rank's blocks of the optimizer state and an all-gather
 of the parameters), and ``--loss_pallas`` runs the token-sharded fused
 CE on each rank's tokens. The chief prints the metrics and writes the
-checkpoint. ``--mesh_model`` > 1 (tensor parallelism) and the other
-unported flags raise when set away from their defaults (the
-``UNPORTED`` table). ``--profile_on_demand`` is on by default, as in the
-JAX launcher, and inert here: the profiler hooks are not ported.
+checkpoint. ``--mesh_model`` > 1 is Megatron tensor parallelism over the
+model axis (``models.gpt.GPT(mesh=)``: each rank its heads, MLP features
+and vocab rows, the vocab-parallel CE; the ranks of one model group read
+the same rows), the loss then always the monolithic one (a fused or
+chunked loss is a usage error, as in the JAX launcher);
+``--tp_overlap`` runs its projections as collective-matmul rings over a
+token-sharded residual stream (Megatron-SP) and warns without a model
+axis. Checkpoints and published versions hold whole tensors, so a run at
+one ``--mesh_model`` resumes at another and ``serve_gpt`` loads its
+versions unchanged. The other unported flags raise when set away from
+their defaults (the ``UNPORTED`` table). ``--profile_on_demand`` is on
+by default, as in the JAX launcher, and inert here: the profiler hooks
+are not ported.
 """
 
 from __future__ import annotations
@@ -47,8 +56,8 @@ import sys
 #: flags of the JAX launcher whose features the port does not have yet:
 #: setting one away from its default raises
 UNPORTED = {
-    "moe_every": 0, "moe_top_k": 1, "tp_overlap": False,
-    "matmul_precision": "", "pipe_microbatches": 0, "pipe_interleave": 1,
+    "moe_every": 0, "moe_top_k": 1, "matmul_precision": "",
+    "pipe_microbatches": 0, "pipe_interleave": 1,
     "pipe_schedule": "gpipe", "stream_spec": "",
     "distill_draft": 0, "distill_from": "",
     "profile_steps": 0, "telemetry": False,
@@ -131,12 +140,21 @@ def run(argv=None):
         parser.error("--loss_chunk_vocab, --loss_chunk_tokens and "
                      "--loss_pallas are mutually exclusive — pick one "
                      "fused-loss strategy")
+    from dtf_tpu_torch.models import gpt
+
+    if args.mesh_model > 1 and (args.loss_chunk_vocab or
+                                args.loss_chunk_tokens or args.loss_pallas):
+        parser.error(gpt.TP_FUSED_LOSS_REFUSED)
+    if args.tp_overlap and args.mesh_model <= 1:
+        log.warning("--tp_overlap has no effect without --mesh_model>1 (no "
+                    "TP collectives to hide); proceeding on the plain path")
 
     from dtf_tpu_torch import optim
     from dtf_tpu_torch.checkpoint import Checkpointer, save_model_config
     from dtf_tpu_torch.cli import flags as dflags
     from dtf_tpu_torch.cli.launch import host_batches, lm_eval_hook, setup
-    from dtf_tpu_torch.convert import init_params_flax, params_from_flax
+    from dtf_tpu_torch.convert import (init_params_flax, params_from_flax,
+                                       shard_params)
     from dtf_tpu_torch.core import train as tr
     from dtf_tpu_torch.core.sharding import make_layout
     from dtf_tpu_torch.data.formats import detect_token_data
@@ -149,14 +167,10 @@ def run(argv=None):
     from dtf_tpu_torch.metrics import (MetricWriter,
                                        analytic_lm_flops_per_step,
                                        param_count)
-    from dtf_tpu_torch.models import gpt
     from dtf_tpu_torch.publish import ParamPublisher
 
-    if args.mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh_model={args.mesh_model}: GPT over a model axis (tensor "
-            "parallelism) is not yet ported")
     device, info, mesh = setup(args)
+    tp = mesh is not None and mesh.model_size > 1
     try:
         base = gpt.GPTConfig.by_name(args.size)
     except KeyError as e:
@@ -165,7 +179,8 @@ def run(argv=None):
                               attn_impl=args.attn_impl,
                               kv_heads=args.kv_heads or None,
                               attn_window=args.attn_window,
-                              attn_global_every=args.attn_global_every)
+                              attn_global_every=args.attn_global_every,
+                              tp_overlap=args.tp_overlap)
     sched = optim.make_lr_schedule(args)        # LoggingHook shows the LR
     tx = optim.make_optimizer(
         args, lambda s: optim.adamw(s, weight_decay=(
@@ -175,19 +190,24 @@ def run(argv=None):
     # the token-chunked loss when they do not; explicit flags win
     lpath = dflags.resolve_lm_loss(
         args, batch=args.batch_size, seq_len=args.seq_len,
-        vocab_size=cfg.vocab_size, device=device)
+        vocab_size=cfg.vocab_size, device=device,
+        model_axis=mesh.model_size if mesh is not None else 1)
     log.info("LM loss: %s (vocab chunk %d, token chunk %d, fused kernels "
              "%s)", lpath.source, lpath.chunk_vocab, lpath.chunk_tokens,
              lpath.pallas)
-    model = gpt.GPT(cfg, device=device)
-    model.load_state_dict(params_from_flax(init_params_flax(cfg, args.seed)))
+    model = gpt.GPT(cfg, device=device, mesh=mesh)
+    layout = (make_layout(dict(model.named_parameters()), mesh,
+                          gpt.tp_rules if tp else (), zero1=args.zero1)
+              if mesh is not None else None)
+    whole = params_from_flax(init_params_flax(cfg, args.seed))
+    model.load_state_dict(shard_params(whole, layout, mesh) if tp else whole)
+    n_params = param_count(whole)
+    del whole
     loss_opts = dict(loss_chunk=lpath.chunk_vocab,
                      loss_chunk_tokens=lpath.chunk_tokens,
                      loss_pallas=lpath.pallas, mesh=mesh)
     loss_fn = gpt.make_loss(model, **loss_opts)
     eval_fn = gpt.make_eval(model, **loss_opts)
-    layout = (make_layout(dict(model.named_parameters()), mesh,
-                          zero1=args.zero1) if mesh is not None else None)
     state = tr.create_train_state(model, tx, args.seed, mesh=mesh,
                                   layout=layout)
 
@@ -210,7 +230,7 @@ def run(argv=None):
 
     tokens_per_step = args.batch_size * args.seq_len
     model_flops = analytic_lm_flops_per_step(
-        n_params=param_count(state.params), layers=cfg.layers,
+        n_params=n_params, layers=cfg.layers,
         width=cfg.d_model, seq_len=args.seq_len,
         tokens_per_step=tokens_per_step)
     writer = MetricWriter(echo=info.is_chief)
@@ -240,6 +260,11 @@ def run(argv=None):
             publisher = ParamPublisher(args.publish_dir)
             publisher.event_log = events
             save_model_config(args.publish_dir, manifest_cfg)
+
+    def whole_params(st):
+        return {n: layout.gather_param(n, p.detach(), mesh)
+                for n, p in st.params.items()}
+
     eval_hook = lm_eval_hook(args, device, eval_fn, writer, mesh,
                              kind="gpt", mode="clm",
                              vocab_size=cfg.vocab_size)
@@ -250,8 +275,12 @@ def run(argv=None):
                                                if device.type == "cuda"
                                                else None)),
              CheckpointHook(ckpt, args.checkpoint_every),
-             *([PublishHook(publisher, args.publish_every)]
-               if publisher is not None else []),
+             # under TP every rank gathers the whole parameters for the
+             # chief's publish
+             *([PublishHook(publisher, args.publish_every,
+                            params_of=whole_params if tp else None)]
+               if publisher is not None or (tp and args.publish_dir)
+               else []),
              PreemptionHook(ckpt, mesh=mesh),
              *([eval_hook] if eval_hook else []),
              StopAtStepHook(args.train_steps)]

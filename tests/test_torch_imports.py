@@ -307,3 +307,37 @@ def test_record_plane_with_jax_poisoned(poisoned_env, tmp_path):
     assert kinds[:4] == ["publish_version", "ckpt_save", "train_end",
                          "serve_start"]
     assert kinds[-1] == "serve_summary"
+
+
+def test_tensor_parallel_train_entry_with_jax_poisoned(poisoned_env,
+                                                       tmp_path):
+    """The TP modules (``ops.collective_matmul`` and ``core.comms``' TP
+    operators) are among those the poisoned child imports, and two
+    ``train_gpt --mesh_model 2 --tp_overlap`` processes over gloo train
+    with nothing of JAX importable."""
+    assert "dtf_tpu_torch.ops.collective_matmul" in _port_modules()
+    from dtf_tpu_torch.core.dist import free_port
+
+    env, cwd = poisoned_env
+    env = {**env, "OMP_NUM_THREADS": "1"}
+    hosts = f"localhost:{free_port()},localhost:{free_port()}"
+    procs = []
+    for r in range(2):
+        with open(tmp_path / f"{r}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "dtf_tpu_torch.train_gpt",
+                 "--backend=cpu", f"--worker_hosts={hosts}",
+                 f"--task_index={r}", "--mesh_model=2", "--tp_overlap",
+                 "--size=tiny", "--train_steps=2", "--batch_size=2",
+                 "--seq_len=16", f"--logdir={tmp_path / 'run'}"],
+                env=env, cwd=cwd, stdout=out, stderr=subprocess.STDOUT))
+    try:
+        rcs = [p.wait(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = [(tmp_path / f"{r}.log").read_text() for r in range(2)]
+    assert rcs == [0, 0], "\n----\n".join(log[-3000:] for log in logs)
+    assert logs[0].strip().splitlines()[-1] == "done: step=2"

@@ -217,6 +217,15 @@ def test_unported_flags_raise(tmp_path, flag):
         state, _ = _run(tmp_path, 1, f"--publish_dir={tmp_path}/p")
         assert read_manifest(f"{tmp_path}/p")["step"] == state.step == 1
         return
+    if flag == "--tp_overlap":      # ported since: without a model axis
+        state, _ = _run(tmp_path, 1, flag)  # it warns and trains
+        assert state.step == 1
+        return
+    if flag == "--mesh_model=2":    # ported since (tensor parallelism): a
+        # model axis > 1 in one process is a usage error
+        with pytest.raises(ValueError, match="one process per device"):
+            _run(tmp_path, 1, flag)
+        return
     if flag == "--event_log_dir=e":  # ported since: the run's events
         _run(tmp_path, 1, f"--event_log_dir={tmp_path}/e")
         from dtf_tpu_torch.telemetry.events import read_events
