@@ -67,7 +67,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    on the train phase's checkpoint (so it runs right after train, as do
    serve_spec and serve_pages; without train, 2 steps of ``train_gpt``
    make the checkpoint they serve): Poisson mode, 16 slots, max_len
-   1024, chunk 128, 16 requests, prompts 128–768, 32–256 new tokens, at
+   1024, chunk 128, 16 requests, prompts 128–768, 32–128 new tokens, at
    1000 requests/s (the slots full) and at 2/s: tokens/s, TTFT and
    per-token p50/p99, occupancy, KV-cache MiB, peak GB; then the decode
    step with every slot active (``profile_serve.measure_decode``): wall
@@ -93,7 +93,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    the draft step and the verify step (wall, busy, launches, idle); KV
    MiB of the target, the draft and the pool.
 10. serve_pages — the prefix page pool: a ``--requests`` file made from a
-   seed (64 requests sharing a 512-token stem, tails of 32–256 tokens,
+   seed (32 requests sharing a 512-token stem, tails of 32–256 tokens,
    32–128 new) through ``serve_gpt`` with ``--prefix_pages 256
    --kv_page_size 16`` and with the pool off: TTFT p50/p99, prefill
    chunks, hit and miss tokens, pages saved and loaded, ``pinned`` back
@@ -113,7 +113,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    replica=0`` and the health bars under the wedge: replica 0
    quarantined, its requests requeued, all complete, every stream
    equal to (b)'s; (d) ``--prefill_replicas 1 --prefix_pages 256
-   --kv_page_size 16`` on serve_pages' 64 requests: handoffs, pages
+   --kv_page_size 16`` on serve_pages' 32 requests: handoffs, pages
    loaded, pins 0, streams equal to the one engine's pool-off run but at
    near-ties, TTFT beside the one engine with pages. No hand kernel.
 12. publish_swap — train → publish → rolling swap, GPT-2 small at full
@@ -322,15 +322,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     the exact counted collectives a rank (``_tp_collectives_want``), the
     published version whole and loading into a one-process model; and of
     each run, each rank's step ms, the host ms inside the counted
-    collectives against the summed step ms, and its peak memory. Through
-    gloo: it runs, not a speed.
+    collectives against the summed step ms, and its peak memory. Then the
+    same two ranks serve the plain run's version 1 (sharded decode):
+    ``generate(mesh=)`` at b4 × 1024 + 64 greedy tokens (exactly 12 B1
+    launches a call a rank, each at [4, 6, 1024, 64]; the call's and a
+    decode step's counted collectives exact; the last prompt position's
+    logits within δ of one rank's on the same weights, the greedy tokens
+    equal up to the first top-2 margin under δ; a step's wall, busy ms,
+    launches and host ms inside the collectives), then ``serve_gpt
+    --mesh_model 2`` (8 slots of 1024, 8 replayed greedy requests of
+    128–512 prompt and 32–64 new tokens: every stream equal to one
+    rank's engine up to a near-tie, each rank's KV cache exactly half of
+    one rank's, tokens/s, TTFT p50, peak memory; then every slot full at
+    512 positions, a round of 10 decode steps timed on both ranks, its
+    counted collectives exact, and 5 profiled). Through gloo: it runs,
+    not a speed.
 
 Then one JSON line listing every kernel (launches on its main path, error
 against the plain version, times, bound; the 8 ported TPU kernels, the
 split pass and the merge of B5's parts; B5-B7's, the split's and the
 merge's launches from rank 0 of the 2-rank GPT run, B8's from rank 0 of
 the 2-rank Wide&Deep run; B1-B3 also by path, ``train``,
-``publish_swap`` and rank 0 of ``gpt_tp_two_ranks``), the
+``publish_swap`` and rank 0 of ``gpt_tp_two_ranks``, and B1 on rank 0's
+``generate(mesh=)``, ``gpt_tp_serve``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 ``--phases a,b`` runs a subset (without the kernels line). Exits
 non-zero without printing a result when no GPU is present or when the
@@ -1314,12 +1328,14 @@ SERVE_REQUESTS = (
 #: at a rate that keeps the 16 slots full and at 2 requests a second;
 #: SERVE_BENCH_REQUESTS requests a run (serve_spec and serve_fleet run the
 #: same traffic; 16 keeps the whole script inside its time limit on a
-#: slow host: 32 took 1,157.6 s with publish_swap on one card)
+#: slow host: 32 took 1,157.6 s with publish_swap on one card), each of
+#: 32-128 new tokens (256 took the script to 1,139.9 s on a slow host
+#: once the TP ranks served too)
 SERVE_BENCH_REQUESTS = 16
 SERVE_BENCH_FLAGS = ("--n_slots=16", "--max_len=1024", "--prefill_chunk=128",
                      f"--n_requests={SERVE_BENCH_REQUESTS}",
                      "--prompt_min=128",
-                     "--prompt_max=768", "--new_min=32", "--new_max=256",
+                     "--prompt_max=768", "--new_min=32", "--new_max=128",
                      "--seed=0")
 SERVE_BENCH_RATES = (1000.0, 2.0)
 #: the decode-step profile: every slot active at this prompt length
@@ -1637,9 +1653,10 @@ SPEC_SELF_ACCEPT_MIN = 0.9
 #: step and verify step (the profiler's post-processing of a 7,500-launch
 #: tick is what costs)
 SPEC_PROFILE_STEPS, SPEC_PROFILED = 5, 2
-#: serve_pages: 64 requests on one stem of 512 tokens (32 pages of 16),
-#: unique tails of 32–256 tokens, 32–128 new; a 256-page pool
-PAGES_REQUESTS, PAGES_STEM = 64, 512
+#: serve_pages: 32 requests on one stem of 512 tokens (32 pages of 16),
+#: unique tails of 32–256 tokens, 32–128 new; a 256-page pool (64
+#: requests before the TP ranks served too)
+PAGES_REQUESTS, PAGES_STEM = 32, 512
 PAGES_TAIL, PAGES_NEW = (32, 256), (32, 128)
 PAGES_FLAGS = ("--prefix_pages=256", "--kv_page_size=16")
 PAGES_SERVE_FLAGS = ("--n_slots=16", "--max_len=1024", "--prefill_chunk=128",
@@ -1698,8 +1715,13 @@ def _upto_margin(margins, tol):
 
 
 def _kv_mib(layers):
+    """MiB of the K/V leaves (and int8 scales) of cache or pool layers;
+    the position counters are not KV."""
+    from dtf_tpu_torch.models.gpt import batch_led_cache_key
+
     return sum(x.numel() * x.element_size() for layer in layers
-               for x in layer.values() if x is not None) / 2 ** 20
+               for name, x in layer.items()
+               if x is not None and batch_led_cache_key(name)) / 2 ** 20
 
 
 def _engine_kv(engine):
@@ -2122,7 +2144,7 @@ def phase_serve_fleet(torch, smi, logdir, pages):
     serve_bench's 2 requests/s traffic; (c) the same traffic with replica
     0 wedged: it is
     quarantined, its requests requeued, every stream equal to (b)'s; (d)
-    ``--prefill_replicas 1`` on serve_pages' 64 requests, streams equal
+    ``--prefill_replicas 1`` on serve_pages' 32 requests, streams equal
     to the one engine's pool-off run but at near-ties, TTFT beside the
     one engine with pages. One set of weights; no hand kernel launches."""
     import gc
@@ -4860,7 +4882,7 @@ def phase_dist_two_ranks_one_card(torch, smi):
 #: gpt_tp_two_ranks: GPT-2 small over a model axis of 2 on one card,
 #: b4 x 1024, 4 steps
 TP_RANKS, TP_BATCH, TP_STEPS = 2, 4, 4
-TP_CHILD_TIMEOUT_S = 300
+TP_CHILD_TIMEOUT_S = 420
 #: a TP run's step-4 parameters against the one-rank run's, leaf by leaf:
 #: |p_tp - p_1| / |p_1 - p_init| over the whole leaf (each leaf's change
 #: from the init, the runs' difference relative to it), the worst leaf
@@ -4904,10 +4926,12 @@ def _tp_collectives_want(layers, overlap, steps=TP_STEPS,
     if not overlap:
         return {"all_reduce": steps * (4 * layers + 5)
                 + evals * (2 * layers + 4),
-                "all_gather": 0, "reduce_scatter": 0, "ring_exchange": 0}
+                "all_gather": 0, "reduce_scatter": 0, "ring_exchange": 0,
+                "broadcast": 0}
     return {"all_reduce": 5 * steps + 4 * evals,
             "all_gather": 2 * steps + evals, "reduce_scatter": steps,
-            "ring_exchange": 18 * layers * steps + 6 * layers * evals}
+            "ring_exchange": 18 * layers * steps + 6 * layers * evals,
+            "broadcast": 0}
 
 
 def _tp_kernels(torch):
@@ -4980,6 +5004,223 @@ def _tp_kernels(torch):
             "max_abs_err": err, "times": times}
 
 
+#: the TP ranks' sharded serving (gpt_tp_two_ranks, after training): the
+#: plain run's version 1 through ``generate(mesh=)`` at b4 x 1024 + 64
+#: greedy tokens, then ``serve_gpt --mesh_model 2``: 8 slots of 1024,
+#: chunk 128, 8 replayed greedy requests; a decode step of each timed
+#: TP_STEP_TIMED times and profiled TP_STEP_PROFILED more
+TP_GEN_NEW = 64
+TP_SERVE_SLOTS, TP_SERVE_REQUESTS = 8, 8
+TP_SERVE_PROMPT, TP_SERVE_NEW, TP_SERVE_FILL = (128, 512), (32, 64), 512
+TP_STEP_TIMED, TP_STEP_PROFILED = 10, 5
+
+
+def _tp_prompt(torch):
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    return torch.randint(0, VOCAB_REAL, (TP_BATCH, TRAIN_SEQ), generator=gen,
+                         device="cuda")
+
+
+def _tp_serve_requests():
+    """The replayed requests: (prompt, budget) from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    return [(rng.integers(0, VOCAB_REAL, int(rng.integers(
+        TP_SERVE_PROMPT[0], TP_SERVE_PROMPT[1] + 1))).tolist(),
+        int(rng.integers(TP_SERVE_NEW[0], TP_SERVE_NEW[1] + 1)))
+        for _ in range(TP_SERVE_REQUESTS)]
+
+
+def _tp_serve_flags(logdir, *extra):
+    text = ";".join(",".join(map(str, p)) + f"/{n}"
+                    for p, n in _tp_serve_requests())
+    return [f"--publish_dir={logdir}/pub", "--publish_version=1",
+            f"--n_slots={TP_SERVE_SLOTS}", f"--max_len={SERVE_MAX_LEN}",
+            f"--prefill_chunk={SERVE_CHUNK}", f"--requests={text}",
+            "--emit_tokens", *extra]
+
+
+def _tp_step_collectives_want(layers, announced):
+    """One decode step's counted collectives on a rank at model 2, from
+    the code: the embedding's and each layer's two row-parallel sums
+    (2L + 1 all-reduces), the vocab gather of the sampled rows, and an
+    engine step's announcing broadcast."""
+    return {"all_reduce": 2 * layers + 1, "all_gather": 1,
+            "reduce_scatter": 0, "ring_exchange": 0,
+            "broadcast": int(announced)}
+
+
+def _prof_busy(torch, prof, calls):
+    """(device-busy ms, kernel launches) a call of a profiled window."""
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation)
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    return device_us / 1e3 / calls, launches / calls
+
+
+def _tp_generate_child(torch, rank, logdir, mesh):
+    """``generate(mesh=)`` on this rank: the call's B1 launches and their
+    shapes, its collectives, a decode step timed and profiled; its tokens
+    and the last prompt position's whole logits to
+    ``logdir/tp_gen{rank}.pt``."""
+    import dataclasses
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dtf_tpu_torch import publish
+    from dtf_tpu_torch.core import comms
+    from dtf_tpu_torch.models import gpt
+    from dtf_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    _, _, whole = publish.load_published(os.path.join(logdir, "pub"), 1)
+    cfg = dataclasses.replace(gpt.GPTConfig.gpt2_small(),
+                              decode_len=TRAIN_SEQ + TP_GEN_NEW)
+    model = gpt.GPT(cfg, device="cuda", mesh=mesh)
+    model.load_state_dict(gpt.tp_shard(whole, mesh))
+    model.eval()
+    del whole
+    prompt = _tp_prompt(torch)
+    shapes, real = [], gpt.flash_attention
+
+    def recording(q, k, v, **kw):
+        shapes.append(list(q.shape))
+        return real(q, k, v, **kw)
+
+    gpt.flash_attention = recording
+    try:
+        fa.reset_launch_counts()
+        comms.reset_collective_counts()
+        toks, gen_s = timed(torch, lambda: gpt.generate(
+            model, prompt, TP_GEN_NEW, mesh=mesh))
+    finally:
+        gpt.flash_attention = real
+    out = {"flash_launches": dict(fa.launch_counts), "b1_shapes": shapes,
+           "generate_ms": gen_s * 1e3,
+           "collectives": dict(comms.collective_counts),
+           "collective_ms": 1e3 * sum(comms.collective_seconds.values())}
+    with torch.no_grad():
+        cache = model.init_cache(TP_BATCH)
+        last = model.vocab_rows(model(prompt, cache)[:, -1])
+        box = [last.argmax(-1)]
+
+        def step():
+            box[0] = model.vocab_rows(
+                model(box[0][:, None], cache)[:, 0]).argmax(-1)
+            torch.cuda.synchronize()
+
+        step()                                            # warm-up
+        comms.reset_collective_counts()
+        walls = []
+        for _ in range(TP_STEP_TIMED):
+            t = time.perf_counter()
+            step()
+            walls.append((time.perf_counter() - t) * 1e3)
+        counts = dict(comms.collective_counts)
+        coll_ms = 1e3 * sum(comms.collective_seconds.values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(TP_STEP_PROFILED):
+                step()
+        busy, launches = _prof_busy(torch, prof, TP_STEP_PROFILED)
+    out["step"] = {"wall_ms_median": statistics.median(walls),
+                   "wall_ms_min": min(walls), "busy_ms": busy,
+                   "launches": launches,
+                   "collectives": {k: v / TP_STEP_TIMED
+                                   for k, v in counts.items()},
+                   "collective_ms": coll_ms / TP_STEP_TIMED}
+    torch.save({"tokens": toks.cpu(), "last_logits": last.float().cpu()},
+               os.path.join(logdir, f"tp_gen{rank}.pt"))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_serve_child(torch, rank, logdir):
+    """``serve_gpt --mesh_model 2`` on this rank (rank 0 leads), then a
+    decode step of the same engines with every slot full at
+    TP_SERVE_FILL positions: timed (a round of TP_STEP_TIMED steps),
+    then profiled (TP_STEP_PROFILED more); the follower times each call
+    it runs."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dtf_tpu_torch import serve_gpt
+    from dtf_tpu_torch.core import comms
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(io.StringIO()):
+        line, rows, engine = serve_gpt.run(_tp_serve_flags(
+            logdir, "--mesh_model=2"))
+    out = {"leader": engine.is_leader, "rows": rows,
+           "serve_wall_s": time.perf_counter() - t0,
+           "kv_mib": _engine_kv(engine),
+           "line": None if line is None else {
+               k: line[k] for k in ("tokens_per_sec", "serve_ttft_p50_s",
+                                    "generated_tokens", "request_statuses",
+                                    "wall_s", "cache_mib")}}
+    fill = list(range(1, TP_SERVE_FILL + 1))
+    announced = []
+    if engine.is_leader:
+        with engine.leading():
+            for slot in range(engine.n_slots):
+                engine.prefill(slot, fill)
+        torch.cuda.synchronize()
+        comms.reset_collective_counts()
+        walls = []
+        with engine.leading():
+            for _ in range(TP_STEP_TIMED):
+                t = time.perf_counter()
+                engine.decode()
+                walls.append((time.perf_counter() - t) * 1e3)
+        counts = dict(comms.collective_counts)
+        coll_s = sum(comms.collective_seconds.values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with engine.leading():
+                for _ in range(TP_STEP_PROFILED):
+                    engine.decode()
+            torch.cuda.synchronize()
+    else:
+        require(engine.follow(), "the leader's prefill round failed")
+        run, walls = engine._run_op, []
+
+        def timed_op(op, args):
+            announced.append(op)
+            t = time.perf_counter()
+            result = run(op, args)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            return result
+
+        engine._run_op = timed_op
+        comms.reset_collective_counts()
+        require(engine.follow(), "the leader's timed round failed")
+        engine._run_op = run
+        counts = dict(comms.collective_counts)
+        coll_s = sum(comms.collective_seconds.values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            require(engine.follow(), "the leader's profiled round failed")
+            torch.cuda.synchronize()
+    busy, launches = _prof_busy(torch, prof, TP_STEP_PROFILED)
+    out["step"] = {"wall_ms_median": statistics.median(walls),
+                   "wall_ms_min": min(walls), "busy_ms": busy,
+                   "launches": launches, "round_collectives": counts,
+                   "collective_ms": coll_s * 1e3 / TP_STEP_TIMED,
+                   "ops": sorted(set(announced))}
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    out["seconds"] = time.perf_counter() - t0
+    del engine
+    return out
+
+
 def tp_child(rank, world, store, logdir):
     """One rank of gpt_tp_two_ranks: joins the gloo group through
     ``file://store`` on cuda:0, runs ``train_gpt --mesh_model 2`` and
@@ -5047,6 +5288,14 @@ def tp_child(rank, world, store, logdir):
         del state, writer
         gc.collect()
         torch.cuda.empty_cache()
+    # the same two ranks serve the plain run's version 1
+    from dtf_tpu_torch.core.mesh import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(model=world), torch.device("cuda", 0))
+    out["generate"] = _tp_generate_child(torch, rank, logdir, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = _tp_serve_child(torch, rank, logdir)
     with open(os.path.join(logdir, f"tp_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -5105,6 +5354,121 @@ def _param_delta_rel(got, ref, init):
         diff = (got[n].float() - r.float()).norm().item()
         out[n] = diff / moved if moved else (0.0 if not diff else math.inf)
     return out
+
+
+def _tp_serve_check(torch, logdir, ranks, layers):
+    """The ranks' sharded decode and serving against one rank on the same
+    weights (docstring item 33): ``generate(mesh=)``'s B1 launches and
+    shapes, collectives, last prompt logits and greedy tokens; the
+    engine's streams, KV cache and a decode step's collectives."""
+    import dataclasses
+    import gc
+
+    from dtf_tpu_torch import publish, serve_gpt
+    from dtf_tpu_torch.models import gpt
+
+    t0 = time.perf_counter()
+    shape = [TP_BATCH, HEADS // TP_RANKS, TRAIN_SEQ, D_HEAD]
+    want_call = {"all_reduce": TP_GEN_NEW * (2 * layers + 1),
+                 "all_gather": TP_GEN_NEW, "reduce_scatter": 0,
+                 "ring_exchange": 0, "broadcast": 0}
+    want_round = {k: v * TP_STEP_TIMED for k, v in
+                    _tp_step_collectives_want(layers, True).items()}
+    want_round["broadcast"] += 1                  # the round's stop
+    for got in ranks:
+        g, r = got["generate"], got["rank"]
+        require(g["flash_launches"] == {"flash_fwd": layers,
+                                        "flash_fwd_hfold": 0, "flash_dq": 0,
+                                        "flash_dkv": 0},
+                f"rank {r}: generate(mesh=) flash launches "
+                f"{g['flash_launches']}, want {layers} B1")
+        require(g["b1_shapes"] == [shape] * layers,
+                f"rank {r}: B1 at {g['b1_shapes']}, want {shape}")
+        require(g["collectives"] == want_call,
+                f"rank {r}: generate(mesh=) collectives {g['collectives']}"
+                f", want {want_call}")
+        require(g["step"]["collectives"] == _tp_step_collectives_want(
+            layers, False), f"rank {r}: a decode step's collectives "
+            f"{g['step']['collectives']}")
+        s = got["serve"]["step"]
+        require(s["round_collectives"] == want_round,
+                f"rank {r}: an engine round of {TP_STEP_TIMED} decode "
+                f"steps counted {s['round_collectives']}, want "
+                f"{want_round}")
+    require(ranks[1]["serve"]["step"]["ops"] == ["decode"],
+            f"the follower ran {ranks[1]['serve']['step']['ops']}")
+    gens = [torch.load(os.path.join(logdir, f"tp_gen{r}.pt"))
+            for r in range(TP_RANKS)]
+    require(all(torch.equal(gens[0][k], g[k]) for g in gens[1:]
+                for k in gens[0]), "the ranks' generate outputs differ")
+    # one rank, no mesh, on the same version
+    _, _, whole = publish.load_published(os.path.join(logdir, "pub"), 1)
+    cfg = dataclasses.replace(gpt.GPTConfig.gpt2_small(),
+                              decode_len=TRAIN_SEQ + TP_GEN_NEW)
+    model = gpt.GPT(cfg, device="cuda")
+    model.load_state_dict(whole)
+    model.eval()
+    del whole
+    prompt = _tp_prompt(torch)
+    with torch.no_grad():
+        ref_last = model(prompt, model.init_cache(TP_BATCH))[:, -1].cpu()
+        ref = gpt.generate(model, prompt, TP_GEN_NEW)
+        logits = model(ref[:, :-1], model.init_cache(TP_BATCH))[
+            :, TRAIN_SEQ - 1:]
+    scale = ref_last.abs().max().item()
+    last_diff = (gens[0]["last_logits"] - ref_last).abs().max().item()
+    require(last_diff <= LOGITS_REL_TOL * scale,
+            f"generate(mesh=)'s last prompt logits differ from one rank's "
+            f"by {last_diff} (> {LOGITS_REL_TOL} x {scale})")
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu()          # [B, TP_GEN_NEW]
+    tol = LOGITS_REL_TOL * logits.abs().max().item()
+    ref, compared = ref.cpu(), 0
+    for row in range(TP_BATCH):
+        close = (margin[row] < tol).nonzero()
+        upto = int(close[0]) if len(close) else TP_GEN_NEW
+        require(torch.equal(gens[0]["tokens"][row, :TRAIN_SEQ + upto],
+                            ref[row, :TRAIN_SEQ + upto]),
+                f"row {row}: generate(mesh=)'s greedy tokens differ from "
+                f"one rank's before step {upto} (the first top-2 margin "
+                f"under {tol})")
+        compared += upto
+    del model, logits, top2
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the engine: one rank's serve_gpt on the same version and requests
+    with contextlib.redirect_stdout(io.StringIO()):
+        line, rows, engine = serve_gpt.run(_tp_serve_flags(logdir))
+    lead = ranks[0]["serve"]
+    require(lead["leader"] and not ranks[1]["serve"]["leader"],
+            "rank 0 must lead the sharded engine")
+    require(lead["line"]["request_statuses"] == {"done": TP_SERVE_REQUESTS}
+            and ranks[1]["serve"]["rows"] == [],
+            f"serve_gpt --mesh_model 2: {lead['line']}")
+    differ = _differ_at_near_ties(torch, engine, _tp_serve_requests(),
+                                  lead["rows"], rows,
+                                  "the sharded engine and one rank's")
+    one_kv = _engine_kv(engine)["target"]
+    for got in ranks:
+        require(got["serve"]["kv_mib"]["target"] * TP_RANKS == one_kv,
+                f"rank {got['rank']}: KV cache "
+                f"{got['serve']['kv_mib']['target']} MiB, one rank's "
+                f"{one_kv}")
+    one_rank = {k: line[k] for k in ("tokens_per_sec", "serve_ttft_p50_s",
+                                     "generated_tokens", "wall_s")}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"generate": {"b1_shape": shape, "collectives_want": want_call,
+                         "last_logits_max_abs_diff": last_diff,
+                         "max_abs_logit": scale,
+                         "tokens_compared": compared,
+                         "tokens_generated": TP_BATCH * TP_GEN_NEW},
+            "serve": {"requests": TP_SERVE_REQUESTS, "differ": differ,
+                      "kv_mib_one_rank": one_kv,
+                      "step_round_collectives_want": want_round,
+                      "one_rank": one_rank},
+            "check_seconds": time.perf_counter() - t0}
 
 
 def phase_gpt_tp_two_ranks(torch, smi):
@@ -5197,6 +5561,7 @@ def phase_gpt_tp_two_ranks(torch, smi):
     model = gpt.GPT(gpt.GPTConfig.by_name("small"), device="cuda")
     model.load_state_dict(params)
     del model, params
+    serving = _tp_serve_check(torch, logdir, ranks, layers)
     shutil.rmtree(logdir, ignore_errors=True)
     seconds = time.perf_counter() - t0
     emit({"phase": "gpt_tp_two_ranks", "world_size": TP_RANKS,
@@ -5214,8 +5579,13 @@ def phase_gpt_tp_two_ranks(torch, smi):
           "collectives_want": {n: _tp_collectives_want(layers,
                                                        n == "overlap")
                                for n in ("plain", "overlap")},
+          "serving": serving,
+          "note_serving": "generate(mesh=) and serve_gpt --mesh_model 2 on "
+                          "the plain run's version 1; through gloo on one "
+                          "card: it runs, not a speed",
           "ranks": ranks, "seconds": seconds})
-    return {"flash_launches": ranks[0]["plain"]["flash_launches"]}
+    return {"flash_launches": ranks[0]["plain"]["flash_launches"],
+            "serve_flash_launches": ranks[0]["generate"]["flash_launches"]}
 
 
 #: every phase, in the order a full run takes them — but serve_bench,
@@ -5236,12 +5606,14 @@ PHASES = ("device", "build", "kernels", "generate", "generate_variants",
 def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
                  timing_bwd, train_launches, err_ce, timing_ce,
                  train_ce_launches, err_embed, timing_embed,
-                 embed_launches, swap_launches, tp_launches):
+                 embed_launches, swap_launches, tp_launches,
+                 tp_serve_launches):
     """The one JSON line listing every ported kernel: its launches on its
     main path, its error against the plain version, its times and bound.
     B1-B3 also give their launches on each path that runs them
-    (``launches_by_path``: ``train``, ``publish_swap``'s trainer and rank
-    0 of ``gpt_tp_two_ranks``' plain TP run)."""
+    (``launches_by_path``: ``train``, ``publish_swap``'s trainer, rank 0
+    of ``gpt_tp_two_ranks``' plain TP run, and for B1 rank 0's
+    ``generate(mesh=)`` call there, ``gpt_tp_serve``)."""
     fwd_common = {"route": "cuda",
                   "source": "dtf_tpu_torch/ops/csrc/flash_fwd.cu",
                   "plain_ms": timing["plain_ms"],
@@ -5257,7 +5629,8 @@ def kernels_line(err, timing, fwd_launches, variant_launches, err_bwd,
          "ms": timing["flash_fwd"],
          "launches_by_path": {"train": fwd_launches,
                               "publish_swap": swap_launches["flash_fwd"],
-                              "gpt_tp_two_ranks": tp_launches["flash_fwd"]}},
+                              "gpt_tp_two_ranks": tp_launches["flash_fwd"],
+                              "gpt_tp_serve": tp_serve_launches["flash_fwd"]}},
         {"name": "flash_fwd_hfold", **fwd_common,
          "replaces": "dtf_tpu/ops/flash_attention.py:222",
          "launches": variant_launches["flash_fwd_hfold"],
@@ -5442,7 +5815,9 @@ def main(argv=None):
                              got["kernel_times_embed"]["path"]["line"],
                              two["embed_gather"],
                              got["publish_swap"]["launches"],
-                             got["gpt_tp_two_ranks"]["flash_launches"]),
+                             got["gpt_tp_two_ranks"]["flash_launches"],
+                             got["gpt_tp_two_ranks"][
+                                 "serve_flash_launches"]),
               "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -20,7 +20,12 @@ rank's token block forward, the all-gather backward) and
 :func:`gather_tokens` (the all-gather forward, the reduce-scatter
 backward); and :class:`RingExchange`, one step of a ``ring_perm`` ring
 (the collective-matmul rings of :mod:`dtf_tpu_torch.ops.collective_matmul`).
-Each counts itself in :data:`collective_counts`.
+Each counts itself in :data:`collective_counts`. Sharded decode and
+serving add their own, forward only (serving runs under ``no_grad``):
+:func:`gather_vocab` (the vocab-parallel logits' rows made whole before a
+sampler), :func:`gather_rows` (a data line's rows to every line) and the
+broadcasts :func:`broadcast_from` and :func:`broadcast_object` (the
+serving plane's calls, :mod:`dtf_tpu_torch.serve.plane`).
 
 Projections: ``tp_dense`` / ``TpDense``, full precision only
 (``precision=""``; the int8/fp8 tiers come with a later slice). Over a
@@ -42,14 +47,15 @@ import torch.distributed as dist
 from torch import nn
 
 
-#: the collectives issued by :func:`psum` (over any group) and by the
-#: tensor-parallel operators below, by kind ("ring_exchange": one send
-#: and one receive of a ring step); a counter a test or the chip smoke
-#: reads around a run. The other collectives of this module (ZeRO-1's
-#: buckets, ``global_norm``, ``all_gather`` and ``psum_scatter`` called
-#: directly, as a checkpoint's gather does) are not counted
+#: the collectives issued by :func:`psum` (over any group), by the
+#: tensor-parallel operators below and by the sharded serving path, by
+#: kind ("ring_exchange": one send and one receive of a ring step;
+#: "broadcast": one tensor's, or one object's); a counter a test or the
+#: chip smoke reads around a run. The other collectives of this module
+#: (ZeRO-1's buckets, ``global_norm``, ``all_gather`` and ``psum_scatter``
+#: called directly, as a checkpoint's gather does) are not counted
 collective_counts = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-                     "ring_exchange": 0}
+                     "ring_exchange": 0, "broadcast": 0}
 #: the host seconds spent inside those calls, by kind (a blocking
 #: collective's whole wait; a ring step's post and wait)
 collective_seconds = dict.fromkeys(collective_counts, 0.0)
@@ -335,6 +341,41 @@ def gather_tokens(x: torch.Tensor, mesh) -> torch.Tensor:
     part: the head is vocab-parallel) and keeps this rank's block (one
     reduce-scatter)."""
     return _GatherTokens.apply(x, mesh.model_group)
+
+
+def gather_vocab(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Whole rows of vocab-parallel logits: this rank's [..., V/m]
+    columns → [..., V], the ranks' blocks in model order (one counted
+    all-gather over the model group; forward only)."""
+    with _collective("all_gather"):
+        return all_gather(x, mesh.model_group, gather_dimension=x.ndim - 1)
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's rows of ``x`` [n, ...] → [N·n, ...] in rank order (one
+    counted all-gather over ``group``): a data line's part of a sharded
+    decode's output to every line."""
+    with _collective("all_gather"):
+        return all_gather(x, group, gather_dimension=0)
+
+
+def broadcast_from(x: torch.Tensor, group, src_index: int) -> torch.Tensor:
+    """``x`` of the group's rank ``src_index`` on every rank of ``group``,
+    IN PLACE (one counted broadcast); returns ``x``."""
+    with _collective("broadcast"):
+        dist.broadcast(x, dist.get_global_rank(group, src_index),
+                       group=group)
+    return x
+
+
+def broadcast_object(obj, src: int = 0):
+    """A picklable ``obj`` of global rank ``src`` on every rank of the
+    default group: one counted broadcast (the pickle's size and bytes,
+    staged through the host under gloo); returns it."""
+    box = [obj]
+    with _collective("broadcast"):
+        dist.broadcast_object_list(box, src=src)
+    return box[0]
 
 
 def ring_perm(n: int) -> list[tuple[int, int]]:

@@ -14,8 +14,22 @@ temperature/top-k/nucleus sampling — or, with ``--num_beams`` > 1,
 :func:`dtf_tpu_torch.models.gpt.generate_beam` (``--length_penalty``).
 Prints one token-id row per batch element. Runs on ``cuda`` unless
 ``--device=cpu`` (or ``--backend=cpu``). The flag names are the JAX
-launcher's; restoring an Orbax checkpoint of the JAX package and sharded
-decode are not ported yet, and a mesh axis > 1 says so.
+launcher's; restoring an Orbax checkpoint of the JAX package is not
+ported yet.
+
+Sharded decode (``--mesh_model`` / ``--mesh_data``, one process per
+device as ``train_gpt`` runs: ``--worker_hosts`` and ``--task_index``, or
+a process group the caller made): every rank loads the whole parameters
+and keeps its blocks (:func:`dtf_tpu_torch.models.gpt.tp_shard`), then
+``generate(mesh=)`` decodes its data line's rows at its heads; rank 0
+prints the rows. ``--num_beams`` > 1 with a mesh is a usage error, as in
+the JAX launcher.
+
+    T="--backend=cpu --worker_hosts=localhost:2227,localhost:2228"
+    python -m dtf_tpu_torch.generate_gpt $T --task_index=1 --mesh_model=2 \
+        --size=tiny --init_seed=0 &
+    python -m dtf_tpu_torch.generate_gpt $T --task_index=0 --mesh_model=2 \
+        --size=tiny --init_seed=0
 """
 
 from __future__ import annotations
@@ -32,8 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m dtf_tpu_torch.generate_gpt",
         description="GPT decode with the KV cache on the H100 port.")
-    # cluster and mesh flags: the reference's command shape; serving is a
-    # single-process job, and a mesh axis > 1 raises
+    # cluster and mesh flags: one process, or one a device of the mesh
     dflags.define_cluster_flags(p)
     dflags.define_mesh_flags(p)
     p.add_argument("--logdir", default="",
@@ -94,7 +107,13 @@ def _present(argv) -> frozenset:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
+    from dtf_tpu_torch.cli.launch import own_process_group
+
+    with own_process_group():
+        return _run(sys.argv[1:] if argv is None else list(argv))
+
+
+def _run(argv) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
 
@@ -102,8 +121,8 @@ def main(argv=None) -> int:
 
     from dtf_tpu_torch.checkpoint import Checkpointer, load_model_config
     from dtf_tpu_torch.cli.flags import resolve_decode_config
+    from dtf_tpu_torch.cli.launch import setup
     from dtf_tpu_torch.convert import init_params, load_npz, params_from_flax
-    from dtf_tpu_torch.core.device import resolve_device
     from dtf_tpu_torch.models import gpt
 
     if args.num_beams > 1 and (args.temperature > 0.0 or args.top_k
@@ -113,12 +132,10 @@ def main(argv=None) -> int:
     if args.temperature == 0.0 and (args.top_k or args.top_p < 1.0):
         parser.error("--top_k/--top_p have no effect at --temperature=0 "
                      "(greedy); set a positive temperature to sample")
-    if any(getattr(args, f"mesh_{a}") > 1
-           for a in ("data", "seq", "model", "pipe", "expert")):
-        raise NotImplementedError(
-            "sharded decode (a mesh axis > 1) is not yet ported")
-    device = resolve_device(args.device or
-                            ("cpu" if args.backend == "cpu" else "cuda"))
+    if args.num_beams > 1 and (args.mesh_model > 1 or args.mesh_data > 1):
+        parser.error("--num_beams does not compose with a sharded decode "
+                     "mesh; shard the batch outside instead")
+    device, info, mesh = setup(args)
 
     manifest = (load_model_config(os.path.join(args.logdir, "ckpt"))
                 if args.logdir else None)
@@ -154,8 +171,8 @@ def main(argv=None) -> int:
     else:
         parser.error("no parameters: pass --params_npz, --init_seed or the "
                      "--logdir of a training run")
-    model = gpt.GPT(cfg, device=device)
-    model.load_state_dict(state_dict)
+    model = gpt.GPT(cfg, device=device, mesh=mesh)
+    model.load_state_dict(gpt.tp_shard(state_dict, mesh))
     model.eval()
 
     prompt = torch.tensor(prompt_ids, dtype=torch.long).expand(
@@ -171,9 +188,10 @@ def main(argv=None) -> int:
         out = gpt.generate(model, prompt, args.n_new, seed=args.seed,
                            temperature=args.temperature, top_k=args.top_k,
                            top_p=args.top_p, eos_id=eos, pad_id=args.pad_id,
-                           prefill_chunk=args.prefill_chunk)
-    for row in out.cpu().tolist():
-        print(",".join(str(int(t)) for t in row))
+                           prefill_chunk=args.prefill_chunk, mesh=mesh)
+    if info.is_chief:
+        for row in out.cpu().tolist():
+            print(",".join(str(int(t)) for t in row))
     return 0
 
 

@@ -28,8 +28,12 @@ attn_out, its features of the MLP, its V/m rows of the token table and
 of the head; the embedding is a masked lookup summed over the group, the
 loss :func:`~dtf_tpu_torch.ops.losses.vocab_parallel_cross_entropy`, and
 under ``tp_overlap`` the residual stream is token-sharded between the
-collective-matmul rings (Megatron-SP). Not yet: MoE layers, sequence
-parallelism, sharded decode.
+collective-matmul rings (Megatron-SP). The decode model over a model group
+(sharded decode, ``generate(mesh=)`` and the serving engine's): each
+rank's KV cache holds its ``kv_heads / m`` heads, and the vocab-parallel
+logits are gathered whole (:meth:`GPT.vocab_rows`, one counted
+all-gather) only at the rows a sampler reads. Not yet: MoE layers,
+sequence parallelism.
 
 Dropout runs only when the caller passes ``dropout_seed`` (the training
 loss does; serving never does). Each mask is drawn from a fresh
@@ -454,13 +458,14 @@ class CausalSelfAttention(nn.Module):
 
     def init_cache(self, batch: int, device) -> dict:
         """This layer's cache: [B, kv_heads, L, D] keys and values (int8
-        with [B, kv_heads, L, 1] f32 scales under ``kv_cache_dtype="int8"``)
+        with [B, kv_heads, L, 1] f32 scales under ``kv_cache_dtype="int8"``),
+        the rank's kv_heads over a model group
         and the position counter ``cache_index``: a Python int shared by
         the rows, or under ``slot_decode`` a [B] int64 tensor, one a row.
         Every key must be in ``_BATCH_LED_CACHE_KEYS`` or
         ``_NON_BATCH_CACHE_KEYS``."""
         cfg = self.cfg
-        shape = (batch, cfg.kv_heads_resolved, self.cache_len,
+        shape = (batch, self.kv_heads, self.cache_len,
                  cfg.d_model // cfg.heads)
         quant = cfg.kv_cache_dtype == "int8"
         store = torch.int8 if quant else cfg.dtype
@@ -635,8 +640,8 @@ class CausalSelfAttention(nn.Module):
         makes a reused slot's stale contents invisible."""
         cfg = self.cfg
         b, _, t, d_head = q.shape
-        kv_heads = cfg.kv_heads_resolved
-        group = cfg.heads // kv_heads
+        kv_heads = self.kv_heads
+        group = self.heads // kv_heads
         cache_len = self.cache_len
         slots = torch.arange(cache_len, device=q.device)
         if not isinstance(idx, int):
@@ -655,7 +660,7 @@ class CausalSelfAttention(nn.Module):
         out = torch.einsum("bkgtl,bkld->bkgtd", p.to(vals.dtype).float(),
                            vals.float())
         out = out.to(cfg.dtype).permute(0, 3, 1, 2, 4)
-        return self.attn_out(out.reshape(b, t, cfg.heads * d_head))
+        return self.attn_out(out.reshape(b, t, self.heads * d_head))
 
     def _chunked_prefill(self, q, k, v, cache: dict,
                          prefill_len=None) -> torch.Tensor:
@@ -673,8 +678,8 @@ class CausalSelfAttention(nn.Module):
         count only."""
         cfg = self.cfg
         b, _, t, d_head = q.shape
-        kv_heads = cfg.kv_heads_resolved
-        group = cfg.heads // kv_heads
+        kv_heads = self.kv_heads
+        group = self.heads // kv_heads
         cache_len = self.cache_len
         start = cache["cache_index"]
         qpos = start + torch.arange(t, device=q.device)
@@ -717,7 +722,7 @@ class CausalSelfAttention(nn.Module):
         out = torch.einsum("bkgtl,bkld->bkgtd", p.to(vals.dtype).float(),
                            vals.float())
         out = out.to(cfg.dtype).permute(0, 3, 1, 2, 4)
-        return self.attn_out(out.reshape(b, t, cfg.heads * d_head))
+        return self.attn_out(out.reshape(b, t, self.heads * d_head))
 
 
 class Block(nn.Module):
@@ -767,8 +772,9 @@ class GPT(nn.Module):
 
     ``mesh`` with a model axis of m > 1: Megatron tensor parallelism over
     its model group, the parameters this rank's blocks
-    (:data:`tp_rules`), and the logits this rank's V/m vocab columns
-    (module docstring). Training only: a decode model raises."""
+    (:data:`tp_rules`, :func:`tp_shard`), and the logits this rank's V/m
+    vocab columns (module docstring); a decode model's cache holds the
+    rank's heads."""
 
     def __init__(self, cfg: GPTConfig, device="cuda", mesh=None):
         super().__init__()
@@ -776,10 +782,6 @@ class GPT(nn.Module):
         self.cfg = cfg
         self.mesh = _tp_mesh(mesh)
         m = self.mesh.model_size if self.mesh is not None else 1
-        if self.mesh is not None and cfg.decode_len > 0:
-            raise NotImplementedError(
-                "sharded decode (a decode model over a model axis) is not "
-                "ported yet")
         if cfg.vocab_size % m:
             raise ValueError(f"vocab {cfg.vocab_size} not divisible by the "
                              f"model axis ({m})")
@@ -798,6 +800,17 @@ class GPT(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.lm_head.weight.device
+
+    def vocab_rows(self, logits: torch.Tensor) -> torch.Tensor:
+        """Whole-vocabulary rows of this model's logits: over a model
+        group the head is vocab-parallel and a rank holds V/m columns, so
+        one counted all-gather over the group (:func:`comms.gather_vocab`,
+        the gather GSPMD inserts before a sampler) makes them whole. Pass
+        only the rows that are sampled; without a model group ``logits``
+        as they are."""
+        if self.mesh is None:
+            return logits
+        return comms.gather_vocab(logits, self.mesh)
 
     def sp_layout(self, ids_shape) -> bool:
         """Whether a forward of ids ``ids_shape`` [B, T] runs the
@@ -851,7 +864,9 @@ class GPT(nn.Module):
             x = masked_lookup_sharded(self.token_embed.weight, input_ids,
                                       mesh.model_group, dtype=cfg.dtype)
         x = _dropout(x, cfg.dropout, dropout_seed, 0, EMBED_SITE)
-        sp = self.sp_layout(input_ids.shape)
+        # a decode call keeps every token on every rank of the group: the
+        # cache holds the rank's heads at every position
+        sp = cache is None and self.sp_layout(input_ids.shape)
         seed = dropout_seed
         if sp:
             x = comms.scatter_tokens(x, mesh)
@@ -1022,11 +1037,17 @@ def generate(model: GPT, prompt: torch.Tensor, n_new: int, *,
     (``done`` flips after the EOS token itself is kept).
     ``prefill_chunk > 0``: prefill through the cache-continuing chunked
     path, that many tokens per call.
+
+    ``mesh``: sharded decode, the reference's ``generate(mesh=)`` — every
+    rank passes the whole prompt; data line d decodes its rows [d·B/D,
+    (d+1)·B/D) (each row keeps its GLOBAL stream (``seed``, r), so a
+    sampled row does not change with the mesh), the model (built over the
+    mesh, :func:`tp_shard` parameters) holds the rank's heads and their
+    cache, the sampled rows' logits are gathered whole over the model
+    group (:meth:`GPT.vocab_rows`), and the output is all-gathered over
+    the data group: every rank returns [B, T_p + n_new].
     """
     cfg = model.cfg
-    if mesh is not None:
-        raise NotImplementedError("sharded decode (mesh=...) is not ported "
-                                  "yet")
     b, t_p = prompt.shape
     total = t_p + n_new
     if n_new < 1:
@@ -1035,6 +1056,13 @@ def generate(model: GPT, prompt: torch.Tensor, n_new: int, *,
         raise ValueError(
             f"decode_len={cfg.decode_len} < prompt+new={total}")
     device = model.device
+    rows = torch.arange(b, device=device)
+    if mesh is not None:
+        check_decode_mesh(model, mesh, batch=b)
+        n = b // mesh.data_size
+        prompt = prompt[mesh.data_index * n:(mesh.data_index + 1) * n]
+        rows = rows[mesh.data_index * n:(mesh.data_index + 1) * n]
+        b = n
     prompt = prompt.to(device=device, dtype=torch.long)
 
     def row(value, dtype):
@@ -1044,10 +1072,10 @@ def generate(model: GPT, prompt: torch.Tensor, n_new: int, *,
         sampling = {"temperature": row(temperature, torch.float32),
                     "top_k": row(top_k, torch.long),
                     "top_p": row(top_p, torch.float32),
-                    "key": sampler_key(row(seed, torch.long),
-                                       torch.arange(b, device=device))}
+                    "key": sampler_key(row(seed, torch.long), rows)}
 
     def pick(nxt_logits, draw):
+        nxt_logits = model.vocab_rows(nxt_logits)
         if temperature > 0.0:
             return sample_tokens(nxt_logits, draw=row(draw, torch.long),
                                  **sampling)
@@ -1067,7 +1095,51 @@ def generate(model: GPT, prompt: torch.Tensor, n_new: int, *,
                 done = done | (nxt == eos_id)
             toks.append(nxt)
             tok = nxt
-    return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+    out = torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+    if mesh is not None and mesh.data_size > 1:
+        out = comms.gather_rows(out, mesh.data_group)
+    return out
+
+
+def check_decode_mesh(model: GPT, mesh, *,
+                      batch: Optional[int] = None) -> None:
+    """The reference's checks of a sharded decode (its words): ``batch``
+    rows over the data axis, the heads and the K/V heads over the model
+    axis — and the port's own, the model built over that mesh."""
+    cfg = model.cfg
+    d, m = mesh.data_size, mesh.model_size
+    if batch is not None and batch % d:
+        raise ValueError(f"decode batch {batch} not divisible by the data "
+                         f"axis ({d})")
+    kv_heads = cfg.kv_heads_resolved
+    if cfg.heads % m:
+        raise ValueError(f"{cfg.heads} heads not divisible by the model "
+                         f"axis ({m})")
+    if kv_heads % m:
+        raise ValueError(f"{kv_heads} kv_heads not divisible by the model "
+                         f"axis ({m}) — the cache shards heads over 'model'")
+    if (model.mesh.model_size if model.mesh is not None else 1) != m:
+        raise ValueError(f"a mesh with a model axis of {m} needs the model "
+                         "built over it: GPT(cfg, mesh=mesh) with "
+                         "tp_shard(params, mesh)")
+
+
+def tp_shard(params: dict, mesh) -> dict:
+    """This rank's blocks of a WHOLE state dict over ``mesh``'s model axis
+    (:data:`tp_rules`, contiguous), for ``load_state_dict`` of a
+    ``GPT(mesh=mesh)``; ``params`` itself without a model axis. Names
+    that several dicts share (an early-exit draft's,
+    :func:`draft_truncate`) should be sharded once and truncated after,
+    so the blocks stay shared tensors."""
+    if mesh is None or mesh.model_size <= 1:
+        return params
+    from dtf_tpu_torch.convert import shard_params
+    from dtf_tpu_torch.core.sharding import Layout, param_specs
+
+    dims = {n: spec.index("model")
+            for n, spec in param_specs(params, tp_rules).items()
+            if "model" in spec}
+    return shard_params(params, Layout(model_dims=dims, zero1_dims={}), mesh)
 
 
 #: cache keys whose tensors lead with the batch (the serving engine slices

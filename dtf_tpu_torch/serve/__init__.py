@@ -29,8 +29,11 @@
   recorded into CRC-framed rotated shards (import it directly: it needs
   no engine).
 
+- :mod:`dtf_tpu_torch.serve.plane` — ``CallPlane``: a sharded engine's
+  leader (rank 0 broadcasts each device call) and its followers.
+
 ``python -m dtf_tpu_torch.serve_gpt`` is the launcher. Not yet ported:
-the draft-only swap and sharded serving.
+the draft-only swap, and a fleet or a rolling swap of sharded engines.
 """
 
 from dtf_tpu_torch.serve.client import (Heartbeat, PoissonLoadGen,

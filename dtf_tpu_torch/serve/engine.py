@@ -77,8 +77,27 @@ range named ``dtf.serve.prefill_chunk#slot=…,chunk=…,trace_id=…#`` or
 profiler trace names the requests a step served. A host-side range only:
 no sync, no extra launch.
 
-Not yet ported: the tuner's ``spec_k = 0`` with a draft and sharded
-serving (``mesh``); each raises when asked for.
+**Sharded serving** (``mesh``, the reference's ``DecodeEngine(mesh=)``):
+the engine of each rank holds its data line's ``n_slots / data`` slots
+and, over the model group, its heads of the model (``GPT(mesh=)``, the
+parameters this rank's blocks: :func:`dtf_tpu_torch.models.gpt.tp_shard`)
+and of the KV cache, as the reference's cache is ``P('data', 'model')``;
+the page pool holds the rank's heads of every page, whole on every data
+line. Slot ``s`` lives on data line ``s // (n_slots / data)``. Every
+device call goes through the call plane (:mod:`dtf_tpu_torch.serve.plane`):
+rank 0's engine leads — the scheduler, the client and the prefix index
+live there only — and every other rank's engine follows
+(:meth:`DecodeEngine.follow`). A data line runs only the calls on its own
+slots; a prefill's first token comes to every line in one broadcast
+over the data group, a decode step's tokens in one all-gather, a saved
+page in one broadcast; the sampled rows' logits are gathered whole over
+the model group (:meth:`dtf_tpu_torch.models.gpt.GPT.vocab_rows`). Over
+a mesh a failing draft step raises (its model group may have failed on
+some ranks only, so no rank may fall back alone).
+
+Not yet ported: the tuner's ``spec_k = 0`` with a draft, and a fleet or
+a rolling swap of sharded engines (``weights_from``, ``shared_pages`` or
+``swap_params`` with a mesh); each raises when asked for.
 """
 
 from __future__ import annotations
@@ -91,9 +110,11 @@ from typing import Optional, Sequence
 
 import torch
 
+from dtf_tpu_torch.core import comms
 from dtf_tpu_torch.core.device import resolve_device
 from dtf_tpu_torch.models import gpt
 from dtf_tpu_torch.serve import pages as pages_lib
+from dtf_tpu_torch.serve.plane import CallPlane
 
 log = logging.getLogger("dtf_tpu_torch")
 
@@ -176,7 +197,8 @@ def _build_prefill_fn(model: gpt.GPT):
                        prefill_len=op["n_valid"])
         _write_row_cache(state["cache"], rows, slot)
 
-        last = logits[0].index_select(0, one["n_valid"] - 1)      # [1, V]
+        last = model.vocab_rows(
+            logits[0].index_select(0, one["n_valid"] - 1))        # [1, V]
         key = gpt.sampler_key(one["seed"], torch.zeros_like(slot))
         tok = gpt.sample_tokens(last, temperature=one["temp"],
                                 top_k=one["top_k"], top_p=one["top_p"],
@@ -202,8 +224,9 @@ def _build_decode_fn(model: gpt.GPT):
     """decode_all: one masked token step across all slots."""
     def decode_fn(state: dict) -> torch.Tensor:
         active = state["active"]
-        logits = model(state["tok"][:, None], state["cache"],
-                       decode_active=active)[:, 0]               # [S, V]
+        logits = model.vocab_rows(model(state["tok"][:, None],
+                                        state["cache"],
+                                        decode_active=active)[:, 0])  # [S, V]
         nxt = gpt.sample_tokens(logits, temperature=state["temp"],
                                 top_k=state["top_k"], top_p=state["top_p"],
                                 key=state["key"], draw=state["draws"])
@@ -237,8 +260,8 @@ def _build_draft_fn(model: gpt.GPT, k: int):
         gpt.cache_rollback(state["cache"], sync_index, active)
         cur, props = tok, []
         for _ in range(k + 1):
-            logits = model(cur[:, None], state["cache"],
-                           decode_active=active)[:, 0]
+            logits = model.vocab_rows(model(cur[:, None], state["cache"],
+                                            decode_active=active)[:, 0])
             cur = torch.argmax(logits, dim=-1)
             props.append(cur)
         return torch.stack(props[:k], dim=1)                   # [S, k]
@@ -266,7 +289,8 @@ def _build_verify_fn(model: gpt.GPT, k: int):
         n = active.shape[0]
         idx0 = gpt.cache_index_of(state["cache"]).clone()        # [S]
         inputs = torch.cat([state["tok"][:, None], proposals], dim=1)
-        logits = model(inputs, state["cache"], decode_active=active)
+        logits = model.vocab_rows(model(inputs, state["cache"],
+                                        decode_active=active))
 
         def rows(x):                    # [S] -> [S * (k+1)], row-major
             return x[:, None].expand(n, k + 1).reshape(-1)
@@ -348,15 +372,16 @@ def _source_ids(params: dict) -> dict:
 
 
 def _load_model(cfg: gpt.GPTConfig, params: dict, device,
-                share=None) -> gpt.GPT:
+                share=None, mesh=None) -> gpt.GPT:
     """``cfg``'s model on ``device`` with ``params``. ``share`` (a target
     model and the :func:`_source_ids` of the state dict it was loaded
     from): every tensor of ``params`` that IS one of the target's input
     tensors becomes the target model's own parameter, not a copy — a
     self-draft or an early-exit draft (:func:`gpt.draft_truncate`), or a
-    router's further replica, costs no second set of weights."""
+    router's further replica, costs no second set of weights. ``mesh``:
+    the model over its model group, ``params`` this rank's blocks."""
     with torch.no_grad():
-        model = gpt.GPT(cfg, device=device)
+        model = gpt.GPT(cfg, device=device, mesh=mesh)
         model.load_state_dict(params)
         if share is not None:
             target, target_ids = share
@@ -436,6 +461,10 @@ class DecodeEngine:
     takes that engine's parameters instead of a copy (a router's
     replicas: N KV caches, one set of weights). ``device``: ``cuda``
     unless asked for the CPU; without a GPU asking for ``cuda`` raises.
+    ``mesh``: sharded serving (module docstring) — ``params`` and
+    ``draft_params`` are this rank's blocks, and every rank builds its
+    engine; rank 0's leads (:meth:`leading`), the others
+    :meth:`follow`.
     """
 
     def __init__(self, cfg: gpt.GPTConfig, params, *, n_slots: int,
@@ -445,9 +474,6 @@ class DecodeEngine:
                  draft_cfg: Optional[gpt.GPTConfig] = None,
                  draft_params=None, spec_k: int = 0, shared_pages=None,
                  weights_from: Optional["DecodeEngine"] = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh (sharded serving) is not yet "
-                                      "ported")
         if n_slots < 1:
             raise ValueError(f"n_slots={n_slots} must be >= 1")
         if max_len < 2:
@@ -526,7 +552,21 @@ class DecodeEngine:
             raise ValueError(
                 "shared_pages needs prefix_pages > 0 on the mounting "
                 "engine too (the pool shapes come from its own config)")
+        if mesh is not None:
+            if n_slots % mesh.data_size:
+                raise ValueError(
+                    f"n_slots={n_slots} not divisible by the data axis "
+                    f"({mesh.data_size}) — slots shard over 'data'")
+            if weights_from is not None or shared_pages is not None:
+                raise NotImplementedError(
+                    "a fleet of sharded engines (weights_from= or "
+                    "shared_pages= with a mesh) is not yet ported")
         self.cfg = base
+        self.mesh = mesh
+        #: the slots this rank's data line holds (all without a mesh)
+        self._slots_here = n_slots // (mesh.data_size if mesh else 1)
+        self._plane = (None if mesh is None else
+                       CallPlane(torch.distributed.get_rank()))
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
@@ -556,8 +596,10 @@ class DecodeEngine:
         self._model = _load_model(
             dataclasses.replace(base, slot_decode=True), params, self.device,
             share=None if weights_from is None
-            else (weights_from._model, weights_from._source))
-        self._state = _new_state(self._model, n_slots)
+            else (weights_from._model, weights_from._source), mesh=mesh)
+        if mesh is not None:
+            gpt.check_decode_mesh(self._model, mesh)
+        self._state = _new_state(self._model, self._slots_here)
         # the prefill step's operand buffers: the host fills them with one
         # copy a chunk, the step reads only these
         self._ints = torch.zeros(len(_PREFILL_INTS) + prefill_chunk,
@@ -582,15 +624,16 @@ class DecodeEngine:
                                   "spec_proposed": 0, "spec_accepted": 0})
             self._draft_model = _load_model(
                 dataclasses.replace(dbase, slot_decode=True), draft_params,
-                self.device, share=(self._model, self._source))
-            self._draft_state = _new_state(self._draft_model, n_slots)
+                self.device, share=(self._model, self._source), mesh=mesh)
+            self._draft_state = _new_state(self._draft_model,
+                                           self._slots_here)
             self.trace_counts.update({"draft_prefill": 0, "draft": 0})
             self._draft_prefill_fn = _build_prefill_fn(self._draft_model)
             self.trace_counts["draft_prefill"] += 1
             self._draft_fn = _build_draft_fn(self._draft_model, self.spec_k)
             self.trace_counts["draft"] += 1
             #: the proposals of a tick whose draft step raised
-            self._null_props = torch.zeros(n_slots, self.spec_k,
+            self._null_props = torch.zeros(self._slots_here, self.spec_k,
                                            dtype=torch.long,
                                            device=self.device)
             #: host bookkeeping of each slot's draft prefill: chunks run,
@@ -724,7 +767,12 @@ class DecodeEngine:
         since the verifier samples every delivered token).
 
         ``version`` stamps :attr:`param_version` (default: the previous
-        + 1). Returns the new version."""
+        + 1). Returns the new version. Over a mesh it raises: a swap of
+        sharded engines is not yet ported."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "swap_params over a mesh (a swap of sharded engines) is not "
+                "yet ported")
         memo: dict = {}
         served = self.params
         placed = _check_and_place(params, served, "params", self.device,
@@ -761,7 +809,8 @@ class DecodeEngine:
     @property
     def state(self) -> dict:
         """The engine's device state (the slot cache and the per-slot
-        rows), for inspection; the steps write it in place."""
+        rows; over a mesh this line's slots and this rank's heads), for
+        inspection; the steps write it in place."""
         return self._state
 
     @property
@@ -780,6 +829,60 @@ class DecodeEngine:
     def _prefix(self) -> Optional[pages_lib.PrefixIndex]:
         return None if self._page_store is None else self._page_store.index
 
+    # ------------------------------------------------------ the call plane
+
+    @property
+    def is_leader(self) -> bool:
+        """True where this engine makes the calls: always without a mesh,
+        on the world's rank 0 with one."""
+        return self._plane is None or self._plane.is_leader
+
+    def leading(self):
+        """The leader's serving body (a context manager): on leaving it
+        the followers are stopped, ``ok`` unless it raised
+        (:meth:`CallPlane.leading`); a null context without a mesh."""
+        if self._plane is None:
+            return contextlib.nullcontext(self)
+        return self._plane.leading()
+
+    def follow(self) -> bool:
+        """A follower rank of a sharded engine: run the leader's calls on
+        this engine until its stop; returns whether it stopped cleanly."""
+        if self._plane is None:
+            raise RuntimeError("follow() is for the ranks of a sharded "
+                               "engine (mesh=)")
+        return self._plane.follow(self._run_op)
+
+    def _run_op(self, op: str, args: tuple):
+        return getattr(self, f"_op_{op}")(*args)
+
+    def _call(self, op: str, *args):
+        """Device call ``op``: here without a mesh; over one, announced to
+        every rank first (the leader only)."""
+        if self._plane is None:
+            return self._run_op(op, args)
+        return self._plane.call(self._run_op, op, args)
+
+    @property
+    def _data_split(self) -> bool:
+        return self.mesh is not None and self.mesh.data_size > 1
+
+    def _line_of(self, slot: int) -> int:
+        """The data line that holds ``slot``."""
+        return slot // self._slots_here
+
+    def _owns(self, slot: int) -> bool:
+        return self.mesh is None or self._line_of(slot) == \
+            self.mesh.data_index
+
+    def _gather_slots(self, out: torch.Tensor, dim: int) -> torch.Tensor:
+        """A step's per-slot output, this line's slots along ``dim`` →
+        every slot's (one all-gather over the data group)."""
+        if not self._data_split:
+            return out
+        whole = comms.gather_rows(out.movedim(dim, 0), self.mesh.data_group)
+        return whole.movedim(0, dim)
+
     def n_chunks(self, prompt_len: int) -> int:
         return math.ceil(prompt_len / self.prefill_chunk)
 
@@ -793,14 +896,18 @@ class DecodeEngine:
 
     def _run_prefill(self, fn, state: dict, slot: int, tail: list,
                      chunk_i: int, start: int, is_last: bool,
-                     sampling: tuple) -> torch.Tensor:
+                     sampling: tuple) -> Optional[torch.Tensor]:
         """One chunk of ``tail`` (the prompt past ``start``) through the
-        prefill step ``fn`` on ``state``."""
+        prefill step ``fn`` on ``state``; None on a data line that does
+        not hold ``slot``."""
+        if not self._owns(slot):
+            return None
         c = self.prefill_chunk
         seg = tail[chunk_i * c:(chunk_i + 1) * c]
         temperature, top_k, top_p, eos_id, pad_id, seed = sampling
-        ints = [slot, start, len(seg), int(chunk_i == 0), int(is_last),
-                top_k, -1 if eos_id is None else eos_id, pad_id, seed]
+        ints = [slot % self._slots_here, start, len(seg), int(chunk_i == 0),
+                int(is_last), top_k, -1 if eos_id is None else eos_id,
+                pad_id, seed]
         self._stage(self._ints, ints + seg + [0] * (c - len(seg)))
         self._stage(self._floats, [temperature, top_p])
         with torch.no_grad():
@@ -835,10 +942,15 @@ class DecodeEngine:
         n = self.n_chunks(len(prompt) - start)
         if not 0 <= chunk_i < n:
             raise ValueError(f"chunk {chunk_i} out of range [0, {n})")
-        last = chunk_i == n - 1
-        out = self._run_prefill(
-            self._prefill_fn, self._state, slot, prompt[start:], chunk_i,
-            start, last, (temperature, top_k, top_p, eos_id, pad_id, seed))
+        return self._call("prefill", slot, prompt, chunk_i, start,
+                          (temperature, top_k, top_p, eos_id, pad_id, seed))
+
+    def _op_prefill(self, slot: int, prompt: list, chunk_i: int, start: int,
+                    sampling: tuple) -> torch.Tensor:
+        last = chunk_i == self.n_chunks(len(prompt) - start) - 1
+        out = self._run_prefill(self._prefill_fn, self._state, slot,
+                                prompt[start:], chunk_i, start, last,
+                                sampling)
         self.counters["prefill_chunks"] += 1
         if self.spec_k:
             if chunk_i == 0:
@@ -852,6 +964,12 @@ class DecodeEngine:
             todo = n_d if last else min(n_d, self._draft_chunks[slot] + 1)
             while self._draft_chunks[slot] < todo:
                 self._draft_prefill_chunk(slot, prompt, dstart, n_d)
+        if self._data_split:
+            # the first token, from the slot's line to every line
+            if out is None:
+                out = torch.zeros(2, dtype=torch.long, device=self.device)
+            comms.broadcast_from(out, self.mesh.data_group,
+                                 self._line_of(slot))
         return out
 
     def _draft_prefill_chunk(self, slot: int, prompt: list, start: int,
@@ -913,39 +1031,66 @@ class DecodeEngine:
         (the target's index, read on the device). Split out of
         :meth:`decode_all` so a caller can wrap it: a failing draft falls
         back to null proposals, it does not fail requests."""
+        return self._call("draft")
+
+    def _draft_here(self) -> torch.Tensor:
+        """The draft step on this line's slots: [slots here, k]."""
         with torch.no_grad():
             props = self._draft_fn(self._draft_state, self._state["tok"],
                                    gpt.cache_index_of(self._state["cache"]))
         self.counters["draft_steps"] += 1
         return props
 
+    def _op_draft(self) -> torch.Tensor:
+        return self._gather_slots(self._draft_here(), 0)
+
     def decode_all(self) -> torch.Tensor:
         """One masked step across all slots; returns its device output —
         no device-to-host sync. Without a draft: [2, n_slots] (tokens,
         done). With ``spec_k`` = k: the draft step, then the verify step:
         [n_slots, 2(k+1) + 1] (k + 1 tokens, their done bits, n_emit)."""
-        props = None
-        if self.spec_k:
-            try:
-                props = self.draft_propose()
-            except Exception as e:  # noqa: BLE001 — the verify step is
-                # right for any proposals (at worst it emits one token,
-                # plain decode): a draft failure must not fail requests
-                log.warning("draft step failed (%r); null proposals this "
-                            "tick", e, exc_info=True)
-                self.counters["draft_fallbacks"] += 1
-                props = self._null_props
-        if props is None:
+        return self._call("decode")
+
+    def _op_decode(self) -> torch.Tensor:
+        if not self.spec_k:
             with torch.no_grad():
                 out = self._decode_fn(self._state)
             self.counters["decode_steps"] += 1
-            return out
-        return self.verify_all(props)
+            return self._gather_slots(out, 1)
+        if self.mesh is not None:
+            # over a mesh a draft failure raises: its model group may have
+            # failed on some ranks only, and no rank may fall back alone
+            return self._gather_slots(self._verify_here(self._draft_here()),
+                                      0)
+        try:
+            props = self.draft_propose()
+        except Exception as e:  # noqa: BLE001 — the verify step is
+            # right for any proposals (at worst it emits one token,
+            # plain decode): a draft failure must not fail requests
+            log.warning("draft step failed (%r); null proposals this "
+                        "tick", e, exc_info=True)
+            self.counters["draft_fallbacks"] += 1
+            props = self._null_props
+        return self._verify_here(props)
 
     def verify_all(self, proposals: torch.Tensor) -> torch.Tensor:
         """The verify step alone (``spec_k`` > 0) on device proposals [S,
         k]: [n_slots, 2(k+1) + 1] — k + 1 tokens, their done bits, n_emit;
-        no device-to-host sync."""
+        no device-to-host sync without a mesh (over one the proposals
+        travel with the call, as host values)."""
+        if self.mesh is not None:
+            proposals = proposals.tolist()
+        return self._call("verify", proposals)
+
+    def _op_verify(self, proposals) -> torch.Tensor:
+        if self.mesh is not None:
+            lo = self.mesh.data_index * self._slots_here
+            proposals = torch.tensor(
+                proposals[lo:lo + self._slots_here], dtype=torch.long,
+                device=self.device)
+        return self._gather_slots(self._verify_here(proposals), 0)
+
+    def _verify_here(self, proposals: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
             out = self._decode_fn(self._state, proposals)
         self.counters["decode_steps"] += 1
@@ -999,9 +1144,13 @@ class DecodeEngine:
 
     def _run_page(self, fn, state: dict, slot: int, a: int, b: int,
                   ids: Sequence[int]) -> None:
+        """One page step on ``slot``'s line (nothing elsewhere); the slot
+        staged as this line's."""
+        if not self._owns(slot):
+            return
         m = self.max_len // self.page_size
-        self._stage(self._page_ints,
-                    [slot, a, b] + list(ids) + [0] * (m - len(ids)))
+        self._stage(self._page_ints, [slot % self._slots_here, a, b]
+                    + list(ids) + [0] * (m - len(ids)))
         with torch.no_grad():
             fn(state, self._page_store.pool, self._page_ints)
 
@@ -1009,7 +1158,10 @@ class DecodeEngine:
         """Gather a pinned chain's pages into ``slot``'s leading positions
         — one page-load step for the whole chain, in place of
         ``n_tokens / prefill_chunk`` prefill chunks."""
-        ids = [e.page_id for e in handle.entries]
+        self._call("page_load", slot, [e.page_id for e in handle.entries],
+                   handle.n_tokens)
+
+    def _op_page_load(self, slot: int, ids: list, n_tokens: int) -> None:
         self._run_page(self._page_load_fn, self._state, slot, len(ids), 0,
                        ids)
         self.counters["pages_loaded"] += len(ids)
@@ -1019,7 +1171,7 @@ class DecodeEngine:
             # prefill covers only the uncached tail, as the target's
             self._run_page(self._page_load_fn, self._draft_state, slot,
                            len(ids), 0, ids)
-            self._draft_pending[slot] = handle.n_tokens
+            self._draft_pending[slot] = n_tokens
             self.counters["draft_pages_loaded"] += len(ids)
 
     def save_prefix_pages(self, slot: int, prompt: Sequence[int]) -> None:
@@ -1046,9 +1198,30 @@ class DecodeEngine:
             parent = ent
         if not ids:
             return
+        self._call("page_save", slot, have, ids)
+
+    def _op_page_save(self, slot: int, have: int, ids: list) -> None:
         self._run_page(self._page_save_fn, self._state, slot, have,
                        have + len(ids), [0] * have + ids)
+        if self._data_split:
+            self._share_pages(ids, self._line_of(slot))
         self.counters["pages_saved"] += len(ids)
+
+    def _share_pages(self, ids: list, line: int) -> None:
+        """Pool pages ``ids`` of data line ``line`` onto every line's pool
+        (one broadcast over the data group, every leaf's bytes in one
+        buffer): the pool is whole on each line, as the one index on the
+        leader assumes."""
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        leaves = [x for layer in self._page_store.pool
+                  for x in layer.values()]
+        parts = [x.index_select(0, idx).contiguous().view(torch.uint8)
+                 .reshape(-1) for x in leaves]
+        flat = comms.broadcast_from(torch.cat(parts), self.mesh.data_group,
+                                    line)
+        for x, piece in zip(leaves, flat.split([p.numel() for p in parts])):
+            x.index_copy_(0, idx, piece.view(x.dtype).reshape(
+                (len(ids),) + tuple(x.shape[1:])))
 
     def release_prefix(self, handle) -> None:
         """Unpin an admission chain (exactly once, on slot evict)."""
@@ -1063,8 +1236,14 @@ class DecodeEngine:
         does its slot). No-op with the pool off."""
         if self._prefix is None:
             return
-        self._run_page(self._page_load_fn, self._state, 0, 0, 0, [])
-        self._run_page(self._page_save_fn, self._state, 0, 0, 0, [])
+        self._call("page_warm")
+
+    def _op_page_warm(self) -> None:
+        # every line warms its own first slot
+        first = (self.mesh.data_index * self._slots_here
+                 if self.mesh is not None else 0)
+        self._run_page(self._page_load_fn, self._state, first, 0, 0, [])
+        self._run_page(self._page_save_fn, self._state, first, 0, 0, [])
 
     def prefix_stats(self) -> dict:
         """The page pool's aggregates (an empty dict with the pool off);

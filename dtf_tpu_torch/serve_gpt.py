@@ -69,14 +69,36 @@ then carries ``event_log``, ``log_sink``, ``trace_out`` /
 ``compile_events`` and ``monitoring_available`` are absent (no XLA
 compile to count).
 
+Sharded serving (``--mesh_model`` / ``--mesh_data``, one process per
+device as ``train_gpt`` runs: ``--worker_hosts`` and ``--task_index``, or
+a process group the caller made): every rank loads the whole parameters
+(a checkpoint, a published version or ``--init_seed``) and keeps its
+blocks (:func:`dtf_tpu_torch.models.gpt.tp_shard`; an early-exit draft
+is cut from them, a ``--draft_ckpt`` draft sharded alike), then builds
+its :class:`~dtf_tpu_torch.serve.DecodeEngine` (``mesh=``: its heads,
+its data line's ``--n_slots / data`` slots). Rank 0 leads: the
+scheduler, the client, the event log, the sink and the telemetry run
+there only, and it prints the rows and the JSON line; every other rank
+runs its engine's calls (:mod:`dtf_tpu_torch.serve.plane`) and exits 0
+after the leader's clean stop (non-zero after a failed one).
+
+    T="--backend=cpu --worker_hosts=localhost:2229,localhost:2230"
+    python -m dtf_tpu_torch.serve_gpt $T --task_index=1 --mesh_model=2 \
+        --size=tiny --init_seed=0 --requests="12,7,99;5,6,7,8" &
+    python -m dtf_tpu_torch.serve_gpt $T --task_index=0 --mesh_model=2 \
+        --size=tiny --init_seed=0 --requests="12,7,99;5,6,7,8" --emit_tokens
+
 Not yet ported, and raising when asked for: ``--draft_precision``,
 ``--spec_k=0`` with a draft (the kernel tuner's width), the draft-only
-swap (``--draft_publish_dir``), and a mesh axis > 1.
+swap (``--draft_publish_dir``), and ``--replicas`` > 1 or
+``--swap_poll_ticks`` with a mesh axis > 1 (a fleet, or a rolling swap,
+of sharded replicas).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -254,18 +276,28 @@ def run(argv=None):
     """Serve as the command line says, in process. Returns ``(out, rows,
     engine)``: the JSON line's dict, the ``--emit_tokens`` rows (none
     without the flag) and the engine — the router with ``--replicas`` >
-    1 — for a caller that measures it further."""
+    1 — for a caller that measures it further. On a follower rank of a
+    mesh ``out`` is None: the rank ran the leader's calls until its stop
+    (a failed stop raises)."""
     argv = sys.argv[1:] if argv is None else list(argv)
+    # the leader's serving body: its followers stop when it ends
+    with contextlib.ExitStack() as leading:
+        return _run(argv, leading)
+
+
+def _run(argv, leading: contextlib.ExitStack):
     parser = build_parser()
     args = parser.parse_args(argv)
     defaults = build_parser().parse_args([])
     for dest, what in _UNPORTED:
         if getattr(args, dest) != getattr(defaults, dest):
             raise NotImplementedError(f"{what} is not yet ported")
-    if any(getattr(args, f"mesh_{a}") > 1
-           for a in ("data", "seq", "model", "pipe", "expert")):
+    if (args.mesh_model > 1 or args.mesh_data > 1) and (
+            args.replicas > 1 or args.swap_poll_ticks):
         raise NotImplementedError(
-            "sharded serving (a mesh axis > 1) is not yet ported")
+            "--replicas > 1 or --swap_poll_ticks with a mesh axis > 1 (a "
+            "fleet, or a rolling swap, of sharded replicas) is not yet "
+            "ported")
     if args.draft_ckpt and args.draft_layers:
         parser.error("--draft_ckpt and --draft_layers are two ways to get "
                      "ONE draft model; pass exactly one")
@@ -311,8 +343,8 @@ def run(argv=None):
 
     from dtf_tpu_torch.checkpoint import Checkpointer, load_model_config
     from dtf_tpu_torch.cli.flags import present_flags, resolve_decode_config
+    from dtf_tpu_torch.cli.launch import setup
     from dtf_tpu_torch.convert import init_params, load_npz, params_from_flax
-    from dtf_tpu_torch.core.device import resolve_device
     from dtf_tpu_torch.metrics import MetricWriter
     from dtf_tpu_torch.models import gpt
     from dtf_tpu_torch.fault.inject import ServeFaultPlan
@@ -327,8 +359,10 @@ def run(argv=None):
     from dtf_tpu_torch.telemetry.run import Telemetry, merge_artifact
     from dtf_tpu_torch.telemetry.trace import TraceCollector
 
-    device = resolve_device(args.device or
-                            ("cpu" if args.backend == "cpu" else "cuda"))
+    device, info, mesh = setup(args)
+    if mesh is not None and args.n_slots % mesh.data_size:
+        parser.error(f"--n_slots={args.n_slots} not divisible by the data "
+                     f"axis ({mesh.data_size}) — slots shard over 'data'")
     ckpt_dir = os.path.join(args.logdir, "ckpt") if args.logdir else ""
     # train_gpt writes the architecture manifest next to the publish
     # manifest too; the logdir's stays the fallback
@@ -374,6 +408,9 @@ def run(argv=None):
     else:
         parser.error("no parameters: pass --params_npz, --init_seed or the "
                      "--logdir of a training run")
+    # over a mesh each rank keeps its blocks, before the early-exit draft
+    # is cut from them (so it shares them)
+    params = gpt.tp_shard(params, mesh)
     # the speculative draft: its own checkpoint and manifest, or the
     # served model's first layers; the verifier samples every delivered
     # token, so the draft moves throughput, never the streams
@@ -399,7 +436,7 @@ def run(argv=None):
         dck = Checkpointer(dckpt_dir)
         if dck.latest_step() is None:
             parser.error(f"no checkpoint under {dckpt_dir}")
-        draft_params = dck.restore_params()
+        draft_params = gpt.tp_shard(dck.restore_params(), mesh)
         print(f"restored draft params of step {dck.last_restored_step} "
               f"from {dckpt_dir}", file=sys.stderr)
     elif args.draft_layers:
@@ -412,9 +449,11 @@ def run(argv=None):
                      prefill_chunk=args.prefill_chunk, device=device,
                      kv_page_size=args.kv_page_size,
                      prefix_pages=args.prefix_pages, draft_cfg=draft_cfg,
-                     draft_params=draft_params, spec_k=args.spec_k)
+                     draft_params=draft_params, spec_k=args.spec_k,
+                     mesh=mesh)
+    # the record plane, the scheduler and the client: the leader's only
     tel = None
-    if args.telemetry or args.trace_out:
+    if info.is_chief and (args.telemetry or args.trace_out):
         # serving is host-driven: spans and the postmortem, no watchdog
         tel = Telemetry(watchdog=False,
                         out_dir=(os.path.join(args.logdir, "telemetry")
@@ -422,9 +461,10 @@ def run(argv=None):
         if args.trace_out:
             tel.tracer = TraceCollector()
     # the event log first, so the sink's recovery at mount is on it
-    events = EventLog(args.event_log_dir) if args.event_log_dir else None
+    events = (EventLog(args.event_log_dir)
+              if args.event_log_dir and info.is_chief else None)
     sink = (LogSink(args.log_sink_dir, events=events)
-            if args.log_sink_dir else None)
+            if args.log_sink_dir and info.is_chief else None)
     sched_kw = dict(prefill_chunks_per_tick=args.prefill_chunks_per_tick,
                     ttft_slo_s=args.ttft_slo, max_queue=args.max_queue,
                     telemetry=tel, log_sink=sink)
@@ -450,6 +490,13 @@ def run(argv=None):
             served = sched
         else:
             engines = [DecodeEngine(cfg, params, **engine_kw)]
+            if not engines[0].is_leader:
+                del params, draft_params, engine_kw
+                if not engines[0].follow():
+                    raise RuntimeError("the leader rank stopped after a "
+                                       "failure")
+                return None, [], engines[0]
+            leading.enter_context(engines[0].leading())
             sched = Scheduler(engines[0], MetricWriter(echo=False),
                               log_every=0, **sched_kw)
             # the crash_in_event_rotate verb reads the pump's event log
@@ -663,7 +710,12 @@ def run(argv=None):
 
 
 def main(argv=None) -> int:
-    out, rows, _ = run(argv)
+    from dtf_tpu_torch.cli.launch import own_process_group
+
+    with own_process_group():
+        out, rows, _ = run(argv)
+    if out is None:                     # a follower rank of a mesh
+        return 0
     for row in rows:
         print(row)
     print(json.dumps(out))

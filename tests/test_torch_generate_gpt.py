@@ -44,11 +44,13 @@ def test_cli_sampling_repeats_per_seed(capsys):
     assert _rows(capsys) == first
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--mesh_model=2"], "sharded decode"),
+@pytest.mark.parametrize("argv,error,match", [
+    # sharded decode is ported since (tests/test_torch_tp_serve.py): a
+    # model axis > 1 in one process is a usage error
+    (["--mesh_model=2"], ValueError, "one process per device"),
 ], ids=["mesh"])
-def test_cli_not_yet_ported_raises(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_cli_not_yet_ported_raises(argv, error, match):
+    with pytest.raises(error, match=match):
         generate_gpt.main(["--size=tiny", "--init_seed=0", "--device=cpu",
                            *argv])
 

@@ -7,6 +7,7 @@ Both packages get the same seeded numpy weights (carried into the port by
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -183,8 +184,12 @@ def test_generate_argument_checks():
         tgpt.generate(model, prompt, 3)
     with pytest.raises(ValueError, match="n_new"):
         tgpt.generate(model, prompt, 0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tgpt.generate(model, prompt, 2, mesh=object())
+    # sharded decode is ported since (tests/test_torch_tp_serve.py): the
+    # batch must split over the data axis, as the reference's
+    mesh = types.SimpleNamespace(data_size=2, model_size=1, data_index=0,
+                                 model_index=0)
+    with pytest.raises(ValueError, match="not divisible"):
+        tgpt.generate(model, prompt, 2, mesh=mesh)
 
 
 def test_config_checks():

@@ -3,8 +3,9 @@
 Dynamic: a child process whose ``jax``, ``jaxlib``, ``flax`` and
 ``dtf_tpu`` imports are POISONED imports every module of the port and runs
 its generate and train entries (the latter also through the fused LM
-loss), the serving launcher, the Wide&Deep trainer and the MNIST
-``distributed`` launcher on ``--device=cpu`` at a tiny size.
+loss), the serving launcher (also sharded over two gloo ranks), the
+Wide&Deep trainer and the MNIST ``distributed`` launcher on
+``--device=cpu`` at a tiny size.
 Static: no file
 of ``dtf_tpu_torch/``, and not ``chip_smoke.py``, has an import of them.
 """
@@ -341,3 +342,40 @@ def test_tensor_parallel_train_entry_with_jax_poisoned(poisoned_env,
     logs = [(tmp_path / f"{r}.log").read_text() for r in range(2)]
     assert rcs == [0, 0], "\n----\n".join(log[-3000:] for log in logs)
     assert logs[0].strip().splitlines()[-1] == "done: step=2"
+
+
+def test_sharded_serving_entries_with_jax_poisoned(poisoned_env, tmp_path):
+    """The sharded serving plane (``serve.plane``) is among the modules
+    the poisoned child imports, and two ``serve_gpt --mesh_model 2``
+    processes over gloo (the launcher's own group) serve with nothing of
+    JAX importable: rank 0 leads and prints the rows and the line, rank
+    1 follows and exits 0."""
+    assert "dtf_tpu_torch.serve.plane" in _port_modules()
+    from dtf_tpu_torch.core.dist import free_port
+
+    env, cwd = poisoned_env
+    env = {**env, "OMP_NUM_THREADS": "1"}
+    hosts = f"localhost:{free_port()},localhost:{free_port()}"
+    procs = []
+    for r in range(2):
+        with open(tmp_path / f"{r}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "dtf_tpu_torch.serve_gpt",
+                 "--backend=cpu", f"--worker_hosts={hosts}",
+                 f"--task_index={r}", "--mesh_model=2", "--size=tiny",
+                 "--init_seed=0", "--n_slots=2", "--n_new=4",
+                 "--requests=1,2,3;4,5", "--emit_tokens"],
+                env=env, cwd=cwd, stdout=out, stderr=subprocess.STDOUT))
+    try:
+        rcs = [p.wait(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = [(tmp_path / f"{r}.log").read_text() for r in range(2)]
+    assert rcs == [0, 0], "\n----\n".join(log[-3000:] for log in logs)
+    lines = logs[0].strip().splitlines()
+    assert json.loads(lines[-1])["request_statuses"] == {"done": 2}
+    assert [row.split(":")[0] for row in lines[-3:-1]] == ["0", "1"]
+    assert '"request_statuses"' not in logs[1]

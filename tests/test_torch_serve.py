@@ -12,6 +12,7 @@ equal the JAX scheduler's under an injected clock.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -451,10 +452,18 @@ def test_engine_constructor_checks_raise_where_the_reference_does(tiny):
             JEngine(j, tree, **kw)
         with pytest.raises(ValueError, match=match):
             DecodeEngine(t, sd, device="cpu", **kw)
-    for kw in (dict(draft_cfg=tcfg, draft_params=sd), dict(mesh=object())):
+    # sharded serving is ported since (tests/test_torch_tp_serve.py): a
+    # fleet of sharded engines is not, and the slots split over data
+    mesh = types.SimpleNamespace(data_size=2, model_size=1, data_index=0,
+                                 model_index=0)
+    for kw in (dict(draft_cfg=tcfg, draft_params=sd),
+               dict(mesh=mesh, weights_from=object())):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             DecodeEngine(tcfg, sd, n_slots=2, max_len=MAX_LEN, device="cpu",
                          **kw)
+    with pytest.raises(ValueError, match="not divisible by the data axis"):
+        DecodeEngine(tcfg, sd, n_slots=3, max_len=MAX_LEN, device="cpu",
+                     mesh=mesh)
     for kw, match in ((dict(spec_k=2), "needs a draft model"),
                       (dict(shared_pages=object()), "needs prefix_pages"),
                       (dict(prefix_pages=4, kv_page_size=5),

@@ -237,6 +237,12 @@ def test_unported_flags_raise(flag, tmp_path):
                "--log_sink_dir": "log_sink", "--event_log_dir": "event_log"}
         assert key[name] in out
         return
+    if name in ("--mesh_model", "--mesh_data"):
+        # sharded serving is ported since (tests/test_torch_tp_serve.py):
+        # a mesh axis > 1 in one process is a usage error
+        with pytest.raises(ValueError, match="one process per device"):
+            serve_gpt.run(_TINY + ["--requests=1,2", flag])
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve_gpt.run(_TINY + ["--requests=1,2", flag])
 

@@ -32,9 +32,9 @@ while the ranks run. Every wait on the ranks is bounded.
     optimizer state resharded too).
 (e) ``train_gpt --mesh_model 2`` with ``--loss_pallas`` or a chunked loss
     is a usage error; ``--tp_overlap`` without a model axis warns and
-    trains; ``--matmul_precision int8``, ``--mesh_seq/pipe/expert 2``,
-    a decode model over a model axis and GQA heads the axis does not
-    divide raise.
+    trains; ``--matmul_precision int8``, ``--mesh_seq/pipe/expert 2`` and
+    GQA heads the axis does not divide raise; a decode model over a model
+    axis caches the rank's heads.
 
     python tests/test_torch_tp.py RANK WORLD STORE_FILE OUT_DIR
 """
@@ -505,10 +505,12 @@ def test_tp_at_model_2_equals_jax_and_resumes_at_model_1(tmp_path):
     # (and the step's one psum of its loss statistics over the data group)
     assert runs["plain"]["collectives"] == {
         "all_reduce": (STEPS + 1) * (4 * layers + 5),
-        "all_gather": 0, "reduce_scatter": 0, "ring_exchange": 0}
+        "all_gather": 0, "reduce_scatter": 0, "ring_exchange": 0,
+        "broadcast": 0}
     assert runs["overlap"]["collectives"] == {
         "all_reduce": 5 * STEPS, "all_gather": 2 * STEPS,
-        "reduce_scatter": STEPS, "ring_exchange": 18 * layers * STEPS}
+        "reduce_scatter": STEPS, "ring_exchange": 18 * layers * STEPS,
+        "broadcast": 0}
     # (d) the model-2 checkpoint resumes at model 1
     res = resume_run(str(tmp_path / "ckpt"))
     assert res["step"] == STEPS + 1
@@ -567,12 +569,13 @@ def test_train_gpt_refuses_what_tp_does_not_take(tmp_path, caplog):
     assert state.step == 1
     assert any("--tp_overlap has no effect" in r.getMessage()
                for r in caplog.records)
-    # the model over a model axis: no decode model, heads the axis
-    # divides, and no fused or chunked loss
+    # the model over a model axis: heads the axis divides, and no fused
+    # or chunked loss; a decode model is ported since
+    # (tests/test_torch_tp_serve.py): its cache holds the rank's heads
     cfg = tgpt.GPTConfig.tiny(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="sharded decode"):
-        tgpt.GPT(dataclasses.replace(cfg, decode_len=8), device="cpu",
-                 mesh=_Mesh())
+    dec = tgpt.GPT(dataclasses.replace(cfg, decode_len=8, kv_heads=2),
+                   device="cpu", mesh=_Mesh())
+    assert dec.init_cache(3)[0]["cached_key"].shape == (3, 1, 8, 8)
     with pytest.raises(ValueError, match="kv_heads"):
         tgpt.GPT(dataclasses.replace(cfg, kv_heads=1), device="cpu",
                  mesh=_Mesh())
