@@ -85,15 +85,16 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ``SPEC_SELF_ACCEPT_MIN`` of the proposals; the draft and verify steps
    (and a prefill with its draft chunk) run under
    ``torch.cuda.set_sync_debug_mode("error")``; four step functions;
-   no hand kernel. Then serve_bench's 2 requests/s traffic through
+   no hand kernel. Then the first ``SPEC_TRAFFIC_REQUESTS`` (8) of
+   serve_bench's requests, at most 64 new tokens, at 2 requests/s through
    ``serve_gpt --spec_k 4`` with each draft (``--draft_ckpt`` of the
    checkpoint itself, ``--draft_layers 3``) beside serve_bench's own
-   ``--spec_k 0`` run: tokens/s, TTFT and per-token p50/p99, accept
+   ``--spec_k 0`` run of all 16: tokens/s, TTFT and per-token p50/p99, accept
    rate, tokens a tick; and ``measure_decode`` of each engine: the tick,
    the draft step and the verify step (wall, busy, launches, idle); KV
    MiB of the target, the draft and the pool.
 10. serve_pages — the prefix page pool: a ``--requests`` file made from a
-   seed (32 requests sharing a 512-token stem, tails of 32–256 tokens,
+   seed (16 requests sharing a 512-token stem, tails of 32–256 tokens,
    32–128 new) through ``serve_gpt`` with ``--prefix_pages 256
    --kv_page_size 16`` and with the pool off: TTFT p50/p99, prefill
    chunks, hit and miss tokens, pages saved and loaded, ``pinned`` back
@@ -107,13 +108,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    serve_engine's twelve requests (greedy, sampled, a stop token) through
    the router bit-equal to one engine's, the replicas' weights one set
    of tensors (``data_ptr``); (b) ``serve_gpt --replicas 2`` at
-   serve_bench's 2 requests/s traffic: tokens/s, TTFT and per-token
+   serve_bench's 2 requests/s traffic (at most 64 new tokens a request):
+   tokens/s, TTFT and per-token
    p50/p99, per-replica occupancy, the router tick's ms and ``cp_*``
    split; (c) the same with ``DTF_FAULT_INJECT=wedge_replica@50:
    replica=0`` and the health bars under the wedge: replica 0
    quarantined, its requests requeued, all complete, every stream
    equal to (b)'s; (d) ``--prefill_replicas 1 --prefix_pages 256
-   --kv_page_size 16`` on serve_pages' 32 requests: handoffs, pages
+   --kv_page_size 16`` on serve_pages' 16 requests: handoffs, pages
    loaded, pins 0, streams equal to the one engine's pool-off run but at
    near-ties, TTFT beside the one engine with pages. No hand kernel.
 12. publish_swap — train → publish → rolling swap, GPT-2 small at full
@@ -312,7 +314,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     (``--tp-child``, the kernels built before the spawn, outputs in
     files, the wait bounded by ``TP_CHILD_TIMEOUT_S``) run ``train_gpt
     --size small --mesh_model 2`` (b4 × 1024, 4 steps, 6 heads a rank,
-    publishing at the end), then the same with ``--tp_overlap``, against
+    publishing every 2 steps: versions 1 and 2), then the same with
+    ``--tp_overlap``, against
     one rank with no model axis on the same global batch and seed:
     the step-4 checkpoints whole, with the one-rank run's names and
     shapes, and each leaf's change from the init within
@@ -335,8 +338,26 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
     rank's engine up to a near-tie, each rank's KV cache exactly half of
     one rank's, tokens/s, TTFT p50, peak memory; then every slot full at
     512 positions, a round of 10 decode steps timed on both ranks, its
-    counted collectives exact, and 5 profiled). Through gloo: it runs,
-    not a speed.
+    counted collectives exact, and 5 profiled). Then the sharded FLEET on
+    the same ranks: ``serve_gpt --mesh_model 2 --replicas 2`` on version
+    1 of the plain run's publish dir (versions 1 and 2, ``--publish_every
+    2``), polling it every ``TP_FLEET_POLL`` ticks, rolls to version 2
+    while serving ``TP_FLEET_REQUESTS`` replayed greedy requests (the
+    canary alone ``TP_FLEET_CANARY`` ticks); a fresh fleet on each
+    version; the roll again with ``wedge_in_swap@0:replica=1``. Each
+    stream equal to one rank's engine on the version it is stamped with
+    up to a near-tie and to the fresh fleet's on it exactly, a request
+    spanning the roll on one version, one swap and
+    both replicas on version 2 on each rank from one set (``data_ptr``),
+    each rank's KV caches half of one rank's, the roll's staging, swaps
+    and commit each one announcing broadcast (``broadcast_object``) and
+    no other collective, each replica probed once, no hand kernel, the
+    roll's peak within one shard set (and ``SWAP_PEAK_SLACK_BYTES``) of
+    the fresh fleet's on 2; the wedged roll rolled back on both ranks,
+    both replicas on the version-1 tensors by identity and its streams
+    the fresh fleet's on 1. The roll's seconds, the swap call's ms
+    on each rank and the sub-phase's seconds are printed. Through gloo:
+    it runs, not a speed.
 
 Then one JSON line listing every kernel (launches on its main path, error
 against the plain version, times, bound; the 8 ported TPU kernels, the
@@ -1652,11 +1673,18 @@ SPEC_SELF_ACCEPT_MIN = 0.9
 #: measure_decode's timed and profiled calls of a spec engine's tick, draft
 #: step and verify step (the profiler's post-processing of a 7,500-launch
 #: tick is what costs)
-SPEC_PROFILE_STEPS, SPEC_PROFILED = 5, 2
-#: serve_pages: 32 requests on one stem of 512 tokens (32 pages of 16),
+SPEC_PROFILE_STEPS, SPEC_PROFILED = 5, 1
+#: the spec engines' 2 requests/s traffic: the first SPEC_TRAFFIC_REQUESTS
+#: of serve_bench's requests (the load generator draws them in order),
+#: each of at most SERVE_TRAFFIC_NEW_MAX new tokens (16 requests of up to
+#: 128, and 2 profiled ticks, before the sharded fleet ran too)
+SPEC_TRAFFIC_REQUESTS = 8
+#: the spec engines' and serve_fleet's traffic: new tokens at most
+SERVE_TRAFFIC_NEW_MAX = 64
+#: serve_pages: 16 requests on one stem of 512 tokens (32 pages of 16),
 #: unique tails of 32–256 tokens, 32–128 new; a 256-page pool (64
-#: requests before the TP ranks served too)
-PAGES_REQUESTS, PAGES_STEM = 32, 512
+#: requests before the TP ranks served, 32 before their fleet did)
+PAGES_REQUESTS, PAGES_STEM = 16, 512
 PAGES_TAIL, PAGES_NEW = (32, 256), (32, 128)
 PAGES_FLAGS = ("--prefix_pages=256", "--kv_page_size=16")
 PAGES_SERVE_FLAGS = ("--n_slots=16", "--max_len=1024", "--prefill_chunk=128",
@@ -1791,7 +1819,9 @@ def phase_serve_spec(torch, smi, logdir, plain_run):
     tol = LOGITS_REL_TOL * scale
     seconds["references"] = time.perf_counter() - t0
 
-    flags = [f"--logdir={logdir}", "--poisson_rate=2", *SERVE_BENCH_FLAGS]
+    flags = [f"--logdir={logdir}", "--poisson_rate=2", *SERVE_BENCH_FLAGS,
+             f"--n_requests={SPEC_TRAFFIC_REQUESTS}",
+             f"--new_max={SERVE_TRAFFIC_NEW_MAX}"]
     runs, checks, streams = {}, {}, None
     if plain_run is None:
         t0 = time.perf_counter()
@@ -1812,7 +1842,7 @@ def phase_serve_spec(torch, smi, logdir, plain_run):
         # serve_bench's traffic at 2 requests/s through a spec engine
         (out, _, engine), wall = _no_hand_kernels(torch, lambda: serve_gpt.run(
             flags + [f"--spec_k={SPEC_K}", draft_flag]))
-        require(out["request_statuses"] == {"done": SERVE_BENCH_REQUESTS},
+        require(out["request_statuses"] == {"done": SPEC_TRAFFIC_REQUESTS},
                 f"{name}: statuses {out['request_statuses']}")
         require(engine.trace_counts == {"prefill": 1, "decode": 1,
                                         "draft_prefill": 1, "draft": 1},
@@ -1902,8 +1932,12 @@ def phase_serve_spec(torch, smi, logdir, plain_run):
           "checks": checks, "sync_free": ["prefill_into_slot (with its "
                                           "draft chunk)", "draft_propose",
                                           "verify_all"],
-          "hand_kernel_launches": 0, "traffic": list(SERVE_BENCH_FLAGS)
-          + ["--poisson_rate=2"], "runs": runs, "seconds": seconds})
+          "hand_kernel_launches": 0, "traffic": flags[1:],
+          "note_traffic": "the spec runs serve the first "
+                          f"{SPEC_TRAFFIC_REQUESTS} of serve_bench's "
+                          f"requests, at most {SERVE_TRAFFIC_NEW_MAX} new "
+                          "tokens each; its plain run serves all of them",
+          "runs": runs, "seconds": seconds})
 
 
 def _verify_teacher_forced(torch, engine, reqs, refs, tol):
@@ -2144,7 +2178,7 @@ def phase_serve_fleet(torch, smi, logdir, pages):
     serve_bench's 2 requests/s traffic; (c) the same traffic with replica
     0 wedged: it is
     quarantined, its requests requeued, every stream equal to (b)'s; (d)
-    ``--prefill_replicas 1`` on serve_pages' 32 requests, streams equal
+    ``--prefill_replicas 1`` on serve_pages' 16 requests, streams equal
     to the one engine's pool-off run but at near-ties, TTFT beside the
     one engine with pages. One set of weights; no hand kernel launches."""
     import gc
@@ -2205,7 +2239,7 @@ def phase_serve_fleet(torch, smi, logdir, pages):
     # (b) serve_bench's 2 requests/s traffic; (c) the same with a wedge
     runs, rows, fleets = {}, {}, {}
     flags = [f"--logdir={logdir}", "--poisson_rate=2", *SERVE_BENCH_FLAGS,
-             *FLEET_FLAGS]
+             f"--new_max={SERVE_TRAFFIC_NEW_MAX}", *FLEET_FLAGS]
     wedge = {"DTF_FAULT_INJECT": f"wedge_replica@{FLEET_WEDGE_AT}:replica=0",
              "DTF_FAULT_WEDGE_S": str(FLEET_WEDGE_S)}
     for name, env, extra in (
@@ -4880,8 +4914,8 @@ def phase_dist_two_ranks_one_card(torch, smi):
 
 
 #: gpt_tp_two_ranks: GPT-2 small over a model axis of 2 on one card,
-#: b4 x 1024, 4 steps
-TP_RANKS, TP_BATCH, TP_STEPS = 2, 4, 4
+#: b4 x 1024, 4 steps; the plain run publishes every TP_PUBLISH_EVERY
+TP_RANKS, TP_BATCH, TP_STEPS, TP_PUBLISH_EVERY = 2, 4, 4, 2
 TP_CHILD_TIMEOUT_S = 420
 #: a TP run's step-4 parameters against the one-rank run's, leaf by leaf:
 #: |p_tp - p_1| / |p_1 - p_init| over the whole leaf (each leaf's change
@@ -5221,6 +5255,127 @@ def _tp_serve_child(torch, rank, logdir):
     return out
 
 
+#: the sharded fleet (gpt_tp_two_ranks, after sharded serving): 2
+#: replicas on the 2 ranks serve TP_FLEET_REQUESTS replayed greedy
+#: requests of TP_FLEET_PROMPT prompt and TP_FLEET_NEW new tokens while
+#: rolling from version 1 to 2 (the publish dir polled every
+#: TP_FLEET_POLL ticks, the canary alone for TP_FLEET_CANARY); health bars
+#: no gloo tick reaches, so only the planted fault rolls back
+TP_FLEET_REQUESTS, TP_FLEET_PROMPT, TP_FLEET_NEW = 6, (32, 128), (8, 12)
+TP_FLEET_POLL, TP_FLEET_CANARY = 2, 2
+TP_FLEET_FLAGS = ("--replicas=2", f"--swap_poll_ticks={TP_FLEET_POLL}",
+                  f"--canary_ticks={TP_FLEET_CANARY}", "--health_slow_s=30",
+                  "--health_wedge_s=60")
+TP_FLEET_WEDGE = "wedge_in_swap@0:replica=1"
+
+
+def _tp_fleet_requests():
+    """The fleet's replayed requests: (prompt, budget) from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(29)
+    return [(rng.integers(0, VOCAB_REAL, int(rng.integers(
+        TP_FLEET_PROMPT[0], TP_FLEET_PROMPT[1] + 1))).tolist(),
+        int(rng.integers(TP_FLEET_NEW[0], TP_FLEET_NEW[1] + 1)))
+        for _ in range(TP_FLEET_REQUESTS)]
+
+
+def _tp_fleet_flags(logdir, version, *extra):
+    """serve_gpt on ``version`` of the plain run's publish dir (one engine
+    unless ``extra`` makes it a fleet)."""
+    text = ";".join(",".join(map(str, p)) + f"/{n}"
+                    for p, n in _tp_fleet_requests())
+    return [f"--publish_dir={logdir}/pub", f"--publish_version={version}",
+            f"--n_slots={TP_SERVE_SLOTS}", f"--max_len={SERVE_MAX_LEN}",
+            f"--prefill_chunk={SERVE_CHUNK}", f"--requests={text}",
+            "--emit_tokens", *extra]
+
+
+def _tp_fleet_child(torch, logdir):
+    """The sharded fleet on this rank (rank 0 leads): the roll from
+    version 1 to 2 under traffic, a fresh fleet on each version, and the
+    roll with ``TP_FLEET_WEDGE``. Of each run: its rows, peak memory, the
+    replicas' versions, whether they hold one set (``data_ptr``), each
+    replica's KV, one shard set's bytes, the plane's calls by op (count,
+    ms on this rank, counted collectives), whether each replica serves
+    the tensors it held when the version was staged (identity), and on
+    the leader the line's swap keys, each request's version stamp and
+    the swap steps' ms."""
+    import gc
+
+    from dtf_tpu_torch import serve_gpt
+    from dtf_tpu_torch.serve.router import Router
+
+    t0 = time.perf_counter()
+    staged_with = []
+    stage = Router._stage_here
+
+    def noting(self, version, params, draft):
+        staged_with.append([{n: id(p) for n, p in e.params.items()}
+                            for e in self.engines])
+        return stage(self, version, params, draft)
+
+    Router._stage_here = noting
+    runs = {}
+    try:
+        for name, version, extra, fault in (
+                ("roll", 1, TP_FLEET_FLAGS, None),
+                ("fresh_v1", 1, ("--replicas=2",), None),
+                ("fresh_v2", 2, ("--replicas=2",), None),
+                ("wedge", 1, TP_FLEET_FLAGS, TP_FLEET_WEDGE)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            staged_with.clear()
+            if fault:
+                os.environ["DTF_FAULT_INJECT"] = fault
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    (line, rows, router), wall = _no_hand_kernels(
+                        torch, lambda: serve_gpt.run(_tp_fleet_flags(
+                            logdir, version, "--mesh_model=2", *extra)))
+            finally:
+                os.environ.pop("DTF_FAULT_INJECT", None)
+            engines = router.engines
+            models = [e._model for e in engines]
+            run = {"leader": router.is_leader, "rows": rows,
+                   "wall_s": wall,
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "versions": [e.param_version for e in engines],
+                   "one_set": all(
+                       p.data_ptr() == q.data_ptr() for m in models[1:]
+                       for p, q in zip(models[0].parameters(),
+                                       m.parameters())),
+                   "kv_mib": [_engine_kv(e)["target"] for e in engines],
+                   "shard_set_bytes": sum(p.numel() * p.element_size()
+                                          for p in models[0].parameters()),
+                   "staged_sets": len(engines[0].plane.sets),
+                   "ops": {op: {"calls": st["calls"],
+                                "ms": st["seconds"] * 1e3,
+                                "collectives": st["collectives"]}
+                           for op, st in engines[0].plane.op_stats.items()},
+                   "staged_tensors_kept": bool(staged_with) and [
+                       {n: id(p) for n, p in e.params.items()}
+                       for e in engines] == staged_with[0]}
+            if router.is_leader:
+                run["line"] = {k: line.get(k) for k in (
+                    "served_version", "final_version", "replicas",
+                    "request_statuses", "router_swaps",
+                    "router_swap_rollbacks", "router_requeued",
+                    "router_probe_decodes", "router_ticks",
+                    "tokens_per_sec", "wall_s", "fault_inject")}
+                run["stamps"] = [router.poll(i)["version"]
+                                 for i in range(TP_FLEET_REQUESTS)]
+                run["swap_ms"] = {k: {"total": v["total_s"] * 1e3,
+                                      "count": v["count"]}
+                                  for k, v in router.swap_profile().items()}
+            runs[name] = run
+            del router, engines, models
+    finally:
+        Router._stage_here = stage
+    return {"runs": runs, "seconds": time.perf_counter() - t0}
+
+
 def tp_child(rank, world, store, logdir):
     """One rank of gpt_tp_two_ranks: joins the gloo group through
     ``file://store`` on cuda:0, runs ``train_gpt --mesh_model 2`` and
@@ -5255,7 +5410,8 @@ def tp_child(rank, world, store, logdir):
 
     MetricWriter.write_scalars = write_and_read
     out = {"rank": rank, "backend": dist.get_backend()}
-    for name, extra in (("plain", [f"--publish_dir={logdir}/pub"]),
+    for name, extra in (("plain", [f"--publish_dir={logdir}/pub",
+                                   f"--publish_every={TP_PUBLISH_EVERY}"]),
                         ("overlap", ["--tp_overlap"])):
         comms.reset_collective_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -5296,6 +5452,9 @@ def tp_child(rank, world, store, logdir):
     gc.collect()
     torch.cuda.empty_cache()
     out["serve"] = _tp_serve_child(torch, rank, logdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fleet"] = _tp_fleet_child(torch, logdir)
     with open(os.path.join(logdir, f"tp_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -5471,6 +5630,133 @@ def _tp_serve_check(torch, logdir, ranks, layers):
             "check_seconds": time.perf_counter() - t0}
 
 
+def _tp_fleet_check(torch, logdir, ranks):
+    """The ranks' sharded fleet (docstring item 33) against one rank's
+    engine on each version: streams by their version stamps (near-ties
+    allowed), the roll's and the rollback's story on each rank, the
+    plane's fleet calls exact, KV, peak memory; returns what to print."""
+    import gc
+
+    from dtf_tpu_torch import serve_gpt
+
+    t0 = time.perf_counter()
+    reqs = _tp_fleet_requests()
+    runs = [got["fleet"]["runs"] for got in ranks]
+    lead = runs[0]
+    require(all(r[name]["leader"] is (i == 0) for i, r in enumerate(runs)
+                for name in r), "rank 0 must lead the sharded fleet")
+    done = {"done": TP_FLEET_REQUESTS}
+    roll, fresh, wedge = (lead[n]["line"] for n in ("roll", "fresh_v2",
+                                                    "wedge"))
+    require(lead["fresh_v1"]["line"]["request_statuses"] == done,
+            f"the fresh fleet on 1: {lead['fresh_v1']['line']}")
+    require(roll["request_statuses"] == done and roll["served_version"] == 1
+            and roll["final_version"] == 2 and roll["router_swaps"] == 1.0
+            and roll["router_swap_rollbacks"] == 0.0
+            and roll["router_probe_decodes"] == 2.0
+            and roll["router_requeued"] >= 1.0, f"the roll: {roll}")
+    require(fresh["request_statuses"] == done
+            and fresh["final_version"] == 2, f"the fresh fleet: {fresh}")
+    require(wedge["request_statuses"] == done
+            and wedge["final_version"] == 1
+            and wedge["router_swap_rollbacks"] == 1.0
+            and wedge["router_swaps"] == 0.0
+            and wedge["fault_inject"] == TP_FLEET_WEDGE,
+            f"the wedged roll: {wedge}")
+    stamps = lead["roll"]["stamps"]
+    require(set(stamps) <= {1, 2} and lead["wedge"]["stamps"]
+            == [1] * TP_FLEET_REQUESTS and lead["fresh_v2"]["stamps"]
+            == [2] * TP_FLEET_REQUESTS and lead["fresh_v1"]["stamps"]
+            == [1] * TP_FLEET_REQUESTS, f"version stamps: roll {stamps}, "
+            f"wedged {lead['wedge']['stamps']}")
+    # the fleet's calls over the plane: the staging, each swap and the
+    # end of the roll one announcing broadcast each, and nothing else
+    # (no tensor collective carries parameters); each swap's ms
+    one = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+           "ring_exchange": 0, "broadcast": 1}
+    want_ops = {"roll": {"stage": 1, "swap": 2, "commit": 1},
+                "wedge": {"stage": 1, "swap": 2, "rollback": 1},
+                "fresh_v1": {}, "fresh_v2": {}}
+    swap_ms = []
+    for r, got in enumerate(runs):
+        for name, want in want_ops.items():
+            ops = got[name]["ops"]
+            fleet_ops = {op: st for op, st in ops.items()
+                         if op in ("stage", "swap", "commit", "rollback")}
+            require({op: st["calls"] for op, st in fleet_ops.items()}
+                    == want and all(st["collectives"] == {
+                        k: v * st["calls"] for k, v in one.items()}
+                        for st in fleet_ops.values()),
+                    f"rank {r} {name}: the fleet's calls {fleet_ops}")
+            require(got[name]["staged_sets"] == 0,
+                    f"rank {r} {name}: staged sets left")
+        require(got["roll"]["versions"] == [2, 2] and got["roll"]["one_set"]
+                and got["fresh_v2"]["one_set"],
+                f"rank {r}: after the roll {got['roll']['versions']}")
+        require(got["wedge"]["versions"] == [1, 1]
+                and got["wedge"]["one_set"]
+                and got["wedge"]["staged_tensors_kept"],
+                f"rank {r}: the rollback left {got['wedge']['versions']} "
+                "or other tensors than version 1's")
+        extra = got["roll"]["peak_bytes"] - got["fresh_v2"]["peak_bytes"]
+        require(extra <= got["roll"]["shard_set_bytes"]
+                + SWAP_PEAK_SLACK_BYTES,
+                f"rank {r}: the roll's peak is {extra} bytes over a fresh "
+                f"fleet's, past one shard set "
+                f"({got['roll']['shard_set_bytes']})")
+        swap_ms.append(got["roll"]["ops"]["swap"]["ms"]
+                       / got["roll"]["ops"]["swap"]["calls"])
+    # one rank's engine on each version: the streams by their stamps
+    rows_of, one_kv, differ = {}, None, {}
+    for version in (1, 2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, rows_of[version], engine = serve_gpt.run(
+                _tp_fleet_flags(logdir, version))
+        one_kv = _engine_kv(engine)["target"]
+        for name, marks in ((n, lead[n]["stamps"]) for n in lead):
+            idx = [i for i, v in enumerate(marks) if v == version]
+            differ[f"{name} v{version}"] = _differ_at_near_ties(
+                torch, engine, [reqs[i] for i in idx],
+                [lead[name]["rows"][i] for i in idx],
+                [rows_of[version][i] for i in idx],
+                f"the sharded fleet's ({name}) and one rank's on version "
+                f"{version}")
+        del engine
+    for r, got in enumerate(runs):
+        require(all(kv * TP_RANKS == one_kv for kv in got["roll"]["kv_mib"]),
+                f"rank {r}: KV {got['roll']['kv_mib']} MiB a replica, one "
+                f"rank's {one_kv}")
+    # the rolled-back fleet serves the fault-free fleet's version-1
+    # streams, and the roll each stream of the fresh fleet on its version
+    require(lead["wedge"]["rows"] == lead["fresh_v1"]["rows"],
+            "the rolled-back fleet's streams differ from the fault-free "
+            "fleet's on version 1")
+    require(all(row == lead[f"fresh_v{v}"]["rows"][i] for i, (row, v) in
+                enumerate(zip(lead["roll"]["rows"], stamps))),
+            "a stream of the roll differs from the fresh fleet's on its "
+            "version")
+    gc.collect()
+    torch.cuda.empty_cache()
+    child_s = max(got["fleet"]["seconds"] for got in ranks)
+    check_s = time.perf_counter() - t0
+    return {"requests": TP_FLEET_REQUESTS, "stamps": stamps,
+            "differ": differ, "kv_mib_one_rank": one_kv,
+            "lines": {n: lead[n]["line"] for n in lead},
+            "roll_s": lead["roll"]["swap_ms"]["swap_roll"]["total"] / 1e3,
+            "swap_ms_by_rank": swap_ms,
+            "swap_steps_ms": lead["roll"]["swap_ms"],
+            "ops_by_rank": [{n: got[n]["ops"] for n in got} for got in runs],
+            "peak_mib_by_rank": [{n: got[n]["peak_bytes"] / 2 ** 20
+                                  for n in got} for got in runs],
+            "shard_set_mib": runs[0]["roll"]["shard_set_bytes"] / 2 ** 20,
+            "wall_s_by_rank": [{n: got[n]["wall_s"] for n in got}
+                               for got in runs],
+            "seconds": {"ranks": child_s, "check": check_s,
+                        "sub_phase": child_s + check_s}}
+
+
 def phase_gpt_tp_two_ranks(torch, smi):
     """Megatron TP of GPT-2 small over 2 ranks on cuda:0 (docstring item
     33). Returns rank 0's flash launches of the plain TP run."""
@@ -5552,16 +5838,20 @@ def phase_gpt_tp_two_ranks(torch, smi):
         require(len(losses) == TP_STEPS and max(rel[name]) <=
                 DIST_LOSS_REL_TOL, f"GPT TP {name} over 2 ranks {losses} vs "
                                    f"one rank {ref_losses}")
-    # the version the TP run published loads into a one-process model
-    _, pub_step, params = publish.load_published(os.path.join(logdir, "pub"))
-    require(pub_step == TP_STEPS and {n: list(t.shape) for n, t in
-                                      params.items()} == ref_shapes,
-            f"the TP run's published version (step {pub_step}) is not "
-            "whole")
-    model = gpt.GPT(gpt.GPTConfig.by_name("small"), device="cuda")
-    model.load_state_dict(params)
-    del model, params
+    # the versions the TP run published (steps 2 and 4) are whole and
+    # load into a one-process model
+    for version in (1, 2):
+        _, pub_step, params = publish.load_published(
+            os.path.join(logdir, "pub"), version)
+        require(pub_step == version * TP_PUBLISH_EVERY
+                and {n: list(t.shape) for n, t in params.items()}
+                == ref_shapes, f"the TP run's published version {version} "
+                f"(step {pub_step}) is not whole")
+        model = gpt.GPT(gpt.GPTConfig.by_name("small"), device="cuda")
+        model.load_state_dict(params)
+        del model, params
     serving = _tp_serve_check(torch, logdir, ranks, layers)
+    fleet = _tp_fleet_check(torch, logdir, ranks)
     shutil.rmtree(logdir, ignore_errors=True)
     seconds = time.perf_counter() - t0
     emit({"phase": "gpt_tp_two_ranks", "world_size": TP_RANKS,
@@ -5579,10 +5869,11 @@ def phase_gpt_tp_two_ranks(torch, smi):
           "collectives_want": {n: _tp_collectives_want(layers,
                                                        n == "overlap")
                                for n in ("plain", "overlap")},
-          "serving": serving,
+          "serving": serving, "fleet": fleet,
           "note_serving": "generate(mesh=) and serve_gpt --mesh_model 2 on "
-                          "the plain run's version 1; through gloo on one "
-                          "card: it runs, not a speed",
+                          "the plain run's version 1, then the 2-replica "
+                          "fleet rolling 1 -> 2; through gloo on one card: "
+                          "it runs, not a speed",
           "ranks": ranks, "seconds": seconds})
     return {"flash_launches": ranks[0]["plain"]["flash_launches"],
             "serve_flash_launches": ranks[0]["generate"]["flash_launches"]}

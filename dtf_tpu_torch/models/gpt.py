@@ -1350,6 +1350,13 @@ def draft_truncate(cfg: GPTConfig, params: dict, n_layers: int
             {n: x for n, x in params.items() if n.startswith(keep)})
 
 
+def early_exit_draft(cfg: GPTConfig, n_layers: int, params: dict) -> dict:
+    """The draft parameters of :func:`draft_truncate` alone: with
+    ``functools.partial(early_exit_draft, cfg, n)`` a picklable draft
+    factory (a sharded fleet's swap sends it to every rank)."""
+    return draft_truncate(cfg, params, n_layers)[1]
+
+
 def _paged(cache: list, pool: list) -> tuple[list, int, int, int]:
     """(cache tensor, pool tensor) of every batch-led leaf of every layer
     — the leaves the page pool holds (int8 caches bring their scales),

@@ -173,6 +173,12 @@ def _known_digest(manifest: Optional[dict], version: int) -> Optional[str]:
     return (manifest.get("history") or {}).get(str(version), {}).get("digest")
 
 
+def published_digest(directory: str, version: int) -> Optional[str]:
+    """The digest the manifest records for ``version`` (None when it
+    records none)."""
+    return _known_digest(read_manifest(os.fspath(directory)), int(version))
+
+
 def load_published(directory: str,
                    version: Optional[int] = None) -> tuple[int, int, dict]:
     """Published parameters: ``(version, train_step, params)``, the
@@ -251,12 +257,17 @@ class PublishWatcher:
     last applied, digest-verified. A corrupt publish is skipped once with
     a warning and remembered (the fleet keeps serving what it has).
     :meth:`note_applied` after a committed swap; a rolled-back version
-    goes into ``skipped``, so only a newer publish is tried again."""
+    goes into ``skipped``, so only a newer publish is tried again.
+    ``last_digest``: the verified digest of the version :meth:`load_new`
+    handed over last (what a sharded fleet's other ranks load it with).
+    A sharded fleet polls on its leader only: one rank reads the clock
+    and the manifest."""
 
     def __init__(self, directory: str, *, applied_version: int = 0):
         self.directory = os.fspath(directory)
         self.applied_version = applied_version
         self.skipped: set[int] = set()
+        self.last_digest: Optional[str] = None
 
     def manifest(self) -> Optional[dict]:
         return read_manifest(self.directory)
@@ -278,7 +289,9 @@ class PublishWatcher:
             return None
         v = int(m["version"])
         try:
-            return load_published(self.directory, version=v)
+            got = load_published(self.directory, version=v)
+            self.last_digest = _known_digest(m, v)
+            return got
         except Exception as e:  # noqa: BLE001 — a corrupt publish must
             # not take serving down: skip it, keep the current version
             self.skipped.add(v)
@@ -293,4 +306,5 @@ class PublishWatcher:
 
 
 __all__ = ["MANIFEST_BASENAME", "ParamPublisher", "PublishWatcher",
-           "dir_digest", "load_published", "read_manifest"]
+           "dir_digest", "load_published", "published_digest",
+           "read_manifest"]

@@ -29,11 +29,12 @@
   recorded into CRC-framed rotated shards (import it directly: it needs
   no engine).
 
-- :mod:`dtf_tpu_torch.serve.plane` — ``CallPlane``: a sharded engine's
-  leader (rank 0 broadcasts each device call) and its followers.
+- :mod:`dtf_tpu_torch.serve.plane` — ``CallPlane``: a sharded fleet's
+  leader (rank 0 broadcasts each device call, addressed to a replica or
+  the fleet) and its followers; ``ShardSets``, the shard sets of a roll.
 
 ``python -m dtf_tpu_torch.serve_gpt`` is the launcher. Not yet ported:
-the draft-only swap, and a fleet or a rolling swap of sharded engines.
+the draft-only swap.
 """
 
 from dtf_tpu_torch.serve.client import (Heartbeat, PoissonLoadGen,

@@ -68,7 +68,9 @@ kernels.
 **Weight hot-swap** (:meth:`DecodeEngine.swap_params`): a drained engine
 takes new weights of the same architecture by rebinding its module's
 parameters, with no step function built again; the version bump keys
-new prefix pages apart from the old weights'.
+new prefix pages apart from the old weights'. Over a mesh the swap is a
+call of the plane that names a shard set every rank staged (each rank
+rebinds its own shards: no parameter tensor crosses the group).
 
 **Trace annotations** (``annotate_traces``): with it set, each prefill
 chunk and decode step runs under a ``torch.profiler.record_function``
@@ -93,11 +95,15 @@ over the data group, a decode step's tokens in one all-gather, a saved
 page in one broadcast; the sampled rows' logits are gathered whole over
 the model group (:meth:`dtf_tpu_torch.models.gpt.GPT.vocab_rows`). Over
 a mesh a failing draft step raises (its model group may have failed on
-some ranks only, so no rank may fall back alone).
+some ranks only, so no rank may fall back alone); a fault verb that
+poisons the draft acts on the leader before the decode call
+(:meth:`DecodeEngine.draft_guard`), and every rank then verifies null
+proposals. A fleet of sharded engines (``weights_from`` /
+``shared_pages`` with the same mesh and config) shares one plane, the
+rank's shard tensors (by identity) and its page store.
 
-Not yet ported: the tuner's ``spec_k = 0`` with a draft, and a fleet or
-a rolling swap of sharded engines (``weights_from``, ``shared_pages`` or
-``swap_params`` with a mesh); each raises when asked for.
+Not yet ported: the tuner's ``spec_k = 0`` with a draft; it raises when
+asked for.
 """
 
 from __future__ import annotations
@@ -444,6 +450,30 @@ def _rebind(model: torch.nn.Module, params: dict) -> None:
         setattr(model.get_submodule(path), leaf, p)
 
 
+def _same_mesh(a, b) -> bool:
+    """Two engines on the same mesh: both unsharded, or the same axes and
+    this rank's same place on them."""
+    if a is None or b is None:
+        return a is b
+    return all(getattr(a, f) == getattr(b, f) for f in (
+        "data_size", "model_size", "data_index", "model_index"))
+
+
+def _shard_placed(params: dict, draft: Optional[dict], mesh
+                  ) -> tuple[dict, Optional[dict]]:
+    """This rank's shards of whole ``params`` and ``draft``
+    (:func:`gpt.tp_shard`), a tensor the two share sharded once, so the
+    draft's shards stay the target's tensors."""
+    shards = gpt.tp_shard(params, mesh)
+    by_source = {id(x): shards[n] for n, x in params.items()}
+    if draft is not None:
+        rest = gpt.tp_shard({n: x for n, x in draft.items()
+                             if id(x) not in by_source}, mesh)
+        draft = {n: by_source.get(id(x), rest.get(n))
+                 for n, x in draft.items()}
+    return shards, draft
+
+
 class DecodeEngine:
     """Slot-pooled online decode over a GPT's parameters.
 
@@ -464,7 +494,9 @@ class DecodeEngine:
     ``mesh``: sharded serving (module docstring) — ``params`` and
     ``draft_params`` are this rank's blocks, and every rank builds its
     engine; rank 0's leads (:meth:`leading`), the others
-    :meth:`follow`.
+    :meth:`follow`. Over a mesh ``weights_from`` and ``shared_pages``
+    must come from an engine of the same mesh (and config), and the new
+    engine joins its call plane: a fleet is one plane a rank.
     """
 
     def __init__(self, cfg: gpt.GPTConfig, params, *, n_slots: int,
@@ -552,21 +584,34 @@ class DecodeEngine:
             raise ValueError(
                 "shared_pages needs prefix_pages > 0 on the mounting "
                 "engine too (the pool shapes come from its own config)")
-        if mesh is not None:
-            if n_slots % mesh.data_size:
+        if mesh is not None and n_slots % mesh.data_size:
+            raise ValueError(
+                f"n_slots={n_slots} not divisible by the data axis "
+                f"({mesh.data_size}) — slots shard over 'data'")
+        for other, what in ((weights_from, "weights_from="),
+                            (shared_pages, "shared_pages=")):
+            if other is not None and not _same_mesh(
+                    getattr(other, "mesh", None), mesh):
                 raise ValueError(
-                    f"n_slots={n_slots} not divisible by the data axis "
-                    f"({mesh.data_size}) — slots shard over 'data'")
-            if weights_from is not None or shared_pages is not None:
-                raise NotImplementedError(
-                    "a fleet of sharded engines (weights_from= or "
-                    "shared_pages= with a mesh) is not yet ported")
+                    f"{what} belongs to an engine of another mesh: a fleet "
+                    "shares one mesh (and, over it, one call plane)")
         self.cfg = base
         self.mesh = mesh
         #: the slots this rank's data line holds (all without a mesh)
         self._slots_here = n_slots // (mesh.data_size if mesh else 1)
-        self._plane = (None if mesh is None else
-                       CallPlane(torch.distributed.get_rank()))
+        #: over a mesh, the fleet's one call plane on this rank: the one
+        #: of the engine whose weights or pages this one shares, else new
+        self._plane = None
+        if mesh is not None:
+            joined = [o.plane if o is shared_pages else o._plane
+                      for o in (weights_from, shared_pages) if o is not None]
+            if any(p is not joined[0] for p in joined):
+                raise ValueError("weights_from= and shared_pages= sit on two "
+                                 "call planes: a fleet has one")
+            self._plane = (joined[0] if joined
+                           else CallPlane(torch.distributed.get_rank()))
+            #: this engine's index on the plane (the same on every rank)
+            self._index = self._plane.join(self)
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
@@ -670,7 +715,8 @@ class DecodeEngine:
                          for n, x in layer.items()} for layer in pool_abs]
                 self._page_store = pages_lib.PageStore(
                     pool, pages_lib.PrefixIndex(prefix_pages, kv_page_size,
-                                                save_after=page_save_after))
+                                                save_after=page_save_after),
+                    mesh=mesh, plane=self._plane)
                 self._owns_pages = True
             self._page_ints = torch.zeros(
                 len(_PAGE_INTS) + max_len // kv_page_size, dtype=torch.long,
@@ -714,7 +760,13 @@ class DecodeEngine:
         """``(params, draft_params)`` placed on this engine's device once
         (:func:`place_params`, one memo: a draft's tensors shared with
         ``params`` stay shared) — what a router hands every replica of a
-        swap, so the fleet holds one set of each version."""
+        swap, so the fleet holds one set of each version. Over a mesh
+        ``params`` and ``draft_params`` are WHOLE (host) tensors and come
+        back as this rank's shards (:func:`gpt.tp_shard`); a draft cut
+        from ``params`` keeps sharing its shards."""
+        if self.mesh is not None:
+            params, draft_params = _shard_placed(params, draft_params,
+                                                 self.mesh)
         memo: dict = {}
         placed = place_params(params, self.device, memo)
         return placed, (None if draft_params is None
@@ -767,12 +819,36 @@ class DecodeEngine:
         since the verifier samples every delivered token).
 
         ``version`` stamps :attr:`param_version` (default: the previous
-        + 1). Returns the new version. Over a mesh it raises: a swap of
-        sharded engines is not yet ported."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "swap_params over a mesh (a swap of sharded engines) is not "
-                "yet ported")
+        + 1). Returns the new version.
+
+        Over a mesh (the leader): ``params`` and ``draft_params`` are this
+        rank's shard sets as staged on every rank
+        (:class:`~dtf_tpu_torch.serve.plane.ShardSets`, what
+        ``Router.start_swap`` stages); the call names them by key and
+        every rank rebinds its own shards of them, and the version moves
+        on every rank together."""
+        version = (self.param_version + 1 if version is None
+                   else int(version))
+        if self.mesh is None:
+            return self._swap_here(params, draft_params, version)
+        # checked here first: a tree that is not drop-in raises before the
+        # call is announced
+        self._placed_for_swap(params, draft_params)
+        sets = self._plane.sets
+        return self._call("swap", sets.key_of(params),
+                          None if draft_params is None
+                          else sets.key_of(draft_params), version)
+
+    def _op_swap(self, key, draft_key, version: int) -> int:
+        sets = self._plane.sets
+        return self._swap_here(
+            sets.get(key), None if draft_key is None else sets.get(draft_key),
+            version)
+
+    def _placed_for_swap(self, params: dict, draft_params
+                         ) -> tuple[dict, Optional[dict]]:
+        """The swap's target and draft sets, checked against the served
+        ones and placed (:func:`_check_and_place`)."""
         memo: dict = {}
         served = self.params
         placed = _check_and_place(params, served, "params", self.device,
@@ -796,13 +872,16 @@ class DecodeEngine:
                         "for %d of %d tensors (no draft_params passed) — "
                         "acceptance may move, the streams cannot",
                         len(dserved) - len(shared), len(dserved))
+        return placed, placed_draft
+
+    def _swap_here(self, params: dict, draft_params, version: int) -> int:
+        placed, placed_draft = self._placed_for_swap(params, draft_params)
         # THE transaction: target, draft and version flip together,
         # between step calls (the pump is single-threaded)
         _rebind(self._model, placed)
         if placed_draft is not None:
             _rebind(self._draft_model, placed_draft)
-        self.param_version = (int(version) if version is not None
-                              else self.param_version + 1)
+        self.param_version = version
         self.counters["param_swaps"] += 1
         return self.param_version
 
@@ -845,23 +924,30 @@ class DecodeEngine:
             return contextlib.nullcontext(self)
         return self._plane.leading()
 
+    @property
+    def plane(self):
+        """The fleet's call plane on this rank (None without a mesh)."""
+        return self._plane
+
     def follow(self) -> bool:
         """A follower rank of a sharded engine: run the leader's calls on
-        this engine until its stop; returns whether it stopped cleanly."""
+        this rank's engines of the plane until its stop; returns whether
+        it stopped cleanly."""
         if self._plane is None:
             raise RuntimeError("follow() is for the ranks of a sharded "
                                "engine (mesh=)")
-        return self._plane.follow(self._run_op)
+        return self._plane.follow()
 
     def _run_op(self, op: str, args: tuple):
         return getattr(self, f"_op_{op}")(*args)
 
     def _call(self, op: str, *args):
         """Device call ``op``: here without a mesh; over one, announced to
-        every rank first (the leader only)."""
+        every rank first (the leader only), addressed to this engine's
+        index on the plane."""
         if self._plane is None:
             return self._run_op(op, args)
-        return self._plane.call(self._run_op, op, args)
+        return self._plane.call(self._index, self._run_op, op, args)
 
     @property
     def _data_split(self) -> bool:
@@ -1044,14 +1130,32 @@ class DecodeEngine:
     def _op_draft(self) -> torch.Tensor:
         return self._gather_slots(self._draft_here(), 0)
 
+    def draft_guard(self) -> None:
+        """Over a mesh, what the leader runs before a speculative decode
+        call is announced: a no-op that a fault verb may make raise
+        (``poison_draft``), and then every rank verifies null proposals
+        that step — the fallback of :meth:`draft_propose`, decided where
+        every rank learns it."""
+
     def decode_all(self) -> torch.Tensor:
         """One masked step across all slots; returns its device output —
         no device-to-host sync. Without a draft: [2, n_slots] (tokens,
         done). With ``spec_k`` = k: the draft step, then the verify step:
         [n_slots, 2(k+1) + 1] (k + 1 tokens, their done bits, n_emit)."""
-        return self._call("decode")
+        if not (self.spec_k and self.mesh is not None):
+            return self._call("decode")
+        try:
+            self.draft_guard()
+            null = False
+        except Exception as e:  # noqa: BLE001 — as draft_propose's
+            # fallback, decided on the leader before the call
+            log.warning("draft step failed (%r); null proposals this "
+                        "tick", e, exc_info=True)
+            self.counters["draft_fallbacks"] += 1
+            null = True
+        return self._call("decode", null)
 
-    def _op_decode(self) -> torch.Tensor:
+    def _op_decode(self, null: bool = False) -> torch.Tensor:
         if not self.spec_k:
             with torch.no_grad():
                 out = self._decode_fn(self._state)
@@ -1060,8 +1164,8 @@ class DecodeEngine:
         if self.mesh is not None:
             # over a mesh a draft failure raises: its model group may have
             # failed on some ranks only, and no rank may fall back alone
-            return self._gather_slots(self._verify_here(self._draft_here()),
-                                      0)
+            props = self._null_props if null else self._draft_here()
+            return self._gather_slots(self._verify_here(props), 0)
         try:
             props = self.draft_propose()
         except Exception as e:  # noqa: BLE001 — the verify step is

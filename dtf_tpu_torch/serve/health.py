@@ -333,12 +333,23 @@ def install_serve_fault(plan: ServeFaultPlan, pump, *, sleep=time.sleep,
     Ticks count in the target's own call domain, so a plan is
     deterministic under Poisson timing; ``sleep`` is injectable. Each
     firing first prints one JSON line through ``emit`` (default stdout).
+
+    Over a mesh the plan arms on the leader only (a follower's pump arms
+    nothing), and every verb acts there BEFORE the call it disturbs is
+    announced (:mod:`dtf_tpu_torch.serve.plane`): the sleeps precede the
+    decode call, ``poison_request`` raises before the prefill chunk's,
+    ``wedge_in_swap`` before the swap's (no rank swaps that replica),
+    ``poison_draft`` through the engine's ``draft_guard`` before the
+    decode's (every rank then verifies null proposals), and
+    ``corrupt_publish`` damages the version before the leader's load.
     """
     if plan.kind not in _PORTED_KINDS:
         raise NotImplementedError(f"serve fault {plan.kind!r} is not yet "
                                   "ported")
-    scheds = getattr(pump, "schedulers", None) or [pump]
     state = ServeFaultState(plan)
+    if not getattr(pump, "is_leader", True):
+        return state            # a follower rank runs the leader's calls
+    scheds = getattr(pump, "schedulers", None) or [pump]
     _emit = emit or (lambda line: print(line, flush=True))
 
     def note(what: str, **kw) -> None:
@@ -375,7 +386,11 @@ def install_serve_fault(plan: ServeFaultPlan, pump, *, sleep=time.sleep,
             eng = s.engine
             if not getattr(eng, "spec_k", 0):
                 continue            # no draft runs there: the plan no-ops
-            orig = eng.draft_propose
+            # over a mesh the decode call runs the draft inside it, and
+            # the leader's guard decides before announcing it
+            name = ("draft_guard" if getattr(eng, "mesh", None) is not None
+                    else "draft_propose")
+            orig = getattr(eng, name)
 
             def draft(*, _orig=orig, _s=s, **kw):
                 if state.poison_prompt is not None and any(
@@ -389,7 +404,7 @@ def install_serve_fault(plan: ServeFaultPlan, pump, *, sleep=time.sleep,
                         f"injected draft poison (submit #{plan.tick})")
                 return _orig(**kw)
 
-            eng.draft_propose = draft
+            setattr(eng, name, draft)
         return state
 
     if plan.kind == "wedge_in_swap":

@@ -64,11 +64,18 @@ class PageStore:
     :class:`PrefixIndex` that several engines may share
     (``DecodeEngine(shared_pages=engine.page_store)``). The page steps
     write the pool in place and the pump loop is single-threaded, so a
-    plain holder is the whole mechanism."""
+    plain holder is the whole mechanism. Over a mesh (``mesh``) the pool
+    holds this rank's heads of every page, whole on each data line; the
+    engines that mount it share its owner's call ``plane``, and only the
+    leader's index is consulted (a hand-off is a page save on one
+    replica and a load on another of the same ranks)."""
 
-    def __init__(self, pool: list, index: "PrefixIndex"):
+    def __init__(self, pool: list, index: "PrefixIndex", *, mesh=None,
+                 plane=None):
         self.pool = pool
         self.index = index
+        self.mesh = mesh
+        self.plane = plane
 
 
 def check_pool_compatible(pool: list, pool_abs: list) -> None:

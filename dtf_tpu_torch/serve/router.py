@@ -73,19 +73,42 @@ roll. ``maybe_swap_published`` drives it from a
 that decoded them, and a commit or a rollback frees the prefix pages of
 other versions. Each swap step is timed on the router's clock
 (:meth:`Router.swap_profile`).
+
+**A fleet of sharded replicas** (``Router.build(mesh=)``, the reference's
+N replicas on one mesh over one set of sharded weights): every rank of
+the mesh builds the same fleet, each replica a ``DecodeEngine(mesh=)``
+on this rank's heads and data line, all on ONE call plane
+(:mod:`dtf_tpu_torch.serve.plane`) and one set of the rank's shard
+tensors (by identity). Rank 0's router leads: it routes, watches health,
+polls the publish dir and rolls the fleet under the same canary,
+rollback, repair and skew rules, and every device call it leads to is
+announced with its replica's index. On every other rank the router is a
+FOLLOWER (:meth:`Router.follow`): no scheduler, health tracker or record
+plane (they read the clock); its engines and the fleet's own steps run
+the leader's calls. A roll's steps over the plane: ``stage`` (every rank
+loads the version the leader verified from the publish dir at that
+explicit version, with its digest checked, and places its shards; no
+parameter tensor crosses the group), one ``swap`` a replica (its
+rebind; a rollback's and a repair's too), the probe's decode, then
+``commit`` or ``rollback`` (each rank drops the sets it no longer serves
+and frees the stale prefix pages). A rank holds its previous shard set,
+by identity, until the commit or the rollback: a roll's peak is a fresh
+fleet's plus one shard set.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 from dtf_tpu_torch.metrics import quantile as _quantile
 from dtf_tpu_torch.serve import health as health_lib
 from dtf_tpu_torch.serve.engine import DecodeEngine
+from dtf_tpu_torch.serve.plane import FLEET, shared_plane
 from dtf_tpu_torch.serve.scheduler import (FAILED_STATUSES, Request,
                                            RequestFailed, Scheduler)
 from dtf_tpu_torch.telemetry.spans import SpanRecorder
@@ -131,6 +154,34 @@ class SwapConfig:
                 f"slo_min_samples={self.slo_min_samples} must be >= 1")
 
 
+@dataclasses.dataclass(frozen=True)
+class VersionSource:
+    """Where every rank of a sharded fleet takes a version from: the
+    publish ``directory``, the ``digest`` the leader verified, and the
+    ``draft_factory`` (picklable: it travels with the call) that cuts the
+    draft from the whole parameters, if any."""
+
+    directory: str
+    digest: str
+    draft_factory: Optional[Callable] = None
+
+    def load(self, version: int) -> tuple[dict, Optional[dict]]:
+        """``(params, draft)`` of ``version``, whole, on the host: the
+        explicit load (no fallback). A digest other than the leader's is
+        a fault, and raises."""
+        from dtf_tpu_torch.publish import load_published, published_digest
+
+        got = published_digest(self.directory, version)
+        if got != self.digest:
+            raise RuntimeError(
+                f"published version {version} at {self.directory} records "
+                f"digest {got}, the leader verified {self.digest}: the "
+                "ranks would serve different weights")
+        _, _, params = load_published(self.directory, version=version)
+        return params, (None if self.draft_factory is None
+                        else self.draft_factory(params))
+
+
 class Router:
     """Least-occupancy admission over N engine replicas (module
     docstring). Build from engines (sharing weights by construction) or
@@ -138,7 +189,9 @@ class Router:
     keywords apply to every replica's scheduler. ``health``: None (on
     with more than one replica), True, False, a
     :class:`~dtf_tpu_torch.serve.health.HealthConfig` or a
-    :class:`~dtf_tpu_torch.serve.health.HealthTracker`."""
+    :class:`~dtf_tpu_torch.serve.health.HealthTracker`. Over a mesh the
+    engines share one call plane, and on a rank other than the leader's
+    the router only follows (module docstring)."""
 
     #: router ticks between ``cp_profile`` events on the event log
     CP_PROFILE_EVERY = 256
@@ -166,6 +219,17 @@ class Router:
                     "prefix_pages=...)")
         self._roles = ["prefill" if i < prefill_replicas else "decode"
                        for i in range(len(engines))]
+        #: the replicas' engines, in replica order (the plane's order)
+        self.engines = list(engines)
+        self._plane = shared_plane(engines)
+        if self._plane is not None:
+            self._plane.fleet = self
+        if not self.is_leader:
+            # a follower rank: its engines and the fleet's steps run the
+            # leader's calls; no scheduler, health tracker or record
+            # plane is built here (they read the clock)
+            self.schedulers = []
+            return
         self.telemetry = telemetry
         self.clock = clock
         #: one serve-log sink for the fleet: the pump is one thread and
@@ -284,6 +348,87 @@ class Router:
             if prefill_replicas and store is None:
                 store = engines[0].page_store
         return cls(engines, prefill_replicas=prefill_replicas, **router_kw)
+
+    # ------------------------------------------------------ the call plane
+
+    @property
+    def is_leader(self) -> bool:
+        """True where this router routes: always without a mesh, on the
+        world's rank 0 with one."""
+        return self._plane is None or self._plane.is_leader
+
+    def leading(self):
+        """The leader's serving body (a context manager): on leaving it
+        the followers are stopped, ``ok`` unless it raised; a null
+        context without a mesh."""
+        if self._plane is None:
+            return contextlib.nullcontext(self)
+        return self._plane.leading()
+
+    def follow(self) -> bool:
+        """A follower rank of a sharded fleet: run the leader's calls on
+        this rank's replicas and fleet until its stop; returns whether it
+        stopped cleanly."""
+        if self._plane is None:
+            raise RuntimeError("follow() is for the ranks of a sharded "
+                               "fleet (Router.build(mesh=))")
+        return self._plane.follow()
+
+    def _run_op(self, op: str, args: tuple):
+        return getattr(self, f"_op_{op}")(*args)
+
+    def _fleet(self, op: str, *args, run=None):
+        """The fleet's step ``op``: here without a mesh; over one,
+        announced to every rank first (``run``: the leader's own run, if
+        it differs from the followers')."""
+        run = run or self._run_op
+        if self._plane is None:
+            return run(op, args)
+        return self._plane.call(FLEET, run, op, args)
+
+    def _stage_here(self, version: int, params, draft
+                    ) -> tuple[dict, Optional[dict]]:
+        """Place a version's set on this rank once (``DecodeEngine.place``:
+        over a mesh this rank's shards) and, over a mesh, register it and
+        the sets the replicas serve now, under keys every rank shares."""
+        place = getattr(self.engines[0], "place", None)
+        if place is not None:
+            params, draft = place(params, draft)
+        if self._plane is not None:
+            sets = self._plane.sets
+            for i, e in enumerate(self.engines):
+                sets.put(("prev", i), e.params)
+                if e.spec_k:
+                    sets.put(("prev_draft", i), e.draft_params)
+            sets.put(("new", version), params)
+            if draft is not None:
+                sets.put(("new_draft", version), draft)
+        return params, draft
+
+    def _op_stage(self, version: int, source: VersionSource):
+        """A follower's staging: the version from its source, whole on the
+        host, then this rank's shards."""
+        return self._stage_here(version, *source.load(version))
+
+    def _settle(self, version: int, keep: list) -> None:
+        """The end of a roll on this rank: drop every staged set but the
+        ones a pending repair needs, and free the prefix pages of versions
+        other than ``version``."""
+        if self._plane is not None:
+            self._plane.sets.keep_only(keep)
+        self._invalidate_stale_pages(version)
+
+    # two ops, one step: the plane's stats tell a commit from a rollback
+    _op_commit = _op_rollback = _settle
+
+    def _repair_keys(self) -> list:
+        """The staged sets the pending repairs rebind (over a mesh)."""
+        if self._plane is None:
+            return []
+        sets = self._plane.sets
+        return [sets.key_of(t) for params, draft, _ in
+                self._version_repair.values()
+                for t in (params, draft) if t is not None]
 
     # ------------------------------------------------------------ admission
 
@@ -499,8 +644,8 @@ class Router:
         version from the start) on every replica: no swap, no drain. Call
         it before traffic, so records, page epochs and the skew tripwire
         carry the real version."""
-        for s in self.schedulers:
-            setter = getattr(s.engine, "set_param_version", None)
+        for e in self.engines:
+            setter = getattr(e, "set_param_version", None)
             if setter is not None:
                 setter(version)
         self._version = int(version)
@@ -516,15 +661,18 @@ class Router:
         return self._version
 
     def start_swap(self, params, *, version: Optional[int] = None,
-                   draft_params=None,
-                   config: Optional[SwapConfig] = None) -> int:
+                   draft_params=None, config: Optional[SwapConfig] = None,
+                   source: Optional[VersionSource] = None) -> int:
         """Begin a ROLLING swap of the fleet onto ``params`` (module
         docstring); it advances one step a :meth:`tick` (with no traffic,
         pump :meth:`finish_swap`). The tensors are placed on the device
         once here (``DecodeEngine.place``): every replica takes the same
         set. ``version`` must move forward (default: committed + 1);
         ``draft_params`` rides the same transaction on speculative
-        replicas. Returns the target version."""
+        replicas. Over a mesh ``params`` are whole and ``source`` says
+        where the other ranks load the same version from (the staging is
+        a call of the plane; ``draft_params`` must be
+        ``source.draft_factory(params)``). Returns the target version."""
         if self._swap is not None:
             raise RuntimeError(
                 f"a rolling swap to version {self._swap['version']} is "
@@ -542,9 +690,15 @@ class Router:
                 f"{self._version}) — published versions only move "
                 "forward")
         cfg = config or SwapConfig()
-        place = getattr(self.schedulers[0].engine, "place", None)
-        if place is not None:
-            params, draft_params = place(params, draft_params)
+        if self._plane is not None and source is None:
+            raise ValueError(
+                "a sharded fleet's swap needs source= (a VersionSource: "
+                "the publish dir and the digest every rank loads the "
+                "version with — no parameter tensor crosses the group)")
+        whole = (params, draft_params)
+        params, draft_params = self._fleet(
+            "stage", version, source,
+            run=lambda op, args: self._stage_here(version, *whole))
         rank = (self.health.rank if self.health is not None
                 else (lambda i: 0))
         # healthiest replica first: the canary must start clean, or the
@@ -593,8 +747,10 @@ class Router:
             watcher.note_applied(version)
             return None
         draft = draft_factory(params) if draft_factory is not None else None
+        source = (None if self._plane is None else VersionSource(
+            watcher.directory, watcher.last_digest, draft_factory))
         v = self.start_swap(params, version=version, draft_params=draft,
-                            config=config)
+                            config=config, source=source)
         self._swap["watcher"] = watcher
         self._swap["step"] = step
         return v
@@ -782,7 +938,7 @@ class Router:
             # a rolled-back version must not re-swap at the next poll:
             # only a newer publish may try again
             sw["watcher"].skipped.add(sw["version"])
-        self._invalidate_stale_pages()
+        self._fleet("rollback", self._version, self._repair_keys())
 
     def _commit_swap(self) -> None:
         sw = self._swap
@@ -793,7 +949,7 @@ class Router:
         self._swap_spans.add("swap_roll", self.clock() - sw["t0"])
         if sw["watcher"] is not None:
             sw["watcher"].note_applied(sw["version"])
-        self._invalidate_stale_pages()
+        self._fleet("commit", self._version, self._repair_keys())
         self._emit("swap_commit", version=sw["version"],
                    draft=sw["draft"] is not None)
         log.info("rolling swap complete: fleet serving param version %d",
@@ -820,18 +976,18 @@ class Router:
                  "failed rollback", i, version)
         return True
 
-    def _invalidate_stale_pages(self) -> None:
-        """Free the prefix pages of other versions once the fleet has
-        converged (lookups already skip them by version; this reclaims
-        the pool). One pass a distinct store: a shared pool is walked
-        once, not once a mounting replica."""
+    def _invalidate_stale_pages(self, version: int) -> None:
+        """Free the prefix pages of versions other than ``version`` once
+        the fleet has converged (lookups already skip them by version;
+        this reclaims the pool). One pass a distinct store: a shared pool
+        is walked once, not once a mounting replica."""
         seen: set[int] = set()
-        for s in self.schedulers:
-            store = getattr(s.engine, "page_store", None)
+        for e in self.engines:
+            store = getattr(e, "page_store", None)
             if store is None or id(store) in seen:
                 continue
             seen.add(id(store))
-            freed = store.index.invalidate_stale(self._version)
+            freed = store.index.invalidate_stale(version)
             if freed:
                 log.info("freed %d stale-version prefix page(s)", freed)
 
@@ -1078,4 +1234,5 @@ def poisson_replay(router, arrivals, *, clock=time.perf_counter,
     return replay(router, arrivals, clock=clock, sleep=sleep)
 
 
-__all__ = ["CP_PHASES", "Router", "SwapConfig", "poisson_replay"]
+__all__ = ["CP_PHASES", "Router", "SwapConfig", "VersionSource",
+           "poisson_replay"]

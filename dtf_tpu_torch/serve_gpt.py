@@ -88,11 +88,26 @@ after the leader's clean stop (non-zero after a failed one).
     python -m dtf_tpu_torch.serve_gpt $T --task_index=0 --mesh_model=2 \
         --size=tiny --init_seed=0 --requests="12,7,99;5,6,7,8" --emit_tokens
 
+With ``--replicas`` N over a mesh every rank builds the same
+:meth:`~dtf_tpu_torch.serve.Router.build` fleet (N replicas on one call
+plane and one set of the rank's shard tensors); rank 0's router leads —
+health, ``--prefill_replicas``, ``--spec_k`` and ``DTF_FAULT_INJECT``'s
+serve verbs there — and with ``--swap_poll_ticks`` only rank 0 polls the
+publish dir: each rank loads a new version the leader verified from the
+dir itself and the fleet rolls over the mesh. The other ranks follow
+until the leader's stop.
+
+    T="--backend=cpu --worker_hosts=localhost:2231,localhost:2232"
+    F="--mesh_model=2 --replicas=2 --publish_dir=/tmp/p/pub \
+       --publish_version=1 --swap_poll_ticks=2 --canary_ticks=2"
+    python -m dtf_tpu_torch.serve_gpt $T $F --task_index=1 \
+        --requests="12,7,99;5,6,7,8;3" &
+    python -m dtf_tpu_torch.serve_gpt $T $F --task_index=0 \
+        --requests="12,7,99;5,6,7,8;3" --emit_tokens
+
 Not yet ported, and raising when asked for: ``--draft_precision``,
-``--spec_k=0`` with a draft (the kernel tuner's width), the draft-only
-swap (``--draft_publish_dir``), and ``--replicas`` > 1 or
-``--swap_poll_ticks`` with a mesh axis > 1 (a fleet, or a rolling swap,
-of sharded replicas).
+``--spec_k=0`` with a draft (the kernel tuner's width) and the
+draft-only swap (``--draft_publish_dir``).
 """
 
 from __future__ import annotations
@@ -100,6 +115,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -292,12 +308,6 @@ def _run(argv, leading: contextlib.ExitStack):
     for dest, what in _UNPORTED:
         if getattr(args, dest) != getattr(defaults, dest):
             raise NotImplementedError(f"{what} is not yet ported")
-    if (args.mesh_model > 1 or args.mesh_data > 1) and (
-            args.replicas > 1 or args.swap_poll_ticks):
-        raise NotImplementedError(
-            "--replicas > 1 or --swap_poll_ticks with a mesh axis > 1 (a "
-            "fleet, or a rolling swap, of sharded replicas) is not yet "
-            "ported")
     if args.draft_ckpt and args.draft_layers:
         parser.error("--draft_ckpt and --draft_layers are two ways to get "
                      "ONE draft model; pass exactly one")
@@ -481,30 +491,34 @@ def _run(argv, leading: contextlib.ExitStack):
             # one constructor for the fleet: Router.build shares the
             # weights and owns the role rules (one page store, eager
             # saves, no draft on a prefill replica)
-            sched = Router.build(cfg, params, n_replicas=args.replicas,
-                                 prefill_replicas=args.prefill_replicas,
-                                 writer=MetricWriter(echo=False),
-                                 health=health, events=events, **engine_kw,
-                                 **sched_kw)
-            engines = [s.engine for s in sched.schedulers]
-            served = sched
+            sched = served = Router.build(
+                cfg, params, n_replicas=args.replicas,
+                prefill_replicas=args.prefill_replicas,
+                writer=MetricWriter(echo=False), health=health,
+                events=events, **engine_kw, **sched_kw)
+            engines = sched.engines
         else:
             engines = [DecodeEngine(cfg, params, **engine_kw)]
-            if not engines[0].is_leader:
-                del params, draft_params, engine_kw
-                if not engines[0].follow():
-                    raise RuntimeError("the leader rank stopped after a "
-                                       "failure")
-                return None, [], engines[0]
-            leading.enter_context(engines[0].leading())
-            sched = Scheduler(engines[0], MetricWriter(echo=False),
-                              log_every=0, **sched_kw)
-            # the crash_in_event_rotate verb reads the pump's event log
-            sched.events = events
             served = engines[0]
     except ValueError as e:     # the engine's and health's option checks
         parser.error(str(e))
     del params, draft_params, engine_kw
+    if not served.is_leader:
+        # a follower rank of a mesh: the version it was built with, then
+        # the leader's calls until its stop
+        if args.replicas > 1:
+            served.stamp_version(served_version)
+        else:
+            served.set_param_version(served_version)
+        if not served.follow():
+            raise RuntimeError("the leader rank stopped after a failure")
+        return None, [], served
+    leading.enter_context(served.leading())
+    if args.replicas == 1:
+        sched = Scheduler(engines[0], MetricWriter(echo=False), log_every=0,
+                          **sched_kw)
+        # the crash_in_event_rotate verb reads the pump's event log
+        sched.events = events
     if events is not None:
         events.emit("serve_start", replicas=args.replicas,
                     version=served_version,
@@ -540,8 +554,10 @@ def _run(argv, leading: contextlib.ExitStack):
             parser.error(str(e))
         draft_factory = None
         if args.draft_layers:
-            draft_factory = lambda p: gpt.draft_truncate(  # noqa: E731
-                cfg, p, args.draft_layers)[1]
+            # picklable: over a mesh it travels to every rank with the
+            # version's staging call
+            draft_factory = functools.partial(gpt.early_exit_draft, cfg,
+                                              args.draft_layers)
         ticks = [0]
 
         def swap_tick():

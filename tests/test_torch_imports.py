@@ -379,3 +379,34 @@ def test_sharded_serving_entries_with_jax_poisoned(poisoned_env, tmp_path):
     assert json.loads(lines[-1])["request_statuses"] == {"done": 2}
     assert [row.split(":")[0] for row in lines[-3:-1]] == ["0", "1"]
     assert '"request_statuses"' not in logs[1]
+
+
+def test_sharded_fleet_entries_with_jax_poisoned(poisoned_env):
+    """The sharded fleet's entries — ``Router.build(mesh=)``, the roll's
+    ``VersionSource`` and the plane's shard sets — import with nothing of
+    JAX importable, and ``serve_gpt --replicas 2 --mesh_model 2`` runs up
+    to the launcher's process-group check
+    (one process asked for a mesh: the check refuses it)."""
+    code = (
+        "import inspect, sys\n"
+        "from dtf_tpu_torch.serve import Router\n"
+        "from dtf_tpu_torch.serve.plane import ShardSets\n"
+        "from dtf_tpu_torch.serve.router import VersionSource\n"
+        "assert 'mesh' in inspect.signature(Router.build).parameters\n"
+        "from dtf_tpu_torch import serve_gpt\n"
+        "try:\n"
+        "    serve_gpt.run(['--device=cpu', '--size=tiny', '--init_seed=0',\n"
+        "                   '--requests=1,2', '--replicas=2',\n"
+        "                   '--mesh_model=2', '--canary_ticks=1'])\n"
+        "    raise SystemExit('no process-group check')\n"
+        "except ValueError as e:\n"
+        "    assert 'one process per device' in str(e), e\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dtf_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('FLEET_OK')\n")
+    env, cwd = poisoned_env
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=cwd,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "FLEET_OK"

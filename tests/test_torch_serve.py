@@ -452,15 +452,17 @@ def test_engine_constructor_checks_raise_where_the_reference_does(tiny):
             JEngine(j, tree, **kw)
         with pytest.raises(ValueError, match=match):
             DecodeEngine(t, sd, device="cpu", **kw)
-    # sharded serving is ported since (tests/test_torch_tp_serve.py): a
-    # fleet of sharded engines is not, and the slots split over data
+    # sharded serving and its fleets are ported since
+    # (tests/test_torch_tp_serve.py, tests/test_torch_tp_fleet.py): a
+    # fleet's engines share one mesh, and the slots split over data
     mesh = types.SimpleNamespace(data_size=2, model_size=1, data_index=0,
                                  model_index=0)
-    for kw in (dict(draft_cfg=tcfg, draft_params=sd),
-               dict(mesh=mesh, weights_from=object())):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            DecodeEngine(tcfg, sd, n_slots=2, max_len=MAX_LEN, device="cpu",
-                         **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        DecodeEngine(tcfg, sd, n_slots=2, max_len=MAX_LEN, device="cpu",
+                     draft_cfg=tcfg, draft_params=sd)
+    with pytest.raises(ValueError, match="another mesh"):
+        DecodeEngine(tcfg, sd, n_slots=2, max_len=MAX_LEN, device="cpu",
+                     mesh=mesh, weights_from=object())
     with pytest.raises(ValueError, match="not divisible by the data axis"):
         DecodeEngine(tcfg, sd, n_slots=3, max_len=MAX_LEN, device="cpu",
                      mesh=mesh)

@@ -31,8 +31,11 @@ every leaf of its seeded init jittered.
 (g) One decode step's counted collectives, exact on every rank.
 (h) The refusals: a batch the data axis does not divide (as the
     reference's test), ``--n_slots`` the data axis does not divide,
-    beams with a mesh, ``--replicas`` > 1 or ``--swap_poll_ticks`` with a
-    mesh and ``swap_params`` over one ("not yet ported").
+    beams with a mesh, the fleet's flags that still have no port
+    (``--draft_precision``, ``--draft_publish_dir``, a draft with
+    ``--spec_k`` 0: "not yet ported"), and ``swap_params`` over a mesh of
+    a set no rank staged (a fleet's roll over a mesh is
+    ``tests/test_torch_tp_fleet.py``'s).
 (i) A leader that raises between calls stops its followers: they return
     a failed stop, and every rank ends within the bounded wait.
 (j) ``serve_gpt --mesh_model 2`` and ``generate_gpt --mesh_model 2`` from
@@ -228,7 +231,7 @@ def engine_rank(name, mesh):
         if name == "plain":
             try:
                 eng.swap_params(eng.params)
-            except NotImplementedError as e:
+            except KeyError as e:
                 out["swap_refused"] = str(e)
         return out
     run, ops = eng._run_op, []
@@ -466,7 +469,7 @@ def _check_engines(ranks, one, jax_tokens, world):
     assert leader["pages"]["counters"]["pages_loaded"] > 0
     assert leader["spec"]["counters"]["spec_accepted"] > 0
     assert leader["spec"]["verify_shape"] == [N_SLOTS, 2 * 3 + 1]
-    assert "not yet ported" in leader["plain"]["swap_refused"]
+    assert "no staged shard set" in leader["plain"]["swap_refused"]
     # the KV cache a rank: the unsharded one's over data x model
     for got in ranks:
         assert got["engines"]["plain"]["kv_bytes"] * 2 * \
@@ -542,7 +545,7 @@ def test_sharded_decode_and_serving_at_data_2_by_model_2(tmp_path):
 
 def test_sharded_decode_refusals():
     """(h) in one process: the reference's divisibility test, beams with
-    a mesh, a fleet or a rolling swap of sharded replicas."""
+    a mesh, and a sharded fleet's flags that still have no port."""
     import jax
     import jax.numpy as jnp
 
@@ -574,8 +577,10 @@ def test_sharded_decode_refusals():
     assert e.value.code == 2
     base = ["--device=cpu", "--size=tiny", "--init_seed=0",
             "--requests=1,2", "--mesh_model=2"]
-    for flags in (["--replicas=2"], ["--replicas=2", "--swap_poll_ticks=2",
-                                     "--publish_dir=/x"]):
+    for flags in (["--replicas=2", "--draft_precision=bf16"],
+                  ["--replicas=2", "--swap_poll_ticks=2", "--publish_dir=/x",
+                   "--draft_publish_dir=/y"],
+                  ["--replicas=2", "--draft_layers=1"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             serve_gpt.run(base + flags)
 
